@@ -1,0 +1,447 @@
+#!/usr/bin/env python3
+"""GPU drive of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py            # from the repository root
+
+Phases, each printing one JSON line:
+
+1. the device: ``torch.cuda.get_device_name()`` and ``nvidia-smi``'s
+   name / power limit (the raw CSV line is printed too);
+2. the kernel build (``nvcc`` for sm_90a, one process per source), timed;
+3. each kernel against its plain PyTorch version on the card, at the main
+   path's shapes and, for ``erlang_c`` / ``decide_fused``, at k_hi = 512,
+   N = 32: integer outputs exact, float outputs bitwise; each timed with
+   CUDA events (median of 25 runs of 10 calls, after warm-up) beside its
+   bound (the larger of bytes over 3.35 TB/s and operations over the
+   67 TFLOP/s float32 rate of an H100 SXM);
+4. the main path: 4096 scenario lanes (256 distinct ``scenario_matrix``
+   scenarios, seed 5, tiled x16) through the port's ``ScenarioRunner`` in
+   float32, with the two-pass decide and with the fused decide, in turns
+   (off, on, on, off).  Launch counters are zeroed just before each run
+   and checked just after; all four runs must make bitwise-equal
+   decisions.  One more run of each dispatch under ``torch.profiler``
+   gives device time, launches per tick and the device's busy share;
+5. the same loop for the first 256 lanes on the CPU with the plain
+   versions, against the card's run: at most 0.1 % of (tick, lane)
+   decision codes or allocations may differ (the batched solve and the
+   routing product may sum in another order on the card);
+6. the per-kernel JSON line (``launches`` summed over the four main-path
+   runs; each kernel must have launched in them).
+
+The last line is ``{"ok": true, "device": {...}}``.  Any failed check
+exits non-zero before it; so does a host without a CUDA device, or a
+directory without the package beside this script.
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
+MAIN_B, DISTINCT, N_OPS, K_HI = 4096, 256, 7, 48
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(fn, *, runs=25, inner=10):
+    """Median over ``runs`` of the per-call time of ``inner`` back-to-back
+    calls, from CUDA events, after a warm-up."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def max_abs_err(got, want):
+    """0 where the outputs are bitwise equal (NaN with NaN, inf with inf);
+    otherwise the largest |difference| (inf for a mismatched inf/NaN)."""
+    import torch
+
+    got, want = got.double(), want.double()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if bool(same.all()):
+        return 0.0
+    diff = (got - want).abs()
+    diff = torch.where(torch.isnan(diff), float("inf"), diff)
+    return float(diff[~same].max())
+
+
+def smi(query):
+    """One ``nvidia-smi --query-gpu`` CSV line for the first card."""
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    return out.strip().splitlines()[0]
+
+
+def bound(bytes_moved, ops):
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3 inputs (seeded, made on the host, copied to the card)
+# --------------------------------------------------------------------------- #
+def queue_step_inputs(gen, m, dev):
+    import torch
+
+    q = torch.rand(m, generator=gen, dtype=torch.float64) * 40.0
+    q[::7] = 0.0
+    inflow = torch.poisson(torch.full((m,), 3.0, dtype=torch.float64), generator=gen)
+    cap_serve = torch.rand(m, generator=gen, dtype=torch.float64) * 10.0
+    cap_serve[1::11] = q[1::11]  # served exactly the backlog
+    cap_queue = torch.full((m,), float("inf"), dtype=torch.float64)
+    bounded = torch.rand(m, generator=gen) < 0.4
+    cap_queue[bounded] = torch.randint(5, 60, (int(bounded.sum()),), generator=gen).double()
+    return [x.float().to(dev) for x in (q, inflow, cap_serve, cap_queue)]
+
+
+def gain_topr_inputs(gen, b, n, j, dev):
+    import torch
+
+    # Non-increasing rows of quantized gains (many ties), zero padding.
+    raw = torch.randint(0, 12, (b, n, j), generator=gen).float() * 0.25
+    cand = torch.sort(raw, dim=-1, descending=True).values
+    cand[:, -1, :] = 0.0  # a padded operator lane
+    pos = (cand > 0).sum(dim=(1, 2))
+    budget = torch.randint(0, 60, (b,), generator=gen)
+    budget[0::5] = 0  # budget 0
+    budget[1::5] = pos[1::5] + 3  # budget >= every positive gain
+    budget[2::5] = pos[2::5]
+    return cand.contiguous().to(dev), budget.to(torch.int32).to(dev)
+
+
+def decide_inputs(gen, b, n, k_hi, dev):
+    import torch
+
+    mu = torch.rand(b, n, generator=gen, dtype=torch.float64) * 8.0 + 1.0
+    k_nom = torch.randint(1, 6, (b, n), generator=gen).double()
+    rho = torch.rand(b, n, generator=gen, dtype=torch.float64) * 0.9 + 0.05
+    lam = mu * k_nom * rho
+    lam[::9, 0] = mu[::9, 0] * (k_hi + 5)  # infeasible lane: no finite row
+    lam[1::13, :] = 0.0  # idle scenario
+    group = torch.rand(b, n, generator=gen) < 0.25
+    alpha = torch.where(group, torch.full_like(mu, 0.02), torch.zeros_like(mu))
+    lam = torch.where(group, torch.minimum(lam, 0.2 * mu / 0.02), lam)
+    active = torch.ones(b, n, dtype=torch.bool)
+    active[:, n - 1] = torch.rand(b, generator=gen) < 0.5  # ragged widths
+    lam = torch.where(active, lam, torch.zeros_like(lam))
+    k_cur = torch.randint(0, 8, (b, n), generator=gen).to(torch.int32)
+    floor = torch.where(active, torch.floor(lam / mu) + 1, torch.zeros_like(lam)).sum(-1)
+    k_max = (floor + torch.randint(0, 30, (b,), generator=gen)).to(torch.int32)
+    k_max[3::7] = 0  # budget 0
+    f = [x.float().contiguous().to(dev) for x in (lam, mu, alpha)]
+    return dict(lam=f[0], mu_eff=f[1], group=group.to(dev), alpha=f[2],
+                active=active.to(dev), k_cur=k_cur.to(dev), k_max=k_max.to(dev))
+
+
+def kernel_phase(dev):
+    """Each kernel against its plain version, timed; returns rows."""
+    import torch
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decide_fused import kernel as dk, ref as dr
+    from repro_torch.kernels.erlang_c import kernel as ek, ref as er
+    from repro_torch.kernels.gain_topr import kernel as gk, ref as gr
+    from repro_torch.kernels.queue_step import kernel as qk, ref as qr
+
+    gen = torch.Generator().manual_seed(1234)
+    m = MAIN_B * N_OPS
+    rows = {}
+
+    def compare(name, got, want, shape_note):
+        errs = [max_abs_err(g, w) for g, w in zip(got, want)]
+        for g, w in zip(got, want):
+            check(g.dtype == w.dtype and g.shape == w.shape,
+                  f"{name} {shape_note}: dtype/shape {g.dtype}{tuple(g.shape)} vs "
+                  f"{w.dtype}{tuple(w.shape)}")
+        err = max(errs)
+        emit({"phase": "parity", "kernel": name, "shape": shape_note, "max_abs_err": err,
+              "bitwise": err == 0.0})
+        check(err == 0.0, f"{name} {shape_note}: kernel differs from plain version "
+                          f"(max abs err {err})")
+        return err
+
+    # queue_step at M = 4096 * 7
+    qs = queue_step_inputs(gen, m, dev)
+    err = compare("queue_step", qk.queue_step(*qs), qr.queue_step(*qs), f"M={m}")
+    rows["queue_step"] = dict(
+        source="src/repro_torch/csrc/queue_step.cu",
+        replaces="src/repro/kernels/queue_step/kernel.py:59",
+        max_abs_err=err, ms=median_ms(lambda: qk.queue_step(*qs)),
+        plain_ms=median_ms(lambda: qr.queue_step(*qs)),
+        bound=bound(7 * 4 * m, 7 * m),
+    )
+
+    # erlang_c at S = 4096 * 7, k_hi = 48, and at k_hi = 512 over 32 lanes
+    a = (torch.rand(m, generator=gen, dtype=torch.float64) * 12.0).float().to(dev)
+    err = compare("erlang_c", [ek.erlang_b_table(a, k_hi=K_HI)],
+                  [er.erlang_b_table(a, k_hi=K_HI)], f"S={m},k_hi={K_HI}")
+    a512 = (torch.rand(256 * 32, generator=gen, dtype=torch.float64) * 300.0).float().to(dev)
+    err = max(err, compare("erlang_c", [ek.erlang_b_table(a512, k_hi=512)],
+                           [er.erlang_b_table(a512, k_hi=512)], "S=8192,k_hi=512"))
+    rows["erlang_c"] = dict(
+        source="src/repro_torch/csrc/erlang_c.cu",
+        replaces="src/repro/kernels/erlang_c/kernel.py:56",
+        max_abs_err=err, ms=median_ms(lambda: ek.erlang_b_table(a, k_hi=K_HI)),
+        plain_ms=median_ms(lambda: er.erlang_b_table(a, k_hi=K_HI)),
+        bound=bound(4 * m + 4 * m * (K_HI + 1), 4 * m * K_HI),
+    )
+
+    # gain_topr at the two-pass decide's [4096, 7, 48] candidate tile
+    cand, budget = gain_topr_inputs(gen, MAIN_B, N_OPS, K_HI, dev)
+    err = compare("gain_topr", [gk.gain_topr(cand, budget)], [gr.gain_topr(cand, budget)],
+                  f"B={MAIN_B},N={N_OPS},J={K_HI}")
+    elems = MAIN_B * N_OPS * K_HI
+    rows["gain_topr"] = dict(
+        source="src/repro_torch/csrc/gain_topr.cu",
+        replaces="src/repro/kernels/gain_topr/kernel.py:98",
+        max_abs_err=err, ms=median_ms(lambda: gk.gain_topr(cand, budget)),
+        plain_ms=median_ms(lambda: gr.gain_topr(cand, budget)),
+        # 34 passes (positives, 31 bisection steps, strict, ties) of a
+        # compare and an add per element.
+        bound=bound(4 * elems + 4 * MAIN_B + 4 * MAIN_B * N_OPS, 34 * 2 * elems),
+    )
+
+    # decide_fused at [4096, 7], k_hi = j_cap = 48, and at k_hi = 512, N = 32
+    d = decide_inputs(gen, MAIN_B, N_OPS, K_HI, dev)
+    err = compare("decide_fused", dk.batch_decide(**d, k_hi=K_HI, j_cap=K_HI),
+                  dr.batch_decide(**d, k_hi=K_HI, j_cap=K_HI),
+                  f"B={MAIN_B},N={N_OPS},k_hi={K_HI}")
+    d512 = decide_inputs(gen, 256, 32, 512, dev)
+    err = max(err, compare("decide_fused", dk.batch_decide(**d512, k_hi=512, j_cap=128),
+                           dr.batch_decide(**d512, k_hi=512, j_cap=128),
+                           "B=256,N=32,k_hi=512,j_cap=128"))
+    lanes = MAIN_B * N_OPS
+    rows["decide_fused"] = dict(
+        source="src/repro_torch/csrc/decide_fused.cu",
+        replaces="src/repro/kernels/decide_fused/kernel.py:222",
+        max_abs_err=err, ms=median_ms(lambda: dk.batch_decide(**d, k_hi=K_HI, j_cap=K_HI)),
+        plain_ms=median_ms(lambda: dr.batch_decide(**d, k_hi=K_HI, j_cap=K_HI)),
+        # 6 lane inputs + k_max in, 4 lane outputs; ~25 float ops per table
+        # cell and 33 window passes of ~4 ops per candidate.
+        bound=bound(4 * (6 + 4) * lanes + 4 * MAIN_B,
+                    25 * lanes * K_HI + 33 * 4 * lanes * K_HI),
+    )
+    _build.LAUNCHES.clear()  # parity and timing launches are not the main path's
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# Phases 4-5: the main path
+# --------------------------------------------------------------------------- #
+def profile_phase(runner, dev):
+    """One more run of the same fleet's loop under torch.profiler: the
+    kernels' device time and launch count per tick, set against the
+    unprofiled loop's wall time (the device's busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.controller import make_fused_loop
+
+    loop, n_ticks = make_fused_loop(
+        runner.arrays, runner.static, runner.params,
+        steps_per_tick=runner._steps_per_tick,
+        warmup_seconds=runner.scenarios[0].warmup, device=dev,
+    )
+    state = loop.init(runner.k0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loop.run(state)
+        torch.cuda.synchronize()
+        profiled_s = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows) / 1e3
+    kernels = sum(c for k, _t, c in rows if not k.startswith("Memcpy") and
+                  not k.startswith("Memset"))
+    loop_ms = runner.loop_seconds * 1e3
+    ours = {}
+    for name, symbol in (("queue_step", "queue_step_kernel"), ("erlang_c", "erlang_b_kernel"),
+                         ("gain_topr", "gain_topr_kernel"),
+                         ("decide_fused", "decide_fused_kernel")):
+        hits = [(t, c) for k, t, c in rows if symbol in k]
+        if hits:
+            t, c = sum(h[0] for h in hits), sum(h[1] for h in hits)
+            ours[name] = {"device_us_per_launch": t / c, "launches_per_tick": c / n_ticks}
+    emit({"phase": "profile", "fused_decide": runner.fused_decide, "ticks": n_ticks,
+          "device_ms_per_tick": device_ms / n_ticks,
+          "launches_per_tick": kernels / n_ticks,
+          "unprofiled_loop_ms_per_tick": loop_ms / n_ticks,
+          "profiled_loop_ms_per_tick": profiled_s * 1e3 / n_ticks,
+          "device_busy_share": device_ms / loop_ms, "port_kernels": ours,
+          "top": [{"kernel": k[:90], "device_ms_per_tick": t / 1e3 / n_ticks,
+                   "launches_per_tick": c / n_ticks} for k, t, c in rows[:8]]})
+
+
+def main_path_phase(dev):
+    import numpy as np
+
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.core.controller import ACTIONS
+    from repro_torch.kernels import KERNELS, LAUNCHES
+    from repro_torch.streaming.scenarios import scenario_matrix
+
+    t0 = time.perf_counter()
+    distinct = [
+        s.with_(negotiated=False)
+        for s in scenario_matrix(DISTINCT, seed=5, horizon=30.0, warmup=5.0, dt=0.05, k_max=48)
+    ]
+    fleet = distinct * (MAIN_B // DISTINCT)
+    emit({"phase": "fleet", "scenarios": len(fleet), "distinct": len(distinct),
+          "seconds": time.perf_counter() - t0})
+
+    # Warm-up on a small fleet: CUDA library handles (batched solve,
+    # batched product) are created outside the timed runs.
+    for fd in (False, True):
+        ScenarioRunner(distinct[:16], tick_interval=5.0, fused_decide=fd, device=dev).run()
+
+    # Both dispatches in turns (off, on, on, off) so neither gains from
+    # running second; counters are zeroed just before each run.
+    runs = {False: [], True: []}
+    launches = {}
+    for fd in (False, True, True, False):
+        runner = ScenarioRunner(fleet, tick_interval=5.0, fused_decide=fd, device=dev)
+        LAUNCHES.clear()
+        runner.run()
+        counts = {k: LAUNCHES[k] for k in KERNELS}
+        n_ticks = runner.outputs["codes"].shape[0]
+        steps = runner._steps_per_tick
+        want = {"queue_step": n_ticks * steps,
+                "erlang_c": 0 if fd else n_ticks, "gain_topr": 0 if fd else n_ticks,
+                "decide_fused": n_ticks if fd else 0}
+        emit({"phase": "main_path", "fused_decide": fd, "B": len(fleet), "ticks": n_ticks,
+              "steps_per_tick": steps, "launches": counts, "loop_seconds": runner.loop_seconds,
+              "scenario_ticks_per_s": len(fleet) * n_ticks / runner.loop_seconds,
+              "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
+        check(counts == want, f"fused_decide={fd}: launches {counts}, expected {want}")
+        out = runner.outputs
+        check(np.isfinite(out["q_final"]).all() and (out["q_final"] >= 0).all(),
+              "main path: non-finite or negative backlog")
+        check(out["k"].shape == (n_ticks, len(fleet), N_OPS), "main path: k shape")
+        runs[fd].append(runner)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    for key in ("codes", "k", "applied"):
+        outs = [r.outputs[key] for r in runs[False] + runs[True]]
+        same = all(np.array_equal(outs[0], o) for o in outs[1:])
+        check(same, f"fused decide on/off runs disagree on {key}")
+    emit({"phase": "dispatch_parity", "equal": True, "runs": 4})
+    for fd in (False, True):
+        profile_phase(runs[fd][0], dev)
+
+    # Phase 5: card against CPU on the first DISTINCT lanes.
+    cpu = ScenarioRunner(fleet[:DISTINCT], tick_interval=5.0, device="cpu")
+    cpu.run()
+    card = runs[False][0].outputs
+    n_cells = card["codes"].shape[0] * DISTINCT
+    codes_diff = int((cpu.outputs["codes"] != card["codes"][:, :DISTINCT]).sum())
+    k_diff = int((cpu.outputs["k"] != card["k"][:, :DISTINCT]).any(axis=-1).sum())
+    emit({"phase": "card_vs_cpu", "lanes": DISTINCT, "tick_lane_cells": n_cells,
+          "codes_differ": codes_diff, "allocations_differ": k_diff,
+          "card_actions": dict(zip(ACTIONS, np.bincount(
+              card["codes"].ravel(), minlength=len(ACTIONS)).tolist()))})
+    check(max(codes_diff, k_diff) <= 0.001 * n_cells,
+          f"card and CPU runs differ in {codes_diff} codes / {k_diff} allocations "
+          f"of {n_cells} (tick, lane) cells")
+    return launches
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    quick = "--kernels-only" in sys.argv[1:]
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    card = smi("name,power.limit")
+    print(card, flush=True)
+    emit({"phase": "device", "name": name, "nvidia_smi": card,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    # TF32 would change float32 products; the port holds the plain versions
+    # to full float32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    lib_path = _build.build(verbose=quick)
+    _build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": str(lib_path.relative_to(ROOT))})
+
+    rows = kernel_phase(dev)
+    if quick:
+        emit({"phase": "kernels_only", "rows": {k: {kk: vv for kk, vv in v.items()
+                                                      if kk != "bound"}
+                                                  for k, v in rows.items()}})
+        return 0
+    launches = main_path_phase(dev)
+    for k, n in launches.items():
+        check(n > 0, f"kernel {k} was never launched on the main path")
+
+    kernels = []
+    for k, row in rows.items():
+        bound_ms, bound_by = row["bound"]
+        kernels.append({
+            "name": k, "route": "cuda", "source": row["source"], "replaces": row["replaces"],
+            "launches": launches[k], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None,
+        })
+    print(card, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as exc:
+        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,1 @@
+"""api layer of the PyTorch port (see the package docstring)."""

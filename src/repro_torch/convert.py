@@ -1,0 +1,104 @@
+"""Carry a fleet across from the JAX package.
+
+:func:`from_reference` reads the numpy attributes of a
+``repro.streaming.batchsim.BatchArrays``, ``repro.core.controller
+.ControllerStatic`` and ``ControllerParams`` by duck typing -- this module
+imports nothing of ``repro`` -- and builds this package's objects plus the
+tick-0 :class:`~repro_torch.core.controller.ControllerState` on the chosen
+device.  :func:`scenario_from_reference` rebuilds a reference ``Scenario``
+(graph, traces, settings) as this package's :class:`Scenario`.  With them
+both packages run exactly the same fleet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .api.graph import AppGraph, Edge, OpDef
+from .core.controller import ControllerParams, ControllerState, ControllerStatic, init_state
+from .device import resolve_device
+from .streaming.batchsim import BatchArrays
+from .streaming.scenarios import ArrivalTrace, Scenario
+
+__all__ = ["from_reference", "scenario_from_reference"]
+
+
+def _arr(x, dtype=None):
+    return None if x is None else np.array(x, dtype=dtype)
+
+
+def from_reference(arrays, static, params, k0, *, device=None, dtype=None
+                   ) -> tuple[BatchArrays, ControllerStatic, ControllerParams, ControllerState]:
+    """``(arrays, static, params, state)`` for this package from the JAX
+    package's ``BatchArrays`` / ``ControllerStatic`` / ``ControllerParams``
+    and a ``[B, N]`` starting allocation ``k0``.  ``state`` is the tick-0
+    loop state on ``device`` (default: the CUDA device) in ``dtype``
+    (default float32)."""
+    dev = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+    arr = BatchArrays(
+        ext=_arr(arrays.ext, np.float64),
+        routing=_arr(arrays.routing, np.float64),
+        mu=_arr(arrays.mu, np.float64),
+        group=_arr(arrays.group, bool),
+        alpha=_arr(arrays.alpha, np.float64),
+        cap_queue=_arr(arrays.cap_queue, np.float64),
+        dt=float(arrays.dt),
+        warmup_steps=int(arrays.warmup_steps),
+        active=_arr(arrays.active, bool),
+        speed=_arr(getattr(arrays, "speed", None), np.float64),
+        ca2=_arr(getattr(arrays, "ca2", None), np.float64),
+        cs2=_arr(getattr(arrays, "cs2", None), np.float64),
+    )
+    st = ControllerStatic(
+        base_routing=_arr(static.base_routing, np.float64),
+        group=_arr(static.group, bool),
+        alpha=_arr(static.alpha, np.float64),
+        active=_arr(static.active, bool),
+        speed=_arr(static.speed, np.float64),
+        n_ops=_arr(static.n_ops, np.int64),
+        names=tuple(tuple(nm) for nm in static.names),
+    )
+    pr = ControllerParams(
+        t_max=_arr(params.t_max, np.float64),
+        k_max=_arr(params.k_max, np.int64),
+        headroom=_arr(params.headroom, np.float64),
+        scale_in_hysteresis=_arr(params.scale_in_hysteresis, np.float64),
+        min_improvement=_arr(params.min_improvement, np.float64),
+        horizon_seconds=_arr(params.horizon_seconds, np.float64),
+        allocator=tuple(params.allocator),
+        fused_decide=bool(getattr(params, "fused_decide", False)),
+    )
+    return arr, st, pr, init_state(np.asarray(k0), device=dev, dtype=dtype)
+
+
+def scenario_from_reference(s) -> Scenario:
+    """This package's :class:`Scenario` with the reference scenario's graph,
+    traces and settings (read by attribute name)."""
+    g = s.graph
+    ops = [
+        OpDef(name=op.name, mu=op.mu, scaling=op.scaling, group_alpha=op.group_alpha,
+              min_k=op.min_k, max_k=op.max_k)
+        for op in g.ops
+    ]
+    edges = [Edge(e.src, e.dst, e.multiplicity) for e in g.edges]
+    lam0 = np.asarray(g.lam0_vector())
+    sources = {name: float(lam0[i]) for i, name in enumerate(g.names) if lam0[i] > 0}
+    graph = AppGraph(ops, edges, sources, arrival_kind=g.arrival_kind,
+                     validate_stability=g.validate_stability)
+    trace_fields = [f.name for f in dataclasses.fields(ArrivalTrace)]
+    traces = {
+        name: ArrivalTrace(**{f: getattr(tr, f) for f in trace_fields})
+        for name, tr in s.traces.items()
+    }
+    policy = s.overload_policy
+    kw = {
+        f.name: getattr(s, f.name)
+        for f in dataclasses.fields(Scenario)
+        if f.name not in ("graph", "traces", "overload_policy")
+    }
+    return Scenario(graph=graph, traces=traces,
+                    overload_policy=getattr(policy, "kind", policy), **kw)

@@ -1,0 +1,179 @@
+"""DRS resource allocation on the gain table -- Programs (4) and (6).
+
+Program (4) (min E[T] s.t. sum k_i <= K_max) is the paper's Algorithm 1
+greedy collapsed to a top-R selection over the ``[N, K]`` marginal-gain
+table (:func:`assign_processors_table`); Program (6) (min sum k_i s.t.
+E[T] <= T_max) bisects the greedy's nested increment count
+(:func:`min_processors_table`).  :func:`allocate` dispatches between them.
+Host-side float64 spec code: scenarios plan their starting allocation and
+the reports their optimum with it.
+"""
+
+from __future__ import annotations
+
+import heapq
+from dataclasses import dataclass
+
+import numpy as np
+
+from .batched import gain_table
+from .jackson import Topology
+
+__all__ = [
+    "InsufficientResourcesError",
+    "AllocationResult",
+    "greedy_increments",
+    "assign_processors_table",
+    "min_processors_table",
+    "allocate",
+]
+
+
+class InsufficientResourcesError(RuntimeError):
+    """Paper Algorithm 1 lines 4-6: sum of minimal k_i exceeds K_max."""
+
+    def __init__(self, needed: int, k_max: int, k_min: np.ndarray):
+        super().__init__(
+            f"minimum feasible allocation needs {needed} processors but "
+            f"K_max={k_max} (per-operator minima: {k_min.tolist()})"
+        )
+        self.needed = needed
+        self.k_max = k_max
+        self.k_min = k_min
+
+
+@dataclass(frozen=True)
+class AllocationResult:
+    k: np.ndarray  # processors per operator
+    expected_sojourn: float  # model E[T](k), seconds
+    total: int  # sum k_i
+    evaluations: int  # materialised table entries (cost metric)
+
+
+def _heap_greedy_counts(cand: np.ndarray, budget: int) -> np.ndarray:
+    """Exact argmax-greedy walk over a candidate-gain matrix (used when the
+    float gain rows are not non-increasing, so prefix selection is unsafe)."""
+    n, width = cand.shape
+    take = np.zeros(n, dtype=np.int64)
+    heap = [(-float(cand[i, 0]), i) for i in range(n) if width > 0]
+    heapq.heapify(heap)
+    while budget > 0 and heap:
+        neg_d, i = heapq.heappop(heap)
+        if -neg_d <= 0.0:
+            break
+        take[i] += 1
+        budget -= 1
+        if take[i] < width:
+            heapq.heappush(heap, (-float(cand[i, take[i]]), i))
+    return take
+
+
+def greedy_increments(G: np.ndarray, k_start: np.ndarray, budget: int) -> np.ndarray:
+    """How many of ``budget`` processors each operator receives when they are
+    handed out one at a time to the largest current gain ``G[i, k]`` from
+    ``k_start[i]``: the globally largest ``budget`` positive entries, with
+    threshold ties resolved in (operator index, k) order -- Algorithm 1's
+    argmax loop decision for decision."""
+    n = G.shape[0]
+    if budget <= 0:
+        return np.zeros(n, dtype=np.int64)
+    idx = k_start[:, None] + np.arange(budget)[None, :]
+    if idx.max() >= G.shape[1]:
+        raise ValueError(
+            f"gain table too narrow: need column {int(idx.max())}, have {G.shape[1]}"
+        )
+    cand = G[np.arange(n)[:, None], idx]  # [n, budget]
+    if np.any(cand[:, 1:] > cand[:, :-1]):
+        return _heap_greedy_counts(cand, budget)
+    pos = cand > 0.0
+    pos_counts = pos.sum(axis=1).astype(np.int64)
+    if int(pos_counts.sum()) <= budget:
+        return pos_counts  # every beneficial processor fits in the budget
+    vals = cand[pos]
+    thresh = np.partition(vals, len(vals) - budget)[len(vals) - budget]
+    take = (cand > thresh).sum(axis=1).astype(np.int64)
+    rem = budget - int(take.sum())
+    if rem > 0:
+        ties = ((cand == thresh) & pos).sum(axis=1)
+        for i in range(n):
+            if rem == 0:
+                break
+            t = min(int(ties[i]), rem)
+            take[i] += t
+            rem -= t
+    return take
+
+
+def assign_processors_table(top: Topology, k_max: int) -> AllocationResult:
+    """Program (4) via the precomputed ``[N, K]`` marginal-gain table."""
+    k = top.min_feasible_allocation()
+    total = int(k.sum())
+    if total > k_max:
+        raise InsufficientResourcesError(total, k_max, k)
+    budget = k_max - total
+    if budget == 0:
+        return AllocationResult(k, top.expected_sojourn(k), total, 0)
+    k_hi = int(k.max()) + budget
+    T, G = gain_table(top, k_hi)
+    k = k + greedy_increments(G, k.astype(np.int64), budget)
+    return AllocationResult(k, top.expected_sojourn(k), int(k.sum()), T.size)
+
+
+def min_processors_table(top: Topology, t_max: float, *, k_cap: int = 1 << 20
+                         ) -> AllocationResult:
+    """Program (6) on the gain table: binary-search the increment count of
+    the nested greedy allocations (E[T] is non-increasing along them)."""
+    lam = top.arrival_rates
+    floor = sum(
+        lam[i] / top.lam0_total / op.mu for i, op in enumerate(top.operators) if lam[i] > 0
+    )
+    if t_max < floor:
+        raise InsufficientResourcesError(k_cap, k_cap, top.min_feasible_allocation())
+    k0 = top.min_feasible_allocation()
+    total0 = int(k0.sum())
+    et0 = top.expected_sojourn(k0)
+    if et0 <= t_max:
+        return AllocationResult(k0, et0, total0, 0)
+    evals = 0
+    budget = 256
+    while True:
+        budget = min(budget, max(k_cap - total0, 0))
+        k_hi = int(k0.max()) + budget
+        T, G = gain_table(top, k_hi)
+        evals += T.size
+        take_full = greedy_increments(G, k0.astype(np.int64), budget)
+        k_full = k0 + take_full
+        et_full = top.expected_sojourn(k_full)
+        if et_full <= t_max:
+            lo, hi = 1, int(take_full.sum())  # hi is feasible; find minimal m
+            while lo < hi:
+                mid = (lo + hi) // 2
+                k_mid = k0 + greedy_increments(G, k0.astype(np.int64), mid)
+                if top.expected_sojourn(k_mid) <= t_max:
+                    hi = mid
+                else:
+                    lo = mid + 1
+            k = k0 + greedy_increments(G, k0.astype(np.int64), lo)
+            return AllocationResult(k, top.expected_sojourn(k), int(k.sum()), evals)
+        exhausted = int(take_full.sum()) < budget  # no positive gains left
+        if exhausted or budget >= k_cap - total0:
+            raise InsufficientResourcesError(int(k_full.sum()), k_cap, k_full)
+        budget *= 4
+
+
+def allocate(top: Topology, *, k_max: int | None = None, t_max: float | None = None
+             ) -> AllocationResult:
+    """Program (6) when ``t_max`` is given (falling back to Program (4) at
+    ``k_max`` when it needs more), else Program (4) at ``k_max``."""
+    if k_max is None and t_max is None:
+        raise ValueError("need k_max and/or t_max")
+    if t_max is not None:
+        try:
+            res = min_processors_table(top, t_max)
+            if k_max is None or res.total <= k_max:
+                return res
+        except InsufficientResourcesError:
+            if k_max is None:
+                raise
+    assert k_max is not None
+    return assign_processors_table(top, k_max)

@@ -1,0 +1,179 @@
+"""Build and load the Hopper kernels (``src/repro_torch/csrc/*.cu``).
+
+The four sources compile with ``nvcc`` for ``sm_90a`` into one shared
+library with a plain C interface, loaded with :mod:`ctypes`: every ``.cu``
+becomes an object file in its own ``nvcc`` process (all started at once),
+then one link step makes ``librepro_torch_kernels.so``.  The build runs at
+first use into ``build/repro_torch_kernels/<hash>/`` at the repository root
+(listed in ``.gitignore``); the hash covers the sources and the flags, so
+an edited source rebuilds and an unchanged tree reuses the library.
+
+``-fmad=false`` forbids multiply-add contraction and nvcc's default
+``-prec-div=true`` keeps float division IEEE-rounded: together they let
+each kernel's float results match its plain PyTorch version bitwise.
+
+Nothing here runs at import time (the package must import on hosts with
+neither ``nvcc`` nor a GPU).  :data:`LAUNCHES` counts kernel launches by
+kernel name; each wrapper adds one where it launches, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import threading
+
+__all__ = ["LAUNCHES", "SOURCES", "NVCC_FLAGS", "build", "library", "check_error"]
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
+)
+LIB_NAME = "librepro_torch_kernels.so"
+
+#: Kernel launches per kernel name since the last ``LAUNCHES.clear()``.
+LAUNCHES: collections.Counter = collections.Counter()
+
+_lock = threading.Lock()
+_lib = None
+
+
+def build_root() -> pathlib.Path:
+    """``build/repro_torch_kernels`` at the repository root."""
+    return pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = pathlib.Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and under CUDA_HOME / /usr/local/cuda); "
+            "the repro_torch CUDA kernels build with the CUDA toolkit"
+        )
+    return str(path)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> pathlib.Path:
+    """Compile the kernels if this source hash has no library yet; returns
+    the library's path.  Raises with nvcc's output on any failure."""
+    root = build_root()
+    final = root / _digest()
+    lib_path = final / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    root.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tmp-", dir=root))
+    try:
+        procs = []
+        for name in SOURCES:
+            obj = tmp / (pathlib.Path(name).stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / name), "-o", str(obj)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs = []
+        for name, _obj, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"--- {name}\n{out}")
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name}:\n{out}")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp / LIB_NAME),
+                *(str(obj) for _n, obj, _p in procs)]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
+        if verbose:
+            print("".join(logs), flush=True)
+        try:
+            os.replace(tmp, final)
+        except OSError:  # another process finished the same build first
+            if not lib_path.exists():
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+    return lib_path
+
+
+def library():
+    """The loaded kernel library (built on first call), with C signatures."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            import ctypes
+
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            sigs = {
+                "repro_queue_step": [p] * 7 + [i, i, p],
+                "repro_erlang_b_table": [p, p, i, i, i, p],
+                "repro_gain_topr": [p, p, p, i, i, i, i, p],
+                "repro_decide_fused": [p] * 11 + [i] * 6 + [p],
+            }
+            for name, argtypes in sigs.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = i
+            lib.repro_decide_fused_smem_bytes.argtypes = [i, i]
+            lib.repro_decide_fused_smem_bytes.restype = ctypes.c_longlong
+            lib.repro_gain_topr_smem_bytes.argtypes = [i]
+            lib.repro_gain_topr_smem_bytes.restype = i
+            _lib = lib
+        return _lib
+
+
+def check_error(name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error (its
+    ``cudaGetLastError()`` after the launch)."""
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
+
+
+def require(name: str, t, dtype, shape=None, *, device=None) -> None:
+    """The wrappers' input contract: a contiguous CUDA tensor of exactly
+    ``dtype`` (no silent casts), ``shape`` when given, on ``device``."""
+    import torch
+
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a torch.Tensor, got {type(t).__name__}")
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def launch_args(t) -> tuple[int, int]:
+    """(device index, current stream handle) for a CUDA tensor."""
+    import torch
+
+    dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,1 @@
+"""streaming layer of the PyTorch port (see the package docstring)."""

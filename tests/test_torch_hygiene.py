@@ -1,0 +1,110 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points run on the CUDA device unless told otherwise."""
+
+from __future__ import annotations
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_port_and_chip_smoke_load_no_jax_and_no_repro():
+    code = (
+        "import sys, runpy\n"
+        "import repro_torch, repro_torch.convert, repro_torch.api.session\n"
+        "import repro_torch.streaming.scenarios, repro_torch.core.controller\n"
+        "import repro_torch.kernels.decide_fused.ops, repro_torch.kernels.gain_topr.ops\n"
+        "import repro_torch.kernels.erlang_c.ops, repro_torch.kernels.queue_step.ops\n"
+        f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, cwd=str(ROOT), timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_have_no_jax_or_repro_imports():
+    offenders = []
+    for path in [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [(path.name, n) for n in names
+                          if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert offenders == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _small_fleet():
+    from repro_torch.streaming.scenarios import scenario_matrix
+
+    return [s.with_(negotiated=False)
+            for s in scenario_matrix(2, seed=1, horizon=10.0, warmup=2.0, dt=0.05)]
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.convert import from_reference
+    from repro_torch.core import controller as ctl
+    from repro_torch.streaming.scenarios import control_trace
+
+    scens = _small_fleet()
+    runner = ScenarioRunner(scens, tick_interval=5.0, device="cpu")
+    st, pr = runner.static, runner.params
+    calls = [
+        lambda: ScenarioRunner(scens, tick_interval=5.0),
+        lambda: control_trace(scens, tick_interval=5.0),
+        lambda: ctl.make_fused_loop(runner.arrays, st, pr, steps_per_tick=100),
+        lambda: ctl.make_decide(st, pr),
+        lambda: from_reference(runner.arrays, st, pr, runner.k),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_runner_refuses_negotiated_scenarios():
+    from repro_torch.api.graph import GraphValidationError
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.streaming.scenarios import vld_scenario
+
+    with pytest.raises(GraphValidationError, match="negotiated"):
+        ScenarioRunner([vld_scenario()], device="cpu")
+
+
+def test_cpu_runner_reports_are_sane():
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.core.controller import ACTIONS
+    from repro_torch.kernels import LAUNCHES
+
+    before = dict(LAUNCHES)
+    scens = _small_fleet()
+    runner = ScenarioRunner(scens, tick_interval=5.0, device="cpu")
+    reports = runner.run()
+    assert dict(LAUNCHES) == before  # the CPU path never launches a kernel
+    for s, r in zip(scens, reports):
+        assert len(r.actions) == runner.arrays.steps // runner._steps_per_tick
+        assert set(r.actions) <= set(ACTIONS)
+        assert sum(r.k_final.values()) <= s.k_max
+        assert np.isfinite(r.drop_rate)
