@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
 2. the kernel build (``nvcc`` for sm_90a, one process per source), timed;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and, for ``erlang_c`` / ``decide_fused``, at k_hi = 512,
-   N = 32: integer outputs exact, float outputs bitwise; each timed with
+   N = 32 (``l2_match``: at the VLD matcher's M = N = 1024, D = 64 and at
+   M = 1000, N = 777, D = 50): integer outputs exact, float outputs
+   bitwise; each timed with
    CUDA events (median of 25 runs of 10 calls, after warm-up) beside its
    bound (the larger of bytes over 3.35 TB/s and operations over the
    67 TFLOP/s float32 rate of an H100 SXM);
@@ -25,8 +27,27 @@ Phases, each printing one JSON line:
    versions, against the card's run: at most 0.1 % of (tick, lane)
    decision codes or allocations may differ (the batched solve and the
    routing product may sum in another order on the card);
-6. the per-kernel JSON line (``launches`` summed over the four main-path
-   runs; each kernel must have launched in them).
+6. ``vld_card_vs_cpu``: 64 seeded frames of the VLD application at its
+   full width (480 x 640 frames, 1024 keypoints, 16 logos x 64
+   descriptors, D = 64) through extract -> match -> aggregate on the card
+   and on the CPU: match counts and detections must be equal; then 16 of
+   them once more under torch.profiler (``vld_profile``): kernel device
+   time and launches per frame against the unprofiled wall time;
+7. ``vld_live``: the live DRS session of ``examples/stream_vld.py`` at that
+   width on the card -- ``DRSSession.bind(graph, "engine")`` under
+   ``SchedulerConfig(k_max=6, min_improvement=0.01, horizon_seconds=600)``
+   from the bad start {extract: 1, match: 2, aggregate: 1}: frames are
+   injected for ~5 s, the session ticks (and applies its decision), ~3 s
+   more frames, then it drains.  Every injected frame must complete with
+   one detection row and exactly one ``match_count`` launch;
+8. the per-kernel JSON line (``launches``: the four loop kernels summed over
+   the four main-path runs, each of which must have launched; the two
+   ``l2_match`` kernels from the ``vld_live`` run, where ``match_count``
+   runs once per frame and ``pairwise_sq_l2`` -- reached by no path, only
+   by the reference's kernel benchmark -- never).  ``library_ms`` is
+   ``torch.cdist`` on the same inputs for the two ``l2_match`` kernels (the
+   unsquared distance: the nearest single PyTorch call), null for the
+   others.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -46,6 +67,11 @@ ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 MAIN_B, DISTINCT, N_OPS, K_HI = 4096, 256, 7, 48
+# The VLD application at full width: an SD frame, the paper's 16 query
+# logos, the repo's 8 x 8 descriptor patch (D = 64).
+VLD_WIDTH = dict(height=480, width=640, max_keypoints=1024, n_logos=16,
+                 descriptors_per_logo=64)
+VLD_FRAMES_CHECKED = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -255,7 +281,108 @@ def kernel_phase(dev):
         bound=bound(4 * (6 + 4) * lanes + 4 * MAIN_B,
                     25 * lanes * K_HI + 33 * 4 * lanes * K_HI),
     )
+    rows.update(l2_rows(dev, compare))
     _build.LAUNCHES.clear()  # parity and timing launches are not the main path's
+    return rows
+
+
+def l2_inputs(gen, m, n, d, dev):
+    """Unit-norm descriptors: a [m, d] frame side, b [n, d] library, with
+    every fourth frame row a noisy copy of a library row (so the 0.8
+    threshold fires), and a ~70 % valid mask."""
+    import torch
+
+    b = torch.randn(n, d, generator=gen)
+    b = b / b.norm(dim=1, keepdim=True)
+    a = torch.randn(m, d, generator=gen)
+    near = torch.arange(0, m, 4)
+    a[near] = b[torch.randint(0, n, (len(near),), generator=gen)] * 8.0
+    a[near] += torch.randn(len(near), d, generator=gen) * 0.5
+    a = a / a.norm(dim=1, keepdim=True)
+    valid = torch.rand(m, generator=gen) < 0.7
+    return a.contiguous().to(dev), b.contiguous().to(dev), valid.to(dev)
+
+
+def device_us_per_launch(fns, calls=20):
+    """Each kernel's own device time per launch (torch.profiler), over
+    ``calls`` calls of every function in ``fns`` (kernel symbol -> call),
+    all in one profiler session; None for a symbol the trace lacks."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in fns.values():
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    out = {}
+    for symbol in fns:
+        hits = [(e.self_device_time_total, e.count) for e in events if symbol in e.key]
+        out[symbol] = sum(h[0] for h in hits) / sum(h[1] for h in hits) if hits else None
+    return out
+
+
+def l2_rows(dev, compare):
+    """``pairwise_sq_l2`` and ``match_count`` against their plain versions
+    at the VLD matcher's shape and at a ragged one; timed beside
+    ``torch.cdist``."""
+    import torch
+
+    from repro_torch.kernels.l2_match import kernel as lk, ref as lr
+
+    gen = torch.Generator().manual_seed(4321)
+    thr = 0.8
+    m = n = VLD_WIDTH["max_keypoints"]
+    d = 64
+    a, b, valid = l2_inputs(gen, m, n, d, dev)
+    ar, br, validr = l2_inputs(gen, 1000, 777, 50, dev)
+    err_d = max(compare("pairwise_sq_l2", [lk.pairwise_sq_l2(a, b)], [lr.pairwise_sq_l2(a, b)],
+                        f"M={m},N={n},D={d}"),
+                compare("pairwise_sq_l2", [lk.pairwise_sq_l2(ar, br)],
+                        [lr.pairwise_sq_l2(ar, br)], "M=1000,N=777,D=50"))
+    counts = lk.match_count(a, b, thr, valid)
+    err_c = max(compare("match_count", [counts], [lr.match_count(a, b, thr, valid)],
+                        f"M={m},N={n},D={d}"),
+                compare("match_count", [lk.match_count(ar, br, thr, validr)],
+                        [lr.match_count(ar, br, thr, validr)], "M=1000,N=777,D=50"))
+    check(int(counts.sum()) > 0, "match_count: the threshold never fired on the parity inputs")
+    cdist_ms = median_ms(lambda: torch.cdist(a, b))
+    device_us = device_us_per_launch({
+        "l2_tile_kernel<false>": lambda: lk.pairwise_sq_l2(a, b),
+        "l2_tile_kernel<true>": lambda: lk.match_count(a, b, thr, valid),
+    })
+    # 2 M N D for the cross term, 2 (M + N) D for the norms, ~4 ops per
+    # output (add, scale, subtract, clamp or compare-and-count).
+    ops = 2 * m * n * d + 2 * (m + n) * d + 4 * m * n
+    rows = {
+        "pairwise_sq_l2": dict(
+            source="src/repro_torch/csrc/l2_match.cu",
+            replaces="src/repro/kernels/l2_match/kernel.py:61",
+            max_abs_err=err_d, ms=median_ms(lambda: lk.pairwise_sq_l2(a, b)),
+            plain_ms=median_ms(lambda: lr.pairwise_sq_l2(a, b)),
+            library_ms=cdist_ms,
+            device_us=device_us["l2_tile_kernel<false>"],
+            bound=bound(4 * (m * d + n * d + m * n), ops),
+        ),
+        "match_count": dict(
+            source="src/repro_torch/csrc/l2_match.cu",
+            replaces="src/repro/kernels/l2_match/kernel.py:114",
+            max_abs_err=err_c, ms=median_ms(lambda: lk.match_count(a, b, thr, valid)),
+            plain_ms=median_ms(lambda: lr.match_count(a, b, thr, valid)),
+            library_ms=cdist_ms,
+            device_us=device_us["l2_tile_kernel<true>"],
+            bound=bound(4 * (m * d + n * d) + m + 4 * n, ops),
+        ),
+    }
+    emit({"phase": "l2_match", "shape": f"M={m},N={n},D={d}",
+          "hits": int(counts.sum()), **{k: {kk: v[kk] for kk in ("ms", "plain_ms", "library_ms",
+                                                                "device_us")}
+                                        for k, v in rows.items()}})
     return rows
 
 
@@ -382,6 +509,195 @@ def main_path_phase(dev):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phases 6-7: the VLD application
+# --------------------------------------------------------------------------- #
+def vld_card_vs_cpu_phase(dev):
+    """VLD_FRAMES_CHECKED seeded frames through the whole pipeline on the
+    card and on the CPU (plain versions): equal counts and detections."""
+    import numpy as np
+    import torch
+
+    from repro_torch.streaming.apps.vld import (
+        VLDConfig, aggregate_matches, extract_features, logo_library, make_frame,
+        match_features,
+    )
+
+    cfg = VLDConfig(**VLD_WIDTH)
+    lib = logo_library(cfg)
+    rng = np.random.default_rng(11)
+    frames = [make_frame(cfg, rng, lib, rng.random() < 0.4) for _ in range(VLD_FRAMES_CHECKED)]
+    out, seconds = {}, {}
+    for where in (dev, torch.device("cpu")):
+        libt = torch.from_numpy(lib).to(where)
+        counts, dets, kps, descs = [], [], [], []
+        t0 = time.perf_counter()
+        for fr in frames:
+            desc, valid = extract_features(torch.from_numpy(fr).to(where), cfg)
+            c = match_features(desc, valid, libt, cfg.match_threshold)
+            det = aggregate_matches(c, cfg.n_logos, cfg.descriptors_per_logo,
+                                    cfg.detect_threshold)
+            counts.append(c.cpu().numpy())
+            dets.append(det.cpu().numpy())
+            kps.append(int(valid.sum()))
+            descs.append(desc.cpu().numpy())
+        seconds[where.type] = time.perf_counter() - t0
+        out[where.type] = (counts, dets, kps, descs)
+    card, cpu = out["cuda"], out["cpu"]
+    counts_differ = sum(not np.array_equal(x, y) for x, y in zip(card[0], cpu[0]))
+    dets_differ = sum(not np.array_equal(x, y) for x, y in zip(card[1], cpu[1]))
+    desc_err = max(float(np.abs(x - y).max()) for x, y in zip(card[3], cpu[3]))
+    emit({"phase": "vld_card_vs_cpu", "frames": len(frames), "config": VLD_WIDTH,
+          "counts_differ": counts_differ, "detections_differ": dets_differ,
+          "keypoints_differ": sum(x != y for x, y in zip(card[2], cpu[2])),
+          "max_descriptor_abs_err": desc_err,
+          "valid_keypoints_mean": float(np.mean(card[2])),
+          "frames_with_detection": int(sum(d.any() for d in card[1])),
+          "card_ms_per_frame": seconds["cuda"] * 1e3 / len(frames),
+          "cpu_ms_per_frame": seconds["cpu"] * 1e3 / len(frames)})
+    check(counts_differ == 0 and dets_differ == 0,
+          f"VLD card vs CPU: {counts_differ} count rows and {dets_differ} detection rows "
+          f"differ of {len(frames)} frames")
+    check(sum(d.any() for d in card[1]) > 0, "VLD: no frame had a detection")
+    vld_profile(cfg, lib, frames[:16], dev)
+
+
+def vld_profile(cfg, lib, frames, dev):
+    """The pipeline's device time and launches per frame (torch.profiler),
+    by stage, against its wall time per frame: the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.streaming.apps.vld import aggregate_matches, extract_features, match_features
+
+    libt = torch.from_numpy(lib).to(dev)
+
+    def run():
+        for fr in frames:
+            with record_function("vld_extract"):
+                desc, valid = extract_features(torch.from_numpy(fr).to(dev), cfg)
+            with record_function("vld_match"):
+                c = match_features(desc, valid, libt, cfg.match_threshold)
+            with record_function("vld_aggregate"):
+                aggregate_matches(c, cfg.n_logos, cfg.descriptors_per_logo,
+                                  cfg.detect_threshold).cpu()
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    stage_names = ("vld_extract", "vld_match", "vld_aggregate")
+    # Kernels only: the stage annotations also show up as device ranges.
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and e.key not in stage_names]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows) / 1e3 / len(frames)
+    kernels = sum(c for k, _t, c in rows if not k.startswith(("Memcpy", "Memset")))
+    stages = {name: {} for name in stage_names}
+    for e in events:
+        if e.key in stages:
+            if e.device_type == DeviceType.CUDA:
+                stages[e.key]["device_span_ms_per_frame"] = (
+                    e.self_device_time_total / 1e3 / len(frames))
+            else:
+                stages[e.key]["host_ms_per_frame_profiled"] = e.cpu_time_total / 1e3 / len(frames)
+    emit({"phase": "vld_profile", "frames": len(frames), "unprofiled_ms_per_frame": wall_ms,
+          "device_ms_per_frame": device_ms, "launches_per_frame": kernels / len(frames),
+          "device_busy_share": device_ms / wall_ms, "stages": stages,
+          "top": [{"kernel": k[:90], "device_us_per_frame": t / len(frames),
+                   "launches_per_frame": c / len(frames)} for k, t, c in rows[:8]]})
+
+
+def vld_live_phase(dev):
+    """The live DRS session on the card; returns the l2_match launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api.session import DRSSession, SchedulerConfig
+    from repro_torch.kernels import LAUNCHES, VLD_KERNELS
+    from repro_torch.streaming.apps.vld import (
+        VLDConfig, aggregate_matches, build_vld_graph, extract_features, logo_library,
+        make_frame, match_features,
+    )
+
+    cfg = VLDConfig(**VLD_WIDTH)
+    lib = logo_library(cfg)
+    rng = np.random.default_rng(0)
+    # Warm-up outside the counted run (lazy CUDA initialisation of the
+    # extractor's sort and gathers).
+    libt = torch.from_numpy(lib).to(dev)
+    desc, valid = extract_features(torch.from_numpy(make_frame(cfg, rng, lib, True)).to(dev), cfg)
+    aggregate_matches(match_features(desc, valid, libt, cfg.match_threshold), cfg.n_logos,
+                      cfg.descriptors_per_logo, cfg.detect_threshold).cpu()
+
+    graph, detections = build_vld_graph(cfg, lib, device=dev)
+    session = DRSSession.bind(
+        graph, "engine",
+        config=SchedulerConfig(k_max=6, min_improvement=0.01, horizon_seconds=600.0),
+    )
+    bad = {"extract": 1, "match": 2, "aggregate": 1}
+    LAUNCHES.clear()
+    session.start(bad)
+    injected = 0
+    t_start = time.perf_counter()
+    t_end = time.time() + 5.0
+    while time.time() < t_end:
+        if session.inject(make_frame(cfg, rng, lib, rng.random() < 0.4)) is not None:
+            injected += 1
+        time.sleep(0.004)
+    decision = session.tick()
+    snap = session.backend.measurer.last_snapshot
+    applied = session.allocation
+    t_end = time.time() + 3.0
+    while time.time() < t_end:
+        if session.inject(make_frame(cfg, rng, lib, rng.random() < 0.4)) is not None:
+            injected += 1
+        time.sleep(0.02)
+    drained = session.drain(timeout=60.0)
+    elapsed = time.perf_counter() - t_start
+    session.stop()
+    launches = {k: LAUNCHES[k] for k in VLD_KERNELS}
+    engine = session.backend.engine
+    soj = np.asarray(session.completed_sojourns)
+    completed = len(soj)
+    emit({"phase": "vld_live", "config": VLD_WIDTH, "start": bad,
+          "frames_injected": injected, "frames_completed": completed,
+          "shed_roots": engine.shed_roots, "drops": session.drop_counts(),
+          "failures": engine.failures,
+          "last_failure": None if engine.last_failure is None else repr(engine.last_failure),
+          "detection_rows": len(detections),
+          "frames_with_detection": int(sum(d.any() for d in detections)),
+          "decision": {"action": decision.action, "reason": decision.reason,
+                       "k_target": None if decision.k_target is None
+                       else decision.k_target.tolist(),
+                       "model_sojourn_current": decision.model_sojourn_current,
+                       "model_sojourn_target": decision.model_sojourn_target,
+                       "measured_sojourn": decision.measured_sojourn},
+          "allocation_applied": applied, "allocation_final": engine.k(),
+          "mu_hat": dict(zip(graph.names, snap.mu_hat.tolist())),
+          "lam_hat": dict(zip(graph.names, snap.lam_hat.tolist())),
+          "sojourn_p50_ms": float(np.percentile(soj, 50) * 1e3) if completed else None,
+          "sojourn_p95_ms": float(np.percentile(soj, 95) * 1e3) if completed else None,
+          "frames_per_s": completed / elapsed, "seconds": elapsed, "drained": drained,
+          "launches": launches})
+    check(drained and completed == injected,
+          f"vld_live: {completed} of {injected} injected frames completed (drained={drained})")
+    check(len(detections) == completed,
+          f"vld_live: {len(detections)} detection rows for {completed} completed frames")
+    check(launches["match_count"] == injected,
+          f"vld_live: match_count launched {launches['match_count']} times for "
+          f"{injected} frames")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -422,6 +738,8 @@ def main() -> int:
     launches = main_path_phase(dev)
     for k, n in launches.items():
         check(n > 0, f"kernel {k} was never launched on the main path")
+    vld_card_vs_cpu_phase(dev)
+    launches.update(vld_live_phase(dev))
 
     kernels = []
     for k, row in rows.items():
@@ -430,7 +748,7 @@ def main() -> int:
             "name": k, "route": "cuda", "source": row["source"], "replaces": row["replaces"],
             "launches": launches[k], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None,
+            "library_ms": row.get("library_ms"),
         })
     print(card, flush=True)
     emit({"kernels": kernels})

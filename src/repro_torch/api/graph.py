@@ -6,14 +6,15 @@ fan-out, a self-loop below 1 leaks).  :class:`AppGraph` validates at
 construction -- unknown endpoints, duplicate names or edges, negative rates
 and non-leaking loops raise -- and compiles to the routing matrix, the
 external-arrival vector and a :class:`~repro_torch.core.jackson.Topology`.
-This is the model-only part of ``repro/api/graph.py``: the port has no live
-engine or DES to bind a graph to.
+An operator's ``fn`` is its live-engine compute; :meth:`AppGraph.bind`
+returns a :class:`~repro_torch.api.session.DRSSession` on the live engine
+(the port of ``repro/api/graph.py``; the DES backend is not ported).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Mapping, Sequence
+from dataclasses import dataclass, replace
+from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 
@@ -28,12 +29,14 @@ class GraphValidationError(ValueError):
 
 @dataclass(frozen=True)
 class OpDef:
-    """One operator: ``mu`` is the per-processor service-rate prior;
-    ``scaling`` is ``"replica"`` (M/M/k) or ``"group"`` (a gang at
-    ``mu * k * eff(k)``)."""
+    """One operator: ``mu`` is the per-processor service-rate prior; ``fn``
+    the live-engine compute, ``fn(payload) -> list[(downstream_name,
+    payload)]`` (``None`` for model-only graphs); ``scaling`` is
+    ``"replica"`` (M/M/k) or ``"group"`` (a gang at ``mu * k * eff(k)``)."""
 
     name: str
     mu: float
+    fn: Callable[[Any], list[tuple[str, Any]]] | None = None
     scaling: str = "replica"
     group_alpha: float = 0.0
     min_k: int = 1
@@ -137,6 +140,9 @@ class AppGraph:
     def source_names(self) -> list[str]:
         return [n for n, r in zip(self.names, self._lam0) if r > 0]
 
+    def op(self, name: str) -> OpDef:
+        return self.ops[self.index[name]]
+
     def routing_matrix(self) -> np.ndarray:
         """The derived routing matrix P (``P[i][j]`` = multiplicity i->j)."""
         return self._routing.copy()
@@ -162,6 +168,10 @@ class AppGraph:
             )
         return vec.copy()
 
+    def k_dict(self, k) -> dict[str, int]:
+        """Allocation as a name-keyed dict (accepts dict or seq)."""
+        return dict(zip(self.names, self.k_vector(k).tolist()))
+
     def topology(self, mu: Mapping[str, float] | None = None) -> Topology:
         """Compile to the Jackson-network model (``mu`` overrides priors by
         operator name)."""
@@ -182,3 +192,30 @@ class AppGraph:
             self.ops, self.edges, sources, arrival_kind=self.arrival_kind,
             validate_stability=self.validate_stability,
         )
+
+    def with_fns(self, fns: Mapping[str, Callable]) -> "AppGraph":
+        """Same graph with compute fns attached (model-only -> runnable)."""
+        unknown = set(fns) - set(self.names)
+        if unknown:
+            raise GraphValidationError(f"fns for unknown operators: {sorted(unknown)}")
+        ops = [replace(op, fn=fns.get(op.name, op.fn)) for op in self.ops]
+        return AppGraph(
+            ops, self.edges, dict(zip(self.names, self._lam0.tolist())),
+            arrival_kind=self.arrival_kind, validate_stability=self.validate_stability,
+        )
+
+    def bind(self, backend: Any = "engine", **kwargs):
+        """Bind this graph to a backend: :meth:`DRSSession.bind
+        <repro_torch.api.session.DRSSession.bind>`."""
+        from .session import DRSSession  # session imports this module
+
+        return DRSSession.bind(self, backend, **kwargs)
+
+    @staticmethod
+    def chain(names_mus: Sequence[tuple[str, float]], lam0: float, *,
+              arrival_kind: str = "exponential") -> "AppGraph":
+        """A linear chain: external tuples enter op0, op_i feeds op_{i+1}
+        (the VLD shape)."""
+        ops = [OpDef(name=nm, mu=mu) for nm, mu in names_mus]
+        edges = [Edge(names_mus[i][0], names_mus[i + 1][0]) for i in range(len(names_mus) - 1)]
+        return AppGraph(ops, edges, {names_mus[0][0]: lam0}, arrival_kind=arrival_kind)

@@ -1,57 +1,283 @@
-"""The scenario runner: a matrix of scenarios through the closed control
-loop (the fused path of ``repro.api.session.ScenarioRunner``).
+"""Sessions: one AppGraph bound to a backend, and the scenario runner.
 
-Every ``tick_interval`` of simulated time the fleet advances one window
-through :func:`~repro_torch.core.controller.make_fused_loop` -- simulate,
-measure, decide, apply -- and the runner turns the per-tick outputs into
-per-scenario decisions and :class:`ScenarioReport`s (deadline-miss rate,
-drop rate, provisioned vs Program-(4)/(6)-optimal resources).
+* :class:`DRSSession` owns the live measure -> model -> rebalance loop of
+  ``repro.api.session.DRSSession`` on the :class:`EngineBackend` (the
+  threaded :class:`~repro_torch.streaming.engine.StreamEngine`): it builds
+  the :class:`~repro_torch.core.scheduler.DRSScheduler` from the graph,
+  wires the engine's measurer to it, and applies each tick's decision to
+  the running workers.  ``DRSSession.bind(graph, "engine")`` runs the
+  operators' kernels on the CUDA device unless given ``device="cpu"``.
+* :class:`ScenarioRunner` sweeps a matrix of scenarios through the closed
+  control loop (the fused path of ``repro.api.session.ScenarioRunner``):
+  every ``tick_interval`` of simulated time the fleet advances one window
+  through :func:`~repro_torch.core.controller.make_fused_loop` and the
+  runner turns the per-tick outputs into :class:`ScenarioReport`s.
+
+Typical live use::
+
+    session = DRSSession.bind(graph, "engine", config=SchedulerConfig(k_max=6))
+    session.start({"extract": 1, "match": 2, "aggregate": 1})
+    ...inject tuples...
+    session.tick()          # pulls measurements, decides, applies rescale
+    session.drain(); session.stop()
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ..core import controller as ctl
+from ..core.allocator import AllocationResult, allocate
+from ..core.jackson import Topology
+from ..core.measurer import Measurer
+from ..core.negotiator import Negotiator
+from ..core.rebalance import ExecutableCache, RebalanceCostModel
+from ..core.scheduler import (
+    PROACTIVE_NOT_PORTED, DRSScheduler, SchedulerConfig, SchedulerDecision,
+)
 from ..device import resolve_device
-from .graph import GraphValidationError
+from .graph import AppGraph, GraphValidationError
 
-__all__ = ["SchedulerConfig", "SchedulerDecision", "ScenarioReport", "ScenarioRunner"]
+__all__ = ["SchedulerConfig", "SchedulerDecision", "EngineBackend", "DRSSession",
+           "ScenarioReport", "ScenarioRunner"]
 
-
-@dataclass(frozen=True)
-class SchedulerConfig:
-    """The decision parameters :meth:`ControllerParams.stack` reads (the
-    fields and defaults of ``repro.core.scheduler.SchedulerConfig``)."""
-
-    t_max: float | None = None  # real-time constraint (seconds); None = Program 4 only
-    k_max: int | None = None  # static budget
-    horizon_seconds: float = 300.0  # cost/benefit planning horizon
-    scale_in_hysteresis: float = 0.8
-    min_improvement: float = 0.05  # rebalance only if E[T] improves by >= 5%
-    headroom: float = 1.1
-    tick_interval: float = 10.0
-    allocator: str = "table"
-    fused_decide: bool = False  # Program 4 through kernels/decide_fused
+DES_NOT_PORTED = (
+    "the discrete-event backend ('des') is not ported to repro_torch yet: "
+    "ROADMAP.md Queue 1 item 12; bind the live 'engine' backend"
+)
 
 
-@dataclass(frozen=True)
-class SchedulerDecision:
-    """One scenario's decision at one tick."""
+class EngineBackend:
+    """The live :class:`~repro_torch.streaming.engine.StreamEngine` behind
+    the session.
 
-    t: float
-    action: str
-    k_current: np.ndarray  # allocation in force after the tick
-    k_target: np.ndarray | None  # the applied allocation, when one was applied
-    k_max: int
-    model_sojourn_current: float
-    model_sojourn_target: float | None
-    measured_sojourn: float
+    ``device`` (default: the CUDA device, raising without one) is where the
+    engine's workers launch: on a card each worker thread owns a CUDA
+    stream and waits for it before it stops its service clock.  The
+    operators' compute is the graph's ``fn``s, built for the same device
+    (e.g. :func:`~repro_torch.streaming.apps.vld.build_vld_graph`).
+    ``queue_capacity`` bounds every operator queue (``None`` = unbounded)
+    and ``overload_policy`` (``"block"`` | ``"shed-newest"`` |
+    ``"shed-oldest"``) decides what happens when one fills.
+    """
+
+    kind = "engine"
+
+    def __init__(
+        self,
+        graph: AppGraph,
+        *,
+        device=None,
+        queue_capacity: int | None = 10_000,
+        overload_policy: Any = "block",
+    ):
+        from ..streaming.engine import Operator, StreamEngine
+
+        missing = [op.name for op in graph.ops if op.fn is None]
+        if missing:
+            raise GraphValidationError(
+                f"engine backend needs a compute fn on every operator; "
+                f"missing: {missing} (attach with AppGraph.with_fns)"
+            )
+        self.graph = graph
+        self.device = resolve_device(device)
+        self.engine = StreamEngine(
+            [Operator(op.name, op.fn) for op in graph.ops],
+            queue_capacity=queue_capacity,
+            overload_policy=overload_policy,
+            device=self.device,
+        )
+        self.measurer: Measurer = self.engine.measurer
+
+    def start(self, k: Mapping[str, int]) -> None:
+        self.engine.start(dict(k))
+
+    def apply_allocation(self, k: Mapping[str, int]) -> None:
+        self.engine.scale_to(dict(k))
+
+    def allocation(self) -> dict[str, int]:
+        return self.engine.k()
+
+    def inject(
+        self, payload: Any, source: str | None = None, *, timeout: float | None = None
+    ) -> int | None:
+        if source is None:
+            srcs = self.graph.source_names
+            if len(srcs) != 1:
+                raise GraphValidationError(
+                    f"graph has {len(srcs)} sources {srcs}; pass source= explicitly"
+                )
+            source = srcs[0]
+        return self.engine.inject(source, payload, timeout=timeout)
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        return self.engine.drain(timeout=timeout)
+
+    def stop(self) -> None:
+        self.engine.stop()
+
+    @property
+    def completed_sojourns(self) -> list[float]:
+        return self.engine.completed_sojourns
+
+    def drop_counts(self) -> dict[str, int]:
+        """Cumulative tuples shed per operator (overload policy drops)."""
+        return self.engine.drop_counts()
+
+
+_BACKENDS = {"engine": EngineBackend}
+
+
+class DRSSession:
+    """One AppGraph + one live backend + the DRS control loop.
+
+    Construction wires the scheduler from the graph (names, routing
+    matrix, scaling modes) and the backend's measurer.  ``tick()`` pulls,
+    models, decides, and *applies* the decision to the backend.
+    """
+
+    def __init__(
+        self,
+        graph: AppGraph,
+        backend: EngineBackend,
+        *,
+        config: SchedulerConfig | None = None,
+        negotiator: Negotiator | None = None,
+        cost_model: RebalanceCostModel | None = None,
+        executable_cache: ExecutableCache | None = None,
+        on_decision=None,
+        proactive=None,
+    ):
+        if proactive is not None:
+            raise NotImplementedError(PROACTIVE_NOT_PORTED)
+        self.graph = graph
+        self.backend = backend
+        self.config = config or SchedulerConfig()
+        self.negotiator = negotiator
+        self.cost_model = cost_model
+        self.executable_cache = executable_cache
+        self.on_decision = on_decision
+        self.scheduler: DRSScheduler | None = None
+
+    @classmethod
+    def bind(cls, graph: AppGraph, backend: Any = "engine", **kwargs) -> "DRSSession":
+        """Bind ``graph`` to ``backend`` (``"engine"`` or a built
+        :class:`EngineBackend`).  Session options (``config=``,
+        ``negotiator=``, ``cost_model=``, ``executable_cache=``,
+        ``on_decision=``) are taken from ``kwargs``; the rest go to the
+        backend (``device=``, ``queue_capacity=``, ``overload_policy=``).
+        ``"des"`` raises: the discrete-event backend is not ported."""
+        session_keys = ("config", "negotiator", "cost_model", "executable_cache",
+                        "on_decision", "proactive")
+        session_kw = {k: kwargs.pop(k) for k in session_keys if k in kwargs}
+        if isinstance(backend, str):
+            if backend == "des":
+                raise GraphValidationError(DES_NOT_PORTED)
+            try:
+                backend_cls = _BACKENDS[backend]
+            except KeyError:
+                raise GraphValidationError(
+                    f"unknown backend {backend!r}; expected one of {sorted(_BACKENDS)} "
+                    "or a backend instance"
+                ) from None
+            backend = backend_cls(graph, **kwargs)
+        elif kwargs:
+            raise GraphValidationError(
+                f"unexpected options for pre-built backend: {sorted(kwargs)}"
+            )
+        return cls(graph, backend, **session_kw)
+
+    # Model side --------------------------------------------------------- #
+    def topology(self, mu: Mapping[str, float] | None = None) -> Topology:
+        return self.graph.topology(mu)
+
+    def plan(self, *, k_max: int | None = None, t_max: float | None = None
+             ) -> AllocationResult:
+        """Program (4)/(6) on the declared graph (priors, not measurements)."""
+        k_max = k_max if k_max is not None else self.config.k_max
+        t_max = t_max if t_max is not None else self.config.t_max
+        if k_max is None and t_max is None:
+            raise GraphValidationError(
+                "plan() needs a budget: pass k_max= or t_max=, or bind with "
+                "config=SchedulerConfig(k_max=..., t_max=...)"
+            )
+        return allocate(self.topology(), k_max=k_max, t_max=t_max)
+
+    # Control loop ------------------------------------------------------- #
+    def _build_scheduler(self, k0: np.ndarray) -> DRSScheduler:
+        scaling, group_alpha = self.graph.scaling_lists()
+        return DRSScheduler(
+            self.graph.names,
+            self.graph.routing_matrix(),
+            k0,
+            self.config,
+            measurer=self.backend.measurer,
+            negotiator=self.negotiator,
+            cost_model=self.cost_model,
+            executable_cache=self.executable_cache,
+            scaling=scaling,
+            group_alpha=group_alpha,
+            on_decision=self.on_decision,
+        )
+
+    def start(self, k0: Mapping[str, int] | Sequence[int] | np.ndarray | None = None
+              ) -> dict[str, int]:
+        """Start the backend under ``k0`` (default: the planned optimum)
+        and arm the scheduler.  Returns the starting allocation."""
+        k0_vec = self.plan().k if k0 is None else self.graph.k_vector(k0)
+        self.scheduler = self._build_scheduler(k0_vec.copy())
+        self.backend.start(self.graph.k_dict(k0_vec))
+        # Anchor the measurer's pull clock so the first tick has a window.
+        self.backend.measurer.pull(time.time())
+        return self.graph.k_dict(k0_vec)
+
+    def tick(self, now: float | None = None) -> SchedulerDecision:
+        """One scheduler tick: pull -> model -> decide -> apply."""
+        if self.scheduler is None:
+            raise RuntimeError("session not started; call start() first")
+        decision = self.scheduler.tick(now)
+        if decision.action in ("rebalance", "scale_out", "scale_in", "overloaded"):
+            # "overloaded" with no feasible target keeps the current k.
+            if decision.k_target is not None:
+                self.backend.apply_allocation(self.graph.k_dict(decision.k_target))
+        return decision
+
+    @property
+    def allocation(self) -> dict[str, int]:
+        if self.scheduler is not None:
+            return self.graph.k_dict(self.scheduler.k_current)
+        return self.backend.allocation()
+
+    @property
+    def history(self) -> list[SchedulerDecision]:
+        return [] if self.scheduler is None else self.scheduler.history
+
+    # Backend pass-throughs ---------------------------------------------- #
+    def inject(self, payload: Any, source: str | None = None, *,
+               timeout: float | None = None) -> int | None:
+        """Inject an external tuple.  Under a bounded queue with the
+        ``block`` policy this backpressures the caller; returns ``None``
+        when the tuple was shed at admission."""
+        return self.backend.inject(payload, source=source, timeout=timeout)
+
+    def drain(self, timeout: float = 10.0) -> bool:
+        return self.backend.drain(timeout=timeout)
+
+    def stop(self) -> None:
+        self.backend.stop()
+
+    @property
+    def completed_sojourns(self) -> list[float]:
+        return self.backend.completed_sojourns
+
+    def drop_counts(self) -> dict[str, int]:
+        """Cumulative tuples shed per operator."""
+        return self.backend.drop_counts()
 
 
 @dataclass(frozen=True)

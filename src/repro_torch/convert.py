@@ -7,7 +7,9 @@ imports nothing of ``repro`` -- and builds this package's objects plus the
 tick-0 :class:`~repro_torch.core.controller.ControllerState` on the chosen
 device.  :func:`scenario_from_reference` rebuilds a reference ``Scenario``
 (graph, traces, settings) as this package's :class:`Scenario`.  With them
-both packages run exactly the same fleet.
+both packages run exactly the same fleet.  :func:`vld_from_reference`
+carries a reference ``VLDConfig`` and logo library (the VLD path's
+"weights") across.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ import torch
 from .api.graph import AppGraph, Edge, OpDef
 from .core.controller import ControllerParams, ControllerState, ControllerStatic, init_state
 from .device import resolve_device
+from .streaming.apps.vld import VLDConfig
 from .streaming.batchsim import BatchArrays
 from .streaming.scenarios import ArrivalTrace, Scenario
 
-__all__ = ["from_reference", "scenario_from_reference"]
+__all__ = ["from_reference", "scenario_from_reference", "vld_from_reference"]
 
 
 def _arr(x, dtype=None):
@@ -102,3 +105,10 @@ def scenario_from_reference(s) -> Scenario:
     }
     return Scenario(graph=graph, traces=traces,
                     overload_policy=getattr(policy, "kind", policy), **kw)
+
+
+def vld_from_reference(cfg, library) -> tuple[VLDConfig, np.ndarray]:
+    """This package's :class:`VLDConfig` with the reference config's fields
+    (read by name) and the logo library as a float32 numpy array."""
+    port_cfg = VLDConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(VLDConfig)})
+    return port_cfg, np.array(library, dtype=np.float32)

@@ -1,17 +1,21 @@
-"""DRS resource allocation on the gain table -- Programs (4) and (6).
+"""DRS resource allocation -- Programs (4) and (6).
 
 Program (4) (min E[T] s.t. sum k_i <= K_max) is the paper's Algorithm 1
-greedy collapsed to a top-R selection over the ``[N, K]`` marginal-gain
-table (:func:`assign_processors_table`); Program (6) (min sum k_i s.t.
-E[T] <= T_max) bisects the greedy's nested increment count
-(:func:`min_processors_table`).  :func:`allocate` dispatches between them.
-Host-side float64 spec code: scenarios plan their starting allocation and
-the reports their optimum with it.
+greedy, either collapsed to a top-R selection over the ``[N, K]``
+marginal-gain table (:func:`assign_processors_table`) or walked with a
+max-heap of each operator's next gain (:func:`assign_processors`); the two
+give the same allocation.  Program (6) (min sum k_i s.t. E[T] <= T_max)
+bisects the greedy's nested increment count on the table
+(:func:`min_processors_table`) or runs the heap greedy until the bound
+holds (:func:`min_processors`).  :func:`allocate` dispatches between
+Programs (4) and (6).  Host-side float64 spec code, as in
+``repro/core/allocator.py``.
 """
 
 from __future__ import annotations
 
 import heapq
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -22,6 +26,8 @@ from .jackson import Topology
 __all__ = [
     "InsufficientResourcesError",
     "AllocationResult",
+    "assign_processors",
+    "min_processors",
     "greedy_increments",
     "assign_processors_table",
     "min_processors_table",
@@ -48,6 +54,45 @@ class AllocationResult:
     expected_sojourn: float  # model E[T](k), seconds
     total: int  # sum k_i
     evaluations: int  # materialised table entries (cost metric)
+
+
+def _marginal(top: Topology, lam: np.ndarray, i: int, k_i: int) -> float:
+    """delta_i = lam_i * (E[T_i](k_i) - E[T_i](k_i+1)), Algorithm 1 line 9."""
+    op = top.operators[i]
+    t0 = op.sojourn(k_i, lam[i])
+    t1 = op.sojourn(k_i + 1, lam[i])
+    if math.isinf(t0):
+        return math.inf
+    return lam[i] * (t0 - t1)
+
+
+def assign_processors(top: Topology, k_max: int) -> AllocationResult:
+    """Heap-based Algorithm 1 — identical output, O((K-K0) log N)."""
+    lam = top.arrival_rates
+    k = top.min_feasible_allocation()
+    evals = 0
+    total = int(k.sum())
+    if total > k_max:
+        raise InsufficientResourcesError(total, k_max, k)
+    # Max-heap of (-delta, i); each operator's entry reflects its next gain.
+    heap: list[tuple[float, int]] = []
+    for i in range(top.n):
+        if lam[i] == 0.0:
+            continue
+        d = _marginal(top, lam, i, int(k[i]))
+        evals += 2
+        heap.append((-d, i))
+    heapq.heapify(heap)
+    while total < k_max and heap:
+        neg_d, i = heapq.heappop(heap)
+        if -neg_d <= 0.0:
+            break
+        k[i] += 1
+        total += 1
+        d = _marginal(top, lam, i, int(k[i]))
+        evals += 2
+        heapq.heappush(heap, (-d, i))
+    return AllocationResult(k, top.expected_sojourn(k), total, evals)
 
 
 def _heap_greedy_counts(cand: np.ndarray, budget: int) -> np.ndarray:
@@ -159,6 +204,73 @@ def min_processors_table(top: Topology, t_max: float, *, k_cap: int = 1 << 20
         if exhausted or budget >= k_cap - total0:
             raise InsufficientResourcesError(int(k_full.sum()), k_cap, k_full)
         budget *= 4
+
+
+def min_processors(
+    top: Topology, t_max: float, *, k_cap: int = 1 << 20
+) -> AllocationResult:
+    """Program (6): min sum k_i s.t. E[T](k) <= T_max (greedy, paper §III-C).
+
+    Starts from the minimal feasible allocation and adds the max-marginal-
+    benefit processor until the constraint holds.  ``k_cap`` bounds the
+    search (raises if T_max is unreachable, e.g. below the service-time
+    floor sum_i v_i / mu_i which no amount of processors can beat).
+    """
+    lam = top.arrival_rates
+    # Constraint floor: E[T] >= sum_i (lam_i/lam0) * (1/mu_i) even with k=inf.
+    floor = sum(
+        lam[i] / top.lam0_total / op.mu for i, op in enumerate(top.operators) if lam[i] > 0
+    )
+    if t_max < floor:
+        raise InsufficientResourcesError(
+            k_cap, k_cap, top.min_feasible_allocation()
+        )
+    k = top.min_feasible_allocation()
+    evals = 0
+    heap: list[tuple[float, int]] = []
+    for i in range(top.n):
+        if lam[i] == 0.0:
+            continue
+        d = _marginal(top, lam, i, int(k[i]))
+        evals += 2
+        heap.append((-d, i))
+    heapq.heapify(heap)
+    et = top.expected_sojourn(k)
+    total = int(k.sum())
+    while et > t_max and heap and total < k_cap:
+        neg_d, i = heapq.heappop(heap)
+        gain = -neg_d
+        if gain <= 0.0:
+            break
+        k[i] += 1
+        total += 1
+        # E[T] drops by lam_i * gain / lam0 (Eq. 3 weighting) — an O(1)
+        # running estimate that accumulates float error over thousands of
+        # increments, so it only steers the loop; feasibility is judged on
+        # the exactly recomputed value below.
+        et -= gain / top.lam0_total
+        d = _marginal(top, lam, i, int(k[i]))
+        evals += 2
+        heapq.heappush(heap, (-d, i))
+    # Re-derive the true E[T](k): near T_max the drifted running value can
+    # mis-accept (accept/raise must use the same model the caller sees).
+    et = top.expected_sojourn(k)
+    while et > t_max and heap and total < k_cap:
+        # Drift made the loop exit one (or a few) processors early: keep
+        # adding by exact marginal benefit until the true E[T] satisfies
+        # the constraint or no processor helps.
+        neg_d, i = heapq.heappop(heap)
+        if -neg_d <= 0.0:
+            break
+        k[i] += 1
+        total += 1
+        et = top.expected_sojourn(k)
+        d = _marginal(top, lam, i, int(k[i]))
+        evals += 2
+        heapq.heappush(heap, (-d, i))
+    if et > t_max:
+        raise InsufficientResourcesError(total, k_cap, k)
+    return AllocationResult(k, et, total, evals)
 
 
 def allocate(top: Topology, *, k_max: int | None = None, t_max: float | None = None

@@ -14,6 +14,12 @@ over ``[B, N]`` tensors (the PyTorch counterpart of
   (``kernels/queue_step`` per step), the window measurement, the decide and
   the apply.  The JAX package's ``lax.scan`` over ticks is a Python loop
   here; the loop state is a :class:`ControllerState` of tensors.
+* :func:`decide_single` is the float64 numpy twin of one scenario's
+  decide, which the live :class:`~repro_torch.core.scheduler.DRSScheduler`
+  calls each tick (with :func:`overloaded_mask_batch`,
+  :func:`capped_mask_batch` and :func:`clamp_row` for the measured model):
+  the reference's branch order and float ops, so its actions, allocations
+  and E[T] equal the JAX package's bit for bit.
 
 Entry points run on the CUDA device unless ``device`` says otherwise; there
 the kernels run in float32.  On the CPU every kernel call takes its plain
@@ -22,16 +28,28 @@ PyTorch version, in float32 or float64.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
-from typing import Any, NamedTuple, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from .allocator import (
+    AllocationResult,
+    InsufficientResourcesError,
+    assign_processors,
+    assign_processors_table,
+    min_processors,
+    min_processors_table,
+)
+from .jackson import OperatorSpec, Topology, UnstableTopologyError
+from .rebalance import RebalanceCostModel, RebalancePlan
 
 __all__ = [
     "ACTIONS",
+    "ALLOCATORS",
     "DROP_TRIGGER_FRACTION",
     "PAUSE_SECONDS",
     "ControllerStatic",
@@ -41,6 +59,12 @@ __all__ = [
     "init_state",
     "make_decide",
     "make_fused_loop",
+    "RowDecision",
+    "effective_capacity",
+    "overloaded_mask_batch",
+    "capped_mask_batch",
+    "clamp_row",
+    "decide_single",
 ]
 
 # Action vocabulary; codes match repro.core.controller.ACTIONS.
@@ -579,3 +603,321 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
         return init_state(k0, device=dev, dtype=dtype)
 
     return FusedLoop(n_ticks, init_fn, run_fn), n_ticks
+
+
+# --------------------------------------------------------------------------- #
+# The float64 twin the live scheduler calls (one scenario per call)
+# --------------------------------------------------------------------------- #
+# Program (4)/(6) solver pairs, keyed like SchedulerConfig.allocator.
+ALLOCATORS = {
+    "table": (assign_processors_table, min_processors_table),
+    "heap": (assign_processors, min_processors),
+}
+
+
+def effective_capacity(k, mu_eff, group, alpha) -> np.ndarray:
+    """Per-operator service capacity at allocation ``k`` with the group
+    efficiency curve applied (k floored at 1, mirroring the scalar
+    ``overloaded_mask``)."""
+    k_eff = np.maximum(np.asarray(k, dtype=np.int64), 1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        eff = 1.0 / (1.0 + alpha * (k_eff - 1))
+    return np.where(group, mu_eff * k_eff * eff, mu_eff * k_eff)
+
+
+def overloaded_mask_batch(lam_hat, mu_eff, drop, k, group, alpha) -> np.ndarray:
+    """[B, N] bool: measured offered load >= capacity, or sustained
+    shedding — the vectorized twin of ``DRSScheduler.overloaded_mask``
+    (same comparisons, so bit-identical decisions at any batch size)."""
+    lam_hat = np.asarray(lam_hat, dtype=np.float64)
+    mu_eff = np.asarray(mu_eff, dtype=np.float64)
+    drops = np.nan_to_num(np.asarray(drop, dtype=np.float64), nan=0.0)
+    capacity = effective_capacity(k, mu_eff, group, alpha)
+    valid = np.isfinite(lam_hat) & np.isfinite(mu_eff) & (mu_eff > 0)
+    with np.errstate(invalid="ignore"):
+        hot = (lam_hat >= capacity * (1.0 - 1e-9)) | (
+            drops > DROP_TRIGGER_FRACTION * capacity
+        )
+    return valid & hot
+
+
+def capped_mask_batch(overloaded, base_routing, active=None) -> np.ndarray:
+    """[B, N] bool: operators whose *measured arrival rate* is throughput-
+    capped — transitively downstream of a saturated operator (vectorized
+    ``DRSScheduler._capped_mask`` fixed point)."""
+    overloaded = np.atleast_2d(np.asarray(overloaded, dtype=bool))
+    routing = np.asarray(base_routing, dtype=np.float64)
+    if routing.ndim == 2:
+        routing = routing[None]
+    adj = routing > 0  # [B, N, N]
+    n = adj.shape[-1]
+    out_capped = overloaded.copy()
+    in_capped = np.zeros_like(overloaded)
+    for _ in range(n):
+        new_in = (adj & out_capped[:, :, None]).any(axis=1)
+        new_out = overloaded | new_in
+        if (new_in == in_capped).all() and (new_out == out_capped).all():
+            break
+        in_capped, out_capped = new_in, new_out
+    if active is not None:
+        in_capped = in_capped & np.asarray(active, dtype=bool)
+    return in_capped
+
+
+def clamp_row(
+    names: Sequence[str],
+    base_routing: np.ndarray,
+    lam_hat: np.ndarray,
+    mu_hat: np.ndarray,
+    lam0_hat: float,
+    overloaded: np.ndarray,
+    capped: np.ndarray,
+    scaling: Sequence[str],
+    group_alpha: Sequence[float],
+    speed: np.ndarray | None = None,
+) -> Topology:
+    """Rebuild one scenario's model from measurements (DESIGN.md §4/§11).
+
+    This is the pure-function extraction of ``DRSScheduler.topology_from``
+    — identical float ops, so the rebuilt Topology is bit-identical to the
+    pre-extraction scheduler's.  ``speed`` applies machine-class factors
+    to the effective per-processor service rates (1.0 = reference class).
+    """
+    n = len(names)
+    hot = bool(np.asarray(overloaded).any())
+    lam_hat = np.array(lam_hat, dtype=np.float64)
+    lam0 = np.zeros(n)
+    in_deg = base_routing.sum(axis=0)
+    sources = np.nonzero(in_deg == 0)[0]
+    if len(sources) == 0:
+        sources = np.array([0])
+    if hot:
+        for s in sources:
+            lam0[s] = lam_hat[s] if math.isfinite(lam_hat[s]) else 0.0
+    else:
+        src_lam = lam_hat[sources]
+        total_src = max(src_lam.sum(), 1e-12)
+        for s, l in zip(sources, src_lam):
+            lam0[s] = lam0_hat * (l / total_src) if math.isfinite(lam0_hat) else l
+    routing = base_routing.copy()
+    for j in range(n):
+        declared_in = routing[:, j]
+        if declared_in.sum() == 0:
+            continue
+        if capped[j]:
+            continue  # measured lam_hat[j] is capacity, not offered load
+        inflow = float(np.dot(declared_in, lam_hat))
+        if inflow > 1e-12 and math.isfinite(lam_hat[j]) and lam_hat[j] > 0:
+            routing[:, j] *= lam_hat[j] / inflow
+    ops = [
+        OperatorSpec(
+            name=names[i],
+            mu=float(mu_hat[i]) if speed is None else float(mu_hat[i] * speed[i]),
+            scaling=scaling[i],
+            group_alpha=group_alpha[i],
+        )
+        for i in range(n)
+    ]
+    return Topology(ops, lam0, routing)
+
+
+@dataclass(frozen=True)
+class RowDecision:
+    """One scenario's tick outcome (pure data; no scheduler state)."""
+
+    action: str
+    k_next: np.ndarray  # allocation in force after the tick
+    k_target: np.ndarray | None  # proposed allocation (None on hard failure)
+    k_max: int  # budget after any lease change
+    et_cur: float
+    et_target: float | None
+    need_total: int | None  # Program-(6)-sized demand (overload / scaling)
+    plan: RebalancePlan | None
+    reason: str
+    applied: bool  # k_next != entry k (an allocation change to execute)
+
+    @property
+    def code(self) -> int:
+        return _CODE[self.action]
+
+
+def _default_cost_plan(
+    cost_model: RebalanceCostModel,
+    top: Topology,
+    k_old: np.ndarray,
+    k_new: np.ndarray,
+    cache,
+    stage_names,
+) -> RebalancePlan:
+    return cost_model.plan(top, k_old, k_new, cache=cache, stage_names=stage_names)
+
+
+def decide_single(
+    top: Topology,
+    k_current: np.ndarray,
+    k_max: int,
+    *,
+    t_max: float | None,
+    headroom: float,
+    scale_in_hysteresis: float,
+    min_improvement: float,
+    horizon_seconds: float,
+    allocator: str = "table",
+    overloaded: np.ndarray | None = None,
+    lam_hat: np.ndarray | None = None,
+    mu_hat: np.ndarray | None = None,
+    drop: np.ndarray | None = None,
+    ensure: Callable[[int], int] | None = None,
+    cost_model: RebalanceCostModel | None = None,
+    cache=None,
+    stage_names: Sequence[str] | None = None,
+    stragglers: tuple = (),
+    names: Sequence[str] | None = None,
+) -> RowDecision:
+    """One scenario's decide — the float64 numpy twin of the old
+    ``DRSScheduler.decide`` body (same branch order, same float ops, same
+    allocator calls, so the outcome is bit-identical).
+
+    ``ensure`` is the per-scenario negotiator lease hook (target -> new
+    k_max); ``None`` disables the scale-out/scale-in branches exactly
+    like a scheduler without a negotiator.  Model/allocator hard failures
+    (``UnstableTopologyError`` and uncaught ``InsufficientResourcesError``)
+    propagate to the caller, as they did from ``decide``.
+    """
+    assign_fn, min_proc_fn = ALLOCATORS[allocator]
+    names = list(names) if names is not None else [op.name for op in top.operators]
+    n = len(names)
+    cost_model = cost_model or RebalanceCostModel()
+    k_current = np.asarray(k_current, dtype=np.int64)
+    et_cur = top.expected_sojourn(k_current)  # may raise UnstableTopologyError
+
+    if overloaded is None:
+        if lam_hat is None or mu_hat is None:
+            overloaded = np.zeros(n, dtype=bool)
+        else:
+            group = np.array([op.scaling == "group" for op in top.operators])
+            alpha = np.array([op.group_alpha for op in top.operators])
+            overloaded = overloaded_mask_batch(
+                lam_hat[None], mu_hat[None], None if drop is None else drop[None],
+                k_current[None], group[None], alpha[None],
+            )[0]
+
+    # --- Overload: defined unstable-snapshot path (no gates) ------------ #
+    if overloaded.any():
+        hot_names = [names[i] for i in np.nonzero(overloaded)[0]]
+        try:
+            if t_max is not None:
+                need_total = math.ceil(min_proc_fn(top, t_max).total * headroom)
+            else:
+                need_total = math.ceil(
+                    int(top.min_feasible_allocation().sum()) * headroom
+                )
+        except (InsufficientResourcesError, UnstableTopologyError):
+            need_total = k_max + 1
+        if need_total > k_max and ensure is not None:
+            k_max = max(k_max, ensure(need_total))
+        try:
+            best = assign_fn(top, k_max)
+        except (InsufficientResourcesError, UnstableTopologyError) as e:
+            return RowDecision(
+                "overloaded", k_current.copy(), None, k_max, et_cur, None,
+                need_total, None,
+                f"overloaded at {hot_names}; offered load infeasible "
+                f"within k_max={k_max}: {e}",
+                applied=False,
+            )
+        return RowDecision(
+            "overloaded", best.k.copy(), best.k, k_max, et_cur,
+            best.expected_sojourn, need_total, None,
+            f"measured rho >= 1 at {hot_names}; offered-load model "
+            f"needs {need_total}, reallocated within k_max={k_max}",
+            applied=True,
+        )
+
+    # --- Program (6): how many processors do we actually need? ---------- #
+    need: AllocationResult | None = None
+    if t_max is not None:
+        try:
+            need = min_proc_fn(top, t_max)
+        except InsufficientResourcesError:
+            need = None
+
+    if t_max is not None:
+        needed_total = (
+            math.ceil(need.total * headroom) if need is not None else k_max + 1
+        )
+        # Scale out: T_max unreachable within the current lease.
+        if needed_total > k_max and ensure is not None:
+            new_k_max = ensure(needed_total)
+            if new_k_max > k_max:
+                k_max = new_k_max
+                best = assign_fn(top, k_max)
+                return RowDecision(
+                    "scale_out", best.k.copy(), best.k, k_max, et_cur,
+                    best.expected_sojourn, needed_total, None,
+                    f"Program(6) needs {needed_total} > leased; "
+                    f"negotiated k_max={k_max}",
+                    applied=True,
+                )
+        # Scale in: we need much less than we lease (with hysteresis).
+        if (
+            need is not None
+            and ensure is not None
+            and math.ceil(need.total * headroom) < scale_in_hysteresis * k_max
+        ):
+            target_total = math.ceil(need.total * headroom)
+            new_k_max = ensure(target_total)
+            if new_k_max < k_max:
+                best = assign_fn(top, new_k_max)
+                return RowDecision(
+                    "scale_in", best.k.copy(), best.k, new_k_max, et_cur,
+                    best.expected_sojourn, target_total, None,
+                    f"Program(6) needs {need.total} (headroom "
+                    f"{target_total}) << leased {k_max}; released to {new_k_max}",
+                    applied=True,
+                )
+
+    # --- Program (4): best placement within k_max ----------------------- #
+    try:
+        best = assign_fn(top, k_max)
+    except InsufficientResourcesError as e:
+        return RowDecision(
+            "infeasible", k_current.copy(), None, k_max, et_cur, None,
+            None if need is None else need.total, None, str(e), applied=False,
+        )
+
+    improvement = (
+        (et_cur - best.expected_sojourn) / et_cur
+        if math.isfinite(et_cur) and et_cur > 0
+        else float("inf")
+    )
+    if np.array_equal(best.k, k_current) or improvement < min_improvement:
+        return _none_or_hint_row(
+            k_current, best, k_max, et_cur, stragglers,
+            reason=f"improvement {improvement:.1%} < {min_improvement:.0%}",
+        )
+
+    plan = _default_cost_plan(cost_model, top, k_current, best.k, cache, stage_names)
+    if not plan.worthwhile(horizon_seconds, top.lam0_total) and math.isfinite(et_cur):
+        return _none_or_hint_row(
+            k_current, best, k_max, et_cur, stragglers, plan=plan,
+            reason="rebalance cost exceeds benefit over horizon",
+        )
+    return RowDecision(
+        "rebalance", best.k.copy(), best.k, k_max, et_cur,
+        best.expected_sojourn, None, plan, "", applied=True,
+    )
+
+
+def _none_or_hint_row(
+    k_current, best, k_max, et_cur, stragglers, *, plan=None, reason=""
+) -> RowDecision:
+    action = "none"
+    if stragglers:
+        action = "rebalance_hint"
+        named = ", ".join(f"{op}[{inst}]" for op, inst in stragglers)
+        reason = (reason + "; " if reason else "") + f"stragglers flagged: {named}"
+    return RowDecision(
+        action, np.asarray(k_current, dtype=np.int64).copy(), best.k, k_max,
+        et_cur, best.expected_sojourn, None, plan, reason, applied=False,
+    )

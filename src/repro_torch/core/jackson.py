@@ -126,6 +126,11 @@ class Topology:
             self._lam = solve_traffic_equations(self.lam0, self.routing)
         return self._lam
 
+    @property
+    def visit_counts(self) -> np.ndarray:
+        """Expected visits to each operator per external tuple: lam_i / lam0."""
+        return self.arrival_rates / max(self.lam0_total, 1e-300)
+
     def expected_sojourn(self, k) -> float:
         """E[T](k) -- paper Eq. (3); 0 for an idle network."""
         k = np.asarray(k)

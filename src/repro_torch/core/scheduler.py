@@ -1,0 +1,370 @@
+"""DRS scheduler -- the live control loop (paper §III-C steps (a)-(c), §IV),
+the port's copy of ``repro/core/scheduler.py``.
+
+Each tick:
+  1. pull a smoothed :class:`~repro_torch.core.measurer.MeasurementSnapshot`
+     from the measurer;
+  2. rebuild the model Topology from (lam0_hat, lam_hat, mu_hat) -- routing
+     multiplicities are re-estimated from measured arrival ratios, so a
+     shift in the data (more features per frame) is tracked without
+     re-declaring the graph;
+  3. run Program (6) when a T_max is configured and Program (4) at the
+     current K_max;
+  4. decide: scale out (``negotiator.ensure``) when Program (6) needs more
+     than leased, scale in when it needs much less (hysteresis), and/or
+     rebalance when the cost/benefit plan says so;
+  5. emit a :class:`SchedulerDecision`.
+
+:class:`DRSScheduler` is a stateful shell over the float64 twin in
+:mod:`repro_torch.core.controller` (``overloaded_mask_batch``,
+``capped_mask_batch``, ``clamp_row``, ``decide_single``).  The shell owns
+what cannot be batched: the measurer, the negotiator lease (the ``ensure``
+hook), the cost model and executable cache, the straggler watchdog and the
+decision history.
+
+Overload is a defined path: when the measured utilisation
+``lam_hat_i / (k_i mu_hat_i)`` reaches 1 (or an operator sheds), the model
+is rebuilt from offered-load rates and the action is ``"overloaded"``,
+which bypasses the cost/benefit gate and the scale-in hysteresis.
+``speed_factors`` scale the effective service rates of heterogeneous
+machine classes.  The forecast/MPC mode (``proactive=``) is not ported.
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+
+from . import controller as ctl
+from .jackson import Topology
+from .measurer import Measurer, MeasurementSnapshot
+from .negotiator import Negotiator
+from .rebalance import ExecutableCache, RebalanceCostModel, RebalancePlan
+
+logger = logging.getLogger(__name__)
+
+__all__ = ["SchedulerConfig", "SchedulerDecision", "DRSScheduler", "StragglerDetector"]
+
+PROACTIVE_NOT_PORTED = (
+    "the forecast/MPC scheduler (proactive=) is not ported to repro_torch yet: "
+    "ROADMAP.md Queue 1 item 14"
+)
+
+
+@dataclass(frozen=True)
+class SchedulerConfig:
+    """The scheduler's decision parameters (the fields and defaults of
+    ``repro.core.scheduler.SchedulerConfig``)."""
+
+    t_max: float | None = None  # real-time constraint (seconds); None = Program 4 only
+    k_max: int | None = None  # static budget; None = ask the negotiator
+    horizon_seconds: float = 300.0  # cost/benefit planning horizon
+    scale_in_hysteresis: float = 0.8  # scale in only if need < hysteresis * leased
+    min_improvement: float = 0.05  # rebalance only if E[T] improves by >= 5%
+    headroom: float = 1.1  # provision Program-6 result * headroom (model error guard)
+    tick_interval: float = 10.0  # T_m: pull + decide period
+    allocator: str = "table"  # Programs (4)/(6) on the gain table, or "heap"
+    fused_decide: bool = False  # batched decide through kernels/decide_fused
+
+
+@dataclass(frozen=True)
+class SchedulerDecision:
+    """What the stream platform should do after a tick."""
+
+    t: float
+    # "none" | "rebalance" | "scale_out" | "scale_in" | "infeasible"
+    # | "overloaded" (measured rho >= 1 somewhere: offered-load model,
+    #   immediate negotiator scale-out, no hysteresis / cost-benefit gate)
+    # | "rebalance_hint" (no model-driven change, but the StragglerDetector
+    #   flagged slow instances -- advisory)
+    action: str
+    k_current: np.ndarray  # allocation in force after the tick
+    k_target: np.ndarray | None
+    k_max: int
+    model_sojourn_current: float
+    model_sojourn_target: float | None
+    measured_sojourn: float
+    plan: RebalancePlan | None = None
+    reason: str = ""
+    # (operator, instance) pairs the straggler watchdog flagged this tick.
+    stragglers: tuple = ()
+
+    def as_dict(self) -> dict:
+        return {
+            "t": self.t,
+            "action": self.action,
+            "k_current": self.k_current.tolist(),
+            "k_target": None if self.k_target is None else self.k_target.tolist(),
+            "k_max": self.k_max,
+            "model_sojourn_current": self.model_sojourn_current,
+            "model_sojourn_target": self.model_sojourn_target,
+            "measured_sojourn": self.measured_sojourn,
+            "reason": self.reason,
+            "stragglers": list(self.stragglers),
+        }
+
+
+class DRSScheduler:
+    """The DRS optimizer + scheduler modules glued together (stateful
+    shell over the pure controller — see module docstring)."""
+
+    def __init__(
+        self,
+        operator_names: list[str],
+        base_routing: np.ndarray,
+        k_current: np.ndarray,
+        config: SchedulerConfig,
+        *,
+        measurer: Measurer | None = None,
+        negotiator: Negotiator | None = None,
+        cost_model: RebalanceCostModel | None = None,
+        executable_cache: ExecutableCache | None = None,
+        scaling: list[str] | None = None,
+        group_alpha: list[float] | None = None,
+        speed_factors: list[float] | None = None,
+        on_decision: Callable[[SchedulerDecision], None] | None = None,
+        straggler_detector: "StragglerDetector | None" = None,
+        proactive=None,
+    ):
+        if proactive is not None:
+            raise NotImplementedError(PROACTIVE_NOT_PORTED)
+        self.names = list(operator_names)
+        self.base_routing = np.asarray(base_routing, dtype=np.float64)
+        self.k_current = np.asarray(k_current, dtype=np.int64).copy()
+        self.config = config
+        self.measurer = measurer or Measurer(self.names)
+        self.negotiator = negotiator
+        self.cost_model = cost_model or RebalanceCostModel()
+        self.cache = executable_cache
+        self.scaling = scaling or ["replica"] * len(self.names)
+        self.group_alpha = group_alpha or [0.0] * len(self.names)
+        self.speed_factors = (
+            None if speed_factors is None
+            else np.asarray(speed_factors, dtype=np.float64)
+        )
+        self.on_decision = on_decision
+        self.straggler_detector = (
+            StragglerDetector() if straggler_detector is None else straggler_detector
+        )
+        if config.allocator not in ctl.ALLOCATORS:
+            raise ValueError(
+                f"unknown allocator {config.allocator!r}; "
+                f"expected one of {sorted(ctl.ALLOCATORS)}"
+            )
+        self._group = np.array([s == "group" for s in self.scaling], dtype=bool)
+        self._alpha = np.asarray(self.group_alpha, dtype=np.float64)
+        self.history: list[SchedulerDecision] = []
+        self.rebalance_count = 0
+
+    # Kept as a class attribute for callers/tests that read the trigger
+    # threshold off the scheduler; the value lives with the math now.
+    DROP_TRIGGER_FRACTION = ctl.DROP_TRIGGER_FRACTION
+
+    def _mu_eff(self, snap: MeasurementSnapshot) -> np.ndarray:
+        if self.speed_factors is None:
+            return snap.mu_hat
+        return snap.mu_hat * self.speed_factors
+
+    def overloaded_mask(self, snap: MeasurementSnapshot) -> np.ndarray:
+        """Per-operator bool: measured offered load >= current capacity,
+        OR sustained shedding at the operator's queue (the §11 trigger —
+        vectorized in :func:`repro_torch.core.controller.overloaded_mask_batch`)."""
+        return ctl.overloaded_mask_batch(
+            snap.lam_hat[None],
+            self._mu_eff(snap)[None],
+            snap.drop_rates()[None],
+            self.k_current[None],
+            self._group[None],
+            self._alpha[None],
+        )[0]
+
+    def _capped_mask(self, overloaded: np.ndarray) -> np.ndarray:
+        """Operators whose *measured arrival rate* is throughput-capped
+        (transitively downstream of a saturated operator)."""
+        return ctl.capped_mask_batch(overloaded[None], self.base_routing[None])[0]
+
+    def topology_from(
+        self, snap: MeasurementSnapshot, overloaded: np.ndarray | None = None
+    ) -> Topology:
+        """Rebuild the model from measurements (controller ``clamp_row``;
+        see DESIGN.md §4/§11 for the offered-load clamping rules)."""
+        n = len(self.names)
+        if overloaded is None:
+            overloaded = self.overloaded_mask(snap)
+        capped = (
+            self._capped_mask(overloaded)
+            if overloaded.any()
+            else np.zeros(n, dtype=bool)
+        )
+        return ctl.clamp_row(
+            self.names,
+            self.base_routing,
+            snap.lam_hat,
+            snap.mu_hat,
+            snap.lam0_hat,
+            overloaded,
+            capped,
+            self.scaling,
+            self.group_alpha,
+            speed=self.speed_factors,
+        )
+
+    # ------------------------------------------------------------------ #
+    def tick(self, now: float | None = None) -> SchedulerDecision:
+        now = time.time() if now is None else now
+        snap = self.measurer.pull(now)
+        self._observe_instances()
+        return self.tick_from(snap, now)
+
+    def tick_from(self, snap: MeasurementSnapshot, now: float) -> SchedulerDecision:
+        """One tick on an externally-supplied snapshot (no measurer pull).
+
+        Callers that measure outside the live probe path drive the same
+        model/decide path through the controller with it.
+        """
+        if not snap.complete():
+            d = SchedulerDecision(
+                now, "none", self.k_current.copy(), None,
+                self._k_max(), float("nan"), None, snap.sojourn_hat,
+                reason="insufficient measurements",
+            )
+            self._emit(d)
+            return d
+        overloaded = self.overloaded_mask(snap)
+        top = self.topology_from(snap, overloaded)
+        return self.decide(top, snap, now, overloaded=overloaded)
+
+    def _k_max(self) -> int:
+        if self.config.k_max is not None:
+            return self.config.k_max
+        if self.negotiator is not None:
+            return self.negotiator.k_max
+        return int(self.k_current.sum())
+
+    # --- Straggler watchdog -------------------------------------------- #
+    def _observe_instances(self) -> None:
+        """Feed the per-instance service rates the measurer's last pull
+        recorded into the straggler watchdog (instance identity = probe
+        index within the operator)."""
+        if self.straggler_detector is None:
+            return
+        for op, rates in (getattr(self.measurer, "last_instance_mu", None) or {}).items():
+            for idx, mu in enumerate(rates):
+                if math.isfinite(mu):
+                    self.straggler_detector.observe(op, idx, mu)
+
+    def straggler_hints(self) -> tuple:
+        """(operator, instance) pairs currently flagged by the watchdog."""
+        if self.straggler_detector is None:
+            return ()
+        return tuple(self.straggler_detector.stragglers())
+
+    def decide(
+        self,
+        top: Topology,
+        snap: MeasurementSnapshot,
+        now: float,
+        overloaded: np.ndarray | None = None,
+    ) -> SchedulerDecision:
+        """One decision on an already-built model: delegates the whole
+        flow to the controller's float64 twin (``decide_single``) and
+        applies the outcome to the shell state.
+
+        tick() passes the mask it already clamped the topology with, so
+        detection and clamping cannot disagree; direct callers get it
+        computed here.
+        """
+        cfg = self.config
+        stragglers = self.straggler_hints()
+        if overloaded is None:
+            overloaded = self.overloaded_mask(snap)
+
+        ensure = None
+        if self.negotiator is not None:
+            negotiator = self.negotiator
+
+            def ensure(target: int) -> int:
+                negotiator.ensure(target)
+                return negotiator.k_max
+
+        row = ctl.decide_single(
+            top,
+            self.k_current,
+            self._k_max(),
+            t_max=cfg.t_max,
+            headroom=cfg.headroom,
+            scale_in_hysteresis=cfg.scale_in_hysteresis,
+            min_improvement=cfg.min_improvement,
+            horizon_seconds=cfg.horizon_seconds,
+            allocator=cfg.allocator,
+            overloaded=overloaded,
+            ensure=ensure,
+            cost_model=self.cost_model,
+            cache=self.cache,
+            stage_names=self.names,
+            stragglers=stragglers,
+            names=self.names,
+        )
+        if row.applied:
+            self.k_current = row.k_next.copy()
+            self.rebalance_count += 1
+        d = SchedulerDecision(
+            now,
+            row.action,
+            self.k_current.copy(),
+            row.k_target,
+            self._k_max() if row.applied else row.k_max,
+            row.et_cur,
+            row.et_target,
+            snap.sojourn_hat,
+            row.plan,
+            row.reason,
+            stragglers if row.action in ("none", "rebalance_hint") else (),
+        )
+        self._emit(d)
+        return d
+
+    def _emit(self, d: SchedulerDecision) -> None:
+        self.history.append(d)
+        logger.debug("DRS decision: %s", d.as_dict())
+        if self.on_decision:
+            self.on_decision(d)
+
+
+class StragglerDetector:
+    """Flags slow instances: per-instance mu more than ``factor`` below the
+    operator median over the last window of pulls."""
+
+    def __init__(self, factor: float = 2.0, window: int = 3):
+        self.factor = factor
+        self.window = window
+        self._hist: dict[tuple[str, int], list[float]] = {}
+
+    def observe(self, operator: str, instance: int, mu_hat: float) -> None:
+        hist = self._hist.setdefault((operator, instance), [])
+        hist.append(mu_hat)
+        # Only the last `window` samples are ever read; trim so a control
+        # loop ticking for months doesn't grow the history unboundedly.
+        if len(hist) > self.window:
+            del hist[: -self.window]
+
+    def stragglers(self) -> list[tuple[str, int]]:
+        by_op: dict[str, list[tuple[int, float]]] = {}
+        for (op, inst), hist in self._hist.items():
+            recent = [h for h in hist[-self.window :] if math.isfinite(h)]
+            if recent:
+                by_op.setdefault(op, []).append((inst, float(np.mean(recent))))
+        out = []
+        for op, pairs in by_op.items():
+            if len(pairs) < 2:
+                continue
+            med = float(np.median([m for _, m in pairs]))
+            for inst, m in pairs:
+                if m * self.factor < med:
+                    out.append((op, inst))
+        return out

@@ -1,6 +1,6 @@
 """Build and load the Hopper kernels (``src/repro_torch/csrc/*.cu``).
 
-The four sources compile with ``nvcc`` for ``sm_90a`` into one shared
+The sources compile with ``nvcc`` for ``sm_90a`` into one shared
 library with a plain C interface, loaded with :mod:`ctypes`: every ``.cu``
 becomes an object file in its own ``nvcc`` process (all started at once),
 then one link step makes ``librepro_torch_kernels.so``.  The build runs at
@@ -14,7 +14,10 @@ each kernel's float results match its plain PyTorch version bitwise.
 
 Nothing here runs at import time (the package must import on hosts with
 neither ``nvcc`` nor a GPU).  :data:`LAUNCHES` counts kernel launches by
-kernel name; each wrapper adds one where it launches, and nowhere else.
+kernel name; each wrapper calls :func:`count_launch` where it launches, and
+nowhere else.  The count takes a lock: the live engine's worker threads
+launch kernels concurrently, and a bare ``Counter`` increment is a
+read-modify-write that loses counts between threads.
 """
 
 from __future__ import annotations
@@ -28,10 +31,11 @@ import subprocess
 import tempfile
 import threading
 
-__all__ = ["LAUNCHES", "SOURCES", "NVCC_FLAGS", "build", "library", "check_error"]
+__all__ = ["LAUNCHES", "SOURCES", "NVCC_FLAGS", "build", "library", "check_error",
+           "count_launch"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu")
+SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,7 +47,14 @@ LIB_NAME = "librepro_torch_kernels.so"
 LAUNCHES: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib = None
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to :data:`LAUNCHES` (thread-safe)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def build_root() -> pathlib.Path:
@@ -126,12 +137,14 @@ def library():
             import ctypes
 
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             sigs = {
                 "repro_queue_step": [p] * 7 + [i, i, p],
                 "repro_erlang_b_table": [p, p, i, i, i, p],
                 "repro_gain_topr": [p, p, p, i, i, i, i, p],
                 "repro_decide_fused": [p] * 11 + [i] * 6 + [p],
+                "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, p],
+                "repro_match_count": [p, p, p, f, p, i, i, i, i, p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)

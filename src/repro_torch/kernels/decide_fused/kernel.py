@@ -54,5 +54,5 @@ def batch_decide(lam, mu_eff, *, group, alpha, active, k_cur, k_max, k_hi: int,
         b, n, n_pad, int(k_hi), jc, dev_idx, stream,
     )
     _build.check_error("batch_decide", code)
-    _build.LAUNCHES["decide_fused"] += 1
+    _build.count_launch("decide_fused")
     return k4, kst, tcur, t4

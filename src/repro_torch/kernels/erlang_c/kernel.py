@@ -24,5 +24,5 @@ def erlang_b_table(a, *, k_hi: int):
         a.data_ptr(), out.data_ptr(), a.shape[0], int(k_hi), dev, stream
     )
     _build.check_error("erlang_b_table", code)
-    _build.LAUNCHES["erlang_c"] += 1
+    _build.count_launch("erlang_c")
     return out

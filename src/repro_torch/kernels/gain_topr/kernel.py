@@ -30,5 +30,5 @@ def gain_topr(cand, budget):
         cand.data_ptr(), budget.data_ptr(), take.data_ptr(), b, n, j, dev, stream
     )
     _build.check_error("gain_topr", code)
-    _build.LAUNCHES["gain_topr"] += 1
+    _build.count_launch("gain_topr")
     return take

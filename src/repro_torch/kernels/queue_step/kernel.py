@@ -26,5 +26,5 @@ def queue_step(q, inflow, cap_serve, cap_queue):
         q.numel(), dev, stream,
     )
     _build.check_error("queue_step", code)
-    _build.LAUNCHES["queue_step"] += 1
+    _build.count_launch("queue_step")
     return tuple(outs)

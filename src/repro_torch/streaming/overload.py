@@ -17,9 +17,12 @@ OVERLOAD_POLICIES = ("block", "shed-newest", "shed-oldest")
 
 @dataclass(frozen=True)
 class OverloadPolicy:
-    """What to do when a bounded operator queue is full."""
+    """What to do when a bounded operator queue is full.  ``block_poll`` is
+    the live engine's wait granularity while blocked (it also bounds how
+    long a worker can stall past an engine stop request)."""
 
     kind: str = "block"
+    block_poll: float = 0.05
 
     def __post_init__(self) -> None:
         if self.kind not in OVERLOAD_POLICIES:

@@ -24,6 +24,10 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.streaming.scenarios, repro_torch.core.controller\n"
         "import repro_torch.kernels.decide_fused.ops, repro_torch.kernels.gain_topr.ops\n"
         "import repro_torch.kernels.erlang_c.ops, repro_torch.kernels.queue_step.ops\n"
+        "import repro_torch.kernels.l2_match.ops, repro_torch.streaming.apps.vld\n"
+        "import repro_torch.streaming.engine, repro_torch.core.scheduler\n"
+        "import repro_torch.core.measurer, repro_torch.core.negotiator\n"
+        "import repro_torch.core.rebalance, repro_torch.api.graph\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -64,12 +68,16 @@ def _small_fleet():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
-    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.api.session import DRSSession, ScenarioRunner
     from repro_torch.convert import from_reference
     from repro_torch.core import controller as ctl
+    from repro_torch.streaming.apps.vld import VLDConfig, build_vld_graph, logo_library
+    from repro_torch.streaming.engine import Operator, StreamEngine
     from repro_torch.streaming.scenarios import control_trace
 
     scens = _small_fleet()
+    vld_cfg = VLDConfig()
+    vld_graph, _ = build_vld_graph(vld_cfg, logo_library(vld_cfg), device="cpu")
     runner = ScenarioRunner(scens, tick_interval=5.0, device="cpu")
     st, pr = runner.static, runner.params
     calls = [
@@ -78,6 +86,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         lambda: ctl.make_fused_loop(runner.arrays, st, pr, steps_per_tick=100),
         lambda: ctl.make_decide(st, pr),
         lambda: from_reference(runner.arrays, st, pr, runner.k),
+        lambda: build_vld_graph(vld_cfg, logo_library(vld_cfg)),
+        lambda: DRSSession.bind(vld_graph, "engine"),
+        lambda: vld_graph.bind("engine"),
+        lambda: StreamEngine([Operator("a", lambda x: [])]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
