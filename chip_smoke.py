@@ -47,7 +47,31 @@ Phases, each printing one JSON line:
    by the reference's kernel benchmark -- never).  ``library_ms`` is
    ``torch.cdist`` on the same inputs for the two ``l2_match`` kernels (the
    unsquared distance: the nearest single PyTorch call), null for the
-   others.
+   others; for the three LLM kernels it is ``scaled_dot_product_attention``
+   (``enable_gqa=True``) on the same inputs for the two attention kernels
+   (decode: on the valid prefix) and null for ``swiglu``;
+9. ``llm_kernels`` (with the parity phase, before the main path):
+   ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
+   plain versions on the card, in bf16 and float32 (tolerances in the
+   lines), at the serving path's shapes and the llama3.2-1b shapes below,
+   each timed (CUDA events, ``torch.profiler`` device time) beside its
+   plain version, SDPA where one call computes the same function, and its
+   bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 /
+   67 TFLOP/s float32);
+10. ``llm_card_vs_cpu``: llama3.2-1b at full width cut to 2 layers, in
+    bf16 and float32, prefill of 2 x 256 tokens and 8 greedy steps on the
+    card and on the CPU (plain versions) with the same parameters: logits
+    within the stated tolerance, the share of agreeing greedy tokens;
+11. ``llm_serve``: the full 16-layer llama3.2-1b in bf16 (parameters drawn
+    on the card from seed 0): 4 prompts x 4096 tokens prefilled into a
+    cache of 4128, then 32 greedy decode steps, with each kernel's launch
+    count checked against what the path implies, prefill tokens/s, decode
+    ms per step, and ``torch.profiler`` breakdowns of a prefill and a step;
+12. ``llm_decode_32k``: the decode step at 16 sequences x 32,000 cached
+    tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps timed
+    against the step's bound (KV prefix + weights over 3.35 TB/s);
+13. ``serving_plan``: DRS's prefill / decode chip split
+    (``ServingModel.plan(4.0, k_max=24)``) from the two measured rates.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -66,6 +90,7 @@ import time
 ROOT = pathlib.Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 MAIN_B, DISTINCT, N_OPS, K_HI = 4096, 256, 7, 48
 # The VLD application at full width: an SD frame, the paper's 16 query
 # logos, the repo's 8 x 8 descriptor patch (D = 64).
@@ -131,9 +156,9 @@ def smi(query):
     return out.strip().splitlines()[0]
 
 
-def bound(bytes_moved, ops):
+def bound(bytes_moved, ops, peak_ops=PEAK_F32_OPS_PER_S):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -698,6 +723,459 @@ def vld_live_phase(dev):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phases 9-13: LLM serving (llama3.2-1b, the dense family)
+# --------------------------------------------------------------------------- #
+LLM_ARCH = "llama3.2-1b"
+# prefill_32k (src/repro/configs/shapes.py:42) cut from 32 x 32768 to 4 x 4096
+SERVE_B, SERVE_S, SERVE_STEPS = 4, 4096, 32
+# decode_32k cut from batch 128 (137 GB of KV) to 16 (17.2 GB)
+DEC_B, DEC_SMAX, DEC_LEN, DEC_STEPS = 16, 32768, 32000, 8
+# llama3.2-1b's attention and FFN widths, and the kernel-only prefill length
+HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
+# Attention: kernel and plain version both compute in float32 and round the
+# output once, so in bf16 they differ by at most one ulp, 2^-7 of the output
+# row's largest value; the limit is two.  The float32 limit sits ~10x above
+# the summation-order noise and below what one key too many or too few
+# moves an output at 32k keys (~1e-4).
+ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
+SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
+LLM_SYMBOLS = {"flash_attention": ("flash_fwd_kernel",), "decode_attention": ("decode_kernel",),
+               "swiglu": ("gemm_bf16_kernel", "gemm_f32_kernel")}
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def close_err(got, want, tol, rule="element"):
+    """(max |got - want|, whether every difference is within tolerance): at
+    most ``tol * (1 + |want|)`` ("element"), ``tol`` times the largest
+    ``|want|`` in the same last-axis row ("row"), or in the whole tensor
+    ("tensor")."""
+    import torch
+
+    got, want = got.double(), want.double()
+    diff = (got - want).abs()
+    limit = {"element": lambda: tol * (1 + want.abs()),
+             "row": lambda: tol * want.abs().amax(-1, keepdim=True),
+             "tensor": lambda: tol * want.abs().max()}[rule]()
+    ok = bool(torch.isfinite(got).all()) and bool((diff <= limit).all())
+    return float(diff.max()), ok
+
+
+def device_us_per_call(fn, symbols, calls=5):
+    """Device time per call of ``fn`` (torch.profiler), summed over the
+    kernels whose names contain one of ``symbols``; None if none ran."""
+    _wall_ms, _device_ms, rows = profile_breakdown(fn, calls)
+    return sum(t for k, t, _c in rows if any(s in k for s in symbols)) or None
+
+
+def llm_kernels_phase(dev):
+    """The three LLM kernels against their plain versions on the card, in
+    bf16 and float32, and timed at the serving path's shapes; returns the
+    kernel-table rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.swiglu import kernel as sk, ref as sr
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(77)
+    bf16, f32 = torch.bfloat16, torch.float32
+    heavy = dict(runs=5, inner=2)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def parity(name, case, got, want, tol_rule):
+        tol, rule = tol_rule
+        err, ok = close_err(got, want, tol, rule)
+        emit({"phase": "llm_parity", "kernel": name, "case": case, "max_abs_err": err,
+              "tol": tol, "tol_rule": rule, "ok": ok})
+        check(ok and got.shape == want.shape and got.dtype == want.dtype,
+              f"{name} {case}: kernel differs from its plain version (max abs err {err}, "
+              f"tol {tol})")
+        return err
+
+    rows, extra = {}, {}
+
+    # flash_attention: model layout [B, S, H, Dh], passed as heads-first views.
+    def attn_inputs(b, s, dtype):
+        q = randn((b, s, HQ, DH), dtype).transpose(1, 2)
+        k = randn((b, s, HKV, DH), dtype).transpose(1, 2)
+        v = randn((b, s, HKV, DH), dtype).transpose(1, 2)
+        return q, k, v
+
+    def flash_work(b, s, dtype, window=None):
+        pairs = sum(min(i + 1, window or s) for i in range(s))
+        size = torch.tensor([], dtype=dtype).element_size()
+        nbytes = size * b * s * DH * (2 * HQ + 2 * HKV)
+        return nbytes, 4 * DH * pairs * b * HQ
+
+    err = 0.0
+    for b, s, dtype, window in ((1, FLASH_S, f32, None), (1, FLASH_S, f32, 256),
+                                (SERVE_B, SERVE_S, f32, None), (1, FLASH_S, bf16, None),
+                                (1, FLASH_S, bf16, 256), (SERVE_B, SERVE_S, bf16, None)):
+        q, k, v = attn_inputs(b, s, dtype)
+        case = f"B={b},S={s},H={HQ}/{HKV},Dh={DH},{dtype_name(dtype)}" + (f",window={window}" if window
+                                                                   else ",causal")
+        e = parity("flash_attention", case, fk.attention(q, k, v, window=window),
+                   fr.attention(q, k, v, window=window), ATTN_TOL[dtype_name(dtype)])
+        err = max(err, e) if dtype == bf16 else err
+        if (b, s) == (1, FLASH_S) and window is None:
+            extra[f"flash_B1_S{FLASH_S}_{dtype_name(dtype)}"] = {
+                "ms": median_ms(lambda: fk.attention(q, k, v), runs=10, inner=5),
+                "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), runs=10, inner=5),
+                "bound_ms": bound(*flash_work(b, s, dtype), PEAK_BF16_OPS_PER_S if dtype == bf16
+                                  else PEAK_F32_OPS_PER_S)[0]}
+    # the prefill's shape: B = 4, S = 4096 (q, k, v from the last loop pass)
+    rows["flash_attention"] = dict(
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:106",
+        shape=f"B={SERVE_B},S={SERVE_S},H={HQ}/{HKV},Dh={DH},bf16,causal", max_abs_err=err,
+        ms=median_ms(lambda: fk.attention(q, k, v), **heavy),
+        plain_ms=median_ms(lambda: fr.attention(q, k, v), runs=3, inner=1),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), **heavy),
+        device_us=device_us_per_call(lambda: fk.attention(q, k, v), LLM_SYMBOLS[
+            "flash_attention"]),
+        bound=bound(*flash_work(SERVE_B, SERVE_S, bf16), PEAK_BF16_OPS_PER_S),
+    )
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # decode_attention: the decode_32k cache, and the serving cell's.
+    def decode_work(b, n, dtype):
+        size = torch.tensor([], dtype=dtype).element_size()
+        return size * (2 * b * HQ * DH + 2 * b * n * HKV * DH), 4 * DH * n * b * HQ
+
+    err = 0.0
+    serve_cache = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)
+    for (b, s_max, length), dtype, window in (
+            (serve_cache, f32, None), ((DEC_B, DEC_SMAX, DEC_LEN), f32, 1024),
+            ((DEC_B, DEC_SMAX, DEC_LEN), f32, None), (serve_cache, bf16, None),
+            ((DEC_B, DEC_SMAX, DEC_LEN), bf16, 1024), ((DEC_B, DEC_SMAX, DEC_LEN), bf16, None)):
+        qd = randn((b, HQ, DH), dtype)
+        kc = randn((b, s_max, HKV, DH), dtype)
+        vc = randn((b, s_max, HKV, DH), dtype)
+        n = torch.tensor(length, dtype=torch.int32, device=dev)
+        case = (f"B={b},S_max={s_max},length={length},H={HQ}/{HKV},Dh={DH},{dtype_name(dtype)}"
+                + (f",window={window}" if window else ""))
+        e = parity("decode_attention", case, dk.decode_attention(qd, kc, vc, n, window=window),
+                   dr.decode_attention(qd, kc, vc, n, window=window), ATTN_TOL[dtype_name(dtype)])
+        err = max(err, e) if dtype == bf16 else err
+        if dtype == f32:
+            del kc, vc
+            torch.cuda.empty_cache()
+    q4 = qd[:, :, None]
+    k_valid = kc[:, :DEC_LEN].transpose(1, 2).contiguous()
+    v_valid = vc[:, :DEC_LEN].transpose(1, 2).contiguous()
+    rows["decode_attention"] = dict(
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention/kernel.py:94",
+        shape=f"B={DEC_B},S_max={DEC_SMAX},length={DEC_LEN},H={HQ}/{HKV},Dh={DH},bf16", max_abs_err=err,
+        ms=median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
+        plain_ms=median_ms(lambda: dr.decode_attention(qd, kc, vc, n), **heavy),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            q4, k_valid, v_valid, enable_gqa=True)),
+        device_us=device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
+                                     LLM_SYMBOLS["decode_attention"]),
+        bound=bound(*decode_work(DEC_B, DEC_LEN, bf16), PEAK_BF16_OPS_PER_S),
+    )
+    del qd, kc, vc, q4, k_valid, v_valid
+    torch.cuda.empty_cache()
+
+    # swiglu: the llama FFN (D = 2048, F = 8192).
+    d, f = D_MODEL, D_FF
+
+    def swiglu_inputs(t, dtype):
+        return (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
+                randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
+
+    def swiglu_work(t, dtype):
+        size = torch.tensor([], dtype=dtype).element_size()
+        return size * (2 * t * d + 3 * d * f), 6 * t * d * f
+
+    err = 0.0
+    for t, dtype in ((16, f32), (4096, f32), (16, bf16), (4096, bf16), (SERVE_B * SERVE_S, bf16)):
+        args = swiglu_inputs(t, dtype)
+        e = parity("swiglu", f"T={t},D={d},F={f},{dtype_name(dtype)}", sk.swiglu(*args),
+                   sr.swiglu(*args), SWIGLU_TOL[dtype_name(dtype)])
+        err = max(err, e) if dtype == bf16 else err
+        if t in (16, 4096):
+            extra[f"swiglu_T{t}_{dtype_name(dtype)}"] = {
+                "ms": median_ms(lambda: sk.swiglu(*args), **heavy),
+                "plain_ms": median_ms(lambda: sr.swiglu(*args), **heavy),
+                "bound_ms": bound(*swiglu_work(t, dtype), PEAK_BF16_OPS_PER_S if dtype == bf16
+                                  else PEAK_F32_OPS_PER_S)[0]}
+    t = SERVE_B * SERVE_S
+    rows["swiglu"] = dict(
+        source="src/repro_torch/csrc/swiglu.cu",
+        replaces="src/repro/kernels/swiglu/kernel.py:60",
+        shape=f"T={t},D={d},F={f},bf16", max_abs_err=err,
+        ms=median_ms(lambda: sk.swiglu(*args), **heavy),
+        plain_ms=median_ms(lambda: sr.swiglu(*args), **heavy),
+        library_ms=None,
+        device_us=device_us_per_call(lambda: sk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
+        bound=bound(*swiglu_work(t, bf16), PEAK_BF16_OPS_PER_S),
+    )
+    del args
+    torch.cuda.empty_cache()
+    _build.LAUNCHES.clear()  # parity and timing launches are not the path's
+    emit({"phase": "llm_kernels", "seconds": time.perf_counter() - t_phase,
+          "rows": {k: {kk: (list(vv) if kk == "bound" else vv) for kk, vv in v.items()
+                       if kk not in ("source", "replaces")} for k, v in rows.items()},
+          "other_shapes": extra})
+    return rows
+
+
+def _cpu_copy(params):
+    return {k: _cpu_copy(v) if isinstance(v, dict) else v.cpu() for k, v in params.items()}
+
+
+def llm_card_vs_cpu_phase(dev):
+    """llama3.2-1b at full width, 2 layers: the card's greedy run against
+    the CPU's plain versions teacher-forced on the card's tokens."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import init_params
+
+    cpu = torch.device("cpu")
+    b, s, steps = 2, 256, 8
+    tols = {torch.float32: 1e-3, torch.bfloat16: 5e-2}  # |d| <= tol * (1 + |cpu|)
+    min_agree = {torch.float32: 1.0, torch.bfloat16: 0.75}
+    for dtype in (torch.bfloat16, torch.float32):
+        t_phase = time.perf_counter()
+        cfg = dataclasses.replace(get_config(LLM_ARCH, "full"), n_layers=2, dtype=dtype)
+        params = init_params(cfg, seed=1, device=dev)
+        params_cpu = _cpu_copy(params)
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(3))
+        cache = serve.init_cache(cfg, b, s + steps, device=dev)
+        lg, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
+        card, fed = [lg.float().cpu()], []
+        for _ in range(steps):
+            tok = lg.argmax(-1)
+            fed.append(tok.cpu())
+            lg, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+            card.append(lg.float().cpu())
+        t_cpu = time.perf_counter()
+        cache_c = serve.init_cache(cfg, b, s + steps, device=cpu)
+        lg, cache_c = serve.prefill(params_cpu, cfg, {"tokens": tokens}, cache_c, device=cpu)
+        host = [lg.float()]
+        for tok in fed:
+            lg, cache_c = serve.decode_step(params_cpu, cfg, tok, cache_c, device=cpu)
+            host.append(lg.float())
+        cpu_s = time.perf_counter() - t_cpu
+        errs = [close_err(a, c, tols[dtype]) for a, c in zip(card, host)]
+        agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum()) for a, c in zip(card, host))
+        share = agree / (b * (steps + 1))
+        ok = all(e[1] for e in errs)
+        emit({"phase": "llm_card_vs_cpu", "dtype": dtype_name(dtype), "layers": 2,
+              "prompts": b, "prompt_tokens": s, "greedy_steps": steps,
+              "max_abs_logit_err": max(e[0] for e in errs), "tol": tols[dtype],
+              "logits_within_tol": ok, "greedy_agree_share": share,
+              "logit_abs_max": float(max(c.abs().max() for c in host)),
+              "cache_length": [int(cache["length"]), int(cache_c["length"])],
+              "cpu_seconds": cpu_s, "seconds": time.perf_counter() - t_phase})
+        check(ok, f"llm_card_vs_cpu {dtype_name(dtype)}: logits differ beyond {tols[dtype]}")
+        check(share >= min_agree[dtype],
+              f"llm_card_vs_cpu {dtype_name(dtype)}: greedy tokens agree on {share:.3f}")
+        check(int(cache["length"]) == int(cache_c["length"]) == s + steps,
+              "llm_card_vs_cpu: cache length")
+        del params, params_cpu, cache, cache_c
+        torch.cuda.empty_cache()
+
+
+def profile_breakdown(fn, calls=1):
+    """(unprofiled wall ms, device kernel ms, rows) per call of ``fn``;
+    rows: (kernel name, device us, launches) by device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / calls, e.count / calls)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return wall_ms, sum(r[1] for r in rows) / 1e3, rows
+
+
+def breakdown_json(wall_ms, device_ms, rows):
+    ours = {name: {"device_ms": sum(t for k, t, _c in rows if any(s in k for s in syms)) / 1e3,
+                   "launches": sum(c for k, _t, c in rows if any(s in k for s in syms))}
+            for name, syms in LLM_SYMBOLS.items()}
+    return {"unprofiled_ms": wall_ms, "device_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms, "port_kernels": ours,
+            "top": [{"kernel": k[:90], "device_ms": t / 1e3, "launches": c}
+                    for k, t, c in rows[:10]]}
+
+
+def llm_serve_phase(dev):
+    """Full llama3.2-1b: prefill 4 x 4096, 32 greedy decode steps, launch
+    counts checked; returns (launches, prompts/s, params, cfg)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, LLM_KERNELS
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import init_params
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LLM_ARCH, "full")
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=gen, device=dev)
+    # Warm-up outside the counted run (cuBLAS handles, first launches).
+    warm = serve.init_cache(cfg, 1, 160, device=dev)
+    lg, warm = serve.prefill(params, cfg, {"tokens": tokens[:1, :128]}, warm, device=dev)
+    serve.decode_step(params, cfg, lg.argmax(-1), warm, device=dev)
+    del warm
+    cache = serve.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS, device=dev)
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_finite = bool(torch.isfinite(logits).all())
+    cache_4096 = dict(cache)
+    tok = logits.argmax(-1)
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        logits, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = {k: LAUNCHES[k] for k in LLM_KERNELS}
+    n_layers = cfg.n_layers
+    want = {"flash_attention": n_layers, "decode_attention": n_layers * SERVE_STEPS,
+            "swiglu": 2 * n_layers * (1 + SERVE_STEPS)}
+    length = int(cache["length"])
+    decode_finite = bool(torch.isfinite(logits).all())
+
+    pre = breakdown_json(*profile_breakdown(
+        lambda: serve.prefill(params, cfg, {"tokens": tokens}, cache_4096, device=dev)))
+    step = breakdown_json(*profile_breakdown(
+        lambda: serve.decode_step(params, cfg, tok, cache_4096, device=dev), calls=5))
+    emit({"phase": "llm_serve", "arch": cfg.arch, "layers": n_layers, "dtype": "bfloat16",
+          "params": cfg.params_count(), "prompts": SERVE_B, "prompt_tokens": SERVE_S,
+          "decode_steps": SERVE_STEPS, "launches": launches, "launches_expected": want,
+          "cache_length": length, "init_seconds": init_s, "prefill_seconds": prefill_s,
+          "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
+          "prefill_prompts_per_s": SERVE_B / prefill_s,
+          "decode_ms_per_step": decode_s * 1e3 / SERVE_STEPS,
+          "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
+          "prefill_profile": pre, "decode_step_profile": step,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
+          "seconds": time.perf_counter() - t_phase})
+    check(prefill_finite and decode_finite, "llm_serve: non-finite logits")
+    check(length == SERVE_S + SERVE_STEPS, f"llm_serve: cache length {length}")
+    check(launches == want, f"llm_serve: launches {launches}, expected {want}")
+    del cache, cache_4096, tokens
+    torch.cuda.empty_cache()
+    return launches, SERVE_B / prefill_s, params, cfg
+
+
+def llm_decode_32k_phase(dev, params, cfg):
+    """The decode step against 16 x 32,000 cached tokens; returns
+    (launches, tokens/s)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, LLM_KERNELS
+    from repro_torch.models import serve
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cache = serve.init_cache(cfg, DEC_B, DEC_SMAX, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    for key in ("k", "v"):
+        for layer in range(cfg.n_layers):
+            cache[key][layer].normal_(generator=gen)
+    cache["length"] = torch.full((), DEC_LEN, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab, (DEC_B,), generator=gen, device=dev)
+    serve.decode_step(params, cfg, tok, cache, device=dev)  # warm-up (rewritten below)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t_phase
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    step_cache = cache
+    for _ in range(DEC_STEPS):
+        logits, step_cache = serve.decode_step(params, cfg, tok, step_cache, device=dev)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / DEC_STEPS
+    launches = {k: LAUNCHES[k] for k in LLM_KERNELS}
+    want = {"flash_attention": 0, "decode_attention": cfg.n_layers * DEC_STEPS,
+            "swiglu": 2 * cfg.n_layers * DEC_STEPS}
+    finite = bool(torch.isfinite(logits).all())
+    length = int(step_cache["length"])
+    prof = breakdown_json(*profile_breakdown(
+        lambda: serve.decode_step(params, cfg, tok, cache, device=dev), calls=3))
+    # The step's bound: the valid K / V prefix of every layer (after this
+    # step's write) and every weight once, over the HBM rate.
+    kv = [2 * cfg.n_layers * DEC_B * (DEC_LEN + 1 + i) * cfg.kv_dim * 2 for i in range(DEC_STEPS)]
+    weights = 2 * cfg.params_count()
+    bound_ms = (sum(kv) / DEC_STEPS + weights) / PEAK_BYTES_PER_S * 1e3
+    emit({"phase": "llm_decode_32k", "batch": DEC_B, "s_max": DEC_SMAX, "length_start": DEC_LEN,
+          "steps": DEC_STEPS, "cache_gb": 2 * cache["k"].numel() * 2 / 1e9,
+          "launches": launches, "launches_expected": want, "cache_length": length,
+          "ms_per_step": step_s * 1e3, "tokens_per_s": DEC_B / step_s,
+          "bound_ms_per_step": bound_ms, "bound_share": bound_ms / (step_s * 1e3),
+          "profile": prof, "fill_seconds": fill_s,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
+          "seconds": time.perf_counter() - t_phase})
+    check(finite, "llm_decode_32k: non-finite logits")
+    check(length == DEC_LEN + DEC_STEPS, f"llm_decode_32k: cache length {length}")
+    check(launches == want, f"llm_decode_32k: launches {launches}, expected {want}")
+    del cache, step_cache
+    torch.cuda.empty_cache()
+    return launches, DEC_B / step_s
+
+
+def serving_plan_phase(prompts_per_s, tokens_per_s):
+    """DRS's chip split of the serving pipeline from the card's own rates
+    (``launch/serve.py``'s defaults: 4 requests/s, 24 chips, 64 tokens)."""
+    from repro_torch.serving.pipeline import ServingModel, StageRates
+
+    rates = StageRates(prefill_per_chip=prompts_per_s, decode_per_chip=tokens_per_s)
+    model = ServingModel(rates, mean_output_tokens=64)
+    alloc = model.plan(4.0, k_max=24)
+    split = model.split(alloc)
+    emit({"phase": "serving_plan", "rates": {"prefill_prompts_per_s_per_chip": prompts_per_s,
+                                             "decode_tokens_per_s_per_chip": tokens_per_s},
+          "lam0": 4.0, "k_max": 24, "mean_output_tokens": 64, "split": split,
+          "expected_sojourn_s": alloc.expected_sojourn,
+          "expected_latency_s": model.expected_latency(4.0, split)})
+    check(split["prefill"] >= 1 and split["decode"] >= 1, f"serving_plan: split {split}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -730,6 +1208,7 @@ def main() -> int:
           "library": str(lib_path.relative_to(ROOT))})
 
     rows = kernel_phase(dev)
+    rows.update(llm_kernels_phase(dev))
     if quick:
         emit({"phase": "kernels_only", "rows": {k: {kk: vv for kk, vv in v.items()
                                                       if kk != "bound"}
@@ -740,9 +1219,15 @@ def main() -> int:
         check(n > 0, f"kernel {k} was never launched on the main path")
     vld_card_vs_cpu_phase(dev)
     launches.update(vld_live_phase(dev))
+    llm_card_vs_cpu_phase(dev)
+    serve_launches, prompts_per_s, params, cfg = llm_serve_phase(dev)
+    dec_launches, tokens_per_s = llm_decode_32k_phase(dev, params, cfg)
+    launches.update({k: serve_launches[k] + dec_launches[k] for k in serve_launches})
+    serving_plan_phase(prompts_per_s, tokens_per_s)
 
     kernels = []
     for k, row in rows.items():
+        check(launches[k] > 0 or k == "pairwise_sq_l2", f"kernel {k} never ran on its path")
         bound_ms, bound_by = row["bound"]
         kernels.append({
             "name": k, "route": "cuda", "source": row["source"], "replaces": row["replaces"],

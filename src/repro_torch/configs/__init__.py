@@ -1,0 +1,56 @@
+"""Architecture configs of the port (``repro/configs``).
+
+``get_config(arch, preset)`` returns a :class:`~repro_torch.models.common
+.ModelConfig`: preset ``"full"`` is the published configuration, ``"smoke"``
+a reduced one of the same family for CPU tests.  Only the dense family's
+``llama3.2-1b`` is ported; every other architecture in :data:`ARCHS`
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__all__ = ["ARCHS", "get_config"]
+
+ARCHS = [
+    "rwkv6-1.6b",
+    "command-r-35b",
+    "llama3.2-1b",
+    "yi-34b",
+    "phi3-medium-14b",
+    "qwen2-vl-2b",
+    "mixtral-8x22b",
+    "kimi-k2-1t-a32b",
+    "zamba2-7b",
+    "whisper-medium",
+]
+
+_MODULES = {"llama3.2-1b": "llama3_2_1b"}
+
+# Where each unported architecture waits (ROADMAP Queue 1 item 11b).
+_WAITS = {
+    "rwkv6-1.6b": "ssm family: the rwkv6_scan kernel",
+    "command-r-35b": "dense family beyond llama3.2-1b",
+    "yi-34b": "dense family beyond llama3.2-1b",
+    "phi3-medium-14b": "dense family beyond llama3.2-1b",
+    "qwen2-vl-2b": "vlm family: M-RoPE and patch embeddings",
+    "mixtral-8x22b": "moe family: moe_layer and expert parallelism",
+    "kimi-k2-1t-a32b": "moe family: moe_layer and expert parallelism",
+    "zamba2-7b": "hybrid family: the ssd_scan kernel",
+    "whisper-medium": "audio family: encoder-decoder attention",
+}
+
+
+def get_config(arch: str, preset: str = "full"):
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
+    if arch not in _MODULES:
+        raise NotImplementedError(
+            f"{arch} is not ported yet ({_WAITS[arch]}; ROADMAP Queue 1 item 11b)")
+    mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
+    if preset == "full":
+        return mod.full()
+    if preset == "smoke":
+        return mod.smoke()
+    raise ValueError(f"unknown preset {preset!r}")

@@ -9,7 +9,8 @@ device.  :func:`scenario_from_reference` rebuilds a reference ``Scenario``
 (graph, traces, settings) as this package's :class:`Scenario`.  With them
 both packages run exactly the same fleet.  :func:`vld_from_reference`
 carries a reference ``VLDConfig`` and logo library (the VLD path's
-"weights") across.
+"weights") across, :func:`model_params_from_reference` a reference model's
+parameter pytree.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from .streaming.apps.vld import VLDConfig
 from .streaming.batchsim import BatchArrays
 from .streaming.scenarios import ArrivalTrace, Scenario
 
-__all__ = ["from_reference", "scenario_from_reference", "vld_from_reference"]
+__all__ = ["from_reference", "scenario_from_reference", "vld_from_reference",
+           "model_params_from_reference"]
 
 
 def _arr(x, dtype=None):
@@ -112,3 +114,29 @@ def vld_from_reference(cfg, library) -> tuple[VLDConfig, np.ndarray]:
     (read by name) and the logo library as a float32 numpy array."""
     port_cfg = VLDConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(VLDConfig)})
     return port_cfg, np.array(library, dtype=np.float32)
+
+
+def _tensor(x, dtype, device) -> torch.Tensor:
+    """One array-like (numpy, or anything with ``__array__``) as a tensor;
+    a bfloat16 array (``ml_dtypes``) passes bit for bit through int16."""
+    a = np.array(x)  # a writable, contiguous host copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def model_params_from_reference(params, cfg, *, device=None) -> dict:
+    """The reference model's parameter pytree (nested dicts of arrays: JAX
+    arrays or their numpy copies) as this package's dict, same names and
+    stacked ``[L, ...]`` layout, in ``cfg.dtype`` on ``device`` (default:
+    the CUDA device)."""
+    dev = resolve_device(device)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return _tensor(tree, cfg.dtype, dev)
+
+    return walk(params)

@@ -1,5 +1,5 @@
-"""Hand-written Hopper kernels of the control loop and the VLD matcher,
-one package each.
+"""Hand-written Hopper kernels of the control loop, the VLD matcher and the
+LLM serving path, one package each.
 
 Every kernel keeps three faces, as in the JAX package's ``repro.kernels``:
 
@@ -16,7 +16,7 @@ name; ``LAUNCHES.clear()`` resets it.
 
 from ._build import LAUNCHES
 
-__all__ = ["LAUNCHES", "KERNELS", "VLD_KERNELS"]
+__all__ = ["LAUNCHES", "KERNELS", "VLD_KERNELS", "LLM_KERNELS"]
 
 #: The kernels of the control-loop slice, by launch-counter name.
 KERNELS = ("queue_step", "erlang_c", "gain_topr", "decide_fused")
@@ -24,3 +24,7 @@ KERNELS = ("queue_step", "erlang_c", "gain_topr", "decide_fused")
 #: The kernels of the live VLD matcher (``pairwise_sq_l2`` shares its
 #: distance tile with ``match_count``; no path of the port calls it).
 VLD_KERNELS = ("pairwise_sq_l2", "match_count")
+
+#: The kernels of the dense LLM serving path (``swiglu`` counts both of its
+#: launches).
+LLM_KERNELS = ("flash_attention", "decode_attention", "swiglu")

@@ -10,7 +10,10 @@ an edited source rebuilds and an unchanged tree reuses the library.
 
 ``-fmad=false`` forbids multiply-add contraction and nvcc's default
 ``-prec-div=true`` keeps float division IEEE-rounded: together they let
-each kernel's float results match its plain PyTorch version bitwise.
+each control-loop and VLD kernel's float results match its plain PyTorch
+version bitwise.  The model kernels (attention, SwiGLU) are held to
+tolerances instead and ask for their multiply-adds explicitly (``fmaf``,
+``mma.sync``), so the flag does not halve their inner loops.
 
 Nothing here runs at import time (the package must import on hosts with
 neither ``nvcc`` nor a GPU).  :data:`LAUNCHES` counts kernel launches by
@@ -35,7 +38,8 @@ __all__ = ["LAUNCHES", "SOURCES", "NVCC_FLAGS", "build", "library", "check_error
            "count_launch"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu")
+SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu",
+           "flash_attention.cu", "decode_attention.cu", "swiglu.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -138,6 +142,7 @@ def library():
 
             lib = ctypes.CDLL(str(build()))
             p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            ll = ctypes.c_longlong
             sigs = {
                 "repro_queue_step": [p] * 7 + [i, i, p],
                 "repro_erlang_b_table": [p, p, i, i, i, p],
@@ -145,6 +150,10 @@ def library():
                 "repro_decide_fused": [p] * 11 + [i] * 6 + [p],
                 "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, p],
                 "repro_match_count": [p, p, p, f, p, i, i, i, i, p],
+                "repro_flash_attention": [p] * 4 + [ll] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
+                "repro_decode_attention": [p, p, p, p, p, i, i, i, i, i, f, i, i, i, p],
+                "repro_swiglu_up": [p] * 4 + [i] * 5 + [p],
+                "repro_swiglu_down": [p] * 3 + [i] * 5 + [p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -182,6 +191,23 @@ def require(name: str, t, dtype, shape=None, *, device=None) -> None:
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def require_operands(name: str, tensors) -> bool:
+    """The model kernels' input contract: CUDA tensors on one device, all
+    bfloat16 or all float32 (no silent casts); True for bfloat16."""
+    import torch
+
+    dev, dtype = tensors[0].device, tensors[0].dtype
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: expected CUDA tensors on one device, got {t.device}")
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{name}: expected bfloat16 or float32, got {dtype}")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
+    return dtype == torch.bfloat16
 
 
 def launch_args(t) -> tuple[int, int]:

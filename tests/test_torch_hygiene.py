@@ -28,6 +28,12 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.streaming.engine, repro_torch.core.scheduler\n"
         "import repro_torch.core.measurer, repro_torch.core.negotiator\n"
         "import repro_torch.core.rebalance, repro_torch.api.graph\n"
+        "import repro_torch.configs, repro_torch.configs.llama3_2_1b\n"
+        "import repro_torch.models.common, repro_torch.models.attention\n"
+        "import repro_torch.models.ffn, repro_torch.models.transformer\n"
+        "import repro_torch.models.serve, repro_torch.serving.pipeline\n"
+        "import repro_torch.kernels.flash_attention.ops\n"
+        "import repro_torch.kernels.decode_attention.ops, repro_torch.kernels.swiglu.ops\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -90,6 +96,28 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         lambda: DRSSession.bind(vld_graph, "engine"),
         lambda: vld_graph.bind("engine"),
         lambda: StreamEngine([Operator("a", lambda x: [])]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_serving_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.convert import model_params_from_reference
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import init_params
+
+    cfg = get_config("llama3.2-1b", "smoke")
+    params = init_params(cfg, device="cpu")
+    cache = serve.init_cache(cfg, 1, 8, device="cpu")
+    tokens = np.zeros((1, 4), np.int32)
+    calls = [
+        lambda: init_params(cfg),
+        lambda: serve.init_cache(cfg, 1, 8),
+        lambda: serve.prefill(params, cfg, {"tokens": tokens}, cache),
+        lambda: serve.decode_step(params, cfg, tokens[:, 0], cache),
+        lambda: model_params_from_reference({"embed": np.zeros((2, 2), np.float32)}, cfg),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
