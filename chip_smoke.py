@@ -49,7 +49,10 @@ Phases, each printing one JSON line:
    unsquared distance: the nearest single PyTorch call), null for the
    others; for the three LLM kernels it is ``scaled_dot_product_attention``
    (``enable_gqa=True``) on the same inputs for the two attention kernels
-   (decode: on the valid prefix) and null for ``swiglu``;
+   (decode: on the valid prefix) and null for ``swiglu`` and the two scans
+   (no single PyTorch call computes a chunked linear recurrence).
+   Launches of the attention and SwiGLU kernels sum the llama3.2-1b and
+   zamba2-7b paths, each counted from zero;
 9. ``llm_kernels`` (with the parity phase, before the main path):
    ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
    plain versions on the card, in bf16 and float32 (tolerances in the
@@ -71,7 +74,26 @@ Phases, each printing one JSON line:
     tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps timed
     against the step's bound (KV prefix + weights over 3.35 TB/s);
 13. ``serving_plan``: DRS's prefill / decode chip split
-    (``ServingModel.plan(4.0, k_max=24)``) from the two measured rates.
+    (``ServingModel.plan(4.0, k_max=24)``) from the two measured rates;
+14. ``ssm_kernels`` (with the parity phases, before the main path):
+    ``rwkv6_scan`` and ``ssd_scan`` against their plain versions at the
+    serving shapes (4 x 4096; rwkv6-1.6b's 32 heads of 64, zamba2-7b's 112
+    heads of 64 with B / C shared by the heads) in bf16 and float32 with
+    seeded decays spread over the models' clamp ranges and a non-zero
+    initial state, at the clamp floors (w = 0.05, log a = -6) against a
+    float64 step recurrence, and in the [BH] layout with a short last
+    chunk; flash and decode attention at zamba2's head dim 112 (MHA); each
+    timed beside its plain version and its bound;
+15. ``ssm_card_vs_cpu``: rwkv6-1.6b and zamba2-7b at full width cut to 2
+    layers (zamba2: one shared-block site), bf16 and float32, as phase 10;
+16. ``rwkv6_serve`` and ``zamba2_serve``: each full model (24 / 81 layers)
+    in bf16, parameters drawn on the card from seed 0: 4 x 4096 prefill and
+    32 greedy decode steps, launches checked exactly (rwkv6: 24
+    ``rwkv6_scan`` per prefill, no kernel per step; zamba2: 81
+    ``ssd_scan``, 14 ``flash_attention`` and 28 ``swiglu`` per prefill, 14
+    ``decode_attention`` and 28 ``swiglu`` per step), tokens/s, ms per
+    step, peak memory and ``torch.profiler`` breakdowns;
+17. ``serving_plan`` for each of the two from its own measured rates.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -81,6 +103,7 @@ directory without the package beside this script.
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -741,7 +764,8 @@ HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
 ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
 SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
 LLM_SYMBOLS = {"flash_attention": ("flash_fwd_kernel",), "decode_attention": ("decode_kernel",),
-               "swiglu": ("gemm_bf16_kernel", "gemm_f32_kernel")}
+               "swiglu": ("gemm_bf16_kernel", "gemm_f32_kernel"),
+               "rwkv6_scan": ("rwkv6_scan_kernel",), "ssd_scan": ("ssd_scan_kernel",)}
 
 
 def dtype_name(dtype):
@@ -751,17 +775,30 @@ def dtype_name(dtype):
 def close_err(got, want, tol, rule="element"):
     """(max |got - want|, whether every difference is within tolerance): at
     most ``tol * (1 + |want|)`` ("element"), ``tol`` times the largest
-    ``|want|`` in the same last-axis row ("row"), or in the whole tensor
-    ("tensor")."""
+    ``|want|`` in the same last-axis row ("row"), ``tol`` times one plus it
+    ("row1"), or ``tol`` times the largest in the whole tensor ("tensor")."""
     import torch
 
     got, want = got.double(), want.double()
     diff = (got - want).abs()
     limit = {"element": lambda: tol * (1 + want.abs()),
              "row": lambda: tol * want.abs().amax(-1, keepdim=True),
+             "row1": lambda: tol * (1 + want.abs().amax(-1, keepdim=True)),
              "tensor": lambda: tol * want.abs().max()}[rule]()
     ok = bool(torch.isfinite(got).all()) and bool((diff <= limit).all())
     return float(diff.max()), ok
+
+
+def hold(phase, name, case, got, want, tol_rule):
+    """Emit and check one parity case; returns the max abs error."""
+    tol, rule = tol_rule
+    err, ok = close_err(got, want, tol, rule)
+    emit({"phase": phase, "kernel": name, "case": case, "max_abs_err": err, "tol": tol,
+          "tol_rule": rule, "ok": ok})
+    check(ok and got.shape == want.shape and got.dtype == want.dtype,
+          f"{name} {case}: kernel differs from its reference (max abs err {err}, "
+          f"tol {tol})")
+    return err
 
 
 def device_us_per_call(fn, symbols, calls=5):
@@ -792,14 +829,7 @@ def llm_kernels_phase(dev):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
     def parity(name, case, got, want, tol_rule):
-        tol, rule = tol_rule
-        err, ok = close_err(got, want, tol, rule)
-        emit({"phase": "llm_parity", "kernel": name, "case": case, "max_abs_err": err,
-              "tol": tol, "tol_rule": rule, "ok": ok})
-        check(ok and got.shape == want.shape and got.dtype == want.dtype,
-              f"{name} {case}: kernel differs from its plain version (max abs err {err}, "
-              f"tol {tol})")
-        return err
+        return hold("llm_parity", name, case, got, want, tol_rule)
 
     rows, extra = {}, {}
 
@@ -938,61 +968,71 @@ def _cpu_copy(params):
     return {k: _cpu_copy(v) if isinstance(v, dict) else v.cpu() for k, v in params.items()}
 
 
+def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8):
+    """``cfg`` with parameters drawn on the card from seed 1: a greedy run
+    on the card (the kernels) against the CPU's plain versions
+    teacher-forced on the card's tokens.  Logits within ``tol * (1 +
+    |cpu|)``, greedy tokens agreeing on all (float32) or >= 75 % (bf16)."""
+    import torch
+
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import init_params
+
+    cpu = torch.device("cpu")
+    dtype = cfg.dtype
+    tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}[dtype]
+    min_agree = {torch.float32: 1.0, torch.bfloat16: 0.75}[dtype]
+    t_phase = time.perf_counter()
+    params = init_params(cfg, seed=1, device=dev)
+    params_cpu = _cpu_copy(params)
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(3))
+    cache = serve.init_cache(cfg, b, s + steps, device=dev)
+    lg, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
+    card, fed = [lg.float().cpu()], []
+    for _ in range(steps):
+        tok = lg.argmax(-1)
+        fed.append(tok.cpu())
+        lg, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+        card.append(lg.float().cpu())
+    t_cpu = time.perf_counter()
+    cache_c = serve.init_cache(cfg, b, s + steps, device=cpu)
+    lg, cache_c = serve.prefill(params_cpu, cfg, {"tokens": tokens}, cache_c, device=cpu)
+    host = [lg.float()]
+    for tok in fed:
+        lg, cache_c = serve.decode_step(params_cpu, cfg, tok, cache_c, device=cpu)
+        host.append(lg.float())
+    cpu_s = time.perf_counter() - t_cpu
+    errs = [close_err(a, c, tol) for a, c in zip(card, host)]
+    agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum()) for a, c in zip(card, host))
+    share = agree / (b * (steps + 1))
+    ok = all(e[1] for e in errs)
+    name = dtype_name(dtype)
+    emit({"phase": phase, "arch": cfg.arch, "dtype": name, "layers": cfg.n_layers,
+          "prompts": b, "prompt_tokens": s, "greedy_steps": steps,
+          "max_abs_logit_err": max(e[0] for e in errs), "tol": tol,
+          "logits_within_tol": ok, "greedy_agree_share": share,
+          "logit_abs_max": float(max(c.abs().max() for c in host)),
+          "cache_length": [int(cache["length"]), int(cache_c["length"])],
+          "cpu_seconds": cpu_s, "seconds": time.perf_counter() - t_phase})
+    check(ok, f"{phase} {cfg.arch} {name}: logits differ beyond {tol}")
+    check(share >= min_agree, f"{phase} {cfg.arch} {name}: greedy tokens agree on {share:.3f}")
+    check(int(cache["length"]) == int(cache_c["length"]) == s + steps,
+          f"{phase} {cfg.arch}: cache length")
+    del params, params_cpu, cache, cache_c
+    torch.cuda.empty_cache()
+
+
 def llm_card_vs_cpu_phase(dev):
-    """llama3.2-1b at full width, 2 layers: the card's greedy run against
-    the CPU's plain versions teacher-forced on the card's tokens."""
+    """llama3.2-1b at full width, 2 layers, in bf16 and float32."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import serve
-    from repro_torch.models.transformer import init_params
 
-    cpu = torch.device("cpu")
-    b, s, steps = 2, 256, 8
-    tols = {torch.float32: 1e-3, torch.bfloat16: 5e-2}  # |d| <= tol * (1 + |cpu|)
-    min_agree = {torch.float32: 1.0, torch.bfloat16: 0.75}
     for dtype in (torch.bfloat16, torch.float32):
-        t_phase = time.perf_counter()
         cfg = dataclasses.replace(get_config(LLM_ARCH, "full"), n_layers=2, dtype=dtype)
-        params = init_params(cfg, seed=1, device=dev)
-        params_cpu = _cpu_copy(params)
-        tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(3))
-        cache = serve.init_cache(cfg, b, s + steps, device=dev)
-        lg, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
-        card, fed = [lg.float().cpu()], []
-        for _ in range(steps):
-            tok = lg.argmax(-1)
-            fed.append(tok.cpu())
-            lg, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
-            card.append(lg.float().cpu())
-        t_cpu = time.perf_counter()
-        cache_c = serve.init_cache(cfg, b, s + steps, device=cpu)
-        lg, cache_c = serve.prefill(params_cpu, cfg, {"tokens": tokens}, cache_c, device=cpu)
-        host = [lg.float()]
-        for tok in fed:
-            lg, cache_c = serve.decode_step(params_cpu, cfg, tok, cache_c, device=cpu)
-            host.append(lg.float())
-        cpu_s = time.perf_counter() - t_cpu
-        errs = [close_err(a, c, tols[dtype]) for a, c in zip(card, host)]
-        agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum()) for a, c in zip(card, host))
-        share = agree / (b * (steps + 1))
-        ok = all(e[1] for e in errs)
-        emit({"phase": "llm_card_vs_cpu", "dtype": dtype_name(dtype), "layers": 2,
-              "prompts": b, "prompt_tokens": s, "greedy_steps": steps,
-              "max_abs_logit_err": max(e[0] for e in errs), "tol": tols[dtype],
-              "logits_within_tol": ok, "greedy_agree_share": share,
-              "logit_abs_max": float(max(c.abs().max() for c in host)),
-              "cache_length": [int(cache["length"]), int(cache_c["length"])],
-              "cpu_seconds": cpu_s, "seconds": time.perf_counter() - t_phase})
-        check(ok, f"llm_card_vs_cpu {dtype_name(dtype)}: logits differ beyond {tols[dtype]}")
-        check(share >= min_agree[dtype],
-              f"llm_card_vs_cpu {dtype_name(dtype)}: greedy tokens agree on {share:.3f}")
-        check(int(cache["length"]) == int(cache_c["length"]) == s + steps,
-              "llm_card_vs_cpu: cache length")
-        del params, params_cpu, cache, cache_c
-        torch.cuda.empty_cache()
+        card_vs_cpu(dev, cfg, "llm_card_vs_cpu")
 
 
 def profile_breakdown(fn, calls=1):
@@ -1025,7 +1065,8 @@ def breakdown_json(wall_ms, device_ms, rows):
                    "launches": sum(c for k, _t, c in rows if any(s in k for s in syms))}
             for name, syms in LLM_SYMBOLS.items()}
     return {"unprofiled_ms": wall_ms, "device_ms": device_ms,
-            "device_busy_share": device_ms / wall_ms, "port_kernels": ours,
+            "device_busy_share": device_ms / wall_ms,
+            "device_launches": sum(c for _k, _t, c in rows), "port_kernels": ours,
             "top": [{"kernel": k[:90], "device_ms": t / 1e3, "launches": c}
                     for k, t, c in rows[:10]]}
 
@@ -1159,7 +1200,7 @@ def llm_decode_32k_phase(dev, params, cfg):
     return launches, DEC_B / step_s
 
 
-def serving_plan_phase(prompts_per_s, tokens_per_s):
+def serving_plan_phase(prompts_per_s, tokens_per_s, arch=LLM_ARCH):
     """DRS's chip split of the serving pipeline from the card's own rates
     (``launch/serve.py``'s defaults: 4 requests/s, 24 chips, 64 tokens)."""
     from repro_torch.serving.pipeline import ServingModel, StageRates
@@ -1168,12 +1209,391 @@ def serving_plan_phase(prompts_per_s, tokens_per_s):
     model = ServingModel(rates, mean_output_tokens=64)
     alloc = model.plan(4.0, k_max=24)
     split = model.split(alloc)
-    emit({"phase": "serving_plan", "rates": {"prefill_prompts_per_s_per_chip": prompts_per_s,
+    emit({"phase": "serving_plan", "arch": arch,
+          "rates": {"prefill_prompts_per_s_per_chip": prompts_per_s,
                                              "decode_tokens_per_s_per_chip": tokens_per_s},
           "lam0": 4.0, "k_max": 24, "mean_output_tokens": 64, "split": split,
           "expected_sojourn_s": alloc.expected_sojourn,
           "expected_latency_s": model.expected_latency(4.0, split)})
     check(split["prefill"] >= 1 and split["decode"] >= 1, f"serving_plan: split {split}")
+
+# --------------------------------------------------------------------------- #
+# Phases 14-17: the ssm and hybrid families (rwkv6-1.6b, zamba2-7b)
+# --------------------------------------------------------------------------- #
+SSM_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
+# rwkv6-1.6b: 32 WKV heads of 64, chunk 32; zamba2-7b: 112 SSD heads of 64,
+# state 64, chunk 64, and a shared block of 32 MHA heads of 112 and a SwiGLU
+# FFN of width 14336 at d_model 3584.
+RWKV_H, RWKV_D, SSD_H, SSD_D, ZAMBA_HQ, ZAMBA_DH = 32, 64, 112, 64, 32, 112
+ZAMBA_D, ZAMBA_F = 3584, 14336
+# The scans against their plain versions: both compute in float32 (the
+# kernel with fmaf, its own summation order and exp of a difference where
+# the plain version subtracts in another order), so float32 is held to
+# 1e-4 of (1 + the output row's largest |value|) -- states carried over
+# 4096 steps and outputs that cancel carry their row's rounding -- and bf16,
+# rounded once from those values, to two ulps of the row's largest value.
+SCAN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (1e-4, "row1")}
+
+
+def scan_work(kind, b, h, s, dk, dv, chunk, size, shared_bc=False):
+    """(bytes, operations) of one scan call: every input read once and every
+    output written once, and the float32 operations of the chunked form
+    over the causal pairs (a multiply-add counts 2, any other op or exp 1).
+    zamba2's B and C are shared by the heads: they are read, and their
+    C . B products formed, once per batch row."""
+    ops = shared_ops = 0
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        tri = c * (c + 1) // 2  # pairs j <= i
+        if kind == "rwkv6":  # cross, pair weights (j < i), bonus, att @ v, decays, state
+            ops += (2 * c * dk * dv + 5 * (tri - c) * dk + 3 * c * dk + 2 * tri * dv
+                    + 4 * c * dk + 2 * c * dk * dv + 3 * dk * dv)
+        else:  # C . B; its decay weights, cross, att @ x, decays, state
+            shared_ops += 2 * tri * dk
+            ops += (3 * tri + 2 * c * dk * dv + 2 * tri * dv + 4 * c * dk
+                    + 2 * c * dk * dv + 2 * dk * dv)
+    ops = b * h * ops + b * (1 if shared_bc else h) * shared_ops
+    state = 2 * b * h * dk * dv * 4  # s0 in, S_T out (float32)
+    if kind == "rwkv6":  # r, k, v, out in the working dtype; lw float32; u
+        nbytes = b * h * s * ((2 * dk + 2 * dv) * size + 4 * dk) + h * dk * 4 + state
+    else:  # x, y in the working dtype; a float32; B, C
+        bc = 2 * b * (1 if shared_bc else h) * s * dk * size
+        nbytes = b * h * s * (2 * dv * size + 4) + bc + state
+    return nbytes, ops
+
+
+def ssm_kernels_phase(dev):
+    """``rwkv6_scan`` and ``ssd_scan`` against their plain versions at the
+    serving shapes (B = 4, S = 4096) in bf16 and float32 with seeded decays
+    spread over the models' clamp ranges and a non-zero initial state, at
+    the clamp floors against a float64 step recurrence, in the [BH] layout
+    with a short last chunk; flash and decode attention at zamba2's head dim
+    112 (MHA) and SwiGLU at its FFN width (D 3584, F 14336); each timed.
+    Returns the two scans' kernel-table rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.rwkv6_scan import kernel as rk, ref as rr
+    from repro_torch.kernels.ssd_scan import kernel as sk, ref as sr
+    from repro_torch.kernels.swiglu import kernel as gk, ref as gr
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(91)
+    bf16, f32 = torch.bfloat16, torch.float32
+    heavy = dict(runs=5, inner=2)
+    b, s = SERVE_B, SERVE_S
+    rows, extra = {}, {}
+
+    def randn(shape, dtype=f32, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def log_uniform(shape, lo, hi):  # -exp(U(log lo, log hi)): log-decays in [-hi, -lo]
+        x = torch.rand(shape, generator=gen, device=dev) * (math.log(hi) - math.log(lo))
+        return -torch.exp(x + math.log(lo))
+
+    # rwkv6: the model's [B, S, H, D] projections as [B, H, S, D] views; log-
+    # decays over [log 0.05, log 0.9995] (the model's clamp), a bonus per
+    # head, a non-zero state.
+    def rwkv_inputs(dtype, bb=b, ss=s, hh=RWKV_H, floor=False):
+        r, k, v = (randn((bb, ss, hh, RWKV_D), dtype).transpose(1, 2) for _ in range(3))
+        lw = log_uniform((bb, ss, hh, RWKV_D), 5e-4, -math.log(0.05)).transpose(1, 2)
+        if floor:
+            lw = torch.full_like(lw, math.log(0.05))
+        u = torch.rand((hh, RWKV_D), generator=gen, device=dev) * 0.6 - 0.3
+        return r, k, v, lw, u, randn((bb, hh, RWKV_D, RWKV_D))
+
+    def rwkv_f64(r, k, v, lw, u, s0):
+        r, k, v, w = (t.double() for t in (r, k, v, lw.exp()))
+        st, u = s0.double(), u.double()
+        out = torch.empty_like(v)
+        for t in range(r.shape[2]):
+            kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+            out[:, :, t] = torch.einsum("bhk,bhkv->bhv", r[:, :, t], st + u[..., None] * kv)
+            st = w[:, :, t, :, None] * st + kv
+        return out, st
+
+    err = 0.0
+    for dtype in (f32, bf16):
+        args = rwkv_inputs(dtype)
+        o, st = rk.rwkv6_scan(*args, chunk=32)
+        po, pst = rr.rwkv6_scan(*args, chunk=32)
+        case = f"B={b},S={s},H={RWKV_H},D={RWKV_D},{dtype_name(dtype)},chunk=32"
+        e = hold("ssm_parity", "rwkv6_scan", case, o, po, SCAN_TOL[dtype_name(dtype)])
+        hold("ssm_parity", "rwkv6_scan", case + ",state", st, pst, SCAN_TOL["float32"])
+        err = max(err, e) if dtype == bf16 else err
+        if dtype == f32:
+            extra["rwkv6_scan_float32"] = {
+                "ms": median_ms(lambda: rk.rwkv6_scan(*args, chunk=32), **heavy),
+                "plain_ms": median_ms(lambda: rr.rwkv6_scan(*args, chunk=32), runs=3, inner=1),
+                "bound_ms": bound(*scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 4))[0]}
+    rows["rwkv6_scan"] = dict(
+        source="src/repro_torch/csrc/rwkv6_scan.cu",
+        replaces="src/repro/kernels/rwkv6_scan/kernel.py:89",
+        shape=f"B={b},S={s},H={RWKV_H},Dk=Dv={RWKV_D},bf16,chunk=32", max_abs_err=err,
+        ms=median_ms(lambda: rk.rwkv6_scan(*args, chunk=32), **heavy),
+        plain_ms=median_ms(lambda: rr.rwkv6_scan(*args, chunk=32), runs=3, inner=1),
+        library_ms=None,
+        device_us=device_us_per_call(lambda: rk.rwkv6_scan(*args, chunk=32),
+                                     LLM_SYMBOLS["rwkv6_scan"]),
+        bound=bound(*scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 2)),
+    )
+    args = rwkv_inputs(f32, bb=1, ss=256, hh=4, floor=True)
+    o, st = rk.rwkv6_scan(*args, chunk=32)
+    wo, wst = rwkv_f64(*args)
+    hold("ssm_parity", "rwkv6_scan", "floor w=0.05,B=1,S=256,H=4,float32 vs float64 steps",
+         o, wo.float(), SCAN_TOL["float32"])
+    hold("ssm_parity", "rwkv6_scan", "floor state vs float64 steps", st, wst.float(),
+         SCAN_TOL["float32"])
+    r, k, v, lw, u, s0 = rwkv_inputs(f32, bb=2, ss=100, hh=3)  # [BH] streams, short last chunk
+    flat = [t.reshape(6, *t.shape[2:]) for t in (r.contiguous(), k.contiguous(),
+                                                  v.contiguous(), lw.contiguous())]
+    args = (*flat, u.repeat(2, 1), s0.reshape(6, RWKV_D, RWKV_D))
+    o, st = rk.rwkv6_scan(*args, chunk=32)
+    po, pst = rr.rwkv6_scan(*args, chunk=32)
+    hold("ssm_parity", "rwkv6_scan", "BH=6,S=100,float32,[BH] layout", o, po, SCAN_TOL["float32"])
+    hold("ssm_parity", "rwkv6_scan", "BH=6,S=100 state", st, pst, SCAN_TOL["float32"])
+    del args, flat, r, k, v, lw, u, s0
+    torch.cuda.empty_cache()
+
+    # ssd: zamba2's [B, S, H, 64] input as a [B, H, S, 64] view, B and C
+    # [B, S, 64] shared by every head (expanded views), log-decays over
+    # [-6, -1e-3] (the model clamps at -6), a non-zero state.
+    def ssd_inputs(dtype, bb=b, ss=s, hh=SSD_H, floor=False):
+        x = randn((bb, ss, hh, SSD_D), dtype).transpose(1, 2)
+        a = log_uniform((bb, ss, hh), 1e-3, 6.0).transpose(1, 2)
+        if floor:
+            a = torch.full_like(a, -6.0)
+        bm, cm = (randn((bb, ss, SSD_D), dtype)[:, None].expand(bb, hh, ss, SSD_D)
+                  for _ in range(2))
+        return x, a, bm, cm, randn((bb, hh, SSD_D, SSD_D))
+
+    def ssd_f64(x, a, bm, cm, s0):
+        x, a, bm, cm = (t.double() for t in (x, a, bm, cm))
+        st = s0.double()
+        y = torch.empty_like(x)
+        for t in range(x.shape[2]):
+            st = a[:, :, t, None, None].exp() * st + bm[:, :, t, :, None] * x[:, :, t, None, :]
+            y[:, :, t] = torch.einsum("bhs,bhsd->bhd", cm[:, :, t], st)
+        return y, st
+
+    err = 0.0
+    for dtype in (f32, bf16):
+        args = ssd_inputs(dtype)
+        y, st = sk.ssd_scan(*args, chunk=64)
+        py, pst = sr.ssd_scan(*args, chunk=64)
+        case = f"B={b},S={s},H={SSD_H},Dh=Dst={SSD_D},{dtype_name(dtype)},chunk=64,shared B/C"
+        e = hold("ssm_parity", "ssd_scan", case, y, py, SCAN_TOL[dtype_name(dtype)])
+        hold("ssm_parity", "ssd_scan", case + ",state", st, pst, SCAN_TOL["float32"])
+        err = max(err, e) if dtype == bf16 else err
+        if dtype == f32:
+            extra["ssd_scan_float32"] = {
+                "ms": median_ms(lambda: sk.ssd_scan(*args, chunk=64), **heavy),
+                "plain_ms": median_ms(lambda: sr.ssd_scan(*args, chunk=64), runs=3, inner=1),
+                "bound_ms": bound(*scan_work("ssd", b, SSD_H, s, SSD_D, SSD_D, 64, 4,
+                                             shared_bc=True))[0]}
+    rows["ssd_scan"] = dict(
+        source="src/repro_torch/csrc/ssd_scan.cu",
+        replaces="src/repro/kernels/ssd_scan/kernel.py:74",
+        shape=f"B={b},S={s},H={SSD_H},Dh=Dst={SSD_D},bf16,chunk=64,shared B/C", max_abs_err=err,
+        ms=median_ms(lambda: sk.ssd_scan(*args, chunk=64), **heavy),
+        plain_ms=median_ms(lambda: sr.ssd_scan(*args, chunk=64), runs=3, inner=1),
+        library_ms=None,
+        device_us=device_us_per_call(lambda: sk.ssd_scan(*args, chunk=64),
+                                     LLM_SYMBOLS["ssd_scan"]),
+        bound=bound(*scan_work("ssd", b, SSD_H, s, SSD_D, SSD_D, 64, 2, shared_bc=True)),
+    )
+    args = ssd_inputs(f32, bb=1, ss=256, hh=4, floor=True)
+    y, st = sk.ssd_scan(*args, chunk=64)
+    wy, wst = ssd_f64(*args)
+    hold("ssm_parity", "ssd_scan", "floor log a=-6,B=1,S=256,H=4,float32 vs float64 steps",
+         y, wy.float(), SCAN_TOL["float32"])
+    hold("ssm_parity", "ssd_scan", "floor state vs float64 steps", st, wst.float(),
+         SCAN_TOL["float32"])
+    x, a, bm, cm, s0 = ssd_inputs(f32, bb=2, ss=100, hh=3)  # [BH] streams, short last chunk
+    args = (x.reshape(6, 100, SSD_D), a.reshape(6, 100), bm.reshape(6, 100, SSD_D),
+            cm.reshape(6, 100, SSD_D), s0.reshape(6, SSD_D, SSD_D))
+    y, st = sk.ssd_scan(*args, chunk=64)
+    py, pst = sr.ssd_scan(*args, chunk=64)
+    hold("ssm_parity", "ssd_scan", "BH=6,S=100,float32,[BH] layout", y, py, SCAN_TOL["float32"])
+    hold("ssm_parity", "ssd_scan", "BH=6,S=100 state", st, pst, SCAN_TOL["float32"])
+    del args, x, a, bm, cm, s0
+    torch.cuda.empty_cache()
+
+    # Attention at zamba2's shared block: 32 heads of 112, MHA.
+    def flash_work(dtype):
+        size = torch.tensor([], dtype=dtype).element_size()
+        pairs = s * (s + 1) // 2
+        return size * b * s * ZAMBA_DH * 4 * ZAMBA_HQ, 4 * ZAMBA_DH * pairs * b * ZAMBA_HQ
+
+    for dtype in (f32, bf16):
+        q, k, v = (randn((b, s, ZAMBA_HQ, ZAMBA_DH), dtype).transpose(1, 2) for _ in range(3))
+        case = f"B={b},S={s},H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},{dtype_name(dtype)},causal"
+        hold("ssm_parity", "flash_attention", case, fk.attention(q, k, v),
+             fr.attention(q, k, v), ATTN_TOL[dtype_name(dtype)])
+        peak = PEAK_BF16_OPS_PER_S if dtype == bf16 else PEAK_F32_OPS_PER_S
+        extra[f"flash_Dh112_{dtype_name(dtype)}"] = {
+            "ms": median_ms(lambda: fk.attention(q, k, v), **heavy),
+            "plain_ms": median_ms(lambda: fr.attention(q, k, v), runs=3, inner=1),
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), **heavy),
+            "device_us": device_us_per_call(lambda: fk.attention(q, k, v),
+                                            LLM_SYMBOLS["flash_attention"], calls=2),
+            "bound_ms": bound(*flash_work(dtype), peak)[0]}
+        del q, k, v
+        torch.cuda.empty_cache()
+    s_max, length = s + SERVE_STEPS, s + 1
+    for dtype in (f32, bf16):
+        qd = randn((b, ZAMBA_HQ, ZAMBA_DH), dtype)
+        kc, vc = (randn((b, s_max, ZAMBA_HQ, ZAMBA_DH), dtype) for _ in range(2))
+        n = torch.tensor(length, dtype=torch.int32, device=dev)
+        case = (f"B={b},S_max={s_max},length={length},H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},"
+                f"{dtype_name(dtype)}")
+        hold("ssm_parity", "decode_attention", case, dk.decode_attention(qd, kc, vc, n),
+             dr.decode_attention(qd, kc, vc, n), ATTN_TOL[dtype_name(dtype)])
+        size = torch.tensor([], dtype=dtype).element_size()
+        q4 = qd[:, :, None]
+        k_valid = kc[:, :length].transpose(1, 2).contiguous()
+        v_valid = vc[:, :length].transpose(1, 2).contiguous()
+        extra[f"decode_Dh112_{dtype_name(dtype)}"] = {
+            "ms": median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
+            "plain_ms": median_ms(lambda: dr.decode_attention(qd, kc, vc, n), **heavy),
+            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
+                q4, k_valid, v_valid)),
+            "device_us": device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
+                                            LLM_SYMBOLS["decode_attention"]),
+            "bound_ms": bound(size * (2 * b * ZAMBA_HQ * ZAMBA_DH
+                                      + 2 * b * length * ZAMBA_HQ * ZAMBA_DH),
+                              4 * ZAMBA_DH * length * b * ZAMBA_HQ)[0]}
+        del qd, kc, vc, q4, k_valid, v_valid
+        torch.cuda.empty_cache()
+    # swiglu at zamba2's shared FFN (D = 3584, F = 14336): the prefill's
+    # T = 4 x 4096, the decode step's T = 4, and T = 4 in float32.
+    d, f = ZAMBA_D, ZAMBA_F
+    for t, dtype in ((4, f32), (4, bf16), (b * s, bf16)):
+        args = (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
+                randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
+        case = f"T={t},D={d},F={f},{dtype_name(dtype)}"
+        err = hold("ssm_parity", "swiglu", case, gk.swiglu(*args), gr.swiglu(*args),
+                   SWIGLU_TOL[dtype_name(dtype)])
+        size = torch.tensor([], dtype=dtype).element_size()
+        extra[f"swiglu_zamba2_T{t}_{dtype_name(dtype)}"] = {
+            "max_abs_err": err,
+            "ms": median_ms(lambda: gk.swiglu(*args), **heavy),
+            "plain_ms": median_ms(lambda: gr.swiglu(*args), **heavy),
+            "device_us": device_us_per_call(lambda: gk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
+            "bound_ms": bound(size * (2 * t * d + 3 * d * f), 6 * t * d * f,
+                              PEAK_BF16_OPS_PER_S if dtype == bf16 else PEAK_F32_OPS_PER_S)[0]}
+        del args
+        torch.cuda.empty_cache()
+    _build.LAUNCHES.clear()  # parity and timing launches are not the path's
+    emit({"phase": "ssm_kernels", "seconds": time.perf_counter() - t_phase,
+          "rows": {k: {kk: (list(vv) if kk == "bound" else vv) for kk, vv in v.items()
+                       if kk not in ("source", "replaces")} for k, v in rows.items()},
+          "other_shapes": extra})
+    return rows
+
+
+def ssm_card_vs_cpu_phase(dev):
+    """rwkv6-1.6b and zamba2-7b at full width cut to 2 layers (zamba2: two
+    mamba layers and one shared-block site), bf16 and float32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+
+    for arch in SSM_ARCHS:
+        for dtype in (torch.bfloat16, torch.float32):
+            cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2, dtype=dtype)
+            card_vs_cpu(dev, cfg, "ssm_card_vs_cpu")
+
+
+def ssm_serve_phase(dev, arch):
+    """The full model in bf16 (parameters drawn on the card from seed 0): 4
+    prompts x 4096 tokens prefilled, then 32 greedy decode steps, each
+    kernel's launches checked against what the path implies; returns
+    (launches, prompts/s, decode tokens/s)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, LLM_KERNELS, SSM_KERNELS
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import init_params, shared_sites
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(arch, "full")
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    names = LLM_KERNELS + SSM_KERNELS
+    zero = dict.fromkeys(names, 0)
+    if cfg.family == "ssm":
+        want_pre, want_step = {**zero, "rwkv6_scan": cfg.n_layers}, dict(zero)
+    else:
+        g = len(shared_sites(cfg))
+        want_pre = {**zero, "ssd_scan": cfg.n_layers, "flash_attention": g, "swiglu": 2 * g}
+        want_step = {**zero, "decode_attention": g, "swiglu": 2 * g}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=gen, device=dev)
+    warm = serve.init_cache(cfg, 1, 160, device=dev)  # cuBLAS handles, first launches
+    lg, warm = serve.prefill(params, cfg, {"tokens": tokens[:1, :128]}, warm, device=dev)
+    serve.decode_step(params, cfg, lg.argmax(-1), warm, device=dev)
+    del warm
+    cache = serve.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS, device=dev)
+    torch.cuda.synchronize()
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    logits, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre_launches = {k: LAUNCHES[k] for k in names}
+    prefill_finite = bool(torch.isfinite(logits).all())
+    cache_4096 = dict(cache)  # length 4096 (the steps below update the tensors in place)
+    tok = logits.argmax(-1)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        logits, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    step_launches = {k: LAUNCHES[k] for k in names}
+    want_steps = {k: n * SERVE_STEPS for k, n in want_step.items()}
+    length = int(cache["length"])
+    decode_finite = bool(torch.isfinite(logits).all())
+    state_gb = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
+    pre = breakdown_json(*profile_breakdown(
+        lambda: serve.prefill(params, cfg, {"tokens": tokens}, cache_4096, device=dev)))
+    step = breakdown_json(*profile_breakdown(
+        lambda: serve.decode_step(params, cfg, tok, cache_4096, device=dev), calls=5))
+    emit({"phase": arch.split("-")[0] + "_serve", "arch": arch, "layers": cfg.n_layers,
+          "dtype": "bfloat16", "params": cfg.params_count(), "prompts": SERVE_B,
+          "prompt_tokens": SERVE_S, "decode_steps": SERVE_STEPS,
+          "launches_prefill": pre_launches, "launches_prefill_expected": want_pre,
+          "launches_decode": step_launches, "launches_decode_expected": want_steps,
+          "cache_length": length, "cache_gb": state_gb, "init_seconds": init_s,
+          "prefill_seconds": prefill_s, "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
+          "prefill_prompts_per_s": SERVE_B / prefill_s,
+          "decode_ms_per_step": decode_s * 1e3 / SERVE_STEPS,
+          "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
+          "prefill_profile": pre, "decode_step_profile": step,
+          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
+          "seconds": time.perf_counter() - t_phase})
+    check(prefill_finite and decode_finite, f"{arch} serve: non-finite logits")
+    check(length == SERVE_S + SERVE_STEPS, f"{arch} serve: cache length {length}")
+    check(pre_launches == want_pre, f"{arch} prefill: launches {pre_launches}, expected {want_pre}")
+    check(step_launches == want_steps,
+          f"{arch} decode: launches {step_launches}, expected {want_steps}")
+    del params, cache, cache_4096, tokens
+    torch.cuda.empty_cache()
+    launches = {k: pre_launches[k] + step_launches[k] for k in names}
+    return launches, SERVE_B / prefill_s, SERVE_B * SERVE_STEPS / decode_s
 
 
 def main() -> int:
@@ -1209,6 +1629,7 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     rows.update(llm_kernels_phase(dev))
+    rows.update(ssm_kernels_phase(dev))
     if quick:
         emit({"phase": "kernels_only", "rows": {k: {kk: vv for kk, vv in v.items()
                                                       if kk != "bound"}
@@ -1224,6 +1645,14 @@ def main() -> int:
     dec_launches, tokens_per_s = llm_decode_32k_phase(dev, params, cfg)
     launches.update({k: serve_launches[k] + dec_launches[k] for k in serve_launches})
     serving_plan_phase(prompts_per_s, tokens_per_s)
+    del params
+    torch.cuda.empty_cache()
+    ssm_card_vs_cpu_phase(dev)
+    for arch in SSM_ARCHS:
+        ssm_launches, prompts_per_s, tokens_per_s = ssm_serve_phase(dev, arch)
+        for k, n in ssm_launches.items():
+            launches[k] = launches.get(k, 0) + n
+        serving_plan_phase(prompts_per_s, tokens_per_s, arch)
 
     kernels = []
     for k, row in rows.items():

@@ -1,14 +1,18 @@
-"""PyTorch / CUDA port of the DRS control plane.
+"""PyTorch / CUDA port of the DRS control plane and the workloads it runs.
 
-The JAX package ``repro`` stays the reference; this package runs the same
-batched closed control loop (simulate -> measure -> decide -> apply over B
-scenarios x N operators) in PyTorch, with its four TPU kernels rewritten
-as CUDA C++ for Hopper (``csrc/``).  It imports neither JAX nor ``repro``.
+The JAX package ``repro`` stays the reference; this package runs, in
+PyTorch, the batched closed control loop (simulate -> measure -> decide ->
+apply over B scenarios x N operators), the live DRS session with the VLD
+application, and LLM serving for the dense (llama3.2-1b), ssm (rwkv6-1.6b)
+and hybrid (zamba2-7b) families, with every TPU kernel on those paths
+rewritten as CUDA C++ for Hopper (``csrc/``).  It imports neither JAX nor
+``repro``.
 
 Entry points -- :class:`~repro_torch.api.session.ScenarioRunner`,
 :func:`~repro_torch.streaming.scenarios.control_trace`,
-:func:`~repro_torch.core.controller.make_fused_loop` and
-:func:`~repro_torch.core.controller.make_decide` -- run on the CUDA device
-unless given ``device="cpu"``, where every kernel call takes its plain
-PyTorch version.
+:func:`~repro_torch.core.controller.make_fused_loop`,
+:func:`~repro_torch.core.controller.make_decide`,
+:class:`~repro_torch.api.session.DRSSession` and the serving functions of
+:mod:`repro_torch.models.serve` -- run on the CUDA device unless given
+``device="cpu"``, where every kernel call takes its plain PyTorch version.
 """

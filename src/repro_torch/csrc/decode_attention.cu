@@ -22,7 +22,10 @@
 // the group's H / Hkv query rows in registers.  Each cache row is split
 // over Dh / (16 B) lanes (8 lanes for bf16 Dh = 64), so a warp reads four
 // rows at once with 16-byte loads, four rows deep per lane (unrolled, all
-// loads in flight before the arithmetic); each lane group keeps its own
+// loads in flight before the arithmetic).  A row's lanes span the next
+// power of two: zamba2's Dh = 112 is 14 lanes in bf16 (a span of 16, two
+// lanes idle, two rows per warp) and 28 in float32 (a span of 32, four
+// idle).  Each lane group keeps its own
 // online softmax, the groups of a warp merge by shuffles and the eight
 // warps through shared memory.  At B = 16 that is 128 blocks on 132 SMs;
 // split-KV with a combine pass is later work.
@@ -84,10 +87,12 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
               const int* __restrict__ length_ptr, T* __restrict__ out,
               int s_max, int n_kv, float scale, int window) {
   using V = Vec<T>;
-  constexpr int kVec = V::kN;           // elements per 16-byte load
-  constexpr int kLanes = DH / kVec;     // lanes per cache row
-  constexpr int kGroups = 32 / kLanes;  // cache rows a warp reads at once
-  static_assert(kLanes >= 1 && kLanes <= 32 && 32 % kLanes == 0, "head dim");
+  constexpr int kVec = V::kN;        // elements per 16-byte load
+  constexpr int kLanes = DH / kVec;  // lanes holding one cache row
+  constexpr int kSpan = kLanes <= 1 ? 1 : kLanes <= 2 ? 2 : kLanes <= 4 ? 4
+                        : kLanes <= 8 ? 8 : kLanes <= 16 ? 16 : 32;  // lanes per row group
+  constexpr int kGroups = 32 / kSpan;  // cache rows a warp reads at once
+  static_assert(DH % kVec == 0 && kLanes >= 1 && kLanes <= 32, "head dim");
   __shared__ float m_s[kWarps][NREP];
   __shared__ float l_s[kWarps][NREP];
   __shared__ float acc_s[kWarps][NREP][DH];
@@ -96,8 +101,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   const int g = blockIdx.x % n_kv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int grp = lane / kLanes;
-  const int sub = lane % kLanes;
+  const int grp = lane / kSpan;
+  const int sub = lane % kSpan;
+  const bool on = sub < kLanes;  // lanes past the row's end load nothing
   const int n_heads = n_kv * NREP;
 
   const int length = *length_ptr;
@@ -109,7 +115,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   for (int r = 0; r < NREP; ++r) {
     const T* qp = q + (static_cast<long long>(b) * n_heads + g * NREP + r) * DH + sub * kVec;
 #pragma unroll
-    for (int j = 0; j < kVec; ++j) qv[r][j] = V::one(qp + j);
+    for (int j = 0; j < kVec; ++j) qv[r][j] = on ? V::one(qp + j) : 0.0f;
   }
   float m[NREP], l[NREP], acc[NREP][kVec];
 #pragma unroll
@@ -132,7 +138,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
     float kx[kUnroll][kVec], vx[kUnroll][kVec];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (p0 + u < hi) {
+      if (on && p0 + u < hi) {
         V::load(kb + (p0 + u) * row, kx[u]);
         V::load(vb + (p0 + u) * row, vx[u]);
       } else {
@@ -150,7 +156,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 #pragma unroll
         for (int j = 0; j < kVec; ++j) dot = fmaf(qv[r][j], kx[u][j], dot);
 #pragma unroll
-        for (int off = kLanes / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
+        for (int off = kSpan / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
         sc[u] = p0 + u < hi ? dot * scale : -INFINITY;
         m_blk = fmaxf(m_blk, sc[u]);
       }
@@ -172,7 +178,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
 
   // Merge the lane groups of each warp (lanes with the same `sub`).
 #pragma unroll
-  for (int off = kLanes; off < 32; off <<= 1) {
+  for (int off = kSpan; off < 32; off <<= 1) {
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
       const float mo = __shfl_xor_sync(kFull, m[r], off);
@@ -196,8 +202,10 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
         m_s[warp][r] = m[r];
         l_s[warp][r] = l[r];
       }
+      if (on) {
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) acc_s[warp][r][sub * kVec + j] = acc[r][j];
+        for (int j = 0; j < kVec; ++j) acc_s[warp][r][sub * kVec + j] = acc[r][j];
+      }
     }
   }
   __syncthreads();
@@ -221,16 +229,26 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   }
 }
 
-// Instantiated for llama3.2-1b's head dim (64) and query heads per KV head
-// (32 / 8 = 4); other shapes are added when a config needs them.
+// Instantiated for llama3.2-1b's head dim and query heads per KV head (64,
+// 32 / 8 = 4) and zamba2-7b's shared attention (112, MHA: 1); other shapes
+// are added when a config needs them.
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* len, void* o,
                    int b, int s_max, int n_kv, int n_rep, int dh, float scale, int window,
                    cudaStream_t s) {
-  if (dh != 64 || n_rep != 4) return cudaErrorInvalidValue;
-  decode_kernel<T, 64, 4><<<b * n_kv, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), len,
-      static_cast<T*>(o), s_max, n_kv, scale, window);
+  const T* qp = static_cast<const T*>(q);
+  const T* kp = static_cast<const T*>(k);
+  const T* vp = static_cast<const T*>(v);
+  T* op = static_cast<T*>(o);
+  if (dh == 64 && n_rep == 4) {
+    decode_kernel<T, 64, 4><<<b * n_kv, kThreads, 0, s>>>(qp, kp, vp, len, op, s_max, n_kv,
+                                                          scale, window);
+  } else if (dh == 112 && n_rep == 1) {
+    decode_kernel<T, 112, 1><<<b * n_kv, kThreads, 0, s>>>(qp, kp, vp, len, op, s_max, n_kv,
+                                                           scale, window);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

@@ -163,10 +163,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, Strides
   const T* kp = static_cast<const T*>(k);
   const T* vp = static_cast<const T*>(v);
   T* op = static_cast<T*>(o);
-  // llama3.2-1b's head dim; other widths are instantiated when a config needs them.
-  if (dh != 64) return cudaErrorInvalidValue;
-  flash_fwd_kernel<T, 64><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, qs, ks, vs, os, h, n_rep,
-                                                    sq, skv, scale, causal, window);
+  // llama3.2-1b's head dim (64) and zamba2-7b's (3584 / 32 = 112: two 32 x
+  // 116 float32 tiles, 29.7 KB of static shared memory); other widths are
+  // instantiated when a config needs them.
+  if (dh == 64) {
+    flash_fwd_kernel<T, 64><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, qs, ks, vs, os, h, n_rep,
+                                                      sq, skv, scale, causal, window);
+  } else if (dh == 112) {
+    flash_fwd_kernel<T, 112><<<grid, kThreads, 0, s>>>(qp, kp, vp, op, qs, ks, vs, os, h,
+                                                       n_rep, sq, skv, scale, causal, window);
+  } else {
+    return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 

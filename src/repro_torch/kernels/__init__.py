@@ -1,5 +1,5 @@
 """Hand-written Hopper kernels of the control loop, the VLD matcher and the
-LLM serving path, one package each.
+LLM serving paths, one package each.
 
 Every kernel keeps three faces, as in the JAX package's ``repro.kernels``:
 
@@ -16,7 +16,7 @@ name; ``LAUNCHES.clear()`` resets it.
 
 from ._build import LAUNCHES
 
-__all__ = ["LAUNCHES", "KERNELS", "VLD_KERNELS", "LLM_KERNELS"]
+__all__ = ["LAUNCHES", "KERNELS", "VLD_KERNELS", "LLM_KERNELS", "SSM_KERNELS"]
 
 #: The kernels of the control-loop slice, by launch-counter name.
 KERNELS = ("queue_step", "erlang_c", "gain_topr", "decide_fused")
@@ -26,5 +26,9 @@ KERNELS = ("queue_step", "erlang_c", "gain_topr", "decide_fused")
 VLD_KERNELS = ("pairwise_sq_l2", "match_count")
 
 #: The kernels of the dense LLM serving path (``swiglu`` counts both of its
-#: launches).
+#: launches); zamba2's shared attention block runs them too.
 LLM_KERNELS = ("flash_attention", "decode_attention", "swiglu")
+
+#: The chunked scans of the ssm (rwkv6) and hybrid (zamba2) families; their
+#: serving paths also run ``LLM_KERNELS`` (zamba2's shared block).
+SSM_KERNELS = ("rwkv6_scan", "ssd_scan")

@@ -35,11 +35,12 @@ import tempfile
 import threading
 
 __all__ = ["LAUNCHES", "SOURCES", "NVCC_FLAGS", "build", "library", "check_error",
-           "count_launch"]
+           "count_launch", "column_slice"]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu",
-           "flash_attention.cu", "decode_attention.cu", "swiglu.cu")
+           "flash_attention.cu", "decode_attention.cu", "swiglu.cu", "rwkv6_scan.cu",
+           "ssd_scan.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -154,6 +155,8 @@ def library():
                 "repro_decode_attention": [p, p, p, p, p, i, i, i, i, i, f, i, i, i, p],
                 "repro_swiglu_up": [p] * 4 + [i] * 5 + [p],
                 "repro_swiglu_down": [p] * 3 + [i] * 5 + [p],
+                "repro_rwkv6_scan": [p] * 8 + [ll] * 17 + [i] * 9 + [p],
+                "repro_ssd_scan": [p] * 7 + [ll] * 15 + [i] * 9 + [p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -208,6 +211,23 @@ def require_operands(name: str, tensors) -> bool:
         if t.dtype != dtype:
             raise TypeError(f"{name}: mixed dtypes {dtype} and {t.dtype}")
     return dtype == torch.bfloat16
+
+
+def column_slice(streams: int, cols: int, device) -> int:
+    """Columns per block of a scan kernel (``csrc/{rwkv6,ssd}_scan.cu``):
+    the widest power of two up to 64 dividing ``cols``, halved (not below
+    16) while ``streams`` blocks per slice leave the card under two
+    blocks per SM.  The columns of a scan's state evolve independently,
+    so the slice changes the launch shape, not the result."""
+    import torch
+
+    vb = 64
+    while cols % vb:
+        vb //= 2
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    while vb > 16 and streams * (cols // vb) < 2 * sms:
+        vb //= 2
+    return vb
 
 
 def launch_args(t) -> tuple[int, int]:

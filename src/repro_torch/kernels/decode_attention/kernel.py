@@ -1,20 +1,21 @@
 """Wrapper of the CUDA decode attention kernel (``csrc/decode_attention.cu``),
 the Hopper counterpart of ``repro/kernels/decode_attention/kernel.py``'s
-``decode_attention_pallas``.  Any S_max; GQA with four query heads per KV
-head (llama3.2-1b's), the cache read in place (never repeated); ``length``
-stays on the device, so a decode step needs no host sync."""
+``decode_attention_pallas``.  Any S_max; GQA with the cache read in place
+(never repeated); ``length`` stays on the device, so a decode step needs
+no host sync.  Instantiated for llama3.2-1b's attention (head dim 64, four
+query heads per KV head) and zamba2-7b's shared MHA block (head dim 112,
+one query head per KV head)."""
 
 from __future__ import annotations
 
 import torch
 
 from .. import _build
-from ..flash_attention.kernel import HEAD_DIMS
 
-__all__ = ["decode_attention", "REPEATS"]
+__all__ = ["decode_attention", "SHAPES"]
 
-#: Query heads per KV head the kernel is instantiated for (llama3.2-1b's 32 / 8).
-REPEATS = (4,)
+#: (head dim, query heads per KV head) pairs the kernel is instantiated for.
+SHAPES = ((64, 4), (112, 1))
 
 
 def decode_attention(q, k_cache, v_cache, length, *, window: int | None = None,
@@ -31,11 +32,9 @@ def decode_attention(q, k_cache, v_cache, length, *, window: int | None = None,
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window must be >= 1, got {window}")
     bf16 = _build.require_operands("decode_attention", (q, k_cache, v_cache))
-    if hkv == 0 or h % hkv or h // hkv not in REPEATS:
-        raise ValueError(f"decode_attention: {h} query heads over {hkv} KV heads "
-                         f"(supported ratios {REPEATS})")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {dh} not in {HEAD_DIMS}")
+    if hkv == 0 or h % hkv or (dh, h // hkv) not in SHAPES:
+        raise ValueError(f"decode_attention: head dim {dh} with {h} query heads over {hkv} "
+                         f"KV heads (supported (head dim, ratio): {SHAPES})")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be contiguous")

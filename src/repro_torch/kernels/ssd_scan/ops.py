@@ -1,0 +1,15 @@
+"""Dispatch: the CUDA kernel for CUDA tensors, the plain version for CPU."""
+
+from __future__ import annotations
+
+from . import kernel as _kernel, ref as _ref
+
+__all__ = ["ssd_scan"]
+
+
+def ssd_scan(x, a, b, c, s0=None, *, chunk: int = 64):
+    """x [..., S, Dh], a [..., S], b / c [..., S, Dst], s0 [..., Dst, Dh]
+    or None -> (y [..., S, Dh] in x's dtype, S_T float32)."""
+    if x.is_cuda:
+        return _kernel.ssd_scan(x, a, b, c, s0, chunk=chunk)
+    return _ref.ssd_scan(x, a, b, c, s0, chunk=chunk)

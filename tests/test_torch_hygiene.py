@@ -34,6 +34,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.models.serve, repro_torch.serving.pipeline\n"
         "import repro_torch.kernels.flash_attention.ops\n"
         "import repro_torch.kernels.decode_attention.ops, repro_torch.kernels.swiglu.ops\n"
+        "import repro_torch.kernels.rwkv6_scan.ops, repro_torch.kernels.ssd_scan.ops\n"
+        "import repro_torch.models.ssm, repro_torch.configs.rwkv6_1_6b\n"
+        "import repro_torch.configs.zamba2_7b\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -103,12 +106,21 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
 
 
 def test_serving_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
+    _serving_calls_raise_without_a_card("llama3.2-1b")
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_ssm_serving_entry_points_default_to_the_card_and_raise_without_one(no_cuda, arch):
+    _serving_calls_raise_without_a_card(arch)
+
+
+def _serving_calls_raise_without_a_card(arch):
     from repro_torch.configs import get_config
     from repro_torch.convert import model_params_from_reference
     from repro_torch.models import serve
     from repro_torch.models.transformer import init_params
 
-    cfg = get_config("llama3.2-1b", "smoke")
+    cfg = get_config(arch, "smoke")
     params = init_params(cfg, device="cpu")
     cache = serve.init_cache(cfg, 1, 8, device="cpu")
     tokens = np.zeros((1, 4), np.int32)

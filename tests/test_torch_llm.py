@@ -183,7 +183,7 @@ def test_init_params_distributions():
     assert abs(float(wi.std()) - tcfg.d_model ** -0.5) < 0.1 * tcfg.d_model ** -0.5
 
 
-@pytest.mark.parametrize("arch", [a for a in ARCHS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a in ARCHS if a not in (ARCH, "rwkv6-1.6b", "zamba2-7b")])
 def test_unported_archs_raise_not_implemented(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch, "smoke")

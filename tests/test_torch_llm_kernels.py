@@ -4,7 +4,7 @@ The plain PyTorch versions (``repro_torch/kernels/{flash_attention,
 decode_attention,swiglu}/ref.py``, what the dispatch runs for CPU tensors)
 are held against the JAX package's jnp references and its Pallas kernels
 in interpret mode, on the same seeded numpy inputs, at the shapes of
-``tests/test_kernels_all.py``.  Float32 agrees with the references to
+``tests/test_kernels_all.py`` and at zamba2's head dim 112 (MHA).  Float32 agrees with the references to
 1e-5 (the same math, summed in another order) and with the Pallas kernels
 to 2e-3 (their tolerance against their own references); bf16 to 3e-2 for
 attention and to 5e-2 of the output's magnitude for SwiGLU (bf16 rounding
@@ -98,6 +98,21 @@ def test_flash_plain_gqa_matches_jax_ref_with_repeated_kv(dtype, tol):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_flash_plain_at_zamba2_head_dim_matches_jax_ref_and_pallas(dtype, tol):
+    """zamba2's shared block: MHA at head dim 112 (the Pallas kernel in
+    float32 only, at its own 2e-3)."""
+    b, h, s, dh = 1, 2, 128, 112
+    (jq, q), (jk, k), (jv, v) = (_pair(_normal((b, h, s, dh), 50 + i), dtype)
+                                 for i in range(3))
+    got = _np(tfo.attention(q, k, v, causal=True))
+    np.testing.assert_allclose(got, _np(jfr.attention(jq, jk, jv, causal=True)), rtol=tol,
+                               atol=tol)
+    if dtype == "float32":
+        want = jfk.flash_attention_pallas(jq, jk, jv, causal=True, bq=64, bk=64, interpret=True)
+        np.testing.assert_allclose(got, _np(want), rtol=2e-3, atol=2e-3)
+
+
 # --------------------------------------------------------------------------- #
 # decode attention
 # --------------------------------------------------------------------------- #
@@ -137,6 +152,15 @@ def test_decode_plain_gqa_matches_jax_ref_with_repeated_kv(dtype, tol):
     got = tdo.decode_attention(q, k, v, torch.tensor(length, dtype=torch.int32))
     assert got.dtype == DTYPES[dtype][1]
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+def test_decode_plain_at_zamba2_head_dim_matches_jax_ref_and_pallas():
+    (jq, q), (jk, k), (jv, v) = _decode_inputs(2, 4, 4, 256, 112, 9)
+    got = _np(tdo.decode_attention(q, k, v, torch.tensor(200, dtype=torch.int32)))
+    np.testing.assert_allclose(got, _np(jdr.decode_attention(jq, jk, jv, jnp.int32(200))),
+                               rtol=1e-5, atol=1e-5)
+    pallas = jdk.decode_attention_pallas(jq, jk, jv, jnp.int32(200), bs=128, interpret=True)
+    np.testing.assert_allclose(got, _np(pallas), rtol=2e-3, atol=2e-3)
 
 
 def test_decode_plain_matches_causal_attention_last_row():
