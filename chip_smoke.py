@@ -56,11 +56,14 @@ Phases, each printing one JSON line:
 9. ``llm_kernels`` (with the parity phase, before the main path):
    ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
    plain versions on the card, in bf16 and float32 (tolerances in the
-   lines), at the serving path's shapes and the llama3.2-1b shapes below,
-   each timed (CUDA events, ``torch.profiler`` device time) beside its
-   plain version, SDPA where one call computes the same function, and its
-   bound (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16 /
-   67 TFLOP/s float32);
+   lines), at the serving path's shapes and the llama3.2-1b shapes below
+   (flash also windowed and bidirectional; decode also at length 0, where
+   the output is the mean of V), each timed (CUDA events,
+   ``torch.profiler`` device time) beside its plain version, SDPA where
+   one call computes the same function, and its bound (bytes over 3.35
+   TB/s or operations over 989 TFLOP/s bf16 / 67 TFLOP/s float32);
+   ``other_shapes`` adds decode at llama's own step (B 4, S_max 4128,
+   length 4,097);
 10. ``llm_card_vs_cpu``: llama3.2-1b at full width cut to 2 layers, in
     bf16 and float32, prefill of 2 x 256 tokens and 8 greedy steps on the
     card and on the CPU (plain versions) with the same parameters: logits
@@ -82,7 +85,8 @@ Phases, each printing one JSON line:
     seeded decays spread over the models' clamp ranges and a non-zero
     initial state, at the clamp floors (w = 0.05, log a = -6) against a
     float64 step recurrence, and in the [BH] layout with a short last
-    chunk; flash and decode attention at zamba2's head dim 112 (MHA); each
+    chunk; flash and decode attention at zamba2's head dim 112 (MHA; flash
+    also windowed and bidirectional, decode also at length 0); each
     timed beside its plain version and its bound;
 15. ``ssm_card_vs_cpu``: rwkv6-1.6b and zamba2-7b at full width cut to 2
     layers (zamba2: one shared-block site), bf16 and float32, as phase 10;
@@ -763,7 +767,10 @@ HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
 # moves an output at 32k keys (~1e-4).
 ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
 SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
-LLM_SYMBOLS = {"flash_attention": ("flash_fwd_kernel",), "decode_attention": ("decode_kernel",),
+# Every device function of each kernel (bf16 flash on the tensor cores,
+# float32 on CUDA cores; decode's split pass and its combine pass).
+LLM_SYMBOLS = {"flash_attention": ("flash_mma_kernel", "flash_fwd_kernel"),
+               "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                "swiglu": ("gemm_bf16_kernel", "gemm_f32_kernel"),
                "rwkv6_scan": ("rwkv6_scan_kernel",), "ssd_scan": ("ssd_scan_kernel",)}
 
@@ -847,14 +854,17 @@ def llm_kernels_phase(dev):
         return nbytes, 4 * DH * pairs * b * HQ
 
     err = 0.0
-    for b, s, dtype, window in ((1, FLASH_S, f32, None), (1, FLASH_S, f32, 256),
-                                (SERVE_B, SERVE_S, f32, None), (1, FLASH_S, bf16, None),
-                                (1, FLASH_S, bf16, 256), (SERVE_B, SERVE_S, bf16, None)):
+    for b, s, dtype, window, causal in (
+            (1, FLASH_S, f32, None, True), (1, FLASH_S, f32, 256, True),
+            (1, 1000, f32, None, False), (SERVE_B, SERVE_S, f32, None, True),
+            (1, FLASH_S, bf16, None, True), (1, FLASH_S, bf16, 256, True),
+            (1, 1000, bf16, None, False), (SERVE_B, SERVE_S, bf16, None, True)):
         q, k, v = attn_inputs(b, s, dtype)
-        case = f"B={b},S={s},H={HQ}/{HKV},Dh={DH},{dtype_name(dtype)}" + (f",window={window}" if window
-                                                                   else ",causal")
-        e = parity("flash_attention", case, fk.attention(q, k, v, window=window),
-                   fr.attention(q, k, v, window=window), ATTN_TOL[dtype_name(dtype)])
+        case = f"B={b},S={s},H={HQ}/{HKV},Dh={DH},{dtype_name(dtype)}" + (
+            f",window={window}" if window else ",causal" if causal else ",bidirectional")
+        kw = dict(window=window, causal=causal)
+        e = parity("flash_attention", case, fk.attention(q, k, v, **kw),
+                   fr.attention(q, k, v, **kw), ATTN_TOL[dtype_name(dtype)])
         err = max(err, e) if dtype == bf16 else err
         if (b, s) == (1, FLASH_S) and window is None:
             extra[f"flash_B1_S{FLASH_S}_{dtype_name(dtype)}"] = {
@@ -886,9 +896,11 @@ def llm_kernels_phase(dev):
 
     err = 0.0
     serve_cache = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)
+    empty_cache = (SERVE_B, SERVE_S + SERVE_STEPS, 0)  # length 0: the mean of V, as ref.py
     for (b, s_max, length), dtype, window in (
-            (serve_cache, f32, None), ((DEC_B, DEC_SMAX, DEC_LEN), f32, 1024),
-            ((DEC_B, DEC_SMAX, DEC_LEN), f32, None), (serve_cache, bf16, None),
+            (serve_cache, f32, None), (empty_cache, f32, None), (empty_cache, f32, 64),
+            ((DEC_B, DEC_SMAX, DEC_LEN), f32, 1024), ((DEC_B, DEC_SMAX, DEC_LEN), f32, None),
+            (empty_cache, bf16, None), (empty_cache, bf16, 64), (serve_cache, bf16, None),
             ((DEC_B, DEC_SMAX, DEC_LEN), bf16, 1024), ((DEC_B, DEC_SMAX, DEC_LEN), bf16, None)):
         qd = randn((b, HQ, DH), dtype)
         kc = randn((b, s_max, HKV, DH), dtype)
@@ -899,7 +911,23 @@ def llm_kernels_phase(dev):
         e = parity("decode_attention", case, dk.decode_attention(qd, kc, vc, n, window=window),
                    dr.decode_attention(qd, kc, vc, n, window=window), ATTN_TOL[dtype_name(dtype)])
         err = max(err, e) if dtype == bf16 else err
-        if dtype == f32:
+        if (b, s_max, length) == serve_cache and dtype == bf16:  # llama's own decode step
+            q4 = qd[:, :, None]
+            k_valid = kc[:, :length].transpose(1, 2).contiguous()
+            v_valid = vc[:, :length].transpose(1, 2).contiguous()
+            # A short call: its event time is the host's; device time beside it.
+            def sdpa():
+                return F.scaled_dot_product_attention(q4, k_valid, v_valid, enable_gqa=True)
+
+            extra[f"decode_B{b}_S{s_max}_len{length}_bf16"] = {
+                "ms": median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
+                "library_ms": median_ms(sdpa),
+                "device_us": device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
+                                                LLM_SYMBOLS["decode_attention"]),
+                "library_device_us": profile_breakdown(sdpa, calls=5)[1] * 1e3,
+                "bound_ms": bound(*decode_work(b, length, bf16), PEAK_BF16_OPS_PER_S)[0]}
+            del q4, k_valid, v_valid
+        if dtype == f32 or length != DEC_LEN:
             del kc, vc
             torch.cuda.empty_cache()
     q4 = qd[:, :, None]
@@ -1444,15 +1472,23 @@ def ssm_kernels_phase(dev):
             "bound_ms": bound(*flash_work(dtype), peak)[0]}
         del q, k, v
         torch.cuda.empty_cache()
+        # a window across key tiles and bidirectional, off the 64-row tiles
+        q, k, v = (randn((1, 1000, ZAMBA_HQ, ZAMBA_DH), dtype).transpose(1, 2) for _ in range(3))
+        for kw, name in ((dict(window=100), "window=100"), (dict(causal=False), "bidirectional")):
+            case = f"B=1,S=1000,H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},{dtype_name(dtype)},{name}"
+            hold("ssm_parity", "flash_attention", case, fk.attention(q, k, v, **kw),
+                 fr.attention(q, k, v, **kw), ATTN_TOL[dtype_name(dtype)])
+        del q, k, v
     s_max, length = s + SERVE_STEPS, s + 1
     for dtype in (f32, bf16):
         qd = randn((b, ZAMBA_HQ, ZAMBA_DH), dtype)
         kc, vc = (randn((b, s_max, ZAMBA_HQ, ZAMBA_DH), dtype) for _ in range(2))
-        n = torch.tensor(length, dtype=torch.int32, device=dev)
-        case = (f"B={b},S_max={s_max},length={length},H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},"
-                f"{dtype_name(dtype)}")
-        hold("ssm_parity", "decode_attention", case, dk.decode_attention(qd, kc, vc, n),
-             dr.decode_attention(qd, kc, vc, n), ATTN_TOL[dtype_name(dtype)])
+        for ln in (0, length):  # length 0: the mean of V, as ref.py
+            n = torch.tensor(ln, dtype=torch.int32, device=dev)
+            case = (f"B={b},S_max={s_max},length={ln},H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},"
+                    f"{dtype_name(dtype)}")
+            hold("ssm_parity", "decode_attention", case, dk.decode_attention(qd, kc, vc, n),
+                 dr.decode_attention(qd, kc, vc, n), ATTN_TOL[dtype_name(dtype)])
         size = torch.tensor([], dtype=dtype).element_size()
         q4 = qd[:, :, None]
         k_valid = kc[:, :length].transpose(1, 2).contiguous()

@@ -6,8 +6,11 @@
 // `q . k * scale` over cache positions `< length` (and `> length - 1 -
 // window`), a running max / normaliser / accumulator, `acc / max(l,
 // 1e-30)`.  Positions outside that range are never read: their -1e30
-// logits would weigh exactly 0 (for length >= 1; with length 0 the
-// reference averages the whole cache and this kernel returns zeros).
+// logits weigh exactly 0.  When the range is empty (length 0) every logit
+// of the reference is -1e30 and its softmax weighs all S_max rows equally:
+// the kernel then reads the whole cache with equal logits, so the output
+// is the mean of V, as `ref.py` computes (the Pallas kernel returns zeros
+// there; ROADMAP Queue 3).
 //
 // Layout: q [B, H, Dh], caches [B, S_max, Hkv, Dh] (the model's per-layer
 // layout), out [B, H, Dh], all contiguous; `length` is one device int32,
@@ -18,27 +21,45 @@
 // Bound on the H100: the cache read.  At B = 16, length 32000, 8 KV heads,
 // Dh = 64, bf16, one layer reads 1.05 GB of K and V (0.31 ms at 3.35
 // TB/s); the arithmetic is 4 flops per cache element and query head.
-// Design, simple first: one 256-thread block per (batch, KV head) holding
-// the group's H / Hkv query rows in registers.  Each cache row is split
-// over Dh / (16 B) lanes (8 lanes for bf16 Dh = 64), so a warp reads four
-// rows at once with 16-byte loads, four rows deep per lane (unrolled, all
-// loads in flight before the arithmetic).  A row's lanes span the next
-// power of two: zamba2's Dh = 112 is 14 lanes in bf16 (a span of 16, two
-// lanes idle, two rows per warp) and 28 in float32 (a span of 32, four
-// idle).  Each lane group keeps its own
-// online softmax, the groups of a warp merge by shuffles and the eight
-// warps through shared memory.  At B = 16 that is 128 blocks on 132 SMs;
-// split-KV with a combine pass is later work.
+// Design: split-KV.  The wrapper picks `n_splits` from host-known numbers
+// only (B, Hkv, S_max, and the blocks the card holds at once: the SM count
+// times this kernel's blocks per SM from CUDA's occupancy calculator), so
+// that one wave of 128-thread blocks, one per (batch, KV head, split),
+// fills the card.  Each block reads the device `length` and computes its
+// own slice of the valid range (the formula of kernels/decode_attention/
+// kernel.py:split_range), holds the group's H / Hkv query rows in
+// registers and streams its slice: each cache row is split over Dh / (16
+// B) lanes (8 lanes for bf16 Dh = 64), so a warp reads four rows at once,
+// four rows deep per lane.  The 16-byte pieces go through a per-thread
+// cp.async ring in shared memory, kStages - 1 steps ahead of the
+// arithmetic, so loads stay in flight without holding registers and
+// without block barriers (a thread reads only the slots it filled).  A
+// row's lanes span the next power of two: zamba2's Dh = 112 is 14 lanes in
+// bf16 (a span of 16, two lanes idle, two rows per warp) and 28 in float32
+// (a span of 32, four idle).  Each lane group keeps its own online softmax;
+// the groups of a warp merge by shuffles and the warps through shared
+// memory into one float32 partial (m, l, acc[Dh]) per (batch, query head,
+// split), written to a workspace the wrapper allocates.  A split with no
+// rows writes l = 0 and m = -inf.  `decode_combine_kernel` then merges the
+// splits of each query row in split order (deterministic) and writes
+// `acc / max(l, 1e-30)` in q's dtype.  TMA bulk copies of the cache rows
+// are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tensor_core.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 4;  // cache rows per lane group per step
+constexpr int kStages = 4;  // cp.async ring: steps in flight per thread, kStages - 1 ahead
+// Each thread's ring slots (16 bytes of K and of V per row of a step),
+// thread index fastest so a warp's slots are contiguous: 64 KB per block.
+constexpr int kRingBytes = kStages * kUnroll * 2 * kThreads * 16;
 constexpr float kNeg = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -49,12 +70,11 @@ struct Vec;
 template <>
 struct Vec<float> {
   static constexpr int kN = 4;
-  __device__ __forceinline__ static void load(const float* p, float (&out)[4]) {
-    const float4 r = *reinterpret_cast<const float4*>(p);
-    out[0] = r.x;
-    out[1] = r.y;
-    out[2] = r.z;
-    out[3] = r.w;
+  __device__ __forceinline__ static void unpack(const uint4& r, float (&out)[4]) {
+    out[0] = __uint_as_float(r.x);
+    out[1] = __uint_as_float(r.y);
+    out[2] = __uint_as_float(r.z);
+    out[3] = __uint_as_float(r.w);
   }
   __device__ __forceinline__ static float one(const float* p) { return *p; }
   __device__ __forceinline__ static void put(float* p, float x) { *p = x; }
@@ -63,8 +83,7 @@ struct Vec<float> {
 template <>
 struct Vec<__nv_bfloat16> {
   static constexpr int kN = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float (&out)[8]) {
-    const uint4 r = *reinterpret_cast<const uint4*>(p);
+  __device__ __forceinline__ static void unpack(const uint4& r, float (&out)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -81,24 +100,36 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// Lane geometry of one cache row: 16-byte loads, lanes spanning the next
+// power of two.  kernel.py:rows_per_step mirrors kStep.
+template <typename T, int DH>
+struct Rows {
+  static constexpr int kVec = Vec<T>::kN;   // elements per 16-byte load
+  static constexpr int kLanes = DH / kVec;  // lanes holding one cache row
+  static constexpr int kSpan = kLanes <= 1 ? 1 : kLanes <= 2 ? 2 : kLanes <= 4 ? 4
+                               : kLanes <= 8 ? 8 : kLanes <= 16 ? 16 : 32;
+  static constexpr int kGroups = 32 / kSpan;               // rows a warp reads at once
+  static constexpr int kStep = kWarps * kGroups * kUnroll;  // rows per block step
+  static_assert(DH % kVec == 0 && kLanes >= 1 && kLanes <= 32, "head dim");
+};
+
 template <typename T, int DH, int NREP>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
-              const int* __restrict__ length_ptr, T* __restrict__ out,
-              int s_max, int n_kv, float scale, int window) {
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __restrict__ vc,
+                    const int* __restrict__ length_ptr, float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int s_max, int n_kv, int n_splits, float scale,
+                    int window) {
   using V = Vec<T>;
-  constexpr int kVec = V::kN;        // elements per 16-byte load
-  constexpr int kLanes = DH / kVec;  // lanes holding one cache row
-  constexpr int kSpan = kLanes <= 1 ? 1 : kLanes <= 2 ? 2 : kLanes <= 4 ? 4
-                        : kLanes <= 8 ? 8 : kLanes <= 16 ? 16 : 32;  // lanes per row group
-  constexpr int kGroups = 32 / kSpan;  // cache rows a warp reads at once
-  static_assert(DH % kVec == 0 && kLanes >= 1 && kLanes <= 32, "head dim");
+  using R = Rows<T, DH>;
+  constexpr int kVec = R::kVec, kLanes = R::kLanes, kSpan = R::kSpan, kGroups = R::kGroups;
+  extern __shared__ uint4 ring[];  // [kStages][kUnroll][K, V][kThreads]
   __shared__ float m_s[kWarps][NREP];
   __shared__ float l_s[kWarps][NREP];
   __shared__ float acc_s[kWarps][NREP][DH];
 
-  const int b = blockIdx.x / n_kv;
-  const int g = blockIdx.x % n_kv;
+  const int split = blockIdx.x;
+  const int b = blockIdx.y / n_kv;
+  const int g = blockIdx.y % n_kv;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int grp = lane / kSpan;
@@ -106,9 +137,21 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   const bool on = sub < kLanes;  // lanes past the row's end load nothing
   const int n_heads = n_kv * NREP;
 
+  // The valid range, and this split's slice of it: the formula of
+  // kernels/decode_attention/kernel.py:valid_range / split_range (their
+  // tiling is tested on the CPU in tests/test_torch_llm_kernels.py).
   const int length = *length_ptr;
-  const int hi = min(length, s_max);
-  const int lo = window > 0 ? max(0, length - window) : 0;
+  int hi = min(length, s_max);
+  int lo = window > 0 ? max(0, length - window) : 0;
+  const bool uniform = hi <= lo;  // no valid row: equal weight on all S_max rows
+  if (uniform) {
+    lo = 0;
+    hi = s_max;
+  }
+  int chunk = (hi - lo + n_splits - 1) / n_splits;
+  chunk = (chunk + R::kStep - 1) / R::kStep * R::kStep;
+  const int s_lo = min(hi, lo + split * chunk);
+  const int s_hi = min(hi, s_lo + chunk);
 
   float qv[NREP][kVec];
 #pragma unroll
@@ -130,21 +173,41 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   const long long base = (static_cast<long long>(b) * s_max * n_kv + g) * DH + sub * kVec;
   const T* kb = kc + base;
   const T* vb = vc + base;
-  constexpr int kStep = kWarps * kGroups * kUnroll;  // rows per block step
 
-  // The loop bound is uniform across the warp (its shuffles need every lane).
-  for (int w0 = lo + warp * kGroups * kUnroll; w0 < hi; w0 += kStep) {
-    const int p0 = w0 + grp * kUnroll;
+  // Step i of this warp covers rows w_lo + i * kStep + [0, kGroups *
+  // kUnroll); the count is uniform across the warp (its shuffles need every
+  // lane).  Each thread copies its own rows' 16-byte pieces into its own
+  // ring slots, kStages - 1 steps ahead, so no block barrier is needed:
+  // cp.async.wait_group orders a thread's copies before its reads.
+  const int w_lo = s_lo + warp * kGroups * kUnroll;
+  const int n_iter = s_hi > w_lo ? (s_hi - w_lo + R::kStep - 1) / R::kStep : 0;
+  auto slot = [&](int i, int u, int kv) {
+    return ring + (((i % kStages) * kUnroll + u) * 2 + kv) * kThreads + threadIdx.x;
+  };
+  auto issue = [&](int i) {
+    if (i < n_iter) {
+      const int p0 = w_lo + i * R::kStep + grp * kUnroll;
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const bool ok = on && p0 + u < s_hi;  // zero-filled otherwise
+        repro::cp_async16(slot(i, u, 0), ok ? kb + (p0 + u) * row : kb, ok);
+        repro::cp_async16(slot(i, u, 1), ok ? vb + (p0 + u) * row : vb, ok);
+      }
+    }
+    repro::cp_async_commit();  // empty past the last step: the group count stays fixed
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+
+  for (int i = 0; i < n_iter; ++i) {
+    issue(i + kStages - 1);
+    repro::cp_async_wait<kStages - 1>();
+    const int p0 = w_lo + i * R::kStep + grp * kUnroll;
     float kx[kUnroll][kVec], vx[kUnroll][kVec];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (on && p0 + u < hi) {
-        V::load(kb + (p0 + u) * row, kx[u]);
-        V::load(vb + (p0 + u) * row, vx[u]);
-      } else {
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) kx[u][j] = vx[u][j] = 0.0f;
-      }
+      V::unpack(*slot(i, u, 0), kx[u]);
+      V::unpack(*slot(i, u, 1), vx[u]);
     }
 #pragma unroll
     for (int r = 0; r < NREP; ++r) {
@@ -157,7 +220,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
         for (int j = 0; j < kVec; ++j) dot = fmaf(qv[r][j], kx[u][j], dot);
 #pragma unroll
         for (int off = kSpan / 2; off > 0; off >>= 1) dot += __shfl_xor_sync(kFull, dot, off);
-        sc[u] = p0 + u < hi ? dot * scale : -INFINITY;
+        sc[u] = p0 + u < s_hi ? (uniform ? 0.0f : dot * scale) : -INFINITY;
         m_blk = fmaxf(m_blk, sc[u]);
       }
       const float m_new = fmaxf(m[r], m_blk);
@@ -175,6 +238,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       m[r] = m_new;
     }
   }
+  repro::cp_async_wait<0>();
 
   // Merge the lane groups of each warp (lanes with the same `sub`).
 #pragma unroll
@@ -210,7 +274,8 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
   }
   __syncthreads();
 
-  // Merge the warps; one thread per (query row, head dim).
+  // Merge the warps into this split's partial; one thread per (query row,
+  // head dim).  Warps that saw no row hold m = -1e30, l = 0 and weigh 0.
   for (int e = threadIdx.x; e < NREP * DH; e += kThreads) {
     const int r = e / DH;
     const int d = e % DH;
@@ -224,48 +289,124 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* __rest
       lsum = fmaf(l_s[w][r], c, lsum);
       o = fmaf(acc_s[w][r][d], c, o);
     }
-    V::put(out + (static_cast<long long>(b) * n_heads + g * NREP + r) * DH + d,
-           o / fmaxf(lsum, 1e-30f));
+    const long long part = (static_cast<long long>(b) * n_heads + g * NREP + r) * n_splits + split;
+    part_acc[part * DH + d] = o;
+    if (d == 0) {
+      part_ml[2 * part] = lsum > 0.0f ? mm : -INFINITY;
+      part_ml[2 * part + 1] = lsum;
+    }
   }
+}
+
+// One block per (batch, query head); thread d merges head dim d over the
+// splits in split order.
+template <typename T, int DH>
+__global__ void __launch_bounds__(128)
+decode_combine_kernel(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
+                      T* __restrict__ out, int n_splits) {
+  const int d = threadIdx.x;
+  if (d >= DH) return;
+  const long long row = blockIdx.x;
+  const float* ml = part_ml + 2 * row * n_splits;
+  const float* pa = part_acc + row * n_splits * DH + d;
+  float mm = -INFINITY;
+  for (int s = 0; s < n_splits; ++s) mm = fmaxf(mm, ml[2 * s]);
+  float lsum = 0.0f, o = 0.0f;
+  if (mm > -INFINITY) {
+    for (int s = 0; s < n_splits; ++s) {
+      const float l = ml[2 * s + 1];
+      if (l > 0.0f) {
+        const float c = expf(ml[2 * s] - mm);
+        lsum = fmaf(l, c, lsum);
+        o = fmaf(pa[s * DH], c, o);
+      }
+    }
+  }
+  Vec<T>::put(out + row * DH + d, o / fmaxf(lsum, 1e-30f));
+}
+
+struct Args {
+  const void *q, *k, *v;
+  const int* len;
+  void* o;
+  float *part_acc, *part_ml;
+  int b, s_max, n_kv, n_splits;
+  float scale;
+  int window;
+};
+
+// Lets the split kernel take its 64 KB ring (over the 48 KB default) on
+// `device`, and with `blocks_per_sm` reports how many of its blocks one SM
+// holds.
+template <typename T, int DH, int NREP>
+cudaError_t prepare(int device, int* blocks_per_sm) {
+  auto kern = decode_split_kernel<T, DH, NREP>;
+  static bool ready[16] = {};
+  const cudaError_t err = repro::allow_smem(kern, kRingBytes, device, ready);
+  if (err != cudaSuccess || blocks_per_sm == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, kThreads, kRingBytes);
+}
+
+template <typename T, int DH, int NREP>
+cudaError_t launch_shape(const Args& a, int device, cudaStream_t s) {
+  cudaError_t err = prepare<T, DH, NREP>(device, nullptr);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.n_splits, a.b * a.n_kv);
+  decode_split_kernel<T, DH, NREP><<<grid, kThreads, kRingBytes, s>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v), a.len,
+      a.part_acc, a.part_ml, a.s_max, a.n_kv, a.n_splits, a.scale, a.window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  decode_combine_kernel<T, DH><<<a.b * a.n_kv * NREP, (DH + 31) / 32 * 32, 0, s>>>(
+      a.part_acc, a.part_ml, static_cast<T*>(a.o), a.n_splits);
+  return cudaGetLastError();
 }
 
 // Instantiated for llama3.2-1b's head dim and query heads per KV head (64,
 // 32 / 8 = 4) and zamba2-7b's shared attention (112, MHA: 1); other shapes
-// are added when a config needs them.
+// are added when a config needs them.  `a == nullptr` asks for the split
+// kernel's blocks per SM instead of launching.
 template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* len, void* o,
-                   int b, int s_max, int n_kv, int n_rep, int dh, float scale, int window,
-                   cudaStream_t s) {
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  if (dh == 64 && n_rep == 4) {
-    decode_kernel<T, 64, 4><<<b * n_kv, kThreads, 0, s>>>(qp, kp, vp, len, op, s_max, n_kv,
-                                                          scale, window);
-  } else if (dh == 112 && n_rep == 1) {
-    decode_kernel<T, 112, 1><<<b * n_kv, kThreads, 0, s>>>(qp, kp, vp, len, op, s_max, n_kv,
-                                                           scale, window);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
+cudaError_t dispatch(int dh, int n_rep, const Args* a, int device, cudaStream_t s,
+                     int* blocks_per_sm) {
+  if (dh == 64 && n_rep == 4)
+    return a ? launch_shape<T, 64, 4>(*a, device, s) : prepare<T, 64, 4>(device, blocks_per_sm);
+  if (dh == 112 && n_rep == 1)
+    return a ? launch_shape<T, 112, 1>(*a, device, s)
+             : prepare<T, 112, 1>(device, blocks_per_sm);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // `length` points at one device int32; `window` <= 0 means no window.
+// `part_acc` holds B * H * n_splits * dh floats and `part_ml` B * H *
+// n_splits * 2 (the wrapper's workspace).  Two launches: the split pass,
+// then the combine.
 extern "C" int repro_decode_attention(const void* q, const void* k_cache, const void* v_cache,
-                                      const int* length, void* out, int b, int h, int hkv,
-                                      int s_max, int dh, float scale, int window, int is_bf16,
+                                      const int* length, void* out, float* part_acc,
+                                      float* part_ml, int b, int h, int hkv, int s_max, int dh,
+                                      int n_splits, float scale, int window, int is_bf16,
                                       int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (b == 0 || h == 0) return 0;
+  if (n_splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{q, k_cache, v_cache, length, out, part_acc, part_ml, b, s_max, hkv, n_splits,
+               scale, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = is_bf16 ? launch<__nv_bfloat16>(q, k_cache, v_cache, length, out, b, s_max, hkv,
-                                        h / hkv, dh, scale, window, s)
-                : launch<float>(q, k_cache, v_cache, length, out, b, s_max, hkv, h / hkv, dh,
-                                scale, window, s);
+  err = is_bf16 ? dispatch<__nv_bfloat16>(dh, h / hkv, &a, device, s, nullptr)
+                : dispatch<float>(dh, h / hkv, &a, device, s, nullptr);
+  return static_cast<int>(err);
+}
+
+// Blocks of the split kernel one SM holds at once (its registers and its
+// ring bound it), for the wrapper's split plan.
+extern "C" int repro_decode_attention_blocks_per_sm(int dh, int n_rep, int is_bf16, int device,
+                                                    int* blocks_per_sm) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = is_bf16 ? dispatch<__nv_bfloat16>(dh, n_rep, nullptr, device, nullptr, blocks_per_sm)
+                : dispatch<float>(dh, n_rep, nullptr, device, nullptr, blocks_per_sm);
   return static_cast<int>(err);
 }

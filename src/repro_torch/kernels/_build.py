@@ -41,7 +41,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu",
            "flash_attention.cu", "decode_attention.cu", "swiglu.cu", "rwkv6_scan.cu",
            "ssd_scan.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "tensor_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -152,7 +152,7 @@ def library():
                 "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, p],
                 "repro_match_count": [p, p, p, f, p, i, i, i, i, p],
                 "repro_flash_attention": [p] * 4 + [ll] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
-                "repro_decode_attention": [p, p, p, p, p, i, i, i, i, i, f, i, i, i, p],
+                "repro_decode_attention": [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p],
                 "repro_swiglu_up": [p] * 4 + [i] * 5 + [p],
                 "repro_swiglu_down": [p] * 3 + [i] * 5 + [p],
                 "repro_rwkv6_scan": [p] * 8 + [ll] * 17 + [i] * 9 + [p],
@@ -164,6 +164,8 @@ def library():
                 fn.restype = i
             lib.repro_decide_fused_smem_bytes.argtypes = [i, i]
             lib.repro_decide_fused_smem_bytes.restype = ctypes.c_longlong
+            lib.repro_decode_attention_blocks_per_sm.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+            lib.repro_decode_attention_blocks_per_sm.restype = i
             lib.repro_gain_topr_smem_bytes.argtypes = [i]
             lib.repro_gain_topr_smem_bytes.restype = i
             _lib = lib
@@ -235,4 +237,4 @@ def launch_args(t) -> tuple[int, int]:
     import torch
 
     dev = t.device.index if t.device.index is not None else torch.cuda.current_device()
-    return dev, torch.cuda.current_stream(t.device).cuda_stream
+    return dev, torch.cuda.current_stream(dev).cuda_stream  # an int index: half the cost

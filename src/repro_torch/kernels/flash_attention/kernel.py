@@ -21,7 +21,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
               scale: float | None = None):
     """q [B, H, Sq, Dh], k / v [B, Hkv, Skv, Dh] (CUDA, bf16 or float32,
     unit head-dim stride) -> [B, H, Sq, Dh], a ``transpose(1, 2)`` view of a
-    contiguous ``[B, Sq, H, Dh]`` buffer."""
+    contiguous ``[B, Sq, H, Dh]`` buffer.  bf16 runs on the tensor cores
+    and copies whole 16-byte rows, so it also needs each row 16-byte
+    aligned; float32 runs on CUDA cores (TF32 would break its tolerance)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: expected 4-D q, k, v [B, H, S, Dh]")
     b, h, sq, dh = q.shape
@@ -41,6 +43,11 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"flash_attention: {name} needs a unit head-dim stride")
+        if bf16 and (t.data_ptr() % 16 or any(t.stride(i) % 8 for i in range(3)
+                                               if t.shape[i] > 1)):
+            raise ValueError(f"flash_attention: bf16 {name} needs 16-byte-aligned rows (a "
+                             f"16-byte-aligned base and batch / head / sequence strides that "
+                             f"are multiples of 8), got strides {tuple(t.stride())}")
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     scale = float(scale) if scale is not None else 1.0 / (dh ** 0.5)
     strides = [t.stride(i) for t in (q, k, v, out) for i in (0, 1, 2)]

@@ -174,6 +174,74 @@ def test_decode_plain_matches_causal_attention_last_row():
     np.testing.assert_allclose(got.numpy(), full[:, :, -1].numpy(), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("window", [None, 64])
+def test_decode_at_length_0_follows_the_jax_ref_not_the_pallas_kernel(window):
+    """At length 0 every reference logit is -1e30, so ``ref.py``'s softmax
+    weighs all S_max rows equally: the output is the mean of V.  The Pallas
+    kernel skips every block (``k_start < length`` is never true) and
+    returns zeros.  The port follows ``ref.py`` in both faces (its CUDA
+    kernel reads the whole cache with equal logits; card test in
+    ``test_torch_llm_kernels_cuda.py``)."""
+    (jq, q), (jk, k), (jv, v) = _decode_inputs(2, 8, 2, 256, 64, 12)
+    zero = torch.tensor(0, dtype=torch.int32)
+    got = _np(tdo.decode_attention(q, k, v, zero, window=window))
+    mean = np.repeat(_np(v).mean(axis=1), 4, axis=1)  # [B, Hkv, Dh] -> [B, H, Dh]
+    np.testing.assert_allclose(got, mean, rtol=1e-5, atol=1e-6)
+    rep_k, rep_v = jnp.repeat(jk, 4, axis=2), jnp.repeat(jv, 4, axis=2)
+    ref = _np(jdr.decode_attention(jq, rep_k, rep_v, jnp.int32(0), window=window))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    pallas = _np(jdk.decode_attention_pallas(jq, rep_k, rep_v, jnp.int32(0), window=window,
+                                             bs=128, interpret=True))
+    assert not pallas.any()
+    assert np.abs(mean).max() > 1e-3  # the two JAX routes really disagree
+
+
+# The split-KV plan (``decode_attention/kernel.py``): the split count from
+# host numbers, each block's slice from the device length.
+SPLIT_SHAPES = [(64, 2), (64, 4), (112, 2), (112, 4)]  # (head dim, bytes per element)
+
+
+@pytest.mark.parametrize("dh,itemsize", SPLIT_SHAPES)
+@pytest.mark.parametrize("b,hkv,s_max", [(1, 8, 8192), (3, 2, 1024), (4, 8, 4128),
+                                         (16, 8, 32768), (4, 32, 4128), (1, 1, 100),
+                                         (128, 8, 256)])
+def test_decode_split_ranges_tile_the_valid_range(dh, itemsize, b, hkv, s_max):
+    """For every length 0..S_max (+2) and window, the splits' slices tile
+    the rows the kernel reads exactly once, in order, none longer than the
+    rounded chunk."""
+    step = tdk.rows_per_step(dh, itemsize)
+    n = tdk.split_plan(b, hkv, s_max, 3 * 132)
+    assert 1 <= n <= tdk.MAX_SPLITS and (n == 1 or n <= s_max // tdk.MIN_SPLIT_ROWS)
+    for length in sorted({*range(0, s_max + 3, max(1, s_max // 97)), 0, 1, s_max - 1, s_max,
+                          step - 1, step, step + 1, n * step - 1, n * step, n * step + 1}):
+        for window in (None, 1, 7, 100, s_max):
+            lo, hi = tdk.valid_range(length, s_max, window)
+            assert 0 <= lo < hi <= s_max or lo == hi == s_max == 0
+            chunk = -(-(-(-(hi - lo) // n)) // step) * step
+            pos = lo
+            for split in range(n):
+                a, z = tdk.split_range(lo, hi, n, step, split)
+                assert a == pos and a <= z <= hi and z - a <= chunk
+                pos = z
+            assert pos == hi, (length, window, lo, hi, n)
+
+
+@pytest.mark.parametrize("per_sm,want", [(3, (3, 12, 3)), (4, (4, 16, 4))])
+def test_decode_split_plan_at_the_serving_shapes(per_sm, want):
+    """One wave of split blocks on a 132-SM H100 holding 3 or 4 per SM: the
+    32k cell's 16 x 8 groups, llama's B = 4 step (4 x 8) and zamba2's B = 4
+    MHA step (4 x 32)."""
+    slots = per_sm * 132
+    got = (tdk.split_plan(16, 8, 32768, slots), tdk.split_plan(4, 8, 4128, slots),
+           tdk.split_plan(4, 32, 4128, slots))
+    assert got == want
+    assert tdk.split_plan(1, 8, 300, slots) == 1  # too few rows for two splits
+    assert tdk.split_plan(128, 8, 32768, slots) == 1  # more groups than slots
+    assert tdk.split_plan(1, 1, 1 << 20, slots) == tdk.MAX_SPLITS
+    assert tdk.rows_per_step(64, 2) == 64 and tdk.rows_per_step(112, 2) == 32
+    assert tdk.rows_per_step(64, 4) == 32 and tdk.rows_per_step(112, 4) == 16
+
+
 # --------------------------------------------------------------------------- #
 # swiglu
 # --------------------------------------------------------------------------- #

@@ -7,10 +7,15 @@ installed:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_llm_kernels_cuda.py
 
-Attention: kernel and plain version both compute in float32 and round the
-output once, so in bf16 they may differ by one ulp, 2^-7 of the largest
-value in the output row; the limit is two ulps.  In float32 the limit,
-2e-5 * (1 + |plain|), sits above summation-order noise and below what one
+Attention: kernel and plain version both compute the softmax and the sums
+in float32 and round the output once, so in bf16 they may differ by one
+ulp, 2^-7 of the largest value in the output row; the limit is two ulps.
+The bf16 flash kernel also rounds each softmax weight to bf16 before the
+P V product on the tensor cores (as FlashAttention-2 and SDPA do): <=
+2^-9 relative per weight, random in sign, so its effect on an output is
+far below one ulp of the row's largest value.  In float32 the limit,
+2e-5 * (1 + |plain|), sits above summation-order noise (the decode
+kernel's split-KV combine merges in another order) and below what one
 key too many or too few moves an output.  SwiGLU: the plain version rounds
 the gate and up products to bf16, the kernel rounds their silu product
 once, so bf16 is held to 5e-2 of the output's magnitude.
@@ -45,26 +50,63 @@ def _assert_attention_close(got, want):
     assert bool((diff <= limit).all()), f"max abs err {float(diff.max())}"
 
 
+# (B, Sq, Skv, window, causal): Sq and Skv off the 64 / 128-row tiles, a
+# single query, windows crossing key tiles, bidirectional with Sq < Skv and
+# Sq > Skv, and enough (batch, head) blocks that the reversed (longest
+# first) query-tile order runs over several waves.
+FLASH_CASES = [(2, 200, 200, None, True), (2, 128, 300, None, True), (2, 256, 256, 64, True),
+               (2, 129, 300, None, True), (2, 1, 77, None, True), (2, 300, 300, 100, True),
+               (2, 200, 330, 64, True), (2, 200, 300, None, False), (2, 77, 1, None, False),
+               (8, 1000, 1000, None, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("sq,skv,window", [(200, 200, None), (128, 300, None), (256, 256, 64)])
-def test_cuda_flash_matches_plain(cuda_device, dtype, sq, skv, window):
+@pytest.mark.parametrize("b,sq,skv,window,causal", FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda_device, dtype, b, sq, skv, window, causal):
+    """llama3.2-1b's heads: Dh 64, four query heads per KV head."""
     gen = torch.Generator().manual_seed(0)
-    q = torch.randn(2, 8, sq, 64, generator=gen).to(cuda_device, dtype)
-    k = torch.randn(2, 2, skv, 64, generator=gen).to(cuda_device, dtype)
-    v = torch.randn(2, 2, skv, 64, generator=gen).to(cuda_device, dtype)
-    got = tfk.attention(q, k, v, causal=True, window=window)
-    want = tfr.attention(q, k, v, causal=True, window=window)
+    q = torch.randn(b, 8, sq, 64, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, 2, skv, 64, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, 2, skv, 64, generator=gen).to(cuda_device, dtype)
+    got = tfk.attention(q, k, v, causal=causal, window=window)
+    want = tfr.attention(q, k, v, causal=causal, window=window)
     assert got.dtype == want.dtype and got.shape == want.shape
     _assert_attention_close(got, want)
 
 
+def test_cuda_flash_bf16_refuses_misaligned_rows(cuda_device):
+    """The bf16 kernel copies whole 16-byte rows: a base pointer or a
+    stride off the 16-byte grid raises (no route to another kernel)."""
+    flat = torch.randn(2 * 8 * 64 * 64 + 1, device=cuda_device).to(torch.bfloat16)
+    shifted = flat[1:].view(2, 64, 8, 64).transpose(1, 2)  # base 2 bytes off
+    ok = torch.randn(2, 64, 2, 64, device=cuda_device).to(torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfk.attention(shifted, ok, ok)
+    wide = torch.randn(2, 64, 2, 65, device=cuda_device).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        tfk.attention(flat[:-1].view(2, 64, 8, 64).transpose(1, 2), ok,
+                      wide[..., :64].transpose(1, 2))  # head stride 65
+    tfk.attention(flat[:-1].view(2, 64, 8, 64).transpose(1, 2), ok, ok)  # aligned: runs
+
+
+# (B, S_max, length, window): lengths 0 (the mean of V, as ref.py), 1, one
+# split, around a split boundary, S_max; a window shorter than a split;
+# B = 1 (many splits) and B = 16 (few).
+DECODE_CASES = [(3, 1024, 1, None), (3, 1024, 1000, None), (3, 1024, 1000, 100),
+                (3, 1024, 0, None), (3, 1024, 0, 100), (3, 1024, 64, None),
+                (3, 1024, 255, None), (3, 1024, 256, None), (3, 1024, 257, None),
+                (3, 1024, 1024, None), (3, 1024, 1024, 30), (1, 8192, 5000, None),
+                (1, 8192, 8192, 700), (1, 8192, 0, None), (16, 1024, 777, None),
+                (16, 1024, 1024, 50)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length,window", [(1, None), (1000, None), (1000, 100)])
-def test_cuda_decode_matches_plain(cuda_device, dtype, length, window):
+@pytest.mark.parametrize("b,s_max,length,window", DECODE_CASES)
+def test_cuda_decode_matches_plain(cuda_device, dtype, b, s_max, length, window):
     gen = torch.Generator().manual_seed(1)
-    q = torch.randn(3, 8, 64, generator=gen).to(cuda_device, dtype)
-    k = torch.randn(3, 1024, 2, 64, generator=gen).to(cuda_device, dtype)
-    v = torch.randn(3, 1024, 2, 64, generator=gen).to(cuda_device, dtype)
+    q = torch.randn(b, 8, 64, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, s_max, 2, 64, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, s_max, 2, 64, generator=gen).to(cuda_device, dtype)
     n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
     got = tdk.decode_attention(q, k, v, n, window=window)
     want = tdr.decode_attention(q, k, v, n, window=window)

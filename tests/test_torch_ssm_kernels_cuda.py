@@ -181,21 +181,33 @@ def test_cuda_scans_take_the_bh_layout_and_no_initial_state(cuda_device):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_flash_at_head_dim_112_matches_plain(cuda_device, dtype):
+@pytest.mark.parametrize("b,sq,skv,window,causal", [
+    (2, 200, 200, None, True), (2, 129, 300, None, True), (2, 1, 77, None, True),
+    (2, 300, 300, 100, True), (2, 200, 330, 64, True), (2, 200, 300, None, False),
+    (8, 700, 700, None, True)])
+def test_cuda_flash_at_head_dim_112_matches_plain(cuda_device, dtype, b, sq, skv, window,
+                                                  causal):
+    """zamba2's shared block (MHA, Dh 112) in the model's [B, S, H, Dh]
+    layout, off the 64-row tiles, windowed and bidirectional."""
     gen = torch.Generator().manual_seed(4)
-    q, k, v = (torch.randn(2, 200, 4, 112, generator=gen).to(cuda_device, dtype).transpose(1, 2)
-               for _ in range(3))
-    _assert_attention_close(tfk.attention(q, k, v), tfr.attention(q, k, v))
+    q = torch.randn(b, sq, 4, 112, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+    k, v = (torch.randn(b, skv, 4, 112, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window)
+    _assert_attention_close(tfk.attention(q, k, v, **kw), tfr.attention(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("length", [1, 777])
-def test_cuda_decode_at_head_dim_112_matches_plain(cuda_device, dtype, length):
+@pytest.mark.parametrize("b,length,window", [(3, 1, None), (3, 777, None), (3, 0, None),
+                                             (3, 0, 50), (3, 800, None), (3, 800, 20),
+                                             (1, 799, None), (16, 401, 100)])
+def test_cuda_decode_at_head_dim_112_matches_plain(cuda_device, dtype, b, length, window):
     gen = torch.Generator().manual_seed(5)
-    q = torch.randn(3, 4, 112, generator=gen).to(cuda_device, dtype)
-    k, v = (torch.randn(3, 800, 4, 112, generator=gen).to(cuda_device, dtype) for _ in range(2))
+    q = torch.randn(b, 4, 112, generator=gen).to(cuda_device, dtype)
+    k, v = (torch.randn(b, 800, 4, 112, generator=gen).to(cuda_device, dtype) for _ in range(2))
     n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
-    _assert_attention_close(tdk.decode_attention(q, k, v, n), tdr.decode_attention(q, k, v, n))
+    _assert_attention_close(tdk.decode_attention(q, k, v, n, window=window),
+                            tdr.decode_attention(q, k, v, n, window=window))
 
 
 @pytest.mark.parametrize("t,dtype", [(4, torch.float32), (4, torch.bfloat16),
