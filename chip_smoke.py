@@ -86,8 +86,11 @@ Phases, each printing one JSON line:
     initial state, at the clamp floors (w = 0.05, log a = -6) against a
     float64 step recurrence, and in the [BH] layout with a short last
     chunk; flash and decode attention at zamba2's head dim 112 (MHA; flash
-    also windowed and bidirectional, decode also at length 0); each
-    timed beside its plain version and its bound;
+    also windowed and bidirectional, decode also at length 0); SwiGLU at
+    zamba2's FFN width (T 4, 16 and 16,384); each timed beside its plain
+    version and its bound (the scans' bf16 rows: bytes over 3.35 TB/s
+    against the products over 989 TFLOP/s plus the other operations over
+    67 TFLOP/s);
 15. ``ssm_card_vs_cpu``: rwkv6-1.6b and zamba2-7b at full width cut to 2
     layers (zamba2: one shared-block site), bf16 and float32, as phase 10;
 16. ``rwkv6_serve`` and ``zamba2_serve``: each full model (24 / 81 layers)
@@ -771,8 +774,11 @@ SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
 # float32 on CUDA cores; decode's split pass and its combine pass).
 LLM_SYMBOLS = {"flash_attention": ("flash_mma_kernel", "flash_fwd_kernel"),
                "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
-               "swiglu": ("gemm_bf16_kernel", "gemm_f32_kernel"),
-               "rwkv6_scan": ("rwkv6_scan_kernel",), "ssd_scan": ("ssd_scan_kernel",)}
+               "swiglu": ("swiglu_wgmma_kernel", "swiglu_stream_kernel",
+                          "swiglu_stream_f32_kernel", "swiglu_reduce_kernel",
+                          "swiglu_f32_tile_kernel"),
+               "rwkv6_scan": ("rwkv6_scan_kernel",),
+               "ssd_scan": ("ssd_mma_kernel", "ssd_scan_kernel")}
 
 
 def dtype_name(dtype):
@@ -969,6 +975,8 @@ def llm_kernels_phase(dev):
             extra[f"swiglu_T{t}_{dtype_name(dtype)}"] = {
                 "ms": median_ms(lambda: sk.swiglu(*args), **heavy),
                 "plain_ms": median_ms(lambda: sr.swiglu(*args), **heavy),
+                "device_us": device_us_per_call(lambda: sk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
+                "plain_device_us": profile_breakdown(lambda: sr.swiglu(*args), calls=5)[1] * 1e3,
                 "bound_ms": bound(*swiglu_work(t, dtype), PEAK_BF16_OPS_PER_S if dtype == bf16
                                   else PEAK_F32_OPS_PER_S)[0]}
     t = SERVE_B * SERVE_S
@@ -1264,30 +1272,49 @@ SCAN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (1e-4, "row1")}
 
 
 def scan_work(kind, b, h, s, dk, dv, chunk, size, shared_bc=False):
-    """(bytes, operations) of one scan call: every input read once and every
-    output written once, and the float32 operations of the chunked form
-    over the causal pairs (a multiply-add counts 2, any other op or exp 1).
-    zamba2's B and C are shared by the heads: they are read, and their
-    C . B products formed, once per batch row."""
-    ops = shared_ops = 0
+    """(bytes, operations, product operations) of one scan call: every
+    input read once and every output written once, and the operations of
+    the chunked form over the causal pairs (a multiply-add counts 2, any
+    other op or exp 1), of which the matrix products (cross, weights @ v,
+    state update; ssd's C . B) can run on the tensor cores.  zamba2's B and
+    C are shared by the heads: they are read, and their C . B products
+    formed, once per batch row."""
+    ops = shared_ops = mma = 0
     for c0 in range(0, s, chunk):
         c = min(chunk, s - c0)
         tri = c * (c + 1) // 2  # pairs j <= i
         if kind == "rwkv6":  # cross, pair weights (j < i), bonus, att @ v, decays, state
+            mma += 2 * c * dk * dv + 2 * tri * dv + 2 * c * dk * dv
             ops += (2 * c * dk * dv + 5 * (tri - c) * dk + 3 * c * dk + 2 * tri * dv
                     + 4 * c * dk + 2 * c * dk * dv + 3 * dk * dv)
         else:  # C . B; its decay weights, cross, att @ x, decays, state
             shared_ops += 2 * tri * dk
+            mma += 2 * c * dk * dv + 2 * tri * dv + 2 * c * dk * dv
             ops += (3 * tri + 2 * c * dk * dv + 2 * tri * dv + 4 * c * dk
                     + 2 * c * dk * dv + 2 * dk * dv)
-    ops = b * h * ops + b * (1 if shared_bc else h) * shared_ops
+    shared_ops *= b * (1 if shared_bc else h)
+    ops = b * h * ops + shared_ops
+    mma = b * h * mma + shared_ops
     state = 2 * b * h * dk * dv * 4  # s0 in, S_T out (float32)
     if kind == "rwkv6":  # r, k, v, out in the working dtype; lw float32; u
         nbytes = b * h * s * ((2 * dk + 2 * dv) * size + 4 * dk) + h * dk * 4 + state
     else:  # x, y in the working dtype; a float32; B, C
         bc = 2 * b * (1 if shared_bc else h) * s * dk * size
         nbytes = b * h * s * (2 * dv * size + 4) + bc + state
-    return nbytes, ops
+    return nbytes, ops, mma
+
+
+def scan_bound(work, tensor_cores):
+    """(ms, "bytes" or "operations"): the least time of a scan call, its
+    bytes over 3.35 TB/s against its operations -- in bf16 the products
+    over the 989 TFLOP/s tensor cores plus the rest over the 67 TFLOP/s
+    float32 rate, in float32 all at 67 TFLOP/s."""
+    nbytes, ops, mma = work
+    if not tensor_cores:
+        return bound(nbytes, ops)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = (mma / PEAK_BF16_OPS_PER_S + (ops - mma) / PEAK_F32_OPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def ssm_kernels_phase(dev):
@@ -1356,7 +1383,8 @@ def ssm_kernels_phase(dev):
             extra["rwkv6_scan_float32"] = {
                 "ms": median_ms(lambda: rk.rwkv6_scan(*args, chunk=32), **heavy),
                 "plain_ms": median_ms(lambda: rr.rwkv6_scan(*args, chunk=32), runs=3, inner=1),
-                "bound_ms": bound(*scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 4))[0]}
+                "bound_ms": scan_bound(scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 4),
+                                       False)[0]}
     rows["rwkv6_scan"] = dict(
         source="src/repro_torch/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan/kernel.py:89",
@@ -1366,7 +1394,7 @@ def ssm_kernels_phase(dev):
         library_ms=None,
         device_us=device_us_per_call(lambda: rk.rwkv6_scan(*args, chunk=32),
                                      LLM_SYMBOLS["rwkv6_scan"]),
-        bound=bound(*scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 2)),
+        bound=scan_bound(scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 2), True),
     )
     args = rwkv_inputs(f32, bb=1, ss=256, hh=4, floor=True)
     o, st = rk.rwkv6_scan(*args, chunk=32)
@@ -1420,8 +1448,8 @@ def ssm_kernels_phase(dev):
             extra["ssd_scan_float32"] = {
                 "ms": median_ms(lambda: sk.ssd_scan(*args, chunk=64), **heavy),
                 "plain_ms": median_ms(lambda: sr.ssd_scan(*args, chunk=64), runs=3, inner=1),
-                "bound_ms": bound(*scan_work("ssd", b, SSD_H, s, SSD_D, SSD_D, 64, 4,
-                                             shared_bc=True))[0]}
+                "bound_ms": scan_bound(scan_work("ssd", b, SSD_H, s, SSD_D, SSD_D, 64, 4,
+                                                 shared_bc=True), False)[0]}
     rows["ssd_scan"] = dict(
         source="src/repro_torch/csrc/ssd_scan.cu",
         replaces="src/repro/kernels/ssd_scan/kernel.py:74",
@@ -1431,7 +1459,8 @@ def ssm_kernels_phase(dev):
         library_ms=None,
         device_us=device_us_per_call(lambda: sk.ssd_scan(*args, chunk=64),
                                      LLM_SYMBOLS["ssd_scan"]),
-        bound=bound(*scan_work("ssd", b, SSD_H, s, SSD_D, SSD_D, 64, 2, shared_bc=True)),
+        bound=scan_bound(scan_work("ssd", b, SSD_H, s, SSD_D, SSD_D, 64, 2, shared_bc=True),
+                         True),
     )
     args = ssd_inputs(f32, bb=1, ss=256, hh=4, floor=True)
     y, st = sk.ssd_scan(*args, chunk=64)
@@ -1506,9 +1535,9 @@ def ssm_kernels_phase(dev):
         del qd, kc, vc, q4, k_valid, v_valid
         torch.cuda.empty_cache()
     # swiglu at zamba2's shared FFN (D = 3584, F = 14336): the prefill's
-    # T = 4 x 4096, the decode step's T = 4, and T = 4 in float32.
+    # T = 4 x 4096, the decode step's T = 4 (and 16), and T = 4 in float32.
     d, f = ZAMBA_D, ZAMBA_F
-    for t, dtype in ((4, f32), (4, bf16), (b * s, bf16)):
+    for t, dtype in ((4, f32), (4, bf16), (16, bf16), (b * s, bf16)):
         args = (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
                 randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
         case = f"T={t},D={d},F={f},{dtype_name(dtype)}"
@@ -1520,6 +1549,7 @@ def ssm_kernels_phase(dev):
             "ms": median_ms(lambda: gk.swiglu(*args), **heavy),
             "plain_ms": median_ms(lambda: gr.swiglu(*args), **heavy),
             "device_us": device_us_per_call(lambda: gk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
+            "plain_device_us": profile_breakdown(lambda: gr.swiglu(*args), calls=5)[1] * 1e3,
             "bound_ms": bound(size * (2 * t * d + 3 * d * f), 6 * t * d * f,
                               PEAK_BF16_OPS_PER_S if dtype == bf16 else PEAK_F32_OPS_PER_S)[0]}
         del args

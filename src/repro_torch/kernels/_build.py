@@ -153,10 +153,10 @@ def library():
                 "repro_match_count": [p, p, p, f, p, i, i, i, i, p],
                 "repro_flash_attention": [p] * 4 + [ll] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
                 "repro_decode_attention": [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p],
-                "repro_swiglu_up": [p] * 4 + [i] * 5 + [p],
-                "repro_swiglu_down": [p] * 3 + [i] * 5 + [p],
+                "repro_swiglu_up": [p] * 5 + [i] * 7 + [p],
+                "repro_swiglu_down": [p] * 4 + [i] * 7 + [p],
                 "repro_rwkv6_scan": [p] * 8 + [ll] * 17 + [i] * 9 + [p],
-                "repro_ssd_scan": [p] * 7 + [ll] * 15 + [i] * 9 + [p],
+                "repro_ssd_scan": [p] * 7 + [ll] * 15 + [i] * 10 + [p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(lib, name)
@@ -226,10 +226,22 @@ def column_slice(streams: int, cols: int, device) -> int:
     vb = 64
     while cols % vb:
         vb //= 2
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = sm_count(torch.device(device).index or 0)
     while vb > 16 and streams * (cols // vb) < 2 * sms:
         vb //= 2
     return vb
+
+
+_sms: dict = {}
+
+
+def sm_count(device: int) -> int:
+    """The card's SM count (cached per device index)."""
+    if device not in _sms:
+        import torch
+
+        _sms[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device]
 
 
 def launch_args(t) -> tuple[int, int]:

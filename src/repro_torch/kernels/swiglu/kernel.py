@@ -1,9 +1,15 @@
 """Wrapper of the CUDA SwiGLU kernels (``csrc/swiglu.cu``), the Hopper
 counterpart of ``repro/kernels/swiglu/kernel.py``'s ``swiglu_pallas``.
 
-Two launches, both counted as ``swiglu``: ``up`` writes the hidden
+Two products, both counted as ``swiglu``: ``up`` writes the hidden
 ``h = silu(x Wg) * (x Wu)`` (float32 products, rounded once to x's dtype),
-``down`` the product ``h Wo``.  Any T; D and F multiples of 8."""
+``down`` the product ``h Wo``.  Any T; D and F multiples of 8.
+
+Each product is planned here from host numbers (:func:`plan`): at most
+:data:`SMALL_T` rows stream the weights in K slices (enough blocks to
+cover the card twice) and sum the slices' float32 partials in slice order
+in a second pass; more rows run the tiled GEMM (``wgmma`` + TMA in bf16).
+"""
 
 from __future__ import annotations
 
@@ -11,7 +17,49 @@ import torch
 
 from .. import _build
 
-__all__ = ["swiglu"]
+__all__ = ["swiglu", "plan", "split_ranges", "SMALL_T"]
+
+#: Row counts up to this take the weight-streaming path.
+SMALL_T = 16
+#: Streaming path: output columns per block, K rows per pipeline stage.
+STREAM_BN, STREAM_BK = 64, 64
+#: Streaming path: blocks to aim for, in multiples of the SM count (bf16,
+#: float32); ``tools/kernel_plans.py`` times 2 to 32 at the decode shapes.
+STREAM_WAVES = {True: 4, False: 16}
+#: Tiled path: block tile (rows, columns) in bf16 and in float32.
+GEMM_TILE = {True: (128, 128), False: (64, 64)}
+
+
+def plan(t: int, n: int, k: int, sms: int, bf16: bool = True) -> dict:
+    """Launch plan of one product [t, k] @ [k, n] on a card with ``sms``
+    SMs: ``{"path": "stream", "col_tiles", "splits", "kper"}`` (K split
+    into ``splits`` slices of ``kper`` rows, a multiple of
+    :data:`STREAM_BK`, so that column tiles x slices reaches
+    :data:`STREAM_WAVES` x ``sms`` where K allows) or ``{"path": "gemm", "row_tiles", "col_tiles"}``."""
+    if t <= SMALL_T:
+        col_tiles = -(-n // STREAM_BN)
+        k_tiles = -(-k // STREAM_BK)
+        want = min(k_tiles, -(-STREAM_WAVES[bf16] * sms // col_tiles))
+        per = -(-k_tiles // want)  # k tiles per slice
+        return {"path": "stream", "col_tiles": col_tiles, "splits": -(-k_tiles // per),
+                "kper": per * STREAM_BK}
+    bm, bn = GEMM_TILE[bf16]
+    return {"path": "gemm", "row_tiles": -(-t // bm), "col_tiles": -(-n // bn)}
+
+
+def split_ranges(k: int, splits: int, kper: int) -> list[tuple[int, int]]:
+    """The K rows ``[k0, k1)`` of each slice, as the kernel computes them."""
+    return [(s * kper, min(k, (s + 1) * kper)) for s in range(splits)]
+
+
+def _launch(fn, name, p, t, d, f, bf16, ws, dev, stream, ptrs):
+    """Launch one product as ``plan`` ``p`` says; ``fn`` takes the call's
+    (T, D, F)."""
+    splits = p["splits"] if p["path"] == "stream" else 0
+    code = fn(*ptrs, 0 if ws is None else ws.data_ptr(), t, d, f,
+              p["kper"] if splits else 0, splits, int(bf16), dev, stream)
+    _build.check_error(f"swiglu ({name})", code)
+    _build.count_launch("swiglu")
 
 
 def swiglu(x, wg, wu, wo):
@@ -37,12 +85,15 @@ def swiglu(x, wg, wu, wo):
     out = torch.empty((t, d), dtype=x.dtype, device=x.device)
     lib = _build.library()
     dev, stream = _build.launch_args(x)
-    code = lib.repro_swiglu_up(x.data_ptr(), wg.data_ptr(), wu.data_ptr(), h.data_ptr(),
-                               t, d, f, int(bf16), dev, stream)
-    _build.check_error("swiglu (up)", code)
-    _build.count_launch("swiglu")
-    code = lib.repro_swiglu_down(h.data_ptr(), wo.data_ptr(), out.data_ptr(), t, d, f,
-                                 int(bf16), dev, stream)
-    _build.check_error("swiglu (down)", code)
-    _build.count_launch("swiglu")
+    sms = _build.sm_count(dev)
+    up, down = plan(t, f, d, sms, bf16), plan(t, d, f, sms, bf16)
+    # Split-K partials [splits, products, t, n]: one buffer serves both
+    # products (they run in stream order).
+    need = max([p["splits"] * nmat * t * n for p, nmat, n in ((up, 2, f), (down, 1, d))
+                if p["path"] == "stream" and p["splits"] > 1], default=0)
+    ws = torch.empty(need, dtype=torch.float32, device=x.device) if need else None
+    _launch(lib.repro_swiglu_up, "up", up, t, d, f, bf16, ws, dev, stream,
+            (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), h.data_ptr()))
+    _launch(lib.repro_swiglu_down, "down", down, t, d, f, bf16, ws, dev, stream,
+            (h.data_ptr(), wo.data_ptr(), out.data_ptr()))
     return out

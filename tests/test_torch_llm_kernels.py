@@ -143,6 +143,19 @@ def test_decode_plain_window_matches_jax_ref_and_pallas():
     np.testing.assert_allclose(got, _np(pallas), rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("window", [None, 3])
+@pytest.mark.parametrize("b,s,lengths", [(3, 16, [1, 9, 16]), (4, 4, [0, 4, 2, 3])])
+def test_decode_plain_takes_per_sequence_lengths_as_the_jax_ref(b, s, lengths, window):
+    """``length`` of shape [B]: one valid prefix per sequence, broadcast as
+    the JAX oracle does, at B != S and at B == S (where a [S] mask would
+    broadcast silently over the wrong axis)."""
+    (jq, q), (jk, k), (jv, v) = _decode_inputs(b, 4, 4, s, 16, 11)
+    got = _np(tdo.decode_attention(q, k, v, torch.tensor(lengths, dtype=torch.int32),
+                                   window=window))
+    want = _np(jdr.decode_attention(jq, jk, jv, jnp.asarray(lengths, jnp.int32), window=window))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
 def test_decode_plain_gqa_matches_jax_ref_with_repeated_kv(dtype, tol):
     (jq, q), (jk, k), (jv, v) = _decode_inputs(3, 8, 2, 300, 64, 6, dtype)
@@ -264,6 +277,44 @@ def test_swiglu_plain_matches_pallas_interpret():
     want = _np(jgk.swiglu_pallas(jx, jg, ju, jo, bt=64, bf=64, interpret=True))
     np.testing.assert_allclose(_np(tgo.swiglu(x, wg, wu, wo)), want, rtol=2e-3,
                                atol=2e-3 * np.abs(want).max())
+
+
+# Decode-step shapes of the served models: (T, D, F) of llama3.2-1b and
+# zamba2-7b's shared FFN.
+SWIGLU_DECODE = [(4, 2048, 8192), (16, 2048, 8192), (4, 3584, 14336), (16, 3584, 14336)]
+
+
+@pytest.mark.parametrize("t,d,f", SWIGLU_DECODE)
+def test_swiglu_decode_plan_covers_the_card_twice(t, d, f):
+    """At decode, both products stream the weights over >= 2 blocks per
+    SM of an H100 (132 SMs), and the K slices cover K exactly once."""
+    for n, k in ((f, d), (d, f)):  # up, down
+        p = tgk.plan(t, n, k, 132)
+        assert p["path"] == "stream"
+        assert p["col_tiles"] * p["splits"] >= 2 * 132
+        assert p["kper"] % tgk.STREAM_BK == 0
+        ranges = tgk.split_ranges(k, p["splits"], p["kper"])
+        assert ranges[0][0] == 0 and ranges[-1][1] == k
+        assert all(a < b for a, b in ranges)
+        assert all(r[1] == s[0] for r, s in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("t", [1, 15, 16, 17, 129, 4100, 16384])
+@pytest.mark.parametrize("n,k", [(8192, 2048), (2048, 8192), (520, 256), (256, 520)])
+def test_swiglu_plan_covers_t_n_and_k_once(bf16, t, n, k):
+    p = tgk.plan(t, n, k, 132, bf16)
+    if t <= tgk.SMALL_T:
+        assert p["path"] == "stream"
+        bn = tgk.STREAM_BN
+        ranges = tgk.split_ranges(k, p["splits"], p["kper"])
+        covered = [i for a, b in ranges for i in range(a, b)]
+        assert covered == list(range(k))
+    else:
+        assert p["path"] == "gemm"
+        bm, bn = tgk.GEMM_TILE[bf16]
+        assert (p["row_tiles"] - 1) * bm < t <= p["row_tiles"] * bm
+    assert (p["col_tiles"] - 1) * bn < n <= p["col_tiles"] * bn
 
 
 def test_cpu_dispatch_never_launches():

@@ -26,6 +26,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.decode_attention import kernel as tdk, ref as tdr
 from repro_torch.kernels.flash_attention import kernel as tfk, ref as tfr
 from repro_torch.kernels.swiglu import kernel as tgk, ref as tgr
@@ -114,15 +115,41 @@ def test_cuda_decode_matches_plain(cuda_device, dtype, b, s_max, length, window)
     _assert_attention_close(got, want)
 
 
+# (D, F): a small ragged width, llama3.2-1b's FFN and zamba2-7b's.  T: the
+# weight-streaming path (1, 4, 15, 16 rows), the tiled path just past it
+# (17), off the 128-row tiles (129, 200) and several row tiles (4,100).
+SWIGLU_WIDTHS = [(256, 520), (2048, 8192), (3584, 14336)]
+
+
+def _swiglu_inputs(dev, dtype, t, d, f, seed=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    return (randn(t, d), randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5),
+            randn(f, d, scale=f ** -0.5))
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 5e-2)])
-@pytest.mark.parametrize("t", [1, 200])
-def test_cuda_swiglu_matches_plain(cuda_device, dtype, tol, t):
-    gen = torch.Generator().manual_seed(2)
-    d, f = 256, 520
-    x = torch.randn(t, d, generator=gen).to(cuda_device, dtype)
-    wg, wu = (torch.randn(d, f, generator=gen).div(d ** 0.5).to(cuda_device, dtype)
-              for _ in range(2))
-    wo = torch.randn(f, d, generator=gen).div(f ** 0.5).to(cuda_device, dtype)
-    got = tgk.swiglu(x, wg, wu, wo).float()
-    want = tgr.swiglu(x, wg, wu, wo).float()
+@pytest.mark.parametrize("t", [1, 4, 15, 16, 17, 129, 200, 4100])
+@pytest.mark.parametrize("d,f", SWIGLU_WIDTHS)
+def test_cuda_swiglu_matches_plain(cuda_device, dtype, tol, t, d, f):
+    x, wg, wu, wo = _swiglu_inputs(cuda_device, dtype, t, d, f)
+    before = LAUNCHES["swiglu"]
+    got = tgk.swiglu(x, wg, wu, wo)
+    assert LAUNCHES["swiglu"] == before + 2
+    want = tgr.swiglu(x, wg, wu, wo)
+    assert got.dtype == want.dtype and got.shape == want.shape == (t, d)
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,f", [(16, 2048, 8192), (4, 3584, 14336), (300, 2048, 8192)])
+def test_cuda_swiglu_is_deterministic(cuda_device, dtype, t, d, f):
+    """The K-split partials are summed in slice order, never by atomics:
+    two runs give the same bits."""
+    args = _swiglu_inputs(cuda_device, dtype, t, d, f, seed=4)
+    assert torch.equal(tgk.swiglu(*args), tgk.swiglu(*args))

@@ -355,3 +355,21 @@ def test_kernel_wrappers_check_shapes_before_the_device():
         tsk.ssd_scan(x, a, b.repeat(1, 1, 9), c.repeat(1, 1, 9), None)
     with pytest.raises(ValueError, match="x .*a"):
         tsk.ssd_scan(x, a[:, :4], b, c, st)
+
+
+# (B, H, Dh, Dst, bf16 aligned, B / C shared) -> (heads per block, columns).
+@pytest.mark.parametrize("nb,nh,dh,dst,tc,shared,want", [
+    (4, 112, 64, 64, True, True, (2, 64)),    # zamba2's prefill: C B^T once per head pair
+    (1, 112, 64, 64, True, True, (1, 32)),    # B = 1: narrower columns fill the card
+    (4, 112, 64, 64, True, False, (1, 64)),   # per-head B / C: one head per block
+    (2, 6, 64, 16, True, False, (1, 16)),
+    (4, 112, 64, 64, False, True, (0, None)),  # float32 / unaligned: the CUDA-core kernel
+    (4, 112, 40, 64, True, True, (0, None)),   # Dh off the 16-column tiles
+    (4, 112, 64, 60, True, True, (0, None)),   # Dst off the 8-wide rows
+])
+def test_ssd_launch_plan(nb, nh, dh, dst, tc, shared, want):
+    heads, vb = tsk.plan(nb, nh, dh, dst, 132, tensor_cores=tc, shared_bc=shared)
+    assert (heads, vb) == want
+    if heads:
+        assert nh % heads == 0 and dh % vb == 0 and vb in (16, 32, 64)
+        assert nb * nh // heads * (dh // vb) >= 132 or vb == 16

@@ -86,15 +86,19 @@ def _rwkv(b, s, h, d, gen, floor=False):
     return r, k, v, lw, u, torch.randn(b, h, d, d, generator=gen)
 
 
-def _ssd(b, s, h, dh, dst, gen, floor=False):
-    """x as a [B, H, S, Dh] view, B / C [B, S, Dst] expanded over the heads,
+def _ssd(b, s, h, dh, dst, gen, floor=False, shared=True):
+    """x as a [B, H, S, Dh] view, B / C [B, S, Dst] expanded over the heads
+    (head stride 0) or, unshared, [B, H, S, Dst] views of [B, S, H, Dst],
     log-decays over [-6, -1e-3] (or all at -6), a state."""
     x = torch.randn(b, s, h, dh, generator=gen).transpose(1, 2)
     a = _log_decay((b, s, h), 1e-3, 6.0, gen).transpose(1, 2)
     if floor:
         a = torch.full_like(a, -6.0)
-    bm, cm = (torch.randn(b, s, dst, generator=gen)[:, None].expand(b, h, s, dst)
-              for _ in range(2))
+    if shared:
+        bm, cm = (torch.randn(b, s, dst, generator=gen)[:, None].expand(b, h, s, dst)
+                  for _ in range(2))
+    else:
+        bm, cm = (torch.randn(b, s, h, dst, generator=gen).transpose(1, 2) for _ in range(2))
     return x, a, bm, cm, torch.randn(b, h, dst, dh, generator=gen)
 
 
@@ -119,11 +123,20 @@ def test_cuda_rwkv6_scan_matches_plain(cuda_device, dtype, s, chunk):
     _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
 
 
+# (B, H, S, chunk, Dh): whole chunks, a short last chunk (S = 100), S
+# under one chunk, chunk 32 at Dh 32, B = 1 (the launch narrows the
+# column slices to fill the card), Dh 128 (two column slices) and zamba2's
+# 112 heads at B = 1.
+SSD_CASES = [(2, 6, 256, 64, 64), (2, 6, 100, 64, 64), (2, 6, 300, 32, 32), (2, 6, 40, 64, 64),
+             (1, 6, 100, 64, 64), (1, 4, 130, 64, 128), (1, 112, 200, 64, 64)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,chunk,dh", [(256, 64, 64), (100, 64, 64), (300, 32, 32)])
-def test_cuda_ssd_scan_matches_plain(cuda_device, dtype, s, chunk, dh):
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("b,h,s,chunk,dh", SSD_CASES)
+def test_cuda_ssd_scan_matches_plain(cuda_device, dtype, shared, b, h, s, chunk, dh):
     gen = torch.Generator().manual_seed(1)
-    x, a, bm, cm, s0 = _ssd(2, s, 6, dh, 64, gen)
+    x, a, bm, cm, s0 = _ssd(b, s, h, dh, 64, gen, shared=shared)
     args = [x.to(cuda_device, dtype), a.to(cuda_device), bm.to(cuda_device, dtype),
             cm.to(cuda_device, dtype), s0.to(cuda_device)]
     before = LAUNCHES["ssd_scan"]
