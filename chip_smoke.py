@@ -85,8 +85,11 @@ Phases, each printing one JSON line:
     seeded decays spread over the models' clamp ranges and a non-zero
     initial state, at the clamp floors (w = 0.05, log a = -6) against a
     float64 step recurrence, and in the [BH] layout with a short last
-    chunk; flash and decode attention at zamba2's head dim 112 (MHA; flash
-    also windowed and bidirectional, decode also at length 0); SwiGLU at
+    chunk; bf16 ``rwkv6_scan`` also at w = 1e-8 and at the floor with
+    chunk 64 (its tensor-core kernel's exact per-pair branch), and checked
+    to run ``rwkv6_mma_kernel`` at the serving shape; flash and decode
+    attention at zamba2's head dim 112 (MHA; flash also windowed and
+    bidirectional, decode also at length 0); SwiGLU at
     zamba2's FFN width (T 4, 16 and 16,384); each timed beside its plain
     version and its bound (the scans' bf16 rows: bytes over 3.35 TB/s
     against the products over 989 TFLOP/s plus the other operations over
@@ -770,14 +773,14 @@ HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
 # moves an output at 32k keys (~1e-4).
 ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
 SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
-# Every device function of each kernel (bf16 flash on the tensor cores,
-# float32 on CUDA cores; decode's split pass and its combine pass).
+# Every device function of each kernel (bf16 flash and scans on the tensor
+# cores, float32 on CUDA cores; decode's split pass and its combine pass).
 LLM_SYMBOLS = {"flash_attention": ("flash_mma_kernel", "flash_fwd_kernel"),
                "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                "swiglu": ("swiglu_wgmma_kernel", "swiglu_stream_kernel",
                           "swiglu_stream_f32_kernel", "swiglu_reduce_kernel",
                           "swiglu_f32_tile_kernel"),
-               "rwkv6_scan": ("rwkv6_scan_kernel",),
+               "rwkv6_scan": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
                "ssd_scan": ("ssd_mma_kernel", "ssd_scan_kernel")}
 
 
@@ -1352,11 +1355,11 @@ def ssm_kernels_phase(dev):
     # rwkv6: the model's [B, S, H, D] projections as [B, H, S, D] views; log-
     # decays over [log 0.05, log 0.9995] (the model's clamp), a bonus per
     # head, a non-zero state.
-    def rwkv_inputs(dtype, bb=b, ss=s, hh=RWKV_H, floor=False):
+    def rwkv_inputs(dtype, bb=b, ss=s, hh=RWKV_H, floor=None):
         r, k, v = (randn((bb, ss, hh, RWKV_D), dtype).transpose(1, 2) for _ in range(3))
         lw = log_uniform((bb, ss, hh, RWKV_D), 5e-4, -math.log(0.05)).transpose(1, 2)
-        if floor:
-            lw = torch.full_like(lw, math.log(0.05))
+        if floor is not None:  # every decay at w = floor
+            lw = torch.full_like(lw, math.log(floor))
         u = torch.rand((hh, RWKV_D), generator=gen, device=dev) * 0.6 - 0.3
         return r, k, v, lw, u, randn((bb, hh, RWKV_D, RWKV_D))
 
@@ -1385,6 +1388,14 @@ def ssm_kernels_phase(dev):
                 "plain_ms": median_ms(lambda: rr.rwkv6_scan(*args, chunk=32), runs=3, inner=1),
                 "bound_ms": scan_bound(scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 4),
                                        False)[0]}
+    # The serving shape runs the tensor-core kernel, not the CUDA-core one.
+    ran = [k for k, _t, _c in profile_breakdown(lambda: rk.rwkv6_scan(*args, chunk=32))[2]]
+    check(any("rwkv6_mma_kernel" in k for k in ran)
+          and not any("rwkv6_scan_kernel" in k for k in ran),
+          f"rwkv6_scan bf16 at the serving shape ran {ran}, not rwkv6_mma_kernel")
+    emit({"phase": "ssm_parity", "kernel": "rwkv6_scan", "route": "rwkv6_mma_kernel",
+          "vb": rk.plan(b, RWKV_H, RWKV_D, RWKV_D, _build.sm_count(dev.index or 0),
+                        tensor_cores=True)})
     rows["rwkv6_scan"] = dict(
         source="src/repro_torch/csrc/rwkv6_scan.cu",
         replaces="src/repro/kernels/rwkv6_scan/kernel.py:89",
@@ -1396,13 +1407,22 @@ def ssm_kernels_phase(dev):
                                      LLM_SYMBOLS["rwkv6_scan"]),
         bound=scan_bound(scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 2), True),
     )
-    args = rwkv_inputs(f32, bb=1, ss=256, hh=4, floor=True)
-    o, st = rk.rwkv6_scan(*args, chunk=32)
-    wo, wst = rwkv_f64(*args)
-    hold("ssm_parity", "rwkv6_scan", "floor w=0.05,B=1,S=256,H=4,float32 vs float64 steps",
-         o, wo.float(), SCAN_TOL["float32"])
-    hold("ssm_parity", "rwkv6_scan", "floor state vs float64 steps", st, wst.float(),
-         SCAN_TOL["float32"])
+    for dtype in (f32, bf16):  # bf16: the tensor cores' anchored factors at chunk 32
+        args = rwkv_inputs(dtype, bb=1, ss=256, hh=4, floor=0.05)
+        o, st = rk.rwkv6_scan(*args, chunk=32)
+        wo, wst = rwkv_f64(*args)
+        case = f"floor w=0.05,B=1,S=256,H=4,{dtype_name(dtype)} vs float64 steps"
+        hold("ssm_parity", "rwkv6_scan", case, o, wo.to(dtype), SCAN_TOL[dtype_name(dtype)])
+        hold("ssm_parity", "rwkv6_scan", case + ",state", st, wst.float(), SCAN_TOL["float32"])
+    # bf16 past the anchors' span: every chunk on the exact per-pair loop
+    # (w = 1e-8, the ssm module's clamp; chunk 64 at the floor).
+    for floor, chunk in ((1e-8, 32), (0.05, 64)):
+        args = rwkv_inputs(bf16, bb=1, ss=256, hh=4, floor=floor)
+        o, st = rk.rwkv6_scan(*args, chunk=chunk)
+        po, pst = rr.rwkv6_scan(*args, chunk=chunk)
+        case = f"floor w={floor},B=1,S=256,H=4,bfloat16,chunk={chunk}"
+        hold("ssm_parity", "rwkv6_scan", case, o, po, SCAN_TOL["bfloat16"])
+        hold("ssm_parity", "rwkv6_scan", case + ",state", st, pst, SCAN_TOL["float32"])
     r, k, v, lw, u, s0 = rwkv_inputs(f32, bb=2, ss=100, hh=3)  # [BH] streams, short last chunk
     flat = [t.reshape(6, *t.shape[2:]) for t in (r.contiguous(), k.contiguous(),
                                                   v.contiguous(), lw.contiguous())]

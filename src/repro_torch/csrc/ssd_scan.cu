@@ -229,6 +229,7 @@ using repro::ldmatrix_x4;
 using repro::ldmatrix_x4_trans;
 using repro::mma_bf16;
 using repro::smem_u32;
+using repro::split2;
 
 constexpr int kMT = 64;  // steps of a chunk tile (chunk <= 64; short chunks zero-padded)
 constexpr int kMD = 64;  // state rows (Dst <= 64, zero-padded)
@@ -240,15 +241,6 @@ constexpr int kMThreads = 128;
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
                "r"(ok ? 4 : 0));
-}
-
-// A float32 pair as bf16 hi + lo (hi + lo equals the pair to ~2^-17).
-__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 template <int VB, int HG>

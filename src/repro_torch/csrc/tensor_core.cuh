@@ -1,8 +1,9 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80+ PTX, used on
-// sm_90a) shared by the bf16 kernels: swiglu.cu's GEMM tiles and
-// flash_attention.cu's attention tiles.
+// sm_90a) shared by the bf16 kernels: swiglu.cu's GEMM tiles,
+// flash_attention.cu's attention tiles and the two scans' chunk products.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +36,13 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_u32(p)));
 }
 
+// Two 8 x 8 b16 matrices, transposed; lanes 0..15 give the row addresses.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 // c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
@@ -43,6 +51,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A float32 pair as bf16 hi + lo (hi + lo equals the pair to ~2^-17): a
+// float32 operand enters mma_bf16 as two products, hi and lo.
+__device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // Raises `kern`'s dynamic shared-memory limit to `bytes` (needed above

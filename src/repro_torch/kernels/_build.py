@@ -155,7 +155,7 @@ def library():
                 "repro_decode_attention": [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p],
                 "repro_swiglu_up": [p] * 5 + [i] * 7 + [p],
                 "repro_swiglu_down": [p] * 4 + [i] * 7 + [p],
-                "repro_rwkv6_scan": [p] * 8 + [ll] * 17 + [i] * 9 + [p],
+                "repro_rwkv6_scan": [p] * 8 + [ll] * 17 + [i] * 10 + [p],
                 "repro_ssd_scan": [p] * 7 + [ll] * 15 + [i] * 10 + [p],
             }
             for name, argtypes in sigs.items():

@@ -373,3 +373,36 @@ def test_ssd_launch_plan(nb, nh, dh, dst, tc, shared, want):
     if heads:
         assert nh % heads == 0 and dh % vb == 0 and vb in (16, 32, 64)
         assert nb * nh // heads * (dh // vb) >= 132 or vb == 16
+
+
+def _rwkv_views(nb, nh, dtype, misaligned=False, s=8, d=64):
+    """The model's [B, S, H, D] projections as [B, H, S, D] views (CPU), one
+    element off the 16-byte grid when ``misaligned``; lw float32."""
+    def view(dt, off):
+        return torch.zeros(nb * s * nh * d + off, dtype=dt)[off:].view(nb, s, nh, d).transpose(1, 2)
+
+    off = 1 if misaligned else 0
+    return view(dtype, off), view(dtype, off), view(dtype, off), view(torch.float32, 0)
+
+
+# (dtype, misaligned, B, H, Dk, Dv) -> columns per block of the tensor-core
+# kernel, or 0 for the CUDA-core kernel.
+@pytest.mark.parametrize("dtype,misaligned,nb,nh,dk,dv,want", [
+    (torch.bfloat16, False, 4, 32, 64, 64, 32),  # rwkv6-1.6b's prefill: 2 slices cover 132 SMs
+    (torch.bfloat16, False, 1, 32, 64, 64, 16),  # B = 1: narrowed to 16 columns
+    (torch.bfloat16, False, 8, 32, 64, 64, 64),  # 256 streams fill the card at full width
+    (torch.bfloat16, True, 4, 32, 64, 64, 0),    # a view off the 16-byte grid: CUDA cores
+    (torch.bfloat16, True, 1, 32, 64, 64, 0),
+    (torch.float32, False, 4, 32, 64, 64, 0),    # float32: CUDA cores
+    (torch.float32, False, 1, 32, 64, 64, 0),
+    (torch.bfloat16, False, 4, 32, 64, 40, 0),   # Dv off the 16-column tiles
+    (torch.bfloat16, False, 4, 32, 56, 48, 16),  # Dk 56 zero-padded; Dv 48: 16-column slices
+])
+def test_rwkv6_launch_plan(dtype, misaligned, nb, nh, dk, dv, want):
+    r, k, _v, lw = _rwkv_views(nb, nh, dtype, misaligned, d=dk)
+    v = _rwkv_views(nb, nh, dtype, misaligned, d=dv)[2]
+    vb = trk.plan(nb, nh, dk, dv, 132, tensor_cores=trk.tensor_cores(r, k, v, lw))
+    assert vb == want
+    if vb:
+        assert dv % vb == 0 and vb in (16, 32, 64)
+        assert nb * nh * (dv // vb) >= 132 or vb == 16

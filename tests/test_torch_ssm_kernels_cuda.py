@@ -13,7 +13,13 @@ output row's largest |value|) -- a state carried over many chunks and an
 output that cancels to near 0 carry their row's rounding -- and bf16,
 rounded once from those values, to two bf16 ulps (2^-6) of the row's
 largest value.  At the models' clamp floors (w = 0.05, log a = -6) the
-kernels are held to a float64 step recurrence at the float32 rule.
+kernels are held to a float64 step recurrence at the float32 rule (bf16:
+the recurrence over the same bf16 inputs, rounded to bf16, at the bf16
+rule).  bf16 ``rwkv6_scan`` runs on the tensor cores where its rows are
+16-byte aligned; its cases cover both of that kernel's branches (anchored
+factors; the exact per-pair loop for chunks whose decay is steeper than
+the anchor allows, w = 1e-8) and the CUDA-core kernel for a view off the
+grid.
 Attention at head dim 112 keeps the LLM kernels' rules: two bf16 ulps of
 the row's largest value, 2e-5 * (1 + |plain|) in float32.  SwiGLU at
 zamba2's shared FFN width (D 3584, F 14336) keeps its rule: 5e-2 (bf16) or
@@ -123,6 +129,86 @@ def test_cuda_rwkv6_scan_matches_plain(cuda_device, dtype, s, chunk):
     _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
 
 
+# (B, S, chunk) of the tensor-core route: chunk 32 (the model's) and 64, S
+# under one chunk, a short last chunk, whole chunks; B = 1 narrows the
+# column slices to 16.
+RWKV_MMA_CASES = [(1, 5, 32), (1, 100, 32), (1, 256, 32), (1, 5, 64), (1, 100, 64),
+                  (1, 256, 64), (2, 256, 32), (2, 100, 64)]
+
+
+@pytest.mark.parametrize("b,s,chunk", RWKV_MMA_CASES)
+def test_cuda_rwkv6_tensor_core_route_matches_plain(cuda_device, b, s, chunk):
+    gen = torch.Generator().manual_seed(7)
+    args = _to(cuda_device, torch.bfloat16, _rwkv(b, s, 4, 64, gen))
+    assert trk.tensor_cores(*args[:4])
+    before = LAUNCHES["rwkv6_scan"]
+    o, st = trk.rwkv6_scan(*args, chunk=chunk)
+    assert LAUNCHES["rwkv6_scan"] == before + 1
+    po, pst = trr.rwkv6_scan(*args, chunk=chunk)
+    assert o.dtype == po.dtype == torch.bfloat16 and o.shape == po.shape
+    _assert_scan_close(o, po)
+    _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
+
+
+def _steep(lw, kind, chunk):
+    """Log-decays: all at the model's floor w = 0.05 ("floor"), all at the
+    ssm module's clamp w = 1e-8 ("1e-8"), or chunks alternating between
+    1e-8 and ``lw``'s spread over the model's clamp ("mixed")."""
+    if kind == "floor":
+        return torch.full_like(lw, math.log(0.05))
+    steep = torch.full_like(lw, math.log(1e-8))
+    if kind == "1e-8":
+        return steep
+    odd = (torch.arange(lw.shape[2]) // chunk) % 2 == 1
+    return torch.where(odd[:, None], lw, steep)
+
+
+@pytest.mark.parametrize("chunk", [32, 64])
+@pytest.mark.parametrize("kind", ["floor", "1e-8", "mixed"])
+def test_cuda_rwkv6_tensor_core_route_at_steep_decays(cuda_device, kind, chunk):
+    """At the floor with chunk 32 every chunk takes the anchored factors
+    (halves span 48 < 60), with chunk 64 the exact loop (96); at 1e-8 every
+    chunk takes the exact loop; "mixed" has both branches in one launch."""
+    gen = torch.Generator().manual_seed(8)
+    r, k, v, lw, u, s0 = _rwkv(1, 256, 2, 64, gen)
+    args = _to(cuda_device, torch.bfloat16, (r, k, v, _steep(lw, kind, chunk), u, s0))
+    assert trk.tensor_cores(*args[:4])
+    o, st = trk.rwkv6_scan(*args, chunk=chunk)
+    po, pst = trr.rwkv6_scan(*args, chunk=chunk)
+    _assert_scan_close(o, po)
+    _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
+    if kind == "floor":
+        want, sd = _rwkv_f64_steps(*args)
+        _assert_scan_close(o.cpu(), want.to(torch.bfloat16))
+        _assert_scan_close(st.cpu(), sd.float())
+
+
+def test_cuda_rwkv6_misaligned_bf16_view_takes_the_cuda_core_kernel(cuda_device):
+    gen = torch.Generator().manual_seed(9)
+    r, k, v, lw, u, s0 = _rwkv(2, 100, 4, 64, gen)
+    wide = torch.randn(2, 100, 4, 65, generator=gen).to(cuda_device, torch.bfloat16)
+    args = _to(cuda_device, torch.bfloat16, (r, k, v, lw, u, s0))
+    args[0] = wide[..., 1:].transpose(1, 2)  # r one element off the 16-byte grid
+    assert not trk.tensor_cores(*args[:4])
+    o, st = trk.rwkv6_scan(*args)
+    po, pst = trr.rwkv6_scan(*args)
+    _assert_scan_close(o, po)
+    _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
+
+
+def test_cuda_rwkv6_tensor_core_route_takes_the_bh_layout(cuda_device):
+    gen = torch.Generator().manual_seed(10)
+    r, k, v, lw, u, s0 = _rwkv(2, 70, 3, 64, gen)
+    flat = [t.contiguous().reshape(6, 70, 64) for t in (r, k, v, lw)]
+    args = _to(cuda_device, torch.bfloat16, (*flat, u.repeat(2, 1), s0.reshape(6, 64, 64)))
+    assert trk.tensor_cores(*args[:4])
+    o, st = tro.rwkv6_scan(*args)
+    po, pst = trr.rwkv6_scan(*args)
+    assert o.shape == (6, 70, 64) and o.is_contiguous()
+    _assert_scan_close(o, po)
+    _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
+
+
 # (B, H, S, chunk, Dh): whole chunks, a short last chunk (S = 100), S
 # under one chunk, chunk 32 at Dh 32, B = 1 (the launch narrows the
 # column slices to fill the card), Dh 128 (two column slices) and zamba2's
@@ -148,16 +234,22 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, dtype, shared, b, h, s, chunk,
     _assert_scan_close(st, pst, SCAN_TOL[torch.float32])
 
 
+def _rwkv_f64_steps(r, k, v, lw, u, s0):
+    """The RWKV6 recurrence one token at a time in float64 (on the CPU)."""
+    rd, kd, vd, w, ud, sd = (t.cpu().double() for t in (r, k, v, lw.exp(), u, s0))
+    want = torch.empty_like(vd)
+    for t in range(rd.shape[2]):
+        kv = kd[:, :, t, :, None] * vd[:, :, t, None, :]
+        want[:, :, t] = torch.einsum("bhk,bhkv->bhv", rd[:, :, t], sd + ud[..., None] * kv)
+        sd = w[:, :, t, :, None] * sd + kv
+    return want, sd
+
+
 def test_cuda_scans_at_the_clamp_floors_match_float64_steps(cuda_device):
     gen = torch.Generator().manual_seed(2)
     r, k, v, lw, u, s0 = _rwkv(1, 128, 2, 64, gen, floor=True)
     o, st = trk.rwkv6_scan(*_to(cuda_device, torch.float32, (r, k, v, lw, u, s0)))
-    rd, kd, vd, w, ud, sd = (t.double() for t in (r, k, v, lw.exp(), u, s0))
-    want = torch.empty_like(vd)
-    for t in range(128):
-        kv = kd[:, :, t, :, None] * vd[:, :, t, None, :]
-        want[:, :, t] = torch.einsum("bhk,bhkv->bhv", rd[:, :, t], sd + ud[..., None] * kv)
-        sd = w[:, :, t, :, None] * sd + kv
+    want, sd = _rwkv_f64_steps(r, k, v, lw, u, s0)
     _assert_scan_close(o.cpu(), want.float())
     _assert_scan_close(st.cpu(), sd.float())
     x, a, bm, cm, s0 = _ssd(1, 128, 2, 64, 64, gen, floor=True)

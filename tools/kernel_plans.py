@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
-"""Time the launch plans of the port's SwiGLU and SSD-scan kernels on one
-CUDA card, at the serving shapes, to choose their constants.
+"""Time the launch plans of the port's SwiGLU and scan kernels on one CUDA
+card, at the serving shapes, to choose their constants.
 
-    python3 tools/kernel_plans.py        # from the repository root
+    python3 tools/kernel_plans.py                # from the repository root: all
+    python3 tools/kernel_plans.py rwkv6_scan     # only the named kernels
 
+- ``rwkv6_scan`` at rwkv6-1.6b's prefill (4 x 4096, 32 heads x 64, chunk
+  32, decays over the model's clamp), bf16: the tensor-core kernel at 64,
+  32 and 16 columns per block and the CUDA-core kernel, each held to
+  ``chip_smoke.SCAN_TOL`` against the plain version;
 - ``ssd_scan`` at zamba2-7b's prefill (4 x 4096, 112 heads x 64, state
   64, chunk 64, B / C shared by the heads), bf16: every tensor-core plan
   (heads per block, columns per block) and the CUDA-core kernel, each
@@ -37,14 +42,57 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from repro_torch.kernels import _build
-    from repro_torch.kernels.ssd_scan import kernel as sk, ref as sr
-    from repro_torch.kernels.swiglu import kernel as gk, ref as gr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     _build.library()
     print(json.dumps({"card": cs.smi("name,power.limit")}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(5)
+    timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths}
+    for name in sys.argv[1:] or list(timers):
+        timers[name](torch, cs, _build, dev, gen)
+    return 0
+
+
+def time_plans(cs, mod, args, want, choices, chosen, kernel, symbols, **kw):
+    """Yield (choice, row) for each scan plan in ``choices``: the wrapper
+    ``mod.<kernel>`` run with ``mod.plan`` returning that choice, held to
+    the plain outputs ``want`` and timed."""
+    plan, run = mod.plan, getattr(mod, kernel)
+    for choice in choices:
+        mod.plan = lambda *_a, _c=choice, **_k: _c
+        try:
+            o, st = run(*args, **kw)
+            ok = (cs.close_err(o, want[0], *cs.SCAN_TOL["bfloat16"])[1]
+                  and cs.close_err(st, want[1], *cs.SCAN_TOL["float32"])[1])
+            ms = cs.median_ms(lambda: run(*args, **kw), runs=5, inner=3)
+            dus = cs.device_us_per_call(lambda: run(*args, **kw), symbols)
+        finally:
+            mod.plan = plan
+        yield choice, {"kernel": kernel, "chosen": choice == chosen, "ok": ok, "ms": ms,
+                       "device_us": dus}
+
+
+def rwkv6_plans(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.rwkv6_scan import kernel as rk, ref as rr
+
+    b, s, h, d = cs.SERVE_B, cs.SERVE_S, cs.RWKV_H, cs.RWKV_D
+    r, k, v = (torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for _ in range(3))
+    x = torch.rand((b, s, h, d), generator=gen, device=dev) * (math.log(-math.log(0.05))
+                                                              - math.log(5e-4))
+    lw = (-torch.exp(x + math.log(5e-4))).transpose(1, 2)
+    u = torch.rand((h, d), generator=gen, device=dev) * 0.6 - 0.3
+    args = (r, k, v, lw, u, torch.randn((b, h, d, d), generator=gen, device=dev))
+    want = rr.rwkv6_scan(*args, chunk=32)
+    chosen = rk.plan(b, h, d, d, _build.sm_count(0), tensor_cores=True)
+    for vb, row in time_plans(cs, rk, args, want, (64, 32, 16, 0), chosen, "rwkv6_scan",
+                              cs.LLM_SYMBOLS["rwkv6_scan"], chunk=32):
+        print(json.dumps({**row, "columns": vb or "CUDA cores"}), flush=True)
+
+
+def ssd_plans(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.ssd_scan import kernel as sk, ref as sr
 
     b, s, h, d = cs.SERVE_B, cs.SERVE_S, cs.SSD_H, cs.SSD_D
     x = torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16).transpose(1, 2)
@@ -53,24 +101,16 @@ def main() -> int:
     bm, cm = (torch.randn((b, s, d), generator=gen, device=dev).to(torch.bfloat16)[:, None]
               .expand(b, h, s, d) for _ in range(2))
     args = (x, a, bm, cm, torch.randn((b, h, d, d), generator=gen, device=dev))
-    py, pst = sr.ssd_scan(*args, chunk=64)
-    chosen = sk.plan
-    for choice in ((2, 64), (1, 64), (1, 32), (1, 16), (0, None)):
-        sk.plan = lambda *_a, _c=choice, **_k: _c
-        try:
-            y, st = sk.ssd_scan(*args, chunk=64)
-            ok = (cs.close_err(y, py, *cs.SCAN_TOL["bfloat16"])[1]
-                  and cs.close_err(st, pst, *cs.SCAN_TOL["float32"])[1])
-            ms = cs.median_ms(lambda: sk.ssd_scan(*args, chunk=64), runs=5, inner=3)
-            dus = cs.device_us_per_call(lambda: sk.ssd_scan(*args, chunk=64),
-                                        cs.LLM_SYMBOLS["ssd_scan"])
-        finally:
-            sk.plan = chosen
-        print(json.dumps({"kernel": "ssd_scan", "heads": choice[0], "columns": choice[1],
-                          "chosen": choice == chosen(b, h, d, d, _build.sm_count(0),
-                                                     tensor_cores=True, shared_bc=True),
-                          "ok": ok, "ms": ms, "device_us": dus}), flush=True)
-    del x, a, bm, cm, args, py, pst
+    want = sr.ssd_scan(*args, chunk=64)
+    chosen = sk.plan(b, h, d, d, _build.sm_count(0), tensor_cores=True, shared_bc=True)
+    for (heads, vb), row in time_plans(cs, sk, args, want,
+                                       ((2, 64), (1, 64), (1, 32), (1, 16), (0, None)), chosen,
+                                       "ssd_scan", cs.LLM_SYMBOLS["ssd_scan"], chunk=64):
+        print(json.dumps({**row, "heads": heads, "columns": vb}), flush=True)
+
+
+def swiglu_depths(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.swiglu import kernel as gk, ref as gr
 
     chosen = dict(gk.STREAM_WAVES)
     for t, dm, f, dtype in ((4, cs.D_MODEL, cs.D_FF, torch.bfloat16),
@@ -96,7 +136,6 @@ def main() -> int:
             row[f"waves_{waves}"] = {"device_us": dus, "ok": ok}
         row["chosen_waves"] = chosen[bf16]
         print(json.dumps(row), flush=True)
-    return 0
 
 
 if __name__ == "__main__":
