@@ -10,7 +10,9 @@ Phases, each printing one JSON line:
 2. the kernel build (``nvcc`` for sm_90a, one process per source), timed;
 3. each kernel against its plain PyTorch version on the card, at the main
    path's shapes and, for ``erlang_c`` / ``decide_fused``, at k_hi = 512,
-   N = 32 (``l2_match``: at the VLD matcher's M = N = 1024, D = 64 and at
+   N = 32 (``decide_fused`` also at N = 40, its wide route; the fleet shape
+   must run the packed route, ``decide_packed_kernel``, by profiler
+   symbol; ``l2_match``: at the VLD matcher's M = N = 1024, D = 64 and at
    M = 1000, N = 777, D = 50): integer outputs exact, float outputs
    bitwise; each timed with
    CUDA events (median of 25 runs of 10 calls, after warm-up) beside its
@@ -24,9 +26,8 @@ Phases, each printing one JSON line:
    decisions.  One more run of each dispatch under ``torch.profiler``
    gives device time, launches per tick and the device's busy share;
 5. the same loop for the first 256 lanes on the CPU with the plain
-   versions, against the card's run: at most 0.1 % of (tick, lane)
-   decision codes or allocations may differ (the batched solve and the
-   routing product may sum in another order on the card);
+   versions, against the card's run: no (tick, lane) decision code or
+   allocation may differ;
 6. ``vld_card_vs_cpu``: 64 seeded frames of the VLD application at its
    full width (480 x 640 frames, 1024 keypoints, 16 logos x 64
    descriptors, D = 64) through extract -> match -> aggregate on the card
@@ -320,6 +321,7 @@ def kernel_phase(dev):
     )
 
     # decide_fused at [4096, 7], k_hi = j_cap = 48, and at k_hi = 512, N = 32
+    # (the packed route), and at N = 40 (the wide route)
     d = decide_inputs(gen, MAIN_B, N_OPS, K_HI, dev)
     err = compare("decide_fused", dk.batch_decide(**d, k_hi=K_HI, j_cap=K_HI),
                   dr.batch_decide(**d, k_hi=K_HI, j_cap=K_HI),
@@ -328,12 +330,24 @@ def kernel_phase(dev):
     err = max(err, compare("decide_fused", dk.batch_decide(**d512, k_hi=512, j_cap=128),
                            dr.batch_decide(**d512, k_hi=512, j_cap=128),
                            "B=256,N=32,k_hi=512,j_cap=128"))
+    d40 = decide_inputs(gen, 256, 40, 200, dev)
+    err = max(err, compare("decide_fused", dk.batch_decide(**d40, k_hi=200, j_cap=48),
+                           dr.batch_decide(**d40, k_hi=200, j_cap=48),
+                           "B=256,N=40,k_hi=200,j_cap=48"))
+    device_us = device_us_per_launch(
+        {"decide_packed_kernel": lambda: dk.batch_decide(**d, k_hi=K_HI, j_cap=K_HI),
+         "decide_fused_kernel": lambda: dk.batch_decide(**d40, k_hi=200, j_cap=48)})
+    check(device_us["decide_packed_kernel"] is not None,
+          f"decide_fused at B={MAIN_B}, N={N_OPS} did not run decide_packed_kernel")
+    emit({"phase": "decide_routes", "shape": f"B={MAIN_B},N={N_OPS},k_hi={K_HI}",
+          "plan": dk.plan(N_OPS, K_HI, K_HI), "device_us": device_us})
     lanes = MAIN_B * N_OPS
     rows["decide_fused"] = dict(
         source="src/repro_torch/csrc/decide_fused.cu",
         replaces="src/repro/kernels/decide_fused/kernel.py:222",
         max_abs_err=err, ms=median_ms(lambda: dk.batch_decide(**d, k_hi=K_HI, j_cap=K_HI)),
         plain_ms=median_ms(lambda: dr.batch_decide(**d, k_hi=K_HI, j_cap=K_HI)),
+        device_us=device_us["decide_packed_kernel"],
         # 6 lane inputs + k_max in, 4 lane outputs; ~25 float ops per table
         # cell and 33 window passes of ~4 ops per candidate.
         bound=bound(4 * (6 + 4) * lanes + 4 * MAIN_B,
@@ -411,8 +425,8 @@ def l2_rows(dev, compare):
     check(int(counts.sum()) > 0, "match_count: the threshold never fired on the parity inputs")
     cdist_ms = median_ms(lambda: torch.cdist(a, b))
     device_us = device_us_per_launch({
-        "l2_tile_kernel<false>": lambda: lk.pairwise_sq_l2(a, b),
-        "l2_tile_kernel<true>": lambda: lk.match_count(a, b, thr, valid),
+        "l2_tile_kernel": lambda: lk.pairwise_sq_l2(a, b),
+        "match_count_kernel": lambda: lk.match_count(a, b, thr, valid),
     })
     # 2 M N D for the cross term, 2 (M + N) D for the norms, ~4 ops per
     # output (add, scale, subtract, clamp or compare-and-count).
@@ -424,7 +438,7 @@ def l2_rows(dev, compare):
             max_abs_err=err_d, ms=median_ms(lambda: lk.pairwise_sq_l2(a, b)),
             plain_ms=median_ms(lambda: lr.pairwise_sq_l2(a, b)),
             library_ms=cdist_ms,
-            device_us=device_us["l2_tile_kernel<false>"],
+            device_us=device_us["l2_tile_kernel"],
             bound=bound(4 * (m * d + n * d + m * n), ops),
         ),
         "match_count": dict(
@@ -433,11 +447,13 @@ def l2_rows(dev, compare):
             max_abs_err=err_c, ms=median_ms(lambda: lk.match_count(a, b, thr, valid)),
             plain_ms=median_ms(lambda: lr.match_count(a, b, thr, valid)),
             library_ms=cdist_ms,
-            device_us=device_us["l2_tile_kernel<true>"],
+            device_us=device_us["match_count_kernel"],
             bound=bound(4 * (m * d + n * d) + m + 4 * n, ops),
         ),
     }
     emit({"phase": "l2_match", "shape": f"M={m},N={n},D={d}",
+          "copy_bytes": 16 if lk.plan(d, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
+          else 4,
           "hits": int(counts.sum()), **{k: {kk: v[kk] for kk in ("ms", "plain_ms", "library_ms",
                                                                 "device_us")}
                                         for k, v in rows.items()}})
@@ -477,10 +493,10 @@ def profile_phase(runner, dev):
                   not k.startswith("Memset"))
     loop_ms = runner.loop_seconds * 1e3
     ours = {}
-    for name, symbol in (("queue_step", "queue_step_kernel"), ("erlang_c", "erlang_b_kernel"),
-                         ("gain_topr", "gain_topr_kernel"),
-                         ("decide_fused", "decide_fused_kernel")):
-        hits = [(t, c) for k, t, c in rows if symbol in k]
+    for name, symbols in (("queue_step", ("queue_step_kernel",)),
+                          ("erlang_c", ("erlang_b_kernel",)), ("gain_topr", ("gain_topr_kernel",)),
+                          ("decide_fused", ("decide_packed_kernel", "decide_fused_kernel"))):
+        hits = [(t, c) for k, t, c in rows if any(s in k for s in symbols)]
         if hits:
             t, c = sum(h[0] for h in hits), sum(h[1] for h in hits)
             ours[name] = {"device_us_per_launch": t / c, "launches_per_tick": c / n_ticks}
@@ -561,7 +577,7 @@ def main_path_phase(dev):
           "codes_differ": codes_diff, "allocations_differ": k_diff,
           "card_actions": dict(zip(ACTIONS, np.bincount(
               card["codes"].ravel(), minlength=len(ACTIONS)).tolist()))})
-    check(max(codes_diff, k_diff) <= 0.001 * n_cells,
+    check(codes_diff == 0 and k_diff == 0,
           f"card and CPU runs differ in {codes_diff} codes / {k_diff} allocations "
           f"of {n_cells} (tick, lane) cells")
     return launches

@@ -58,4 +58,17 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* scratch) {
   return base + x - v;
 }
 
+// Raises `kern`'s dynamic shared-memory limit to `bytes` (needed above
+// 48 KB) the first time it launches on `device`; `ready` is the calling
+// launcher's own flag array, one flag per device.  Two threads racing here
+// both set the same value.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kern, int bytes, int device, bool (&ready)[16]) {
+  if (device >= 0 && device < 16 && ready[device]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && device >= 0 && device < 16) ready[device] = true;
+  return err;
+}
+
 }  // namespace repro

@@ -1,11 +1,14 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80+ PTX, used on
 // sm_90a) shared by the bf16 kernels: swiglu.cu's GEMM tiles,
-// flash_attention.cu's attention tiles and the two scans' chunk products.
+// flash_attention.cu's attention tiles, the two scans' chunk products and
+// l2_match.cu's operand tiles.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace repro {
 
@@ -17,6 +20,12 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(ok ? 16 : 0));
+}
+// 4-byte global -> shared copy (any alignment of a float); `ok == false`
+// zero-fills.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -61,19 +70,6 @@ __device__ __forceinline__ void split2(float v0, float v1, uint32_t& hi, uint32_
       __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// Raises `kern`'s dynamic shared-memory limit to `bytes` (needed above
-// 48 KB) the first time it launches on `device`; `ready` is the calling
-// launcher's own flag array, one flag per device.  Two threads racing here
-// both set the same value.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kern, int bytes, int device, bool (&ready)[16]) {
-  if (device >= 0 && device < 16 && ready[device]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess && device >= 0 && device < 16) ready[device] = true;
-  return err;
 }
 
 }  // namespace repro

@@ -148,9 +148,9 @@ def library():
                 "repro_queue_step": [p] * 7 + [i, i, p],
                 "repro_erlang_b_table": [p, p, i, i, i, p],
                 "repro_gain_topr": [p, p, p, i, i, i, i, p],
-                "repro_decide_fused": [p] * 11 + [i] * 6 + [p],
+                "repro_decide_fused": [p] * 11 + [i] * 7 + [p],
                 "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, p],
-                "repro_match_count": [p, p, p, f, p, i, i, i, i, p],
+                "repro_match_count": [p, p, p, f, p, i, i, i, i, i, p],
                 "repro_flash_attention": [p] * 4 + [ll] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
                 "repro_decode_attention": [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p],
                 "repro_swiglu_up": [p] * 5 + [i] * 7 + [p],
@@ -162,8 +162,6 @@ def library():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = i
-            lib.repro_decide_fused_smem_bytes.argtypes = [i, i]
-            lib.repro_decide_fused_smem_bytes.restype = ctypes.c_longlong
             lib.repro_decode_attention_blocks_per_sm.argtypes = [i] * 4 + [ctypes.POINTER(i)]
             lib.repro_decode_attention_blocks_per_sm.restype = i
             lib.repro_gain_topr_smem_bytes.argtypes = [i]

@@ -1,7 +1,12 @@
 """Wrappers of the CUDA l2_match kernels (``csrc/l2_match.cu``), the Hopper
 counterparts of ``repro/kernels/l2_match/kernel.py``'s
 ``pairwise_sq_l2_pallas`` and ``match_count_pallas``.  Any M, N and D: the
-kernels mask the ragged tile edges, so nothing is padded."""
+kernels mask the ragged tile edges, so nothing is padded.
+
+``match_count`` launches the count kernel on 64 x 64 output tiles, 256
+threads of 4 x 4 outputs, with 16-byte ``cp.async`` copies where D and both
+bases allow them (:func:`plan`).  The copy width never changes the result:
+every output sums its depths in order."""
 
 from __future__ import annotations
 
@@ -10,7 +15,7 @@ import torch
 from .. import _build
 from .ref import squared_threshold
 
-__all__ = ["pairwise_sq_l2", "match_count"]
+__all__ = ["pairwise_sq_l2", "match_count", "plan"]
 
 
 def _operands(name, a, b):
@@ -20,6 +25,13 @@ def _operands(name, a, b):
     _build.require(f"{name} a", a, torch.float32)
     _build.require(f"{name} b", b, torch.float32, device=a.device)
     return a.shape[0], b.shape[0], a.shape[1]
+
+
+def plan(d: int, aligned: bool) -> bool:
+    """Whether ``match_count`` stages its operands by 16-byte copies: when
+    ``d % 4 == 0`` and both operands start 16-byte ``aligned``; otherwise
+    each float is copied alone."""
+    return aligned and d % 4 == 0
 
 
 def pairwise_sq_l2(a, b):
@@ -45,9 +57,10 @@ def match_count(a, b, threshold: float, valid=None):
     out = torch.zeros(n, dtype=torch.int32, device=a.device)
     lib = _build.library()
     dev, stream = _build.launch_args(a)
+    vec = plan(d, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     code = lib.repro_match_count(a.data_ptr(), b.data_ptr(), valid.data_ptr(),
                                  squared_threshold(threshold), out.data_ptr(), m, n, d,
-                                 dev, stream)
+                                 int(vec), dev, stream)
     _build.check_error("match_count", code)
     _build.count_launch("match_count")
     return out

@@ -267,6 +267,48 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
         call(torch.ones(4, dtype=torch.float32))
 
 
+@pytest.mark.parametrize("n,width,threads", [
+    (1, 8, 32), (2, 8, 32), (3, 8, 32), (7, 8, 32), (8, 8, 32), (9, 32, 32), (16, 32, 32),
+    (17, 32, 32), (32, 32, 32), (33, 0, 64), (64, 0, 64), (65, 0, 96),
+])
+def test_decide_plan_packs_scenarios_by_segment_width(n, width, threads):
+    """N <= 32: segments of 8 lanes up to N = 8, else 32, one warp of
+    32 // width scenarios per block and a (2 j_cap + 1)-float window per
+    thread; past 32 lanes the wide route, one block of N padded to whole
+    warps per scenario with whole (2 k_hi + 1)-row tables."""
+    got = tdk.plan(n, 64, 48)
+    assert got[:2] == (width, threads)
+    rows = 2 * 48 + 1 if width else 2 * 64 + 1
+    assert got[2] == rows * threads * 4
+    if width:
+        assert n <= width and 32 % width == 0 and (width == 8) == (n <= 8)
+
+
+@pytest.mark.parametrize("k_hi,j_cap", [(48, 48), (512, 128), (512, 512), (2000, 900)])
+def test_decide_plan_packed_window_follows_j_cap_alone(k_hi, j_cap):
+    width, threads, smem = tdk.plan(7, k_hi, j_cap)
+    assert (width, threads) == (8, 32)
+    assert smem == (2 * j_cap + 1) * 32 * 4 <= tdk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape,k_hi,j_cap,match", [
+    ((4,), 8, None, r"lam must be \[B, N\]"),
+    ((2, 7), 0, None, "k_hi must be >= 1"),
+    ((2, 7), 2000, None, "shared memory"),  # one warp's window is past 227 KB
+    ((2, 7), 2000, 48, None),  # ... but a j_cap window fits: on to the tensor checks
+    ((2, 40), 600, None, "shared memory"),  # the wide route keeps whole tables
+    ((2, 1025), 4, None, "exceed one block"),
+])
+def test_batch_decide_wrapper_checks_the_plan_first(shape, k_hi, j_cap, match):
+    x = torch.ones(shape, dtype=torch.float32)
+    flags = torch.ones(shape, dtype=torch.bool)
+    with pytest.raises(ValueError, match=match or "CUDA"):
+        tdk.batch_decide(x, x, group=flags, alpha=x, active=flags,
+                         k_cur=torch.zeros(shape, dtype=torch.int32),
+                         k_max=torch.ones(shape[:1], dtype=torch.int32), k_hi=k_hi,
+                         j_cap=j_cap)
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -295,3 +337,48 @@ def test_cuda_kernels_match_plain_versions(cuda_device):
     want = _run(tdr.batch_decide, case, 512, wrap, j_cap=48)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _decide_inputs(b, n, k_hi, seed):
+    """``chip_smoke.decide_inputs``'s patterns from numpy: an infeasible
+    lane 0 in every ninth scenario, idle (zero-rate) and all-inactive
+    scenarios, ~25 % gang lanes, a ragged last lane, budget 0 in every
+    seventh scenario and budgets up to 29 past the floor elsewhere."""
+    rng = np.random.default_rng(seed)
+    mu = rng.uniform(1.0, 9.0, (b, n))
+    lam = mu * rng.integers(1, 6, (b, n)) * rng.uniform(0.05, 0.95, (b, n))
+    lam[::9, 0] = mu[::9, 0] * (k_hi + 5)
+    lam[1::13] = 0.0
+    group = rng.random((b, n)) < 0.25
+    alpha = np.where(group, 0.02, 0.0)
+    lam = np.where(group, np.minimum(lam, 0.2 * mu / 0.02), lam)
+    active = np.ones((b, n), bool)
+    active[:, n - 1] = rng.random(b) < 0.5
+    active[2::11] = False
+    lam = np.where(active, lam, 0.0)
+    k_cur = rng.integers(0, 8, (b, n)).astype(np.int32)
+    floor = np.where(active, np.floor(lam / mu) + 1, 0).sum(-1)
+    k_max = (floor + rng.integers(0, 30, b)).astype(np.int32)
+    k_max[3::7] = 0
+    return (lam.astype(np.float32), mu.astype(np.float32), group, alpha.astype(np.float32),
+            active, k_cur, k_max)
+
+
+@pytest.mark.parametrize("b,n,k_hi,j_cap", [
+    *[(67, n, 48, 48) for n in (1, 7, 8, 9, 16, 31, 32, 33, 64)],
+    (1, 7, 48, 48), (3, 7, 48, 48), (4097, 7, 48, 48),
+    (256, 7, 512, 128), (256, 32, 512, 128), (100, 7, 48, 16), (100, 40, 200, 24),
+])
+def test_cuda_batch_decide_matches_plain_bitwise(cuda_device, b, n, k_hi, j_cap):
+    """Both routes (packed to N = 32, wide past it) at both segment widths,
+    B off the scenarios-per-block grid, j_cap below k_hi, k_hi 48 and 512."""
+    case = _decide_inputs(b, n, k_hi, seed=b + n + k_hi)
+
+    def wrap(x):
+        return _t(x).to(cuda_device)
+
+    got = _run(tdk.batch_decide, case, k_hi, wrap, j_cap=j_cap)
+    want = _run(tdr.batch_decide, case, k_hi, wrap, j_cap=j_cap)
+    assert (want[1] == k_hi + 1).any() or n == 1 or b < 9  # an infeasible lane
+    for name, g, w in zip(("k4", "k_start", "t_cur", "t4"), got, want):
+        assert torch.equal(g, w), name

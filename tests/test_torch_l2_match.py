@@ -139,6 +139,18 @@ def test_kernel_wrappers_check_shapes():
         tk.pairwise_sq_l2(torch.ones(4, 8), torch.ones(4, 7))
 
 
+@pytest.mark.parametrize("d,aligned,want", [
+    (64, True, True),  # the VLD matcher: 16-byte copies
+    (64, False, False),  # an unaligned base: 4-byte copies
+    (50, True, False),  # D % 4 != 0: 4-byte copies
+    (100, True, True),
+    (3, True, False),
+    (1, False, False),
+])
+def test_match_count_plan_picks_copy_path(d, aligned, want):
+    assert tk.plan(d, aligned) is want
+
+
 # --------------------------------------------------------------------------- #
 # on the card
 # --------------------------------------------------------------------------- #
@@ -153,4 +165,45 @@ def cuda_device():
 def test_cuda_l2_kernels_match_plain_versions(cuda_device, m, n, d):
     a, b, valid = (_t(x).to(cuda_device) for x in _descriptors(m, n, d, seed=3))
     assert torch.equal(tk.pairwise_sq_l2(a, b), tr.pairwise_sq_l2(a, b))
+    assert torch.equal(tk.match_count(a, b, 0.8, valid), tr.match_count(a, b, 0.8, valid))
+
+
+def _card_operands(m, n, d, seed, dev):
+    if m and n:
+        a, b, valid = _descriptors(m, n, d, seed)
+    else:
+        rng = np.random.default_rng(seed)
+        a, b = (rng.normal(size=(r, d)).astype(np.float32) for r in (m, n))
+        valid = rng.random(m) < 0.7
+    return (_t(x).to(dev) for x in (a, b, valid))
+
+
+def _unaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("m,n,d", [(300, 200, d) for d in (1, 3, 50, 64, 100)]
+                         + [(0, 64, 64), (64, 0, 64), (130, 70, 0)])
+def test_cuda_match_count_matches_plain_bitwise(cuda_device, m, n, d):
+    a, b, valid = _card_operands(m, n, d, seed=m + n + d, dev=cuda_device)
+    assert torch.equal(tk.match_count(a, b, 0.8, valid), tr.match_count(a, b, 0.8, valid))
+    none = torch.zeros_like(valid)
+    assert torch.equal(tk.match_count(a, b, 0.8, none), torch.zeros(n, dtype=torch.int32,
+                                                                    device=cuda_device))
+
+
+@pytest.mark.parametrize("m,n,d", [(1024, 1024, 64), (1000, 777, 64)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_match_count_every_copy_path_matches_plain(cuda_device, m, n, d, aligned):
+    """16-byte copies and (bases 4 bytes off a 16-byte boundary) 4-byte
+    ones, at the VLD shape and a ragged one."""
+    a, b, valid = _card_operands(m, n, d, seed=m + n, dev=cuda_device)
+    if not aligned:
+        a, b = _unaligned(a), _unaligned(b)
+    assert tk.plan(d, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0) is aligned
     assert torch.equal(tk.match_count(a, b, 0.8, valid), tr.match_count(a, b, 0.8, valid))

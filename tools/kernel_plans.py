@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the launch plans of the port's SwiGLU and scan kernels on one CUDA
-card, at the serving shapes, to choose their constants.
+"""Time the launch plans of the port's SwiGLU, scan, match-count and fused
+decide kernels on one CUDA card, at their paths' shapes, to choose their
+constants.
 
     python3 tools/kernel_plans.py                # from the repository root: all
     python3 tools/kernel_plans.py rwkv6_scan     # only the named kernels
@@ -15,11 +16,18 @@ card, at the serving shapes, to choose their constants.
   held to ``chip_smoke.SCAN_TOL`` against the plain version;
 - ``swiglu`` at the decode shapes (llama3.2-1b and zamba2-7b widths, T 4
   and 16; bf16, and float32 at T 4): the weight-streaming split depth
-  ``kernel.STREAM_WAVES`` from 2 to 32 blocks per SM.
+  ``kernel.STREAM_WAVES`` from 2 to 32 blocks per SM;
+- ``match_count`` at the VLD matcher's M = N = 1024, D = 64 and the ragged
+  M 1000, N 777, D 50: 16-byte copies (where D allows them) and 4-byte
+  ones;
+- ``decide_fused`` at the fleet's B 4096, N 7, k_hi = j_cap = 48: the
+  packed route at segment widths 8 and 32 (one warp per block), and the
+  wide route (one 32-thread block per scenario).
 
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
-CUDA-event time.  Exits non-zero without a CUDA device.
+CUDA-event time; match-count and decide plans are held bitwise to their
+plain versions.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ def main() -> int:
     _build.library()
     print(json.dumps({"card": cs.smi("name,power.limit")}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(5)
-    timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths}
+    timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths,
+              "match_count": match_count_plans, "decide_fused": decide_plans}
     for name in sys.argv[1:] or list(timers):
         timers[name](torch, cs, _build, dev, gen)
     return 0
@@ -136,6 +145,55 @@ def swiglu_depths(torch, cs, _build, dev, gen):
             row[f"waves_{waves}"] = {"device_us": dus, "ok": ok}
         row["chosen_waves"] = chosen[bf16]
         print(json.dumps(row), flush=True)
+
+
+def match_count_plans(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.l2_match import kernel as lk, ref as lr
+
+    plan = lk.plan
+    for m, n, d in ((1024, 1024, 64), (1000, 777, 50)):
+        a, b, valid = cs.l2_inputs(torch.Generator().manual_seed(4321), m, n, d, dev)
+        want = lr.match_count(a, b, 0.8, valid)
+        chosen = plan(d, True)
+        for vec in (True, False)[d % 4 != 0:]:
+            lk.plan = lambda *_a, _c=vec: _c
+            try:
+                ok = torch.equal(lk.match_count(a, b, 0.8, valid), want)
+                dus = cs.device_us_per_launch(
+                    {"match_count_kernel": lambda: lk.match_count(a, b, 0.8, valid)},
+                    calls=50)["match_count_kernel"]
+            finally:
+                lk.plan = plan
+            print(json.dumps({"kernel": "match_count", "shape": f"M={m},N={n},D={d}",
+                              "copy_bytes": 16 if vec else 4, "chosen": vec == chosen,
+                              "bitwise": ok, "device_us": dus}), flush=True)
+
+
+def decide_plans(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.decide_fused import kernel as dk, ref as dr
+
+    plan, k = dk.plan, cs.K_HI
+    d = cs.decide_inputs(torch.Generator().manual_seed(1234), cs.MAIN_B, cs.N_OPS, k, dev)
+    want = dr.batch_decide(**d, k_hi=k, j_cap=k)
+    chosen = plan(cs.N_OPS, k, k)
+
+    def run():
+        return dk.batch_decide(**d, k_hi=k, j_cap=k)
+
+    choices = [(w, 32, (2 * k + 1) * 32 * 4) for w in (8, 32, 0)]
+    for choice in choices:
+        dk.plan = lambda *_a, _c=choice: _c
+        try:
+            ok = all(torch.equal(g, w) for g, w in zip(run(), want))
+            dus = cs.device_us_per_call(run, ("decide_packed_kernel", "decide_fused_kernel"),
+                                        calls=20)
+        finally:
+            dk.plan = plan
+        print(json.dumps({"kernel": "decide_fused",
+                          "shape": f"B={cs.MAIN_B},N={cs.N_OPS},k_hi={k}",
+                          "route": "packed" if choice[0] else "wide", "width": choice[0],
+                          "chosen": choice == chosen, "bitwise": ok,
+                          "device_us": dus}), flush=True)
 
 
 if __name__ == "__main__":
