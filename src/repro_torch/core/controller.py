@@ -11,8 +11,8 @@ over ``[B, N]`` tensors (the PyTorch counterpart of
   bit for bit.
 * :func:`make_fused_loop` returns a :class:`FusedLoop` that advances the
   fleet one control window per tick: the batch simulator's window
-  (``kernels/queue_step`` per step), the window measurement, the decide and
-  the apply.  The JAX package's ``lax.scan`` over ticks is a Python loop
+  (``kernels/queue_step``'s window kernel), the window measurement, the
+  decide and the apply.  The JAX package's ``lax.scan`` over ticks is a Python loop
   here; the loop state is a :class:`ControllerState` of tensors.
 * :func:`decide_single` is the float64 numpy twin of one scenario's
   decide, which the live :class:`~repro_torch.core.scheduler.DRSScheduler`
@@ -524,9 +524,10 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     mu_eff = mu * speed
     active = st["active"]
     ext_r = f(arrays.ext[: n_ticks * steps_per_tick]).reshape(n_ticks, steps_per_tick, b, n)
-    warm_r = (np.arange(n_ticks * steps_per_tick) >= arrays.warmup_steps).astype(
-        np.float64
-    ).reshape(n_ticks, steps_per_tick)
+    # Step weights staged on the device once; each tick hands the window
+    # its row (no host-to-device copy per tick).
+    warm_r = f((np.arange(n_ticks * steps_per_tick) >= arrays.warmup_steps).reshape(
+        n_ticks, steps_per_tick))
     # A window is warm when it *starts* past the warmup, in seconds.
     warmup_s = arrays.warmup_steps * dt if warmup_seconds is None else float(warmup_seconds)
     tick_warm = np.arange(n_ticks) * steps_per_tick * dt >= warmup_s

@@ -18,8 +18,10 @@ from ._build import LAUNCHES
 
 __all__ = ["LAUNCHES", "KERNELS", "VLD_KERNELS", "LLM_KERNELS", "SSM_KERNELS"]
 
-#: The kernels of the control-loop slice, by launch-counter name.
-KERNELS = ("queue_step", "erlang_c", "gain_topr", "decide_fused")
+#: The kernels of the control-loop slice, by launch-counter name
+#: (``queue_window`` runs a tick's window of steps; the single-step
+#: ``queue_step`` is on no path).
+KERNELS = ("queue_step", "queue_window", "erlang_c", "gain_topr", "decide_fused")
 
 #: The kernels of the live VLD matcher (``pairwise_sq_l2`` shares its
 #: distance tile with ``match_count``; no path of the port calls it).

@@ -146,8 +146,9 @@ def library():
             ll = ctypes.c_longlong
             sigs = {
                 "repro_queue_step": [p] * 7 + [i, i, p],
+                "repro_queue_window": [p] * 9 + [i] * 6 + [p],
                 "repro_erlang_b_table": [p, p, i, i, i, p],
-                "repro_gain_topr": [p, p, p, i, i, i, i, p],
+                "repro_gain_topr": [p, p, p, i, i, i, i, i, i, p],
                 "repro_decide_fused": [p] * 11 + [i] * 7 + [p],
                 "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, p],
                 "repro_match_count": [p, p, p, f, p, i, i, i, i, i, p],

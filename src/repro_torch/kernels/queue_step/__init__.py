@@ -1,5 +1,6 @@
-"""Bounded-queue fluid step (kernel / plain version / dispatch)."""
+"""Bounded-queue fluid step and control window (kernel / plain version /
+dispatch)."""
 
-from .ops import queue_step
+from .ops import queue_step, queue_window
 
-__all__ = ["queue_step"]
+__all__ = ["queue_step", "queue_window"]

@@ -1,10 +1,10 @@
-"""Dispatch: the CUDA kernel for CUDA tensors, the plain version for CPU."""
+"""Dispatch: the CUDA kernels for CUDA tensors, the plain versions for CPU."""
 
 from __future__ import annotations
 
 from . import kernel as _kernel, ref as _ref
 
-__all__ = ["queue_step"]
+__all__ = ["queue_step", "queue_window"]
 
 
 def queue_step(q, inflow, cap_serve, cap_queue):
@@ -12,3 +12,10 @@ def queue_step(q, inflow, cap_serve, cap_queue):
     if q.is_cuda:
         return _kernel.queue_step(q, inflow, cap_serve, cap_queue)
     return _ref.queue_step(q, inflow, cap_serve, cap_queue)
+
+
+def queue_window(q, served_prev, ext, warm, cap_serve, cap_queue, routing):
+    """One control window of [B, N] queue lanes -> the 15 window outputs
+    (``ref.queue_window``)."""
+    fn = _kernel.queue_window if q.is_cuda else _ref.queue_window
+    return fn(q, served_prev, ext, warm, cap_serve, cap_queue, routing)

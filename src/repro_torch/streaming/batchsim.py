@@ -9,8 +9,8 @@ recurrence
     admitted_t = min(inflow_t, max(cap_queue - (q_t - served_t), 0))
     q_{t+1}    = q_t - served_t + admitted_t,  dropped_t = inflow_t - admitted_t
 
-whose per-step bounded-queue update is ``kernels/queue_step`` (the CUDA
-kernel for CUDA tensors, its plain version for CPU ones).  External
+whose window of steps is ``kernels/queue_step``'s ``queue_window`` (one
+CUDA kernel per window for CUDA tensors, its plain version for CPU ones).  External
 arrivals are pre-sampled counts (numpy, from each scenario's seed), so this
 port and the JAX package consume identical randomness.  ``cap_queue =
 +inf`` encodes unbounded queues and the ``block`` policy.
@@ -215,63 +215,19 @@ def window_step_fn():
     loop consumes.
 
     Returns ``window(q, served_prev, ext_chunk, warm, cap_serve_dt,
-    cap_queue, routing)``: advances one control window (a Python loop over
-    the chunk's steps, each step's bounded-queue update through
-    ``kernels/queue_step``) and returns the 15-tuple of
+    cap_queue, routing)``: advances one control window through
+    ``kernels/queue_step``'s ``queue_window`` (one CUDA kernel for the
+    whole window on a card; on the CPU its plain version, a loop over the
+    chunk's steps) and returns the 15-tuple of
     ``repro.streaming.batchsim.window_step_fn``: ``q, served_prev`` (state),
     the ungated window sums ``offered, served, dropped, ext_admitted,
     ext_offered, q_int, q_max`` and the ``warm``-weighted sums ``offered,
-    served, dropped, ext_admitted, ext_offered, q_int``.  ``warm`` is a
-    host sequence of 0/1 step weights.  The accumulators are updated in
-    place.
+    served, dropped, ext_admitted, ext_offered, q_int``.  ``warm`` holds the
+    chunk's 0/1 step weights (a tensor on the lanes' device, or a host
+    sequence on the CPU).  The routing product and the two row sums run in
+    index order (``queue_step/ref.py``), so the card and the CPU agree bit
+    for bit.
     """
     from ..kernels.queue_step import ops as qs_ops
 
-    def window(q, served_prev, ext_chunk, warm, cap_serve_dt, cap_queue, routing):
-        b, n = q.shape
-        capq_flat = cap_queue.reshape(-1)
-        caps_flat = cap_serve_dt.reshape(-1)
-        zeros = torch.zeros_like(q)
-        zb = torch.zeros(b, dtype=q.dtype, device=q.device)
-        offered, served_sum, dropped = zeros.clone(), zeros.clone(), zeros.clone()
-        ext_adm, ext_off = zb.clone(), zb.clone()
-        q_int, q_max = zeros.clone(), zeros.clone()
-        w_off, w_srv, w_drop = zeros.clone(), zeros.clone(), zeros.clone()
-        w_ea, w_eo, w_qi = zb.clone(), zb.clone(), zeros.clone()
-        for t in range(ext_chunk.shape[0]):
-            ext_t = ext_chunk[t]
-            w = float(warm[t])
-            routed = torch.bmm(served_prev[:, None, :], routing)[:, 0, :]  # bi,bij->bj
-            inflow = ext_t + routed
-            q_next_f, served_f, drop_f = qs_ops.queue_step(
-                q.reshape(-1), inflow.reshape(-1), caps_flat, capq_flat
-            )
-            q = q_next_f.reshape(b, n)
-            served = served_f.reshape(b, n)
-            drop_t = drop_f.reshape(b, n)
-            admitted = inflow - drop_t
-            adm_frac = torch.where(
-                inflow > 0, admitted / torch.clamp_min(inflow, 1e-300), 1.0
-            )
-            ext_adm_t = (ext_t * adm_frac).sum(dim=-1)
-            ext_off_t = ext_t.sum(dim=-1)
-            # acc += w * x: with w in {0, 1} one add-with-alpha equals the
-            # separate multiply and add bit for bit.
-            offered.add_(inflow)
-            served_sum.add_(served)
-            dropped.add_(drop_t)
-            ext_adm.add_(ext_adm_t)
-            ext_off.add_(ext_off_t)
-            q_int.add_(q)
-            torch.maximum(q_max, q, out=q_max)
-            w_off.add_(inflow, alpha=w)
-            w_srv.add_(served, alpha=w)
-            w_drop.add_(drop_t, alpha=w)
-            w_ea.add_(ext_adm_t, alpha=w)
-            w_eo.add_(ext_off_t, alpha=w)
-            w_qi.add_(q, alpha=w)
-            served_prev = served
-        return (q, served_prev, offered, served_sum, dropped, ext_adm, ext_off,
-                q_int, q_max, w_off, w_srv, w_drop, w_ea, w_eo, w_qi)
-
-    return window
+    return qs_ops.queue_window

@@ -254,6 +254,8 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
 
 @pytest.mark.parametrize("call", [
     lambda x: tqk.queue_step(x, x, x, x),
+    lambda x: tqk.queue_window(x.reshape(2, 2), x.reshape(2, 2), x.reshape(1, 2, 2), x[:1],
+                               x.reshape(2, 2), x.reshape(2, 2), torch.ones(2, 2, 2)),
     lambda x: tek.erlang_b_table(x, k_hi=4),
     lambda x: tgk.gain_topr(x.reshape(1, 2, 2), torch.zeros(1, dtype=torch.int32)),
     lambda x: tdk.batch_decide(
@@ -382,3 +384,68 @@ def test_cuda_batch_decide_matches_plain_bitwise(cuda_device, b, n, k_hi, j_cap)
     assert (want[1] == k_hi + 1).any() or n == 1 or b < 9  # an infeasible lane
     for name, g, w in zip(("k4", "k_start", "t_cur", "t4"), got, want):
         assert torch.equal(g, w), name
+
+
+def _window_inputs(b, n, steps, seed):
+    """``test_torch_window.window_case``'s patterns: padded lanes, ``+inf``
+    and bounded queues, sparse routing, a mid-window ``warm`` switch."""
+    rng = np.random.default_rng(seed)
+    width = rng.integers(max(1, n - 3), n + 1, b)
+    width[::5] = n
+    lane = np.arange(n)[None, :] < width[:, None]
+    pair = lane[:, :, None] & lane[:, None, :]
+    routing = np.where(pair & (rng.random((b, n, n)) < 0.3),
+                       rng.uniform(0.1, 1.1, (b, n, n)), 0.0)
+    ext = np.where(lane, rng.poisson(rng.uniform(0.5, 8.0, (b, n)), (steps, b, n)), 0)
+    caps = np.where(lane, rng.uniform(0.5, 6.0, (b, n)) * rng.integers(1, 4, (b, n)), 0.0)
+    capq = np.where(lane & (rng.random((b, n)) < 0.5),
+                    rng.integers(2, 30, (b, n)).astype(float), np.inf)
+    q0 = np.where(lane, rng.uniform(0.0, 20.0, (b, n)), 0.0)
+    sp0 = np.where(lane, rng.uniform(0.0, 3.0, (b, n)), 0.0)
+    warm = (np.arange(steps) >= steps // 3)
+    return [x.astype(np.float32) for x in (q0, sp0, ext, warm, caps, capq, routing)]
+
+
+@pytest.mark.parametrize("b,n,steps,route", [
+    (4096, 7, 100, None), (4096, 7, 100, ("segment", 32)), (4096, 7, 100, ("wide", 32)),
+    (67, 1, 37, None), (67, 3, 9, None), (67, 9, 100, None), (67, 32, 20, None),
+    (67, 8, 3, None), (50, 40, 100, None), (5, 100, 17, None), (3, 7, 0, None),
+])
+def test_cuda_queue_window_matches_plain_bitwise(cuda_device, b, n, steps, route,
+                                                 monkeypatch):
+    """Every route (segments of 8 and of 32 lanes, wide past 32 lanes or
+    forced at the fleet shape), step counts off the prefetch ring, and the
+    empty window; all 15 outputs bitwise."""
+    args = [_t(x).to(cuda_device) for x in _window_inputs(b, n, steps, seed=b + n + steps)]
+    if route is not None:
+        monkeypatch.setattr(tqk, "plan", lambda _n, _r=route: _r)
+    got = tqk.queue_window(*args)
+    want = tqr.queue_window(*args)
+    assert len(got) == len(want) == 15
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), f"output {i}"
+
+
+@pytest.mark.parametrize("b,n,j,misaligned", [
+    (4096, 7, 48, False), (4096, 7, 48, True), (67, 7, 47, False), (67, 32, 16, False),
+    (67, 1, 1, False), (67, 5, 13, True), (67, 33, 4, False), (67, 8, 100, False),
+])
+def test_cuda_gain_topr_matches_plain_on_both_routes(cuda_device, b, n, j, misaligned):
+    """The warp route (also on a view that is not 16-byte aligned) and the
+    block route past N = 32 or 512 gains; ties, +inf, NaN and negative
+    gains, budgets of 0, below 0, at and past the positives."""
+    rng = np.random.default_rng(b + n + j)
+    raw = rng.integers(0, 9, (b, n, j)).astype(np.float32) * 0.5
+    cand = -np.sort(-raw, axis=-1)
+    cand[1::3, 0, 0] = np.inf
+    cand[2::5, n // 2, -1] = -1.5
+    cand[4::7, 0, -1] = np.nan
+    pos = (cand > 0).sum(axis=(1, 2))
+    budget = rng.integers(1, int(pos.max()) + 2, b).astype(np.int32)
+    budget[0::6], budget[1::6], budget[2::6] = 0, pos[1::6], pos[2::6] + 4
+    budget[3::6] = -2
+    c = _t(cand).to(cuda_device)
+    if misaligned:
+        c = torch.empty(c.numel() + 1, device=cuda_device)[1:].view_as(c).copy_(c)
+    bud = _t(budget).to(cuda_device)
+    assert torch.equal(tgk.gain_topr(c, bud), tgr.gain_topr(c, bud))

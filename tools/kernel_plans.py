@@ -22,12 +22,17 @@ constants.
   ones;
 - ``decide_fused`` at the fleet's B 4096, N 7, k_hi = j_cap = 48: the
   packed route at segment widths 8 and 32 (one warp per block), and the
-  wide route (one 32-thread block per scenario).
+  wide route (one 32-thread block per scenario);
+- ``queue_window`` at the fleet's window (B 4096, N 7, 100 steps): the
+  segment route at widths 8 and 32, and the wide route (a 32-thread
+  block per scenario);
+- ``gain_topr`` at the two-pass decide's [4096, 7, 48] tile: the warp
+  route and the block route.
 
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
-CUDA-event time; match-count and decide plans are held bitwise to their
-plain versions.  Exits non-zero without a CUDA device.
+CUDA-event time; match-count, decide, window and top-R plans are held
+bitwise to their plain versions.  Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -57,7 +62,8 @@ def main() -> int:
     print(json.dumps({"card": cs.smi("name,power.limit")}), flush=True)
     gen = torch.Generator(device=dev).manual_seed(5)
     timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths,
-              "match_count": match_count_plans, "decide_fused": decide_plans}
+              "match_count": match_count_plans, "decide_fused": decide_plans,
+              "queue_window": window_plans, "gain_topr": topr_plans}
     for name in sys.argv[1:] or list(timers):
         timers[name](torch, cs, _build, dev, gen)
     return 0
@@ -194,6 +200,50 @@ def decide_plans(torch, cs, _build, dev, gen):
                           "route": "packed" if choice[0] else "wide", "width": choice[0],
                           "chosen": choice == chosen, "bitwise": ok,
                           "device_us": dus}), flush=True)
+
+
+def window_plans(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.queue_step import kernel as qk, ref as qr
+
+    plan = qk.plan
+    args = cs.window_inputs(torch.Generator().manual_seed(99), cs.MAIN_B, cs.N_OPS,
+                            cs.WINDOW_STEPS, dev)
+    want = qr.queue_window(*args)
+    chosen = plan(cs.N_OPS)
+    for choice in (("segment", 8), ("segment", 32), ("wide", 32)):
+        qk.plan = lambda *_a, _c=choice: _c
+        try:
+            ok = all(torch.equal(g, w) for g, w in zip(qk.queue_window(*args), want))
+            dus = cs.device_us_per_call(lambda: qk.queue_window(*args),
+                                        cs.LOOP_SYMBOLS["queue_window"], calls=20)
+        finally:
+            qk.plan = plan
+        print(json.dumps({"kernel": "queue_window",
+                          "shape": f"B={cs.MAIN_B},N={cs.N_OPS},steps={cs.WINDOW_STEPS}",
+                          "route": choice[0], "width": choice[1], "chosen": choice == chosen,
+                          "bitwise": ok, "device_us": dus}), flush=True)
+
+
+def topr_plans(torch, cs, _build, dev, gen):
+    from repro_torch.kernels.gain_topr import kernel as gk, ref as gr
+
+    plan = gk.plan
+    cand, budget = cs.gain_topr_inputs(torch.Generator().manual_seed(1234), cs.MAIN_B,
+                                       cs.N_OPS, cs.K_HI, dev)
+    want = gr.gain_topr(cand, budget)
+    chosen = plan(cs.N_OPS, cs.K_HI)
+    for choice in (chosen, ("block", 0)):  # the fleet tile takes the warp route
+        gk.plan = lambda *_a, _c=choice: _c
+        try:
+            ok = torch.equal(gk.gain_topr(cand, budget), want)
+            dus = cs.device_us_per_call(lambda: gk.gain_topr(cand, budget),
+                                        cs.LOOP_SYMBOLS["gain_topr"], calls=20)
+        finally:
+            gk.plan = plan
+        print(json.dumps({"kernel": "gain_topr",
+                          "shape": f"B={cs.MAIN_B},N={cs.N_OPS},J={cs.K_HI}",
+                          "route": choice[0], "slots": choice[1], "chosen": choice == chosen,
+                          "bitwise": ok, "device_us": dus}), flush=True)
 
 
 if __name__ == "__main__":
