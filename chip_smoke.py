@@ -9,8 +9,12 @@ Phases, each printing one JSON line:
    name / power limit (the raw CSV line is printed too);
 2. the kernel build (``nvcc`` for sm_90a, one process per source), timed;
 3. each kernel against its plain PyTorch version on the card, at the main
-   path's shapes and, for ``erlang_c`` / ``decide_fused``, at k_hi = 512,
-   N = 32 (``decide_fused`` also at N = 40, its wide route; the fleet shape
+   path's shapes and, for ``erlang_c``, at k_hi = 512 over S = 8192 lanes
+   and under three load mixes at the fleet's S = 4096 x 7, k_hi = 48 (the
+   loads the fleet's last fused tick hands ``stationary_wait``'s table,
+   all-idle lanes with a = 0, and a in [10, 40], where B stays normal to
+   row 48), each timed (``erlang_loads``); for ``decide_fused`` at k_hi =
+   512, N = 32 (also at N = 40, its wide route; the fleet shape
    must run the packed route, ``decide_packed_kernel``, by profiler
    symbol; ``queue_window``: the fleet's window, B 4096 x N 7 over 100
    steps, with bounded and ``+inf`` queues, padded lanes and ``warm``
@@ -28,10 +32,13 @@ Phases, each printing one JSON line:
    float32, with the two-pass decide and with the fused decide, in turns
    (off, on, on, off).  Launch counters are zeroed just before each run
    and checked just after (one ``queue_window`` per tick, no ``queue_step``;
-   ``erlang_c`` and ``gain_topr`` once per two-pass tick, ``decide_fused``
-   once per fused tick); all four runs must make bitwise-equal decisions.
-   One more run of each dispatch under ``torch.profiler`` gives device
-   time, launches per tick and the device's busy share;
+   ``erlang_c`` once per fused tick -- ``stationary_wait``'s Erlang-B
+   table -- and twice per two-pass tick, with the decide's; ``gain_topr``
+   once per two-pass tick, ``decide_fused`` once per fused tick); all four
+   runs must make bitwise-equal decisions.  One more run of each dispatch
+   under ``torch.profiler`` gives device time, launches per tick (at most
+   400 fused, 500 two-pass: no 512-step Erlang-B loop) and the device's
+   busy share;
 5. the same loop for the first 256 lanes on the CPU with the plain
    versions, against the card's run: no (tick, lane) decision code or
    allocation may differ;
@@ -49,7 +56,8 @@ Phases, each printing one JSON line:
    more frames, then it drains.  Every injected frame must complete with
    one detection row and exactly one ``match_count`` launch;
 8. the per-kernel JSON line (``launches``: the loop kernels summed over
-   the four main-path runs, each of which must have launched -- but
+   the four main-path runs, each of which must have launched (``erlang_c``
+   1 / 2 times per fused / two-pass tick) -- but
    ``queue_step``, whose steps the window kernel runs, and which is on no
    path; the two ``l2_match`` kernels from the ``vld_live`` run,
    where ``match_count`` runs once per frame and ``pairwise_sq_l2`` --
@@ -139,6 +147,7 @@ WINDOW_STEPS = 100  # fleet-4096: a 5 s tick of 0.05 s steps
 # Kernels that no path of the port launches (their rows are still held to
 # their plain versions and timed).
 OFF_PATH = ("queue_step", "pairwise_sq_l2")
+PROFILE_ATTEMPTS = 3  # profiler sessions tried before an empty trace stands
 # Device-function names of the window kernel's routes, by plan route.
 WINDOW_ROUTE_SYMBOLS = {"segment": "queue_window_seg_kernel", "wide": "queue_window_wide_kernel"}
 # Device-function names of the control-loop kernels, by launch counter.
@@ -188,6 +197,28 @@ def median_ms(fn, *, runs=25, inner=10):
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def profiled(run):
+    """``(key_averages(), result)`` of one ``run()`` under torch.profiler,
+    synchronised.  The card's profiler now and then hands back a trace
+    without a single device event; such a session is run again, up to
+    PROFILE_ATTEMPTS in all, so ``run`` must be repeatable.  Which kernels a
+    trace shows is still for the caller to check."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = run()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+               for e in events):
+            break
+        emit({"phase": "profiler", "empty_trace": attempt})
+    return events, out
 
 
 def max_abs_err(got, want):
@@ -303,6 +334,52 @@ def decide_inputs(gen, b, n, k_hi, dev):
                 active=active.to(dev), k_cur=k_cur.to(dev), k_max=k_max.to(dev))
 
 
+def fleet_scenarios():
+    """fleet-4096: ``DISTINCT`` seeded ``scenario_matrix`` scenarios tiled
+    to ``MAIN_B``; returns (distinct, fleet)."""
+    from repro_torch.streaming.scenarios import scenario_matrix
+
+    distinct = [
+        s.with_(negotiated=False)
+        for s in scenario_matrix(DISTINCT, seed=5, horizon=30.0, warmup=5.0, dt=0.05, k_max=48)
+    ]
+    return distinct, distinct * (MAIN_B // DISTINCT)
+
+
+def erlang_load_mixes(dev):
+    """Three [MAIN_B * N_OPS] load vectors for ``erlang_c``: the loads the
+    fleet's last fused tick hands ``stationary_wait``'s Erlang-B table (one
+    fused run of the fleet, its launches not counted), all-idle lanes (a =
+    0), and a in [10, 40] (B stays normal to row K_HI)."""
+    import torch
+
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.erlang_c import ops as eo
+
+    seen, table = [], eo.erlang_b_table
+
+    def record(a, *, k_hi):
+        seen.append((a.clone(), k_hi))
+        return table(a, k_hi=k_hi)
+
+    eo.erlang_b_table = record
+    try:
+        ScenarioRunner(fleet_scenarios()[1], tick_interval=5.0, fused_decide=True,
+                       device=dev).run()
+    finally:
+        eo.erlang_b_table = table
+        _build.LAUNCHES.clear()
+    m = MAIN_B * N_OPS
+    check(bool(seen) and seen[-1][0].shape == (m,) and seen[-1][1] == K_HI,
+          f"the fused fleet handed stationary_wait's table {[(a.shape, k) for a, k in seen]}, "
+          f"expected [{m}] loads at k_hi = {K_HI}")
+    gen = torch.Generator().manual_seed(77)
+    normal = torch.rand(m, generator=gen, dtype=torch.float64) * 30.0 + 10.0
+    return {"fleet": seen[-1][0], "zero": torch.zeros(m, device=dev),
+            "normal": normal.float().to(dev)}
+
+
 def kernel_phase(dev):
     """Each kernel against its plain version, timed; returns rows."""
     import torch
@@ -375,20 +452,39 @@ def kernel_phase(dev):
                     (2 * N_OPS - 1 + 1 + 10 + 3 + 13) * lane_steps),
     )
 
-    # erlang_c at S = 4096 * 7, k_hi = 48, and at k_hi = 512 over 32 lanes
+    # erlang_c at S = 4096 * 7, k_hi = 48, and at k_hi = 512 over 8192
+    # lanes; timed under the three load mixes (the row: the fleet's loads)
     a = (torch.rand(m, generator=gen, dtype=torch.float64) * 12.0).float().to(dev)
     err = compare("erlang_c", [ek.erlang_b_table(a, k_hi=K_HI)],
                   [er.erlang_b_table(a, k_hi=K_HI)], f"S={m},k_hi={K_HI}")
     a512 = (torch.rand(256 * 32, generator=gen, dtype=torch.float64) * 300.0).float().to(dev)
     err = max(err, compare("erlang_c", [ek.erlang_b_table(a512, k_hi=512)],
                            [er.erlang_b_table(a512, k_hi=512)], "S=8192,k_hi=512"))
+    loads = erlang_load_mixes(dev)
+    timed = {}
+    for mix, (al, k_hi) in {**{k: (v, K_HI) for k, v in loads.items()},
+                           "wide": (a512, 512)}.items():
+        table = er.erlang_b_table(al, k_hi=k_hi)
+        err = max(err, compare("erlang_c", [ek.erlang_b_table(al, k_hi=k_hi)], [table],
+                               f"S={al.shape[0]},k_hi={k_hi},loads={mix}"))
+        tiny = torch.finfo(torch.float32).tiny
+        timed[mix] = {
+            "S": al.shape[0], "k_hi": k_hi,
+            "ms": median_ms(lambda al=al, k_hi=k_hi: ek.erlang_b_table(al, k_hi=k_hi)),
+            "device_us": device_us_per_call(
+                lambda al=al, k_hi=k_hi: ek.erlang_b_table(al, k_hi=k_hi),
+                LOOP_SYMBOLS["erlang_c"], calls=20),
+            "subnormal_share": float(((table > 0) & (table < tiny)).double().mean()),
+            "zero_share": float((table == 0).double().mean()),
+        }
+    emit({"phase": "erlang_loads", "loads": timed})
+    fleet = loads["fleet"]
     rows["erlang_c"] = dict(
         source="src/repro_torch/csrc/erlang_c.cu",
         replaces="src/repro/kernels/erlang_c/kernel.py:56",
-        max_abs_err=err, ms=median_ms(lambda: ek.erlang_b_table(a, k_hi=K_HI)),
-        plain_ms=median_ms(lambda: er.erlang_b_table(a, k_hi=K_HI)),
-        device_us=device_us_per_call(lambda: ek.erlang_b_table(a, k_hi=K_HI),
-                                     LOOP_SYMBOLS["erlang_c"], calls=20),
+        max_abs_err=err, ms=timed["fleet"]["ms"],
+        plain_ms=median_ms(lambda: er.erlang_b_table(fleet, k_hi=K_HI)),
+        device_us=timed["fleet"]["device_us"],
         bound=bound(4 * m + 4 * m * (K_HI + 1), 4 * m * K_HI),
     )
 
@@ -484,17 +580,17 @@ def device_us_per_launch(fns, calls=20):
     all in one profiler session; None for a symbol the trace lacks."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for fn in fns.values():
             for _ in range(calls):
                 fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    events = [e for e in profiled(run)[0] if e.device_type == DeviceType.CUDA]
     out = {}
     for symbol in fns:
         hits = [(e.self_device_time_total, e.count) for e in events if symbol in e.key]
@@ -528,7 +624,7 @@ def l2_rows(dev, compare):
     check(int(counts.sum()) > 0, "match_count: the threshold never fired on the parity inputs")
     cdist_ms = median_ms(lambda: torch.cdist(a, b))
     device_us = device_us_per_launch({
-        "l2_tile_kernel": lambda: lk.pairwise_sq_l2(a, b),
+        "sq_l2_kernel": lambda: lk.pairwise_sq_l2(a, b),
         "match_count_kernel": lambda: lk.match_count(a, b, thr, valid),
     })
     # 2 M N D for the cross term, 2 (M + N) D for the norms, ~4 ops per
@@ -541,7 +637,7 @@ def l2_rows(dev, compare):
             max_abs_err=err_d, ms=median_ms(lambda: lk.pairwise_sq_l2(a, b)),
             plain_ms=median_ms(lambda: lr.pairwise_sq_l2(a, b)),
             library_ms=cdist_ms,
-            device_us=device_us["l2_tile_kernel"],
+            device_us=device_us["sq_l2_kernel"],
             bound=bound(4 * (m * d + n * d + m * n), ops),
         ),
         "match_count": dict(
@@ -572,7 +668,6 @@ def profile_phase(runner, dev):
     unprofiled loop's wall time (the device's busy share)."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.controller import make_fused_loop
     from repro_torch.kernels.queue_step import kernel as qk
@@ -582,14 +677,18 @@ def profile_phase(runner, dev):
         steps_per_tick=runner._steps_per_tick,
         warmup_seconds=runner.scenarios[0].warmup, device=dev,
     )
-    state = loop.init(runner.k0)
+    # One tick-0 state per profiler attempt, made outside the trace.
+    states = [loop.init(runner.k0) for _ in range(PROFILE_ATTEMPTS)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         t0 = time.perf_counter()
-        loop.run(state)
+        loop.run(states.pop())
         torch.cuda.synchronize()
-        profiled_s = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+        return time.perf_counter() - t0
+
+    events, profiled_s = profiled(run)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows) / 1e3
@@ -623,6 +722,12 @@ def profile_phase(runner, dev):
     check(per_tick == 1.0 and "queue_step" not in ours,
           f"profile: {per_tick} queue_window launches per tick, queue_step "
           f"{ours.get('queue_step')}; expected one window kernel per tick and no step kernel")
+    erlang = ours.get("erlang_c", {}).get("launches_per_tick")
+    most = 400 if runner.fused_decide else 500
+    check(erlang == (1.0 if runner.fused_decide else 2.0) and kernels / n_ticks <= most,
+          f"profile: {erlang} erlang_c launches and {kernels / n_ticks} launches per tick; "
+          f"expected {1 if runner.fused_decide else 2} and at most {most} (no 512-step "
+          f"Erlang-B loop)")
 
 
 def main_path_phase(dev):
@@ -631,14 +736,9 @@ def main_path_phase(dev):
     from repro_torch.api.session import ScenarioRunner
     from repro_torch.core.controller import ACTIONS
     from repro_torch.kernels import KERNELS, LAUNCHES
-    from repro_torch.streaming.scenarios import scenario_matrix
 
     t0 = time.perf_counter()
-    distinct = [
-        s.with_(negotiated=False)
-        for s in scenario_matrix(DISTINCT, seed=5, horizon=30.0, warmup=5.0, dt=0.05, k_max=48)
-    ]
-    fleet = distinct * (MAIN_B // DISTINCT)
+    distinct, fleet = fleet_scenarios()
     emit({"phase": "fleet", "scenarios": len(fleet), "distinct": len(distinct),
           "seconds": time.perf_counter() - t0})
 
@@ -658,8 +758,10 @@ def main_path_phase(dev):
         counts = {k: LAUNCHES[k] for k in KERNELS}
         n_ticks = runner.outputs["codes"].shape[0]
         steps = runner._steps_per_tick
+        # erlang_c: stationary_wait's table every tick, the two-pass
+        # decide's too.
         want = {"queue_step": 0, "queue_window": n_ticks,
-                "erlang_c": 0 if fd else n_ticks, "gain_topr": 0 if fd else n_ticks,
+                "erlang_c": n_ticks if fd else 2 * n_ticks, "gain_topr": 0 if fd else n_ticks,
                 "decide_fused": n_ticks if fd else 0}
         emit({"phase": "main_path", "fused_decide": fd, "B": len(fleet), "ticks": n_ticks,
               "steps_per_tick": steps, "launches": counts, "loop_seconds": runner.loop_seconds,
@@ -756,7 +858,7 @@ def vld_profile(cfg, lib, frames, dev):
     by stage, against its wall time per frame: the device's busy share."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     from repro_torch.streaming.apps.vld import aggregate_matches, extract_features, match_features
 
@@ -778,10 +880,7 @@ def vld_profile(cfg, lib, frames, dev):
     run()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    events = prof.key_averages()
+    events = profiled(run)[0]
     stage_names = ("vld_extract", "vld_match", "vld_aggregate")
     # Kernels only: the stage annotations also show up as device ranges.
     rows = [(e.key, e.self_device_time_total, e.count) for e in events
@@ -1210,7 +1309,6 @@ def profile_breakdown(fn, calls=1):
     rows: (kernel name, device us, launches) by device time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
@@ -1219,12 +1317,13 @@ def profile_breakdown(fn, calls=1):
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / calls
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
+
     rows = [(e.key, e.self_device_time_total / calls, e.count / calls)
-            for e in prof.key_averages()
+            for e in profiled(run)[0]
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return wall_ms, sum(r[1] for r in rows) / 1e3, rows

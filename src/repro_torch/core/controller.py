@@ -495,7 +495,7 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     keys of ``repro.core.controller.make_fused_loop``.  ``device`` defaults
     to the CUDA device (raising when there is none), ``dtype`` to float32.
     """
-    from ..streaming.batchsim import composed_wait, window_step_fn
+    from ..streaming.batchsim import STATIONARY_K_CAP, composed_wait, window_step_fn
 
     dev, dtype = _resolve(device, dtype)
     b, n = static.batch, static.n
@@ -507,6 +507,24 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     j_cap = min(k_hi_res, max(int(params.k_max.max()), 1))
     decide_core = _make_decide_core(n, k_hi_res, PAUSE_SECONDS, fused=fused, j_cap=j_cap)
     window = window_step_fn()
+    # The largest allocation the decide can apply, a host number: in
+    # _make_decide_core (and kernels/decide_fused/ref.py) a lane takes only
+    # candidates with `idx < k_hi`, so k4 = k_start + take <= k_hi, but for a
+    # lane without a finite table row (`k_start = k_hi + 1`, take 0); and
+    # `apply_mask` needs `feasible4`, i.e. `floor_total <= k_max`, so an
+    # applied k4 also fits its scenario's k_max.  Otherwise `k_next = k_cur`.
+    # So every tick's k stays <= max(k_apply, k0.max()), and gang lanes
+    # serve with k_srv <= 1: stationary_wait's Erlang-B table needs no rows
+    # past that (nor past the cap, where the JAX loop stops too).
+    k_apply = max(k_hi_res, min(k_hi_res + 1, int(params.k_max.max())))
+    made = [None, 0]  # the k of the newest state this loop made, its bound
+
+    def bound_of(k_top: int) -> int:
+        return min(STATIONARY_K_CAP, max(k_apply, k_top, 1))
+
+    def record(state: ControllerState, k_bound: int) -> ControllerState:
+        made[:] = [state.k, k_bound]
+        return state
 
     def f(x):
         return torch.as_tensor(np.asarray(x, dtype=np.float64), dtype=dtype, device=dev)
@@ -545,7 +563,7 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
         spd = mu * speed
         return torch.where(group, spd * kf * eff, spd * kf)
 
-    def tick_fn(state: ControllerState, t_idx: int):
+    def tick_fn(state: ControllerState, t_idx: int, k_bound: int):
         q, served_prev, k, acc = state.q, state.served_prev, state.k, state.acc
         cap_serve_dt = capacity_of(k) * dt
         (q1, served_prev1, offered, _served, dropped, ext_adm, _ext_off, q_int, q_max,
@@ -559,6 +577,7 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
         q_mean = q_int / spt_t
         wait = composed_wait(
             q_mean, admitted, dt, span, k, mu, group, alpha, speed, ca2, cs2,
+            k_bound=k_bound,
         )
         cap = capacity_of(k)
         svc = torch.where(group, torch.where(cap > 0, 1.0 / cap, inf), 1.0 / mu_eff)
@@ -579,10 +598,15 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
 
     def run_fn(state: ControllerState, ticks: int):
         tick0 = state.tick
+        if state.k is made[0]:
+            k_bound = made[1]
+        else:  # a state this loop did not make: one host read of its k
+            k_bound = bound_of(int(state.k.max()) if state.k.numel() else 0)
         ys = []
         for t_idx in range(tick0, tick0 + ticks):
-            state, y = tick_fn(state, t_idx)
+            state, y = tick_fn(state, t_idx, k_bound)
             ys.append(y)
+        record(state, k_bound)
         codes, k_hist, sojourns, et_cur, et_target, applied = (
             torch.stack(col) for col in zip(*ys)
         )
@@ -601,7 +625,8 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
         return state, out
 
     def init_fn(k0) -> ControllerState:
-        return init_state(k0, device=dev, dtype=dtype)
+        k_top = int(np.max(np.asarray(k0), initial=0))
+        return record(init_state(k0, device=dev, dtype=dtype), bound_of(k_top))
 
     return FusedLoop(n_ticks, init_fn, run_fn), n_ticks
 

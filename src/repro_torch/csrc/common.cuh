@@ -23,6 +23,19 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || isnan(b)) ? a + b : fmaxf(a, b);
 }
 
+// Correctly rounded n / d, as the float division `/` gives it.  The
+// double quotient of two floats rounded once more to float is the
+// correctly rounded float quotient (53 >= 2 * 24 + 2 bits: the second
+// rounding is innocuous for division).  The float division leaves its
+// fast path for a slow one where the numerator nears underflow -- the
+// tail of the Erlang-B recurrence, where B(k) falls to 0 -- and the
+// double one does not, except for a zero numerator: over a positive
+// denominator that quotient is the numerator itself.
+__device__ __forceinline__ float div_rn(float n, float d) {
+  if (n == 0.0f && d > 0.0f) return n;
+  return __double2float_rn(__ddiv_rn(static_cast<double>(n), static_cast<double>(d)));
+}
+
 // Integer sum over the whole block; every thread gets the total.  Needs
 // blockDim.x to be a multiple of 32 and `scratch` to hold one int per
 // warp.  Integer addition is associative, so the result does not depend

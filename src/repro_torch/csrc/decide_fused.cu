@@ -28,7 +28,8 @@
 // time; the first design (one 32-thread block per scenario) also left 25
 // of 32 lanes idle at N = 7, and its 31 bisection steps each re-scanned
 // the window and took two block barriers.  The cell now runs 6 divisions
-// instead of 10, in double, off the slow path (div_rn).
+// instead of 10, in double, off the slow path (`repro::div_rn`,
+// common.cuh).
 //
 // Packed route (decide_packed_kernel, N <= 32): scenarios sit in warp
 // segments of W = 8 lanes up to N = 8 (at the fleet's N = 7: four
@@ -55,19 +56,6 @@
 
 namespace {
 
-// Correctly rounded n / d, as the float division `/` gives it.  The
-// double quotient of two floats rounded once more to float is the
-// correctly rounded float quotient (53 >= 2 * 24 + 2 bits: the second
-// rounding is innocuous for division).  The float division leaves its
-// fast path for a slow one where the numerator nears underflow -- the
-// tail of the Erlang-B recurrence, where B(k) falls to 0 -- and the
-// double one does not, except for a zero numerator: over a positive
-// denominator that quotient is the numerator itself.
-__device__ __forceinline__ float div_rn(float n, float d) {
-  if (n == 0.0f && d > 0.0f) return n;
-  return __double2float_rn(__ddiv_rn(static_cast<double>(n), static_cast<double>(d)));
-}
-
 // T[k] for one lane at k servers (kf = k >= 1); carries the Erlang-B value
 // B(k) in b_prev (B(0) = 1).  Replica lanes take the Erlang-C sojourn,
 //   bb = ab / (k + ab), c = k bb / (k - a (1 - bb)),
@@ -83,14 +71,14 @@ __device__ __forceinline__ float sojourn_cell(float kf, float lam, float mu, flo
   const float inf = __int_as_float(0x7f800000);
   const float ab = a_rep * b_prev;
   // q1 = eff | bb, q2 = ag | c, q3 = bg | c / (k mu - lam), q4 = cg | 1 / mu.
-  const float q1 = div_rn(grp ? 1.0f : ab, grp ? 1.0f + alpha * (kf - 1.0f) : kf + ab);
+  const float q1 = repro::div_rn(grp ? 1.0f : ab, grp ? 1.0f + alpha * (kf - 1.0f) : kf + ab);
   const float mug = mu * kf * q1;
-  const float q2 = div_rn(grp ? lam : kf * q1, grp ? mug : kf - a_rep * (1.0f - q1));
-  const float q3 = div_rn(q2, grp ? 1.0f + q2 : kf * mu - lam);
-  const float q4 = div_rn(grp ? q3 : 1.0f, grp ? 1.0f - q2 * (1.0f - q3) : mu);
+  const float q2 = repro::div_rn(grp ? lam : kf * q1, grp ? mug : kf - a_rep * (1.0f - q1));
+  const float q3 = repro::div_rn(q2, grp ? 1.0f + q2 : kf * mu - lam);
+  const float q4 = repro::div_rn(grp ? q3 : 1.0f, grp ? 1.0f - q2 * (1.0f - q3) : mu);
   b_prev = q1;
   if (!grp) return kf > a_rep ? q3 + q4 : inf;
-  const float t = div_rn(q4, mug - lam) + div_rn(1.0f, mug);
+  const float t = repro::div_rn(q4, mug - lam) + repro::div_rn(1.0f, mug);
   return q2 < 1.0f ? t : inf;
 }
 

@@ -15,6 +15,18 @@
 // row stores, the layout the caller reads).  The Pallas kernel held the
 // whole table in VMEM; here nothing needs staging -- each value is
 // stored once, straight from a register.
+//
+// What holds it is the chain of divisions, not the bytes.  Float `/`
+// leaves its fast path for a slow one where the numerator nears
+// underflow, and both the Erlang-B tail (B(j) falling toward 0) and every
+// idle lane (a = 0) live there: on the H100 at S = 28,672, k_hi = 48, the
+// fleet's loads took 17.1 us with `/` against 3.5 for loads whose B stays
+// normal.  The quotient is repro::div_rn instead (common.cuh: a double
+// quotient rounded once, the same bits, no slow path; a zero numerator
+// returns at once): 6.8 us.  Stopping a lane's chain once B = 0, and `/`
+// for numerators above 2^-60, were both slower on those loads.  The
+// product and the sum stay float (`-fmad=false`), rounded as the plain
+// version rounds them.
 #include "common.cuh"
 
 namespace {
@@ -28,7 +40,7 @@ __global__ void erlang_b_kernel(const float* __restrict__ a,
   out[i] = 1.0f;
   for (int j = 1; j <= k_hi; ++j) {
     const float ab = ai * b;
-    b = ab / (static_cast<float>(j) + ab);
+    b = repro::div_rn(ab, static_cast<float>(j) + ab);
     out[static_cast<size_t>(j) * s + i] = b;
   }
 }

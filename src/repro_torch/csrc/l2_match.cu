@@ -22,92 +22,37 @@
 // operations done by one FMA.  Without contraction each multiply and each
 // add is its own instruction, so the floor here is ~4.0 us.
 //
-// `match_count` (match_count_kernel, the VLD path's kernel): a register-
-// tiled outer product.  256 threads (16 x 16) own 4 x 4 outputs each, rows
-// ty + 16 r and columns tx + 16 c, of a 64 x 64 block tile.  The operand
-// rows are staged in 16-deep chunks by cp.async, a ring of four in flight
-// (the whole D = 64 tile at once, so the products start when the first
-// quarter lands), into rows padded to 20 floats: a thread reads 4 depths
-// of a row as one float4, and eight consecutive rows then hit distinct
-// banks.  Per 4 depths a thread issues 8 float4 loads for 64 multiplies
-// and 64 adds.  16-byte copies need D % 4 == 0 and 16-byte aligned bases;
-// otherwise each float is copied alone.  The first 128 threads also
-// accumulate one row's norm each from the same staged chunks (once per
-// row per block).  Ragged edges and the depth tail are zero-filled: a zero
-// product adds nothing (the sums are never -0).  The count never writes
+// Both kernels run one register-tiled outer product (l2_register_tile).
+// 256 threads (16 x 16) own 4 x 4 outputs each, rows ty + 16 r and columns
+// tx + 16 c, of a 64 x 64 block tile.  The operand rows are staged in
+// 16-deep chunks by cp.async, a ring of four in flight (the whole D = 64
+// tile at once, so the products start when the first quarter lands), into
+// rows padded to 20 floats: a thread reads 4 depths of a row as one
+// float4, and eight consecutive rows then hit distinct banks.  Per 4
+// depths a thread issues 8 float4 loads for 64 multiplies and 64 adds.
+// 16-byte copies need D % 4 == 0 and 16-byte aligned bases; otherwise each
+// float is copied alone.  The first 128 threads also accumulate one row's
+// norm each from the same staged chunks (once per row per block).  Ragged
+// edges and the depth tail are zero-filled: a zero product adds nothing
+// (the sums are never -0).
+//
+// `match_count` (match_count_kernel, the VLD path's kernel) never writes
 // [M, N]: each block sums its tile's hits per column (a shuffle, then
 // shared memory) and adds them to the int32 output with one atomicAdd per
 // column -- integer addition, so the order of the atomics does not change
 // the result.
 //
-// `pairwise_sq_l2` (l2_tile_kernel, reached by no path of the port): one
-// 256-thread block per 32 x 32 output tile, 32-deep slices staged
-// synchronously, 4 outputs per thread.
+// `pairwise_sq_l2` (sq_l2_kernel, reached by no path of the port) stores
+// the tile instead: half a warp writes 16 consecutive floats of a row per
+// store, 4 MB at the VLD shape (~1.2 us of the bytes bound).  On the H100
+// at M = N = 1024, D = 64 it takes 10.2 us, against 17.4 for the first
+// design's 32 x 32 tiles of 4 outputs per thread.
 #include "common.cuh"
 #include "tensor_core.cuh"
 
 namespace {
 
-constexpr int kTile = 32;   // output rows and columns per block
-constexpr int kRows = 8;    // blockDim.y; each thread owns kTile / kRows rows
-constexpr int kDepth = 32;  // depth slice staged in shared memory
-constexpr int kPerThread = kTile / kRows;
-
-__global__ void __launch_bounds__(kTile * kRows)
-l2_tile_kernel(const float* __restrict__ a, const float* __restrict__ b,
-               float* __restrict__ dist, int m, int n, int d) {
-  __shared__ float a_tile[kTile][kDepth + 1];
-  __shared__ float b_tile[kTile][kDepth + 1];
-  __shared__ float a2s[kTile];
-  __shared__ float b2s[kTile];
-
-  const int tx = threadIdx.x;  // output column within the tile
-  const int ty = threadIdx.y;
-  const int i0 = blockIdx.y * kTile;
-  const int j0 = blockIdx.x * kTile;
-
-  float acc[kPerThread];
-#pragma unroll
-  for (int r = 0; r < kPerThread; ++r) acc[r] = 0.0f;
-  float norm = 0.0f;  // |b_{j0+tx}|^2 for ty == 0, |a_{i0+tx}|^2 for ty == 1
-
-  for (int k0 = 0; k0 < d; k0 += kDepth) {
-    const int kn = min(kDepth, d - k0);
-    for (int r = ty; r < kTile; r += kRows) {
-      const int gk = k0 + tx;
-      const int gi = i0 + r;
-      const int gj = j0 + r;
-      a_tile[r][tx] = (gi < m && tx < kn) ? a[static_cast<long long>(gi) * d + gk] : 0.0f;
-      b_tile[r][tx] = (gj < n && tx < kn) ? b[static_cast<long long>(gj) * d + gk] : 0.0f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kn; ++kk) {
-      const float bv = b_tile[tx][kk];
-#pragma unroll
-      for (int r = 0; r < kPerThread; ++r) acc[r] = acc[r] + a_tile[ty + kRows * r][kk] * bv;
-    }
-    if (ty == 0) {
-      for (int kk = 0; kk < kn; ++kk) norm = norm + b_tile[tx][kk] * b_tile[tx][kk];
-    } else if (ty == 1) {
-      for (int kk = 0; kk < kn; ++kk) norm = norm + a_tile[tx][kk] * a_tile[tx][kk];
-    }
-    __syncthreads();
-  }
-  if (ty == 0) b2s[tx] = norm;
-  if (ty == 1) a2s[tx] = norm;
-  __syncthreads();
-
-  const int j = j0 + tx;
-#pragma unroll
-  for (int r = 0; r < kPerThread; ++r) {
-    const int li = ty + kRows * r;
-    const int i = i0 + li;
-    const float v = repro::nan_max((a2s[li] + b2s[tx]) - 2.0f * acc[r], 0.0f);
-    if (i < m && j < n) dist[static_cast<long long>(i) * n + j] = v;
-  }
-}
-
-constexpr int kThreads = 256;        // match_count_kernel: 16 x 16 threads
+constexpr int kThreads = 256;        // 16 x 16 threads
 constexpr int kSide = 16;
 constexpr int kRowsPer = 4;          // output rows per thread: 64-row tiles
 constexpr int kCols = 4;             // output columns per thread: 64-column tiles
@@ -130,11 +75,15 @@ __device__ __forceinline__ float part(const float4& v, int e) {
   return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
 }
 
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads)
-match_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                   const unsigned char* __restrict__ valid, float t2,
-                   int* __restrict__ count, int m, int n, int d) {
+// The register tile of both kernels: the 64 x 64 block tile's cross
+// terms in registers, the rows' norms in a2s / b2s.  kCount: sum each
+// column's hits within t2 into `count`; otherwise store the distances to
+// `dist` [m, n].
+template <bool kVec, bool kCount>
+__device__ __forceinline__ void l2_register_tile(
+    const float* __restrict__ a, const float* __restrict__ b,
+    const unsigned char* __restrict__ valid, float t2, int* __restrict__ count,
+    float* __restrict__ dist, int m, int n, int d) {
   constexpr int BM = kSide * kRowsPer;
   constexpr int BN = kSide * kCols;
   constexpr int kStage = (BM + BN) * kStride;  // floats per stage: a rows, then b rows
@@ -142,7 +91,6 @@ match_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ float a2s[BM];
   __shared__ float b2s[BN];
-  __shared__ int hits[kThreads / 32][BN];
 
   const int t = threadIdx.x;
   const int tx = t % kSide;
@@ -230,6 +178,22 @@ match_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
   __syncthreads();
 
+  if constexpr (!kCount) {
+#pragma unroll
+    for (int r = 0; r < kRowsPer; ++r) {
+      const int li = ty + kSide * r;
+      if (i0 + li >= m) break;
+      float* row = dist + static_cast<long long>(i0 + li) * n + j0;
+#pragma unroll
+      for (int cc = 0; cc < kCols; ++cc) {
+        const int lj = tx + kSide * cc;
+        const float v = repro::nan_max((a2s[li] + b2s[lj]) - 2.0f * acc[r][cc], 0.0f);
+        if (j0 + lj < n) row[lj] = v;
+      }
+    }
+    return;
+  }
+  __shared__ int hits[kThreads / 32][BN];
   bool row_ok[kRowsPer];
 #pragma unroll
   for (int r = 0; r < kRowsPer; ++r) {
@@ -260,32 +224,44 @@ match_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
 }
 
 template <bool kVec>
-cudaError_t launch_count(const float* a, const float* b, const unsigned char* valid,
-                         float t2, int* count, int m, int n, int d, int device,
-                         cudaStream_t s) {
-  static bool ready[16];
+__global__ void __launch_bounds__(kThreads)
+match_count_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   const unsigned char* __restrict__ valid, float t2,
+                   int* __restrict__ count, int m, int n, int d) {
+  l2_register_tile<kVec, true>(a, b, valid, t2, count, nullptr, m, n, d);
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+sq_l2_kernel(const float* __restrict__ a, const float* __restrict__ b,
+             float* __restrict__ dist, int m, int n, int d) {
+  l2_register_tile<kVec, false>(a, b, nullptr, 0.0f, nullptr, dist, m, n, d);
+}
+
+// Launches `kern` over the output's 64 x 64 tiles.
+template <typename Kernel, typename... Args>
+cudaError_t launch_tile(Kernel kern, int m, int n, cudaStream_t s, Args... args) {
   constexpr int BM = kSide * kRowsPer;
   constexpr int BN = kSide * kCols;
   constexpr int smem = kStages * (BM + BN) * kStride * static_cast<int>(sizeof(float));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = repro::allow_smem(match_count_kernel<kVec>, smem, device, ready);
-    if (err != cudaSuccess) return err;
-  }
+  static_assert(smem <= 48 * 1024, "the cp.async ring must fit without an opt-in");
   const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  match_count_kernel<kVec><<<grid, kThreads, smem, s>>>(a, b, valid, t2, count, m, n, d);
+  kern<<<grid, kThreads, smem, s>>>(args...);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// `vec` as in repro_match_count.
 extern "C" int repro_pairwise_sq_l2(const float* a, const float* b, float* dist, int m,
-                                    int n, int d, int device, void* stream) {
+                                    int n, int d, int vec, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0 && n > 0) {
-    const dim3 block(kTile, kRows);
-    const dim3 grid((n + kTile - 1) / kTile, (m + kTile - 1) / kTile);
-    l2_tile_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(a, b, dist, m, n, d);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const auto kern = vec ? sq_l2_kernel<true> : sq_l2_kernel<false>;
+    err = launch_tile(kern, m, n, s, a, b, dist, m, n, d);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -299,8 +275,8 @@ extern "C" int repro_match_count(const float* a, const float* b, const unsigned 
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0 && n > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    err = vec ? launch_count<true>(a, b, valid, t2, count, m, n, d, device, s)
-              : launch_count<false>(a, b, valid, t2, count, m, n, d, device, s);
+    const auto kern = vec ? match_count_kernel<true> : match_count_kernel<false>;
+    err = launch_tile(kern, m, n, s, a, b, valid, t2, count, m, n, d);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

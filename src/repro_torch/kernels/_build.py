@@ -150,7 +150,7 @@ def library():
                 "repro_erlang_b_table": [p, p, i, i, i, p],
                 "repro_gain_topr": [p, p, p, i, i, i, i, i, i, p],
                 "repro_decide_fused": [p] * 11 + [i] * 7 + [p],
-                "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, p],
+                "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, i, p],
                 "repro_match_count": [p, p, p, f, p, i, i, i, i, i, p],
                 "repro_flash_attention": [p] * 4 + [ll] * 12 + [i] * 6 + [f] + [i] * 4 + [p],
                 "repro_decode_attention": [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p],

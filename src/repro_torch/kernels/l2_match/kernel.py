@@ -3,9 +3,10 @@ counterparts of ``repro/kernels/l2_match/kernel.py``'s
 ``pairwise_sq_l2_pallas`` and ``match_count_pallas``.  Any M, N and D: the
 kernels mask the ragged tile edges, so nothing is padded.
 
-``match_count`` launches the count kernel on 64 x 64 output tiles, 256
-threads of 4 x 4 outputs, with 16-byte ``cp.async`` copies where D and both
-bases allow them (:func:`plan`).  The copy width never changes the result:
+Both launch one register-tiled kernel on 64 x 64 output tiles, 256 threads
+of 4 x 4 outputs, with 16-byte ``cp.async`` copies where D and both bases
+allow them (:func:`plan`); ``pairwise_sq_l2`` stores the distances,
+``match_count`` counts them.  The copy width never changes the result:
 every output sums its depths in order."""
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ def _operands(name, a, b):
 
 
 def plan(d: int, aligned: bool) -> bool:
-    """Whether ``match_count`` stages its operands by 16-byte copies: when
+    """Whether the kernels stage their operands by 16-byte copies: when
     ``d % 4 == 0`` and both operands start 16-byte ``aligned``; otherwise
     each float is copied alone."""
     return aligned and d % 4 == 0
@@ -40,8 +41,9 @@ def pairwise_sq_l2(a, b):
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     lib = _build.library()
     dev, stream = _build.launch_args(a)
+    vec = plan(d, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0)
     code = lib.repro_pairwise_sq_l2(a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, d,
-                                    dev, stream)
+                                    int(vec), dev, stream)
     _build.check_error("pairwise_sq_l2", code)
     _build.count_launch("pairwise_sq_l2")
     return out

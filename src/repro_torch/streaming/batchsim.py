@@ -42,10 +42,11 @@ __all__ = [
     "window_step_fn",
 ]
 
-# Static iteration bound of the masked Erlang-B recurrence in
-# stationary_wait (iterations past a lane's k are masked no-ops).  The loop
-# always runs to the cap: stopping at max(k) would need a device-to-host
-# sync every tick.
+# Cap of the Erlang-B recurrence in stationary_wait: a lane serving with
+# more than 512 servers reads B(512), as the JAX package's
+# ``lax.fori_loop`` to the cap does.  The masked loop runs to the cap; the
+# table route (``k_bound``) stops at a bound the caller already holds on
+# the host, so it needs no device-to-host sync.
 STATIONARY_K_CAP = 512
 
 
@@ -71,12 +72,22 @@ def _visit_sum_sojourn(admitted_rate, wait, svc, ext_rate):
     return np.where(ext_rate > 0, total / np.maximum(ext_rate, 1e-300), np.nan)
 
 
-def stationary_wait(k, lam, mu, group, alpha, speed=None, ca2=None, cs2=None):
+def stationary_wait(k, lam, mu, group, alpha, speed=None, ca2=None, cs2=None, *,
+                    k_bound: int | None = None):
     """Erlang-C M/M/k waiting time ``C(k, a) / (k*mu - lam)`` at the admitted
     rate ``lam``, scaled by the Allen-Cunneen factor ``(ca2 + cs2) / 2``;
     gang operators collapse to one server at the gang capacity.  Zero where
     the lane is idle, unallocated, or not stable.  Tensors; the dtype
     follows ``mu``.
+
+    ``k_bound=None`` runs the masked Erlang-B loop to
+    :data:`STATIONARY_K_CAP`.  A host ``k_bound`` (at most the cap, and at
+    least every lane's server count or the cap) computes the rows ``0 ..
+    k_bound`` with one ``kernels/erlang_c`` table -- the CUDA kernel for a
+    float32 CUDA tensor (float64 on the card raises), the plain version
+    in the tensor's dtype on the CPU -- and gathers each lane's row, which
+    holds the loop's value bit for bit: the table's step rounds the same
+    product, sum and quotient.
 
     ``1e-300`` guards round to the tensor dtype as the JAX package's weak
     constants do: 0.0 in float32.
@@ -88,11 +99,14 @@ def stationary_wait(k, lam, mu, group, alpha, speed=None, ca2=None, cs2=None):
     k_srv = torch.where(group, torch.clamp_max(kf, 1.0), kf)
     mu_srv = torch.where(group, cap, mu_rep)
     a = lam / torch.clamp_min(mu_srv, 1e-300)
-    b = torch.ones_like(a)
-    for j in range(1, STATIONARY_K_CAP + 1):
-        jf = float(j)
-        ab = a * b
-        b = torch.where(k_srv >= jf, ab / (ab + jf), b)
+    if k_bound is None:
+        b = torch.ones_like(a)
+        for j in range(1, STATIONARY_K_CAP + 1):
+            jf = float(j)
+            ab = a * b
+            b = torch.where(k_srv >= jf, ab / (ab + jf), b)
+    else:
+        b = _erlang_b_rows(a, k_srv, int(k_bound))
     c = k_srv * b / torch.clamp_min(k_srv - a * (1.0 - b), 1e-300)
     wait = c / torch.clamp_min(k_srv * mu_srv - lam, 1e-300)
     if ca2 is not None or cs2 is not None:
@@ -101,15 +115,29 @@ def stationary_wait(k, lam, mu, group, alpha, speed=None, ca2=None, cs2=None):
     return torch.where(stable, wait, 0.0)
 
 
+def _erlang_b_rows(a, k_srv, k_bound: int):
+    """``B(k_srv, a)`` per lane from one ``[k_bound + 1, S]`` Erlang-B
+    table; lanes past ``k_bound`` read row ``k_bound``."""
+    from ..kernels.erlang_c import ops as erlang_ops
+
+    if not 0 <= k_bound <= STATIONARY_K_CAP:
+        raise ValueError(f"k_bound must be in [0, {STATIONARY_K_CAP}], got {k_bound}")
+    table = erlang_ops.erlang_b_table(a.reshape(-1), k_hi=k_bound)
+    row = torch.clamp_max(k_srv, float(k_bound)).to(torch.int64)  # k_srv >= 0
+    return table.gather(0, row.reshape(1, -1)).reshape(a.shape)
+
+
 def composed_wait(q_mean, admitted_rate, dt, span, k, mu, group, alpha,
-                  speed=None, ca2=None, cs2=None):
-    """The measurement-surface wait ``max(little, min(stationary, span))``."""
+                  speed=None, ca2=None, cs2=None, *, k_bound: int | None = None):
+    """The measurement-surface wait ``max(little, min(stationary, span))``;
+    ``k_bound`` as in :func:`stationary_wait`."""
     fluid = torch.where(
         admitted_rate > 0,
         torch.clamp_min(q_mean / torch.clamp_min(admitted_rate, 1e-300) - dt, 0.0),
         0.0,
     )
-    stat = stationary_wait(k, admitted_rate, mu, group, alpha, speed, ca2, cs2)
+    stat = stationary_wait(k, admitted_rate, mu, group, alpha, speed, ca2, cs2,
+                           k_bound=k_bound)
     return torch.maximum(fluid, torch.clamp_max(stat, span))
 
 

@@ -449,3 +449,52 @@ def test_cuda_gain_topr_matches_plain_on_both_routes(cuda_device, b, n, j, misal
         c = torch.empty(c.numel() + 1, device=cuda_device)[1:].view_as(c).copy_(c)
     bud = _t(budget).to(cuda_device)
     assert torch.equal(tgk.gain_topr(c, bud), tgr.gain_topr(c, bud))
+
+
+def _fleet_loads(dev, monkeypatch):
+    """The offered loads the fleet-4096 loop (``chip_smoke.py``'s fleet,
+    cut to two ticks) hands ``stationary_wait``'s Erlang-B table on its
+    last tick: [4096 * 7] float32 on the card."""
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.streaming.scenarios import scenario_matrix
+
+    seen = []
+    table = teo.erlang_b_table
+
+    def record(a, *, k_hi):
+        seen.append(a.clone())
+        return table(a, k_hi=k_hi)
+
+    monkeypatch.setattr(teo, "erlang_b_table", record)
+    distinct = [s.with_(negotiated=False) for s in
+                scenario_matrix(256, seed=5, horizon=10.0, warmup=5.0, dt=0.05, k_max=48)]
+    ScenarioRunner(distinct * 16, tick_interval=5.0, fused_decide=True, device=dev).run()
+    monkeypatch.setattr(teo, "erlang_b_table", table)
+    return seen[-1]
+
+
+@pytest.mark.parametrize("mix,s,k_hi", [
+    ("fleet", 4096 * 7, 48), ("zero", 4096 * 7, 48), ("normal", 4096 * 7, 48),
+    ("wide", 8192, 512),
+])
+def test_cuda_erlang_b_matches_plain_under_the_load_mixes(cuda_device, monkeypatch, mix, s,
+                                                          k_hi):
+    """The fleet's own loads, all-idle lanes (a = 0), loads in [10, 40]
+    (B stays normal to row 48), and loads in [0, 300] to row 512."""
+    rng = np.random.default_rng(s + k_hi)
+    if mix == "fleet":
+        a = _fleet_loads(cuda_device, monkeypatch)
+    elif mix == "zero":
+        a = torch.zeros(s, device=cuda_device)
+    else:
+        lo, hi = (10.0, 40.0) if mix == "normal" else (0.0, 300.0)
+        a = _t(rng.uniform(lo, hi, s).astype(np.float32)).to(cuda_device)
+    assert a.shape == (s,) and a.dtype == torch.float32
+    got = tek.erlang_b_table(a, k_hi=k_hi)
+    want = ter.erlang_b_table(a, k_hi=k_hi)
+    assert torch.equal(got, want)
+    tiny = torch.finfo(torch.float32).tiny
+    if mix == "normal":
+        assert bool((got >= tiny).all())
+    if mix == "fleet":
+        assert bool((a == 0).any()) and bool(((got > 0) & (got < tiny)).any())

@@ -207,3 +207,18 @@ def test_cuda_match_count_every_copy_path_matches_plain(cuda_device, m, n, d, al
         a, b = _unaligned(a), _unaligned(b)
     assert tk.plan(d, a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0) is aligned
     assert torch.equal(tk.match_count(a, b, 0.8, valid), tr.match_count(a, b, 0.8, valid))
+
+
+@pytest.mark.parametrize("m,n,d", [(1024, 1024, 64), (1000, 777, 50), (300, 200, 1),
+                                   (300, 200, 3), (65, 63, 100), (0, 64, 64), (64, 0, 64),
+                                   (130, 70, 0)])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_cuda_pairwise_sq_l2_matches_plain_bitwise(cuda_device, m, n, d, aligned):
+    """The register tile's store epilogue on both copy paths, ragged tile
+    edges, a depth tail, and empty operands."""
+    a, b, _valid = _card_operands(m, n, d, seed=m + n + d, dev=cuda_device)
+    if not aligned:
+        a, b = _unaligned(a), _unaligned(b)
+    got = tk.pairwise_sq_l2(a, b)
+    assert got.shape == (m, n)
+    assert torch.equal(got, tr.pairwise_sq_l2(a, b))
