@@ -55,9 +55,23 @@ Phases, each printing one JSON line:
    injected for ~5 s, the session ticks (and applies its decision), ~3 s
    more frames, then it drains.  Every injected frame must complete with
    one detection row and exactly one ``match_count`` launch;
+7a. ``twin_loop``: the window-at-a-time control loop on the card -- the
+   256 ``scenario_matrix`` scenarios of phase 4 as generated (72 of them
+   negotiated: machine leases between windows) tiled x4 to 1,024 lanes
+   through ``ScenarioRunner(backend="torch")``, 6 ticks: exactly one
+   ``queue_window`` launch per tick, no ``queue_step``, no decide kernel
+   (the twin decides on the host in float64, as the reference's does);
+   wall ms per tick, and device ms, launches and the busy share per tick
+   from one more run under torch.profiler; ``expected_sojourn_batch`` on
+   the card for the 256 mean topologies at their final allocations (one
+   ``erlang_c`` launch per call, within 1e-5 relative of the float64
+   numpy table); the first 256 lanes again on the CPU (the plain window:
+   no (tick, lane) action or allocation may differ) and through the
+   float64 twin (the cells that differ are printed, not checked);
 8. the per-kernel JSON line (``launches``: the loop kernels summed over
    the four main-path runs, each of which must have launched (``erlang_c``
-   1 / 2 times per fused / two-pass tick) -- but
+   1 / 2 times per fused / two-pass tick), plus ``twin_loop``'s
+   ``queue_window`` and ``erlang_c`` launches -- but
    ``queue_step``, whose steps the window kernel runs, and which is on no
    path; the two ``l2_match`` kernels from the ``vld_live`` run,
    where ``match_count`` runs once per frame and ``pairwise_sq_l2`` --
@@ -95,7 +109,11 @@ Phases, each printing one JSON line:
     tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps timed
     against the step's bound (KV prefix + weights over 3.35 TB/s);
 13. ``serving_plan``: DRS's prefill / decode chip split
-    (``ServingModel.plan(4.0, k_max=24)``) from the two measured rates;
+    (``ServingModel.plan(4.0, k_max=24)``) from the two measured rates,
+    then ``serving_sim``: that plan through the discrete-event serving
+    simulation (``ServingSimulation(model, 4.0, horizon=600.0,
+    warmup=60.0)``, host code), its mean and p95 latency beside the
+    model's E[T] (at least one request completed, finite latencies);
 14. ``ssm_kernels`` (with the parity phases, before the main path):
     ``rwkv6_scan`` and ``ssd_scan`` against their plain versions at the
     serving shapes (4 x 4096; rwkv6-1.6b's 32 heads of 64, zamba2-7b's 112
@@ -121,7 +139,8 @@ Phases, each printing one JSON line:
     ``ssd_scan``, 14 ``flash_attention`` and 28 ``swiglu`` per prefill, 14
     ``decode_attention`` and 28 ``swiglu`` per step), tokens/s, ms per
     step, peak memory and ``torch.profiler`` breakdowns;
-17. ``serving_plan`` for each of the two from its own measured rates.
+17. ``serving_plan`` and ``serving_sim`` for each of the two from its own
+    measured rates.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -143,6 +162,10 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_OPS_PER_S = 67e12  # H100 SXM float32, outside the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 MAIN_B, DISTINCT, N_OPS, K_HI = 4096, 256, 7, 48
+TWIN_B = 1024  # twin_loop: the 256 distinct scenarios tiled x4
+# twin_loop: expected_sojourn_batch on the card (float32 table) against
+# the float64 numpy table, relative; float32 rounding gives ~2e-7.
+TWIN_SOJOURN_RTOL = 1e-5
 WINDOW_STEPS = 100  # fleet-4096: a 5 s tick of 0.05 s steps
 # Kernels that no path of the port launches (their rows are still held to
 # their plain versions and timed).
@@ -987,6 +1010,136 @@ def vld_live_phase(dev):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 8a: the window-at-a-time control loop (negotiated scenarios)
+# --------------------------------------------------------------------------- #
+def twin_loop_phase(dev):
+    """The window-at-a-time loop on the card: the 256 ``scenario_matrix``
+    scenarios as generated (72 negotiated) tiled to TWIN_B lanes through
+    ``ScenarioRunner(backend="torch")``; ``expected_sojourn_batch`` on the
+    card at the final allocations; the first 256 lanes on the CPU and
+    through the float64 twin.  Returns the path's launches."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.core.batched import expected_sojourn_batch
+    from repro_torch.core.controller import ACTIONS
+    from repro_torch.kernels import KERNELS, LAUNCHES
+    from repro_torch.streaming.scenarios import scenario_matrix
+
+    distinct = scenario_matrix(DISTINCT, seed=5, horizon=30.0, warmup=5.0, dt=0.05, k_max=48)
+    negotiated = sum(s.negotiated for s in distinct)
+    check(negotiated == 72, f"twin_loop: {negotiated} negotiated scenarios of 256, expected 72")
+    fleet = distinct * (TWIN_B // DISTINCT)
+
+    def runner(scens, **kw):
+        r = ScenarioRunner(scens, tick_interval=5.0, **kw)
+        check(not r.fused, "twin_loop: the negotiated fleet must take the window-at-a-time loop")
+        return r
+
+    runner(distinct[:16], device=dev).run()  # CUDA handles outside the timed run
+    card = runner(fleet, device=dev)
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    reports = card.run()
+    counts = {k: LAUNCHES[k] for k in KERNELS}
+    n_ticks = len(card.decisions[0])
+    want = {"queue_step": 0, "queue_window": n_ticks, "erlang_c": 0, "gain_topr": 0,
+            "decide_fused": 0}
+    check(counts == want, f"twin_loop: launches {counts}, expected {want}")
+    codes = np.array([[ACTIONS.index(d.action) for d in decs] for decs in card.decisions]).T
+    k_ticks = [np.stack([d.k_current for d in decs]) for decs in card.decisions]
+    check(np.isfinite(card.sim.q).all() and (card.sim.q >= 0).all(),
+          "twin_loop: non-finite or negative backlog")
+    check(all(r.provisioned_total <= s.k_max for r, s in zip(reports, fleet)),
+          "twin_loop: an allocation past its scenario's k_max")
+    actions = dict(zip(ACTIONS, np.bincount(codes.ravel(), minlength=len(ACTIONS)).tolist()))
+    check(actions["scale_out"] + actions["scale_in"] > 0,
+          f"twin_loop: no lease moved on the negotiated lanes ({actions})")
+
+    # One more run under torch.profiler: device time and launches per tick.
+    spares = [runner(fleet, device=dev) for _ in range(PROFILE_ATTEMPTS)]
+    torch.cuda.synchronize()
+
+    def run():
+        r = spares.pop()
+        r.run()
+        return r.loop_seconds
+
+    events, profiled_s = profiled(run)
+    rows = [(e.key, e.self_device_time_total, e.count) for e in events
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    device_ms = sum(r[1] for r in rows) / 1e3
+    kernels = sum(c for k, _t, c in rows if not k.startswith(("Memcpy", "Memset")))
+    window = [(t, c) for k, t, c in rows if any(sym in k for sym in LOOP_SYMBOLS["queue_window"])]
+    loop_ms = card.loop_seconds * 1e3
+
+    # expected_sojourn_batch on the card at the final allocations.
+    LAUNCHES.clear()
+    rel = 0.0
+    for bi, s in enumerate(distinct):
+        top, k = s.mean_topology(), card.k[bi:bi + 1, : s.graph.n]
+        got = expected_sojourn_batch(top, k, device=dev)
+        ref = expected_sojourn_batch(top, k, backend="numpy")
+        check(np.array_equal(np.isfinite(got), np.isfinite(ref)),
+              f"twin_loop: E[T] finite pattern differs on {s.name}")
+        fin = np.isfinite(ref)
+        if fin.any():
+            rel = max(rel, float(np.max(np.abs(got[fin] - ref[fin]) / np.abs(ref[fin]))))
+    sojourn_launches = LAUNCHES["erlang_c"]
+    check(sojourn_launches == DISTINCT,
+          f"twin_loop: {sojourn_launches} erlang_c launches for {DISTINCT} E[T] calls")
+    check(rel <= TWIN_SOJOURN_RTOL,
+          f"twin_loop: card E[T] off numpy by {rel} (rtol {TWIN_SOJOURN_RTOL})")
+
+    # The first 256 lanes on the CPU (the plain window) and the float64 twin.
+    cpu = runner(fleet[:DISTINCT], device="cpu")
+    cpu.run()
+    twin = runner(fleet[:DISTINCT], backend="numpy")
+    twin.run()
+
+    def cells(r):
+        return (np.array([[ACTIONS.index(d.action) for d in decs] for decs in r.decisions]).T,
+                [np.stack([d.k_current for d in decs]) for decs in r.decisions])
+
+    def differ(r):
+        c, k = cells(r)
+        codes_diff = int((c != codes[:, :DISTINCT]).sum())
+        k_diff = int(sum((a != b).any(axis=-1).sum() for a, b in zip(k, k_ticks)))
+        return codes_diff, k_diff
+
+    cpu_codes, cpu_k = differ(cpu)
+    twin_codes, twin_k = differ(twin)
+    emit({"phase": "twin_loop", "B": len(fleet), "distinct": DISTINCT,
+          "negotiated_distinct": negotiated, "ticks": n_ticks,
+          "steps_per_tick": card._steps_per_tick, "launches": counts,
+          "wall_ms_per_tick": loop_ms / n_ticks,
+          "scenario_ticks_per_s": len(fleet) * n_ticks / card.loop_seconds,
+          "profile": {"device_ms_per_tick": device_ms / n_ticks,
+                      "launches_per_tick": kernels / n_ticks,
+                      "queue_window_us_per_launch": (sum(t for t, _c in window)
+                                                     / max(sum(c for _t, c in window), 1)),
+                      "profiled_wall_ms_per_tick": profiled_s * 1e3 / n_ticks,
+                      "device_busy_share": device_ms / loop_ms,
+                      "top": [{"kernel": k[:90], "device_ms_per_tick": t / 1e3 / n_ticks,
+                               "launches_per_tick": c / n_ticks} for k, t, c in
+                              sorted(rows, key=lambda r: -r[1])[:6]]},
+          "actions": actions,
+          "expected_sojourn_batch": {"calls": DISTINCT, "erlang_c_launches": sojourn_launches,
+                                     "max_rel_err_vs_numpy": rel, "rtol": TWIN_SOJOURN_RTOL},
+          "card_vs_cpu": {"tick_lane_cells": n_ticks * DISTINCT, "codes_differ": cpu_codes,
+                          "allocations_differ": cpu_k},
+          "float32_vs_float64_twin_info": {"codes_differ": twin_codes,
+                                           "allocations_differ": twin_k},
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
+    check(cpu_codes == 0 and cpu_k == 0,
+          f"twin_loop: card and CPU differ in {cpu_codes} codes / {cpu_k} allocations of "
+          f"{n_ticks * DISTINCT} (tick, lane) cells")
+    return {"queue_window": counts["queue_window"], "erlang_c": sojourn_launches}
+
+
+# --------------------------------------------------------------------------- #
 # Phases 9-13: LLM serving (llama3.2-1b, the dense family)
 # --------------------------------------------------------------------------- #
 LLM_ARCH = "llama3.2-1b"
@@ -1485,6 +1638,26 @@ def serving_plan_phase(prompts_per_s, tokens_per_s, arch=LLM_ARCH):
           "expected_sojourn_s": alloc.expected_sojourn,
           "expected_latency_s": model.expected_latency(4.0, split)})
     check(split["prefill"] >= 1 and split["decode"] >= 1, f"serving_plan: split {split}")
+    serving_sim_phase(model, split, arch)
+
+
+def serving_sim_phase(model, split, arch):
+    """The plan just printed through the discrete-event serving simulation
+    (host code): simulated mean and p95 latency beside the model's E[T]."""
+    from repro_torch.serving.router import ServingSimulation
+
+    t0 = time.perf_counter()
+    rep = ServingSimulation(model, 4.0, horizon=600.0, warmup=60.0).run(split)
+    emit({"phase": "serving_sim", "arch": arch, "split": split, "lam0": 4.0,
+          "horizon_s": 600.0, "warmup_s": 60.0, "completed": rep.completed,
+          "mean_latency_s": rep.mean_latency, "p95_latency_s": rep.p95_latency,
+          "model_latency_s": rep.model_latency,
+          "mean_over_model": rep.mean_latency / rep.model_latency,
+          "seconds": time.perf_counter() - t0})
+    check(rep.completed > 0 and math.isfinite(rep.mean_latency)
+          and math.isfinite(rep.p95_latency),
+          f"serving_sim: {rep.completed} completed, mean {rep.mean_latency}, "
+          f"p95 {rep.p95_latency}")
 
 # --------------------------------------------------------------------------- #
 # Phases 14-17: the ssm and hybrid families (rwkv6-1.6b, zamba2-7b)
@@ -1956,6 +2129,8 @@ def main() -> int:
         check(n > 0 or k in OFF_PATH, f"kernel {k} was never launched on the main path")
     vld_card_vs_cpu_phase(dev)
     launches.update(vld_live_phase(dev))
+    for k, n in twin_loop_phase(dev).items():
+        launches[k] += n
     llm_card_vs_cpu_phase(dev)
     serve_launches, prompts_per_s, params, cfg = llm_serve_phase(dev)
     dec_launches, tokens_per_s = llm_decode_32k_phase(dev, params, cfg)

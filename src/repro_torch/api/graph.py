@@ -7,8 +7,9 @@ construction -- unknown endpoints, duplicate names or edges, negative rates
 and non-leaking loops raise -- and compiles to the routing matrix, the
 external-arrival vector and a :class:`~repro_torch.core.jackson.Topology`.
 An operator's ``fn`` is its live-engine compute; :meth:`AppGraph.bind`
-returns a :class:`~repro_torch.api.session.DRSSession` on the live engine
-(the port of ``repro/api/graph.py``; the DES backend is not ported).
+returns a :class:`~repro_torch.api.session.DRSSession` on the discrete-event
+simulator (``"des"``, the default) or the live engine (``"engine"``) -- the
+port of ``repro/api/graph.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ class OpDef:
     """One operator: ``mu`` is the per-processor service-rate prior; ``fn``
     the live-engine compute, ``fn(payload) -> list[(downstream_name,
     payload)]`` (``None`` for model-only graphs); ``scaling`` is
-    ``"replica"`` (M/M/k) or ``"group"`` (a gang at ``mu * k * eff(k)``)."""
+    ``"replica"`` (M/M/k) or ``"group"`` (a gang at ``mu * k * eff(k)``);
+    ``service_kind`` / ``service_cv`` choose the DES service-time law."""
 
     name: str
     mu: float
@@ -41,6 +43,8 @@ class OpDef:
     group_alpha: float = 0.0
     min_k: int = 1
     max_k: int = 1 << 30
+    service_kind: str = "exponential"
+    service_cv: float = 1.0
 
     def spec(self, mu: float | None = None) -> OperatorSpec:
         """Compile to the core model's operator description."""
@@ -204,7 +208,7 @@ class AppGraph:
             arrival_kind=self.arrival_kind, validate_stability=self.validate_stability,
         )
 
-    def bind(self, backend: Any = "engine", **kwargs):
+    def bind(self, backend: Any = "des", **kwargs):
         """Bind this graph to a backend: :meth:`DRSSession.bind
         <repro_torch.api.session.DRSSession.bind>`."""
         from .session import DRSSession  # session imports this module

@@ -1,17 +1,24 @@
 """Sessions: one AppGraph bound to a backend, and the scenario runner.
 
-* :class:`DRSSession` owns the live measure -> model -> rebalance loop of
-  ``repro.api.session.DRSSession`` on the :class:`EngineBackend` (the
-  threaded :class:`~repro_torch.streaming.engine.StreamEngine`): it builds
-  the :class:`~repro_torch.core.scheduler.DRSScheduler` from the graph,
-  wires the engine's measurer to it, and applies each tick's decision to
-  the running workers.  ``DRSSession.bind(graph, "engine")`` runs the
+* :class:`DRSSession` binds a graph to the :class:`DESBackend` (the
+  discrete-event :class:`~repro_torch.streaming.des.NetworkSimulator`, in
+  simulated time on the host; the default, as in the reference) or the
+  :class:`EngineBackend` (the threaded
+  :class:`~repro_torch.streaming.engine.StreamEngine`).  On the engine it
+  owns the live measure -> model -> rebalance loop of
+  ``repro.api.session.DRSSession``: it builds the
+  :class:`~repro_torch.core.scheduler.DRSScheduler` from the graph, wires
+  the engine's measurer to it, and applies each tick's decision to the
+  running workers; ``DRSSession.bind(graph, "engine")`` runs the
   operators' kernels on the CUDA device unless given ``device="cpu"``.
 * :class:`ScenarioRunner` sweeps a matrix of scenarios through the closed
-  control loop (the fused path of ``repro.api.session.ScenarioRunner``):
-  every ``tick_interval`` of simulated time the fleet advances one window
-  through :func:`~repro_torch.core.controller.make_fused_loop` and the
-  runner turns the per-tick outputs into :class:`ScenarioReport`s.
+  control loop: every ``tick_interval`` of simulated time the fleet
+  advances one window.  Static-budget scenarios on ``backend="torch"`` run
+  the fused loop (:func:`~repro_torch.core.controller.make_fused_loop`);
+  otherwise the window-at-a-time loop runs
+  :class:`~repro_torch.streaming.batchsim.BatchQueueSim` and the float64
+  twin :func:`~repro_torch.core.controller.tick_batch`, with the
+  negotiators' leases as hooks between windows.
 
 Typical live use::
 
@@ -20,12 +27,14 @@ Typical live use::
     ...inject tuples...
     session.tick()          # pulls measurements, decides, applies rescale
     session.drain(); session.stop()
+
+    report = graph.bind("des", seed=3, horizon=2000.0).simulate(k)
 """
 
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -34,7 +43,7 @@ import torch
 from ..core import controller as ctl
 from ..core.allocator import AllocationResult, allocate
 from ..core.jackson import Topology
-from ..core.measurer import Measurer
+from ..core.measurer import MeasurementBatch, Measurer
 from ..core.negotiator import Negotiator
 from ..core.rebalance import ExecutableCache, RebalanceCostModel
 from ..core.scheduler import (
@@ -43,13 +52,26 @@ from ..core.scheduler import (
 from ..device import resolve_device
 from .graph import AppGraph, GraphValidationError
 
-__all__ = ["SchedulerConfig", "SchedulerDecision", "EngineBackend", "DRSSession",
-           "ScenarioReport", "ScenarioRunner"]
+__all__ = ["SchedulerConfig", "SchedulerDecision", "EngineBackend", "DESBackend",
+           "DRSSession", "ScenarioReport", "ScenarioRunner"]
 
-DES_NOT_PORTED = (
-    "the discrete-event backend ('des') is not ported to repro_torch yet: "
-    "ROADMAP.md Queue 1 item 12; bind the live 'engine' backend"
-)
+
+def _group_effective_services(top: Topology, k_vec: np.ndarray):
+    """Group-scaled operators for the DES: one fast server at ``mu * k *
+    eff(k)`` instead of k parallel servers."""
+    from ..streaming.des import ServiceProcess
+
+    services, k_eff = [], []
+    for i, op in enumerate(top.operators):
+        k_i = int(k_vec[i])
+        if op.scaling == "group":
+            eff = 1.0 / (1.0 + op.group_alpha * (k_i - 1))
+            services.append(ServiceProcess(rate=op.mu * k_i * eff))
+            k_eff.append(1)
+        else:
+            services.append(ServiceProcess(rate=op.mu))
+            k_eff.append(k_i)
+    return services, np.asarray(k_eff, dtype=np.int64)
 
 
 class EngineBackend:
@@ -130,21 +152,132 @@ class EngineBackend:
         return self.engine.drop_counts()
 
 
-_BACKENDS = {"engine": EngineBackend}
+class DESBackend:
+    """The discrete-event :class:`~repro_torch.streaming.des.NetworkSimulator`
+    behind the session (simulated time; host code, no device).
+    ``arrival_kw`` holds extra ``ArrivalProcess`` parameters for every
+    source (``rate2`` etc. for the ``mmpp`` and ``burst`` kinds)."""
+
+    kind = "des"
+
+    def __init__(
+        self,
+        graph: AppGraph,
+        *,
+        seed: int = 0,
+        horizon: float = 120.0,
+        warmup: float = 10.0,
+        network_delay: float = 0.0,
+        arrival_kind: str | None = None,
+        arrival_kw: Mapping[str, float] | None = None,
+        measurer: Measurer | None = None,
+        queue_capacity: int | None = None,
+        overload_policy: Any = "shed-newest",
+    ):
+        self.graph = graph
+        self.seed = seed
+        self.horizon = horizon
+        self.warmup = warmup
+        self.network_delay = network_delay
+        self.arrival_kind = arrival_kind or graph.arrival_kind
+        self.arrival_kw = dict(arrival_kw or {})
+        self.measurer = measurer
+        self.queue_capacity = queue_capacity
+        self.overload_policy = overload_policy
+
+    # The DES is batch-simulated, not tick-driven: the live protocol fails
+    # with a pointer to simulate().
+    def _not_live(self, method: str):
+        raise GraphValidationError(
+            f"DES backend is batch-simulated; {method}() is only available on "
+            "the engine backend -- use simulate(k, rebalance_to=, rebalance_at=) "
+            "to run allocation changes in simulated time"
+        )
+
+    def start(self, k):
+        self._not_live("start")
+
+    def apply_allocation(self, k):
+        self._not_live("apply_allocation")
+
+    def allocation(self):
+        self._not_live("allocation")
+
+    def inject(self, payload, source=None):
+        self._not_live("inject")
+
+    def drain(self, timeout: float = 10.0):
+        self._not_live("drain")
+
+    def stop(self):
+        self._not_live("stop")
+
+    @property
+    def completed_sojourns(self):
+        self._not_live("completed_sojourns")
+
+    def simulator(self, k: Mapping[str, int] | Sequence[int] | np.ndarray, *,
+                  seed: int | None = None, horizon: float | None = None,
+                  warmup: float | None = None):
+        """A NetworkSimulator for allocation ``k`` (group operators
+        collapsed to single effective servers, each operator's declared
+        service law applied at that rate)."""
+        from ..streaming.des import ArrivalProcess, NetworkSimulator, ServiceProcess, SimConfig
+
+        graph = self.graph
+        top = graph.topology()
+        services, k_eff = _group_effective_services(top, graph.k_vector(k))
+        for i, op in enumerate(graph.ops):
+            if op.service_kind != "exponential" or op.service_cv != 1.0:
+                services[i] = ServiceProcess(rate=services[i].rate, kind=op.service_kind,
+                                             cv=op.service_cv)
+        arrivals = [
+            ArrivalProcess(rate=float(top.lam0[i]), kind=self.arrival_kind, **self.arrival_kw)
+            for i in range(top.n)
+        ]
+        cfg = SimConfig(
+            seed=self.seed if seed is None else seed,
+            horizon=self.horizon if horizon is None else horizon,
+            warmup=self.warmup if warmup is None else warmup,
+            network_delay=self.network_delay,
+            queue_capacity=self.queue_capacity,
+            overload_policy=self.overload_policy,
+        )
+        return NetworkSimulator(top, k_eff, config=cfg, arrivals=arrivals,
+                                services=services, measurer=self.measurer)
+
+    def simulate(self, k, *, rebalance_to=None, rebalance_at: float | None = None,
+                 pause: float = 1.0, seed: int | None = None, horizon: float | None = None,
+                 warmup: float | None = None):
+        """Run the DES under ``k``; optionally switch to ``rebalance_to`` at
+        ``rebalance_at`` (with a processing pause) mid-run."""
+        sim = self.simulator(k, seed=seed, horizon=horizon, warmup=warmup)
+        if rebalance_to is not None and rebalance_at is not None:
+            top = sim.top
+            services2, k2_eff = _group_effective_services(top, self.graph.k_vector(rebalance_to))
+            for i, op in enumerate(top.operators):
+                if op.scaling == "group":
+                    sim.schedule_rate_change(rebalance_at, i, services2[i].rate)
+            sim.rebalance_at(rebalance_at, k2_eff, pause=pause)
+        return sim.run()
+
+
+_BACKENDS = {"engine": EngineBackend, "des": DESBackend}
 
 
 class DRSSession:
-    """One AppGraph + one live backend + the DRS control loop.
+    """One AppGraph + one backend + the DRS control loop.
 
     Construction wires the scheduler from the graph (names, routing
-    matrix, scaling modes) and the backend's measurer.  ``tick()`` pulls,
-    models, decides, and *applies* the decision to the backend.
+    matrix, scaling modes) and the backend's measurer.  On the engine
+    ``tick()`` pulls, models, decides, and *applies* the decision; on the
+    DES :meth:`simulate` runs an allocation in simulated time.
     """
 
     def __init__(
         self,
         graph: AppGraph,
-        backend: EngineBackend,
+        backend: EngineBackend | DESBackend,
         *,
         config: SchedulerConfig | None = None,
         negotiator: Negotiator | None = None,
@@ -165,19 +298,18 @@ class DRSSession:
         self.scheduler: DRSScheduler | None = None
 
     @classmethod
-    def bind(cls, graph: AppGraph, backend: Any = "engine", **kwargs) -> "DRSSession":
-        """Bind ``graph`` to ``backend`` (``"engine"`` or a built
-        :class:`EngineBackend`).  Session options (``config=``,
-        ``negotiator=``, ``cost_model=``, ``executable_cache=``,
-        ``on_decision=``) are taken from ``kwargs``; the rest go to the
-        backend (``device=``, ``queue_capacity=``, ``overload_policy=``).
-        ``"des"`` raises: the discrete-event backend is not ported."""
+    def bind(cls, graph: AppGraph, backend: Any = "des", **kwargs) -> "DRSSession":
+        """Bind ``graph`` to ``backend``: ``"des"`` (the default, as in the
+        reference), ``"engine"``, or a built backend.  Session options
+        (``config=``, ``negotiator=``, ``cost_model=``,
+        ``executable_cache=``, ``on_decision=``) are taken from ``kwargs``;
+        the rest go to the backend (the engine's ``device=``,
+        ``queue_capacity=``, ``overload_policy=``; the DES's ``seed=``,
+        ``horizon=``, ``warmup=``, ...)."""
         session_keys = ("config", "negotiator", "cost_model", "executable_cache",
                         "on_decision", "proactive")
         session_kw = {k: kwargs.pop(k) for k in session_keys if k in kwargs}
         if isinstance(backend, str):
-            if backend == "des":
-                raise GraphValidationError(DES_NOT_PORTED)
             try:
                 backend_cls = _BACKENDS[backend]
             except KeyError:
@@ -263,7 +395,9 @@ class DRSSession:
         """Inject an external tuple.  Under a bounded queue with the
         ``block`` policy this backpressures the caller; returns ``None``
         when the tuple was shed at admission."""
-        return self.backend.inject(payload, source=source, timeout=timeout)
+        if isinstance(self.backend, EngineBackend):
+            return self.backend.inject(payload, source=source, timeout=timeout)
+        return self.backend.inject(payload, source=source)
 
     def drain(self, timeout: float = 10.0) -> bool:
         return self.backend.drain(timeout=timeout)
@@ -276,8 +410,30 @@ class DRSSession:
         return self.backend.completed_sojourns
 
     def drop_counts(self) -> dict[str, int]:
-        """Cumulative tuples shed per operator."""
+        """Cumulative tuples shed per operator (engine backend)."""
+        if not isinstance(self.backend, EngineBackend):
+            raise GraphValidationError(
+                "drop_counts() needs the engine backend; the DES reports "
+                "drops on its SimResult (per_op_dropped / per_op_drop_rate)"
+            )
         return self.backend.drop_counts()
+
+    def simulate(self, k=None, **kwargs):
+        """DES mode: simulate allocation ``k`` (default: the planned optimum)."""
+        if not isinstance(self.backend, DESBackend):
+            raise GraphValidationError(
+                f"simulate() needs a DES backend, have {self.backend.kind!r}"
+            )
+        if k is None:
+            k = self.plan().k
+        return self.backend.simulate(k, **kwargs)
+
+    def run(self, k=None, **kwargs):
+        """One-call entry point: DES -> :meth:`simulate`; engine ->
+        :meth:`start` (then inject / tick / drain at your own pace)."""
+        if isinstance(self.backend, DESBackend):
+            return self.simulate(k, **kwargs)
+        return self.start(k)
 
 
 @dataclass(frozen=True)
@@ -298,34 +454,45 @@ class ScenarioReport:
 
 
 class ScenarioRunner:
-    """Sweep static-budget scenarios through the fused control loop.
+    """Sweep a scenario matrix through the closed control loop.
 
-    ``device`` defaults to the CUDA device (raising when there is none);
-    ``dtype`` to float32, the kernels' type.  Negotiated scenarios lease
-    machines between ticks, which the fused loop cannot do: they raise
-    :class:`GraphValidationError`, as the reference's ``fused=True`` gate
-    does.  A scenario object repeated in ``scenarios`` is planned and
-    sampled once (fleets may tile a few distinct scenarios).
+    ``backend="torch"`` (the default) runs on ``device`` (default: the CUDA
+    device, raising when there is none) in ``dtype`` (default float32, the
+    kernels' type); ``backend="numpy"`` is the reference's float64 twin on
+    the host.  The gate is the reference's: with ``fused=None`` the fused
+    loop (:func:`~repro_torch.core.controller.make_fused_loop`) runs when
+    ``controlled``, ``backend="torch"``, no scenario is ``negotiated`` and
+    the horizon is a whole number of ticks; otherwise the window-at-a-time
+    loop runs: each tick :class:`~repro_torch.streaming.batchsim
+    .BatchQueueSim` advances one window (on the torch backend one
+    ``queue_window`` launch), the window becomes one
+    :class:`~repro_torch.core.measurer.MeasurementBatch` on the host, and
+    :func:`~repro_torch.core.controller.tick_batch` decides in float64,
+    the negotiators' leases as hooks between windows.  ``fused=True``
+    past the gate raises :class:`GraphValidationError`.
+    ``controlled=False`` freezes ``k`` (a pure simulation sweep).  A
+    scenario object repeated in ``scenarios`` is planned and sampled once
+    (fleets may tile a few distinct scenarios).
     """
 
     def __init__(self, scenarios: Sequence, *, tick_interval: float = 10.0,
+                 controlled: bool = True, backend: str = "torch", fused: bool | None = None,
                  fused_decide: bool = False, device=None, dtype=None):
+        from ..streaming.batchsim import BatchQueueSim
         from ..streaming.scenarios import pack_allocations, pack_scenarios
 
-        self.device = resolve_device(device)
+        if backend not in BatchQueueSim.BACKENDS:
+            raise ValueError(
+                f"unknown backend {backend!r}; expected one of {BatchQueueSim.BACKENDS}")
+        self.backend = backend
+        self.device = resolve_device(device) if backend == "torch" else None
         self.dtype = torch.float32 if dtype is None else dtype
         self.scenarios = list(scenarios)
         self.tick_interval = tick_interval
+        self.controlled = controlled
         self.fused_decide = bool(fused_decide)
-        negotiated = [s.name for s in self.scenarios if s.negotiated]
         self.arrays = pack_scenarios(self.scenarios)
         self._steps_per_tick = max(int(round(tick_interval / self.arrays.dt)), 1)
-        if negotiated or self.arrays.steps % self._steps_per_tick:
-            raise GraphValidationError(
-                "the fused loop needs static-budget scenarios and a horizon "
-                "divisible by the tick interval; negotiated scenarios: "
-                f"{negotiated}"
-            )
         plans: dict[int, np.ndarray] = {}
         for s in self.scenarios:
             if id(s) not in plans:
@@ -336,13 +503,37 @@ class ScenarioRunner:
             [s.graph for s in self.scenarios],
             speed=[s.speed_vector() for s in self.scenarios],
         )
+        self.negotiators = [self._negotiator_for(s, self.k[bi, : s.graph.n])
+                            for bi, s in enumerate(self.scenarios)]
+        can_fuse = (
+            controlled
+            and backend == "torch"
+            and all(neg is None for neg in self.negotiators)
+            and self.arrays.steps % self._steps_per_tick == 0
+        )
+        if fused is None:
+            fused = can_fuse
+        elif fused and not can_fuse:
+            raise GraphValidationError(
+                "fused=True requires controlled=True, backend='torch', no "
+                "negotiated scenarios, and a horizon divisible by the tick "
+                "interval; use fused=None for the automatic gate; negotiated "
+                f"scenarios: {[s.name for s in self.scenarios if s.negotiated]}"
+            )
+        self.fused = bool(fused)
+        self.sim = None if self.fused else BatchQueueSim(
+            self.arrays, backend=backend, device=self.device, dtype=self.dtype)
+        # Per-scenario decision parameters; negotiator leases move the
+        # budgets between ticks (_params()).
         self.params = ctl.ControllerParams.stack(
             [
-                SchedulerConfig(k_max=s.k_max, t_max=s.t_max, tick_interval=tick_interval,
-                                allocator=s.allocator, fused_decide=self.fused_decide)
-                for s in self.scenarios
+                SchedulerConfig(k_max=None if neg is not None else s.k_max, t_max=s.t_max,
+                                tick_interval=tick_interval, allocator=s.allocator,
+                                fused_decide=self.fused_decide)
+                for s, neg in zip(self.scenarios, self.negotiators)
             ],
-            [s.k_max for s in self.scenarios],
+            [neg.k_max if neg is not None else s.k_max
+             for s, neg in zip(self.scenarios, self.negotiators)],
         )
         self.decisions: list[list[SchedulerDecision]] = [[] for _ in self.scenarios]
         self._miss = np.zeros(len(self.scenarios), dtype=np.int64)
@@ -354,7 +545,118 @@ class ScenarioRunner:
             for _ in self.scenarios
         ]
 
+    def _negotiator_for(self, s, k0: np.ndarray):
+        """A ``negotiated`` scenario's machine lease: ``machine_size``-
+        processor machines (speed-tagged when the scenario declares
+        machine-class factors) from a pool of ``k_max`` processors."""
+        if not s.negotiated:
+            return None
+        from ..core.negotiator import Machine, ResourcePool
+
+        size = max(int(s.machine_size), 1)
+        speed = s.speed_vector()
+        mean_speed = 1.0 if speed is None else float(np.mean(speed))
+        pool = ResourcePool([Machine(f"m{i}", size, speed=mean_speed)
+                             for i in range(-(-s.k_max // size))])
+        negotiator = Negotiator(pool)
+        negotiator.ensure(int(k0.sum()))
+        return negotiator
+
+    def _params(self) -> ctl.ControllerParams:
+        """The decision parameters with each budget re-read from its
+        negotiator's current lease."""
+        if all(neg is None for neg in self.negotiators):
+            return self.params
+        return replace(self.params, k_max=np.array(
+            [neg.k_max if neg is not None else s.k_max
+             for s, neg in zip(self.scenarios, self.negotiators)],
+            dtype=np.int64,
+        ))
+
+    def _window_measurement(self, w: dict) -> tuple[MeasurementBatch, np.ndarray]:
+        """One stacked synthetic measurement from a window's aggregates, in
+        float64 on the host.  The sojourn is NaN for a scenario that
+        admitted no external tuples this window; ``mu_hat`` carries the
+        reference-class priors (the controller applies the speed
+        factors)."""
+        from ..streaming.batchsim import (composed_wait_host, per_op_service_time,
+                                          visit_sum_sojourn)
+
+        a = self.arrays
+        span = w["span"]
+        lam_hat = w["offered"] / span
+        drop_hat = w["dropped"] / span
+        mu_eff = a.mu if a.speed is None else a.mu * a.speed
+        admitted = np.maximum(lam_hat - drop_hat, 0.0)
+        wait = composed_wait_host(w["q_mean"], admitted, a.dt, span, self.k, a.mu, a.group,
+                                  a.alpha, a.speed, a.ca2, a.cs2)
+        svc = per_op_service_time(w["capacity"], mu_eff, a.group)
+        lam0 = np.maximum(w["ext_admitted"] / span, 0.0)
+        sojourn = visit_sum_sojourn(admitted, wait, svc, lam0)
+        return MeasurementBatch.from_rates(
+            lam_hat, a.mu, lam0, sojourn, self.sim.now, drop_hat=drop_hat
+        ), sojourn
+
+    def _ensure_hooks(self):
+        hooks = []
+        for neg in self.negotiators:
+            if neg is None:
+                hooks.append(None)
+            else:
+                def hook(target: int, _neg=neg) -> int:
+                    _neg.ensure(target)
+                    return _neg.k_max
+                hooks.append(hook)
+        return hooks
+
+    def _to_decision(self, bi: int, row: ctl.RowDecision, meas, error) -> SchedulerDecision:
+        s = self.scenarios[bi]
+        return SchedulerDecision(
+            self.sim.now, row.action, row.k_next.copy(), row.k_target,
+            s.k_max if error is not None else row.k_max, row.et_cur, row.et_target,
+            float(meas.sojourn_hat[bi]), row.plan, row.reason,
+        )
+
     def run(self) -> list[ScenarioReport]:
+        if self.fused:
+            return self._run_fused()
+        a = self.arrays
+        t_max = np.array([np.nan if s.t_max is None else s.t_max for s in self.scenarios])
+        hooks = self._ensure_hooks()
+        t0 = time.perf_counter()
+        while self.sim.step_index < a.steps:
+            w = self.sim.step_window(self.k, self._steps_per_tick)
+            warm = w["t0"] >= self.scenarios[0].warmup
+            if warm:
+                self._windows_warm += 1
+            meas, sojourn = self._window_measurement(w)
+            with np.errstate(invalid="ignore"):
+                miss_mask = (sojourn > t_max) & warm
+            if warm:
+                self._miss += miss_mask.astype(np.int64)
+            if self.controlled:
+                batch = ctl.tick_batch(meas, self.k, self.static, self._params(),
+                                       ensure=hooks)
+                for bi, row in enumerate(batch.rows):
+                    s = self.scenarios[bi]
+                    self.decisions[bi].append(
+                        self._to_decision(bi, row, meas, batch.errors[bi]))
+                    if row.applied:
+                        self.k[bi, : s.graph.n] = row.k_next
+            for bi, s in enumerate(self.scenarios):
+                tr = self._traj[bi]
+                tr["t"].append(float(self.sim.now))
+                tr["k_total"].append(int(self.k[bi, : s.graph.n].sum()))
+                tr["miss"].append(bool(miss_mask[bi]))
+                tr["sojourn"].append(float(sojourn[bi]))
+                tr["warm"].append(bool(warm))
+        self.loop_seconds = time.perf_counter() - t0
+        self._result = self.sim.result()
+        return self.reports()
+
+    def _run_fused(self) -> list[ScenarioReport]:
+        """The fused path: every control window through
+        :func:`~repro_torch.core.controller.make_fused_loop`."""
         from ..streaming.batchsim import BatchSimResult
 
         a = self.arrays

@@ -5,7 +5,11 @@
 .ControllerStatic`` and ``ControllerParams`` by duck typing -- this module
 imports nothing of ``repro`` -- and builds this package's objects plus the
 tick-0 :class:`~repro_torch.core.controller.ControllerState` on the chosen
-device.  :func:`scenario_from_reference` rebuilds a reference ``Scenario``
+device; :func:`static_from_reference` and :func:`params_from_reference`
+carry the two controller bundles alone, and
+:func:`measurement_from_reference` a ``repro.core.measurer
+.MeasurementBatch``, so ``tick_batch`` gets the same inputs in both
+packages.  :func:`scenario_from_reference` rebuilds a reference ``Scenario``
 (graph, traces, settings) as this package's :class:`Scenario`.  With them
 both packages run exactly the same fleet.  :func:`vld_from_reference`
 carries a reference ``VLDConfig`` and logo library (the VLD path's
@@ -22,12 +26,14 @@ import torch
 
 from .api.graph import AppGraph, Edge, OpDef
 from .core.controller import ControllerParams, ControllerState, ControllerStatic, init_state
+from .core.measurer import MeasurementBatch
 from .device import resolve_device
 from .streaming.apps.vld import VLDConfig
 from .streaming.batchsim import BatchArrays
 from .streaming.scenarios import ArrivalTrace, Scenario
 
-__all__ = ["from_reference", "scenario_from_reference", "vld_from_reference",
+__all__ = ["from_reference", "static_from_reference", "params_from_reference",
+           "measurement_from_reference", "scenario_from_reference", "vld_from_reference",
            "model_params_from_reference"]
 
 
@@ -58,7 +64,13 @@ def from_reference(arrays, static, params, k0, *, device=None, dtype=None
         ca2=_arr(getattr(arrays, "ca2", None), np.float64),
         cs2=_arr(getattr(arrays, "cs2", None), np.float64),
     )
-    st = ControllerStatic(
+    return (arr, static_from_reference(static), params_from_reference(params),
+            init_state(np.asarray(k0), device=dev, dtype=dtype))
+
+
+def static_from_reference(static) -> ControllerStatic:
+    """This package's :class:`ControllerStatic` from the reference's."""
+    return ControllerStatic(
         base_routing=_arr(static.base_routing, np.float64),
         group=_arr(static.group, bool),
         alpha=_arr(static.alpha, np.float64),
@@ -67,7 +79,11 @@ def from_reference(arrays, static, params, k0, *, device=None, dtype=None
         n_ops=_arr(static.n_ops, np.int64),
         names=tuple(tuple(nm) for nm in static.names),
     )
-    pr = ControllerParams(
+
+
+def params_from_reference(params) -> ControllerParams:
+    """This package's :class:`ControllerParams` from the reference's."""
+    return ControllerParams(
         t_max=_arr(params.t_max, np.float64),
         k_max=_arr(params.k_max, np.int64),
         headroom=_arr(params.headroom, np.float64),
@@ -77,7 +93,18 @@ def from_reference(arrays, static, params, k0, *, device=None, dtype=None
         allocator=tuple(params.allocator),
         fused_decide=bool(getattr(params, "fused_decide", False)),
     )
-    return arr, st, pr, init_state(np.asarray(k0), device=dev, dtype=dtype)
+
+
+def measurement_from_reference(meas) -> MeasurementBatch:
+    """This package's :class:`MeasurementBatch` from the reference's."""
+    return MeasurementBatch(
+        lam_hat=_arr(meas.lam_hat, np.float64),
+        mu_hat=_arr(meas.mu_hat, np.float64),
+        lam0_hat=_arr(meas.lam0_hat, np.float64),
+        sojourn_hat=_arr(meas.sojourn_hat, np.float64),
+        t=float(meas.t),
+        drop_hat=_arr(meas.drop_hat, np.float64),
+    )
 
 
 def scenario_from_reference(s) -> Scenario:
@@ -86,7 +113,8 @@ def scenario_from_reference(s) -> Scenario:
     g = s.graph
     ops = [
         OpDef(name=op.name, mu=op.mu, scaling=op.scaling, group_alpha=op.group_alpha,
-              min_k=op.min_k, max_k=op.max_k)
+              min_k=op.min_k, max_k=op.max_k, service_kind=op.service_kind,
+              service_cv=op.service_cv)
         for op in g.ops
     ]
     edges = [Edge(e.src, e.dst, e.multiplicity) for e in g.edges]

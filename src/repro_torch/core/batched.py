@@ -12,6 +12,12 @@ Two halves, as in ``repro/core/batched.py``:
   dispatched to ``kernels/erlang_c`` (the CUDA kernel for CUDA tensors, the
   plain version for CPU ones), and :func:`solve_traffic_batch_torch` solves
   ``(I - P^T) lam = lam0`` per scenario.  The dtype follows the inputs.
+
+:func:`expected_sojourn_batch` (E[T] of a ``[B, N]`` batch of allocations)
+and :func:`solve_traffic_batch` take ``backend="torch"`` (the default: the
+torch half on ``device``, the CUDA device unless told otherwise, in
+``dtype``, float32 unless told otherwise) or ``backend="numpy"`` (the
+float64 host twin, the reference's default).
 """
 
 from __future__ import annotations
@@ -28,9 +34,15 @@ __all__ = [
     "operator_arrays",
     "sojourn_table",
     "gain_table",
+    "sojourn_from_table",
+    "expected_sojourn_batch",
+    "solve_traffic_batch",
     "sojourn_table_torch",
+    "expected_sojourn_batch_torch",
     "solve_traffic_batch_torch",
 ]
+
+BACKENDS = ("torch", "numpy")
 
 
 @dataclass(frozen=True)
@@ -136,6 +148,85 @@ def gain_table(top: Topology, k_hi: int) -> tuple[np.ndarray, np.ndarray]:
     return T, G
 
 
+def sojourn_from_table(T: np.ndarray, k: np.ndarray, lam: np.ndarray, lam0_total: float):
+    """Per-op sojourns and E[T] (paper Eq. 3) gathered from the table.
+    ``k`` is ``[N]`` or ``[B, N]``; returns ``(per_op, e2e)`` with the
+    matching leading shape (a vectorized sum: ~1e-12 of the scalar
+    sequential sum)."""
+    k = np.asarray(k, dtype=np.int64)
+    per_op = np.take_along_axis(
+        np.broadcast_to(T, k.shape[:-1] + T.shape), k[..., None], axis=-1
+    )[..., 0]
+    with np.errstate(invalid="ignore"):  # 0 * inf on zero-traffic operators
+        contrib = np.where(lam > 0, lam * per_op, 0.0)
+    e2e = contrib.sum(axis=-1) / max(lam0_total, 1e-300)  # idle-network guard
+    return per_op, e2e
+
+
+def _backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+
+
+def expected_sojourn_batch(top: Topology, k_batch, *, backend: str = "torch",
+                           device=None, dtype=None) -> np.ndarray:
+    """E[T](k) for a ``[B, N]`` batch of allocations, as ``[B]`` float64.
+
+    ``backend="torch"``: :func:`expected_sojourn_batch_torch` on ``device``
+    (default: the CUDA device, one ``erlang_c`` launch) in ``dtype``
+    (default float32).  ``backend="numpy"``: the float64 table and gather.
+    """
+    _backend(backend)
+    k_batch = np.atleast_2d(np.asarray(k_batch, dtype=np.int64))
+    if k_batch.shape[-1] != top.n:
+        raise ValueError(f"k batch must be [B, {top.n}], got {k_batch.shape}")
+    if backend == "torch":
+        from ..device import resolve_device
+
+        dev = resolve_device(device)
+        e2e = expected_sojourn_batch_torch(
+            top, torch.as_tensor(k_batch, device=dev),
+            dtype=torch.float32 if dtype is None else dtype)
+        return e2e.cpu().numpy().astype(np.float64)
+    k_hi = int(k_batch.max(initial=0))
+    T = sojourn_table(top, k_hi)
+    _, e2e = sojourn_from_table(T, k_batch, top.arrival_rates, top.lam0_total)
+    return e2e
+
+
+def solve_traffic_batch(lam0_batch, routing, *, backend: str = "torch", device=None,
+                        dtype=None) -> np.ndarray:
+    """Traffic equations ``lam = lam0 + P^T lam`` for ``[B, N]`` externals
+    and one shared ``[N, N]`` or per-scenario ``[B, N, N]`` routing, as
+    ``[B, N]`` float64 (magnitudes below 1e-12 snap to 0).
+    ``backend="torch"`` runs :func:`solve_traffic_batch_torch` on ``device``
+    (default: the CUDA device) in ``dtype`` (default float32);
+    ``backend="numpy"`` the float64 ``np.linalg.solve``."""
+    _backend(backend)
+    lam0 = np.atleast_2d(np.asarray(lam0_batch, dtype=np.float64))
+    p = np.asarray(routing, dtype=np.float64)
+    n = lam0.shape[-1]
+    if p.shape not in ((n, n),) and p.shape != (lam0.shape[0], n, n):
+        raise ValueError(
+            f"routing must be ({n},{n}) or ({lam0.shape[0]},{n},{n}), got {p.shape}"
+        )
+    if backend == "torch":
+        from ..device import resolve_device
+
+        dev = resolve_device(device)
+        dtype = torch.float32 if dtype is None else dtype
+        lam = solve_traffic_batch_torch(torch.as_tensor(lam0, dtype=dtype, device=dev),
+                                        torch.as_tensor(p, dtype=dtype, device=dev))
+        return lam.cpu().numpy().astype(np.float64)
+    pt = np.swapaxes(p, -1, -2)
+    a = np.eye(n) - pt
+    lam = np.linalg.solve(a, lam0[..., None])[..., 0] if a.ndim == 3 else (
+        np.linalg.solve(a, lam0.T).T
+    )
+    lam[np.abs(lam) < 1e-12] = 0.0
+    return lam
+
+
 # --------------------------------------------------------------------------- #
 # torch half -- the control loop's device path
 # --------------------------------------------------------------------------- #
@@ -179,6 +270,29 @@ def sojourn_table_torch(lam, mu, *, k_hi: int, group=None, alpha=None, min_k=Non
 
     T = torch.where(group[:, None], t_grp, t_rep)
     return torch.where(kk >= min_k[:, None], T, inf)
+
+
+def expected_sojourn_batch_torch(top: Topology, k_batch, *, dtype=None):
+    """E[T](k) over a ``[B, N]`` integer tensor of allocations, as a ``[B]``
+    tensor on ``k_batch``'s device: the :func:`sojourn_table_torch` table
+    (one ``erlang_c`` launch on a card) up to the batch's largest ``k``,
+    gathered per operator.  ``dtype`` defaults to float32."""
+    dtype = torch.float32 if dtype is None else dtype
+    arr = operator_arrays(top)
+    dev = k_batch.device
+    k_batch = torch.atleast_2d(k_batch).to(torch.int64)
+    k_hi = int(k_batch.max()) if k_batch.numel() else 0
+
+    def t(x, dt=dtype):
+        return torch.as_tensor(x, dtype=dt, device=dev)
+
+    T = sojourn_table_torch(t(arr.lam), t(arr.mu), k_hi=max(k_hi, 0),
+                            group=t(arr.group, torch.bool), alpha=t(arr.alpha),
+                            min_k=t(arr.min_k, torch.int32))
+    per_op = torch.gather(T.expand(k_batch.shape[0], *T.shape), 2, k_batch[..., None])[..., 0]
+    lam = t(arr.lam)
+    contrib = torch.where(lam > 0, lam * per_op, 0.0)
+    return contrib.sum(dim=-1) / max(arr.lam0_total, 1e-300)
 
 
 def solve_traffic_batch_torch(lam0_batch, routing):

@@ -20,6 +20,11 @@ over ``[B, N]`` tensors (the PyTorch counterpart of
   :func:`capped_mask_batch` and :func:`clamp_row` for the measured model):
   the reference's branch order and float ops, so its actions, allocations
   and E[T] equal the JAX package's bit for bit.
+* :func:`tick_batch` is the batched float64 twin the window-at-a-time
+  :class:`~repro_torch.api.session.ScenarioRunner` runs: the overload
+  trigger, the capped propagation and snapshot completeness vectorised,
+  then :func:`clamp_row` and :func:`decide_single` per scenario, with the
+  negotiators' lease hooks.
 
 Entry points run on the CUDA device unless ``device`` says otherwise; there
 the kernels run in float32.  On the CPU every kernel call takes its plain
@@ -60,6 +65,8 @@ __all__ = [
     "make_decide",
     "make_fused_loop",
     "RowDecision",
+    "BatchDecision",
+    "tick_batch",
     "effective_capacity",
     "overloaded_mask_batch",
     "capped_mask_batch",
@@ -83,6 +90,16 @@ _CODE = {name: i for i, name in enumerate(ACTIONS)}
 # An operator shedding more than this fraction of its capacity is
 # overloaded even if its smoothed arrival rate sits below capacity.
 DROP_TRIGGER_FRACTION = 0.01
+
+# What the batched twin refuses, and where in ROADMAP.md each waits.
+PROACTIVE_NOT_PORTED = (
+    "the forecast/MPC scheduler (proactive=) is not ported to repro_torch yet: "
+    "ROADMAP.md Queue 1 item 5"
+)
+COMPACTION_NOT_PORTED = (
+    "the trigger-gated sparse decide (compact_state=) is not ported to "
+    "repro_torch yet: ROADMAP.md Queue 1 item 4"
+)
 
 # Control-plane pause charged by the cost gate: the value of
 # repro.core.rebalance.RebalanceCostModel().pause_cache_miss (5.0 s).
@@ -947,3 +964,118 @@ def _none_or_hint_row(
         action, np.asarray(k_current, dtype=np.int64).copy(), best.k, k_max,
         et_cur, best.expected_sojourn, None, plan, reason, applied=False,
     )
+
+
+@dataclass
+class BatchDecision:
+    """Stacked tick outcomes for a B-scenario batch."""
+
+    rows: list  # [B] RowDecision
+    errors: list  # [B] Exception | None (model/allocator hard failures)
+
+    @property
+    def actions(self) -> list[str]:
+        return [r.action for r in self.rows]
+
+
+def tick_batch(
+    meas,
+    k_current: np.ndarray,
+    static: ControllerStatic,
+    params: ControllerParams,
+    *,
+    ensure: Sequence[Callable[[int], int] | None] | None = None,
+    cost_models: Sequence[RebalanceCostModel | None] | None = None,
+    proactive=None,
+    compact_state=None,
+) -> BatchDecision:
+    """One control tick for the whole batch (the float64 numpy twin).
+
+    ``meas`` is a :class:`~repro_torch.core.measurer.MeasurementBatch`.
+    Vectorized across ``[B, N]``: snapshot completeness, the overload
+    trigger and the throughput-capped propagation.  Per scenario: the
+    offered-load clamping, the Jackson solve, Programs (4)/(6) and the
+    negotiator and cost calls (:func:`decide_single`).  Model hard
+    failures become per-row ``errors`` with an ``"infeasible"`` row.
+    ``ensure[b]`` is scenario b's lease hook (target -> new k_max),
+    ``cost_models[b]`` its cost model.
+
+    ``proactive=`` (the forecast/MPC plane) and ``compact_state=`` (the
+    sparse decide's replay cache) raise ``NotImplementedError`` naming
+    their ROADMAP items.
+    """
+    if proactive is not None:
+        raise NotImplementedError(PROACTIVE_NOT_PORTED)
+    if compact_state is not None:
+        raise NotImplementedError(COMPACTION_NOT_PORTED)
+    b, n = static.batch, static.n
+    k_current = np.asarray(k_current, dtype=np.int64)
+    mu_eff = meas.mu_hat * static.speed
+    overloaded = overloaded_mask_batch(
+        meas.lam_hat, mu_eff, meas.drop_hat, k_current, static.group, static.alpha
+    ) & static.active
+    hot = overloaded.any(axis=1)
+    capped = np.zeros((b, n), dtype=bool)
+    if hot.any():
+        capped = capped_mask_batch(overloaded, static.base_routing, static.active)
+    complete = meas.complete(static.active)
+
+    rows: list[RowDecision] = []
+    errors: list = [None] * b
+    for bi in range(b):
+        ni = int(static.n_ops[bi])
+        k_row = k_current[bi, :ni]
+        k_max = int(params.k_max[bi])
+        if ni == 0:
+            # A padded batch lane: no operators, always "none".
+            rows.append(RowDecision(
+                "none", k_row.copy(), None, k_max, float("nan"), None, None,
+                None, "padded lane", applied=False,
+            ))
+            continue
+        if not complete[bi]:
+            rows.append(RowDecision(
+                "none", k_row.copy(), None, k_max, float("nan"), None, None,
+                None, "insufficient measurements", applied=False,
+            ))
+            continue
+        names = static.names[bi]
+        scaling = ["group" if g else "replica" for g in static.group[bi, :ni]]
+        t_max = params.t_max[bi]
+        try:
+            top = clamp_row(
+                names,
+                static.base_routing[bi, :ni, :ni],
+                meas.lam_hat[bi, :ni],
+                meas.mu_hat[bi, :ni],
+                float(meas.lam0_hat[bi]),
+                overloaded[bi, :ni],
+                capped[bi, :ni],
+                scaling,
+                static.alpha[bi, :ni],
+                speed=None if np.all(static.speed[bi, :ni] == 1.0)
+                else static.speed[bi, :ni],
+            )
+            row = decide_single(
+                top,
+                k_row,
+                k_max,
+                t_max=None if math.isnan(t_max) else float(t_max),
+                headroom=float(params.headroom[bi]),
+                scale_in_hysteresis=float(params.scale_in_hysteresis[bi]),
+                min_improvement=float(params.min_improvement[bi]),
+                horizon_seconds=float(params.horizon_seconds[bi]),
+                allocator=params.allocator[bi],
+                overloaded=overloaded[bi, :ni],
+                ensure=None if ensure is None else ensure[bi],
+                cost_model=None if cost_models is None else cost_models[bi],
+                names=names,
+            )
+        except (InsufficientResourcesError, UnstableTopologyError) as e:
+            errors[bi] = e
+            row = RowDecision(
+                "infeasible", k_row.copy(), None, k_max, float("inf"), None,
+                None, None, str(e), applied=False,
+            )
+        rows.append(row)
+    return BatchDecision(rows, errors)

@@ -14,8 +14,9 @@ arrival rate ``lam0_hat`` and the measured mean complete sojourn time.
 
 Arrivals are counted at the queue *tail* (Appendix C), so an overloaded
 operator still reports its offered load; shed tuples are reported through
-:meth:`InstanceProbe.on_dropped` and surface as ``drop_hat``.  Numpy and
-thread code only.
+:meth:`InstanceProbe.on_dropped` and surface as ``drop_hat``.
+:class:`MeasurementBatch` stacks ``[B, N]`` snapshots, the batched
+controller's input (``tick_batch``).  Numpy and thread code only.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "OperatorMetrics",
     "Measurer",
     "MeasurementSnapshot",
+    "MeasurementBatch",
 ]
 
 
@@ -226,6 +228,44 @@ class MeasurementSnapshot:
             sojourn_hat=float(sojourn_hat),
             t=float(t),
             drop_hat=None if drop_hat is None else np.asarray(drop_hat, dtype=np.float64),
+        )
+
+
+
+@dataclass(frozen=True)
+class MeasurementBatch:
+    """A ``[B, N]`` stack of measurement snapshots: the batched controller's
+    input surface.  Scenarios narrower than ``N`` are padded with inert
+    lanes (zero rates, finite mu); the controller's ``active`` masks
+    recover the real lanes."""
+
+    lam_hat: np.ndarray  # [B, N] smoothed offered arrival rates
+    mu_hat: np.ndarray  # [B, N] per-processor service rates (reference class)
+    lam0_hat: np.ndarray  # [B] external (admitted) arrival rates
+    sojourn_hat: np.ndarray  # [B] measured mean sojourn E[T^]
+    t: float  # timestamp shared by the stack
+    drop_hat: np.ndarray  # [B, N] smoothed shed rates (zeros when none)
+
+    def complete(self, active: np.ndarray | None = None) -> np.ndarray:
+        """[B] bool: every *active* lane finite (the per-snapshot
+        ``complete()`` rule, vectorized)."""
+        fin = np.isfinite(self.lam_hat) & np.isfinite(self.mu_hat)
+        if active is not None:
+            fin = fin | ~np.asarray(active, dtype=bool)
+        return fin.all(axis=1) & np.isfinite(self.lam0_hat)
+
+    @classmethod
+    def from_rates(cls, lam_hat, mu_hat, lam0_hat, sojourn_hat, t: float,
+                   drop_hat=None) -> "MeasurementBatch":
+        lam_hat = np.atleast_2d(np.asarray(lam_hat, dtype=np.float64))
+        return cls(
+            lam_hat=lam_hat,
+            mu_hat=np.atleast_2d(np.asarray(mu_hat, dtype=np.float64)),
+            lam0_hat=np.atleast_1d(np.asarray(lam0_hat, dtype=np.float64)),
+            sojourn_hat=np.atleast_1d(np.asarray(sojourn_hat, dtype=np.float64)),
+            t=float(t),
+            drop_hat=(np.zeros_like(lam_hat) if drop_hat is None
+                      else np.atleast_2d(np.asarray(drop_hat, dtype=np.float64))),
         )
 
 

@@ -50,10 +50,7 @@ logger = logging.getLogger(__name__)
 
 __all__ = ["SchedulerConfig", "SchedulerDecision", "DRSScheduler", "StragglerDetector"]
 
-PROACTIVE_NOT_PORTED = (
-    "the forecast/MPC scheduler (proactive=) is not ported to repro_torch yet: "
-    "ROADMAP.md Queue 1 item 14"
-)
+PROACTIVE_NOT_PORTED = ctl.PROACTIVE_NOT_PORTED
 
 
 @dataclass(frozen=True)

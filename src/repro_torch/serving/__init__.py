@@ -1,2 +1,2 @@
 """LLM serving under DRS: the prefill -> decode Jackson pipeline (see
-``pipeline.py``)."""
+``pipeline.py``) and its discrete-event serving simulation (``router.py``)."""

@@ -23,6 +23,12 @@ the one-step admission floor, and the Allen-Cunneen scaled Erlang-C wait
 Host-side pieces (:class:`BatchArrays`, :class:`BatchSimResult`) are numpy
 records as in ``repro/streaming/batchsim.py``; the report's sojourn runs the
 same torch wait on CPU float64 tensors.
+
+:class:`BatchQueueSim` advances the batch window by window (the
+window-at-a-time control loop's simulator): ``backend="torch"`` runs
+:func:`window_step_fn` on ``device`` (the CUDA device unless told
+otherwise: one ``queue_window`` launch per window) in float32, and
+``backend="numpy"`` the float64 host twin :func:`_np_window`.
 """
 
 from __future__ import annotations
@@ -36,9 +42,13 @@ __all__ = [
     "STATIONARY_K_CAP",
     "BatchArrays",
     "BatchSimResult",
+    "BatchQueueSim",
     "service_capacity",
+    "per_op_service_time",
+    "visit_sum_sojourn",
     "stationary_wait",
     "composed_wait",
+    "composed_wait_host",
     "window_step_fn",
 ]
 
@@ -61,12 +71,16 @@ def service_capacity(k, mu, group, alpha, speed=None):
     return np.where(group, mu * k * eff, mu * k)
 
 
-def _per_op_service_time(cap, mu, group):
+def per_op_service_time(cap, mu, group):
+    """Per-tuple service time: 1/mu per replica server, 1/(gang capacity)
+    for chip-gang operators."""
     with np.errstate(divide="ignore", invalid="ignore"):
         return np.where(group, np.where(cap > 0, 1.0 / cap, np.inf), 1.0 / mu)
 
 
-def _visit_sum_sojourn(admitted_rate, wait, svc, ext_rate):
+def visit_sum_sojourn(admitted_rate, wait, svc, ext_rate):
+    """Eq.-3-style visit-sum E[T]: sum_i admitted_i * (W_i + S_i) / lam0;
+    NaN where no external tuples were admitted."""
     contrib = np.where(admitted_rate > 0, admitted_rate * (wait + svc), 0.0)
     total = contrib.sum(axis=-1)
     return np.where(ext_rate > 0, total / np.maximum(ext_rate, 1e-300), np.nan)
@@ -141,6 +155,19 @@ def composed_wait(q_mean, admitted_rate, dt, span, k, mu, group, alpha,
     return torch.maximum(fluid, torch.clamp_max(stat, span))
 
 
+def composed_wait_host(q_mean, admitted_rate, dt, span, k, mu, group, alpha,
+                       speed=None, ca2=None, cs2=None) -> np.ndarray:
+    """:func:`composed_wait` on host numpy arrays, in float64 on the CPU
+    (the masked Erlang-B loop): the twin's measurement surface."""
+    def t(x):
+        return None if x is None else torch.as_tensor(np.asarray(x), dtype=torch.float64)
+
+    return composed_wait(
+        t(q_mean), t(admitted_rate), dt, span, torch.as_tensor(np.asarray(k)), t(mu),
+        torch.as_tensor(np.asarray(group)), t(alpha), t(speed), t(ca2), t(cs2),
+    ).numpy()
+
+
 @dataclass(frozen=True)
 class BatchArrays:
     """Packed inputs for one batch run (numpy; index order per scenario is
@@ -212,20 +239,14 @@ class BatchSimResult:
         S_i) / external admitted rate, W_i the composed wait; NaN for
         scenarios that admitted no external tuples."""
         cap = service_capacity(k, mu, group, alpha, speed)
-        svc = _per_op_service_time(cap, mu if speed is None else mu * speed, group)
+        svc = per_op_service_time(cap, mu if speed is None else mu * speed, group)
         span = max(self.span, 1e-12)
         admitted_rate = (self.offered - self.dropped) / span
         ext_rate = self.ext_admitted / span
 
-        def t(x):
-            return None if x is None else torch.as_tensor(np.asarray(x), dtype=torch.float64)
-
-        wait = composed_wait(
-            t(self.q_mean), t(admitted_rate), self.dt, span,
-            torch.as_tensor(np.asarray(k)), t(mu), torch.as_tensor(np.asarray(group)),
-            t(alpha), t(speed), t(ca2), t(cs2),
-        ).numpy()
-        return _visit_sum_sojourn(admitted_rate, wait, svc, ext_rate)
+        wait = composed_wait_host(self.q_mean, admitted_rate, self.dt, span, k, mu, group,
+                                  alpha, speed, ca2, cs2)
+        return visit_sum_sojourn(admitted_rate, wait, svc, ext_rate)
 
     def saturated(self, k, mu, group, alpha, speed=None, *, drop_fraction: float = 0.01
                   ) -> np.ndarray:
@@ -259,3 +280,207 @@ def window_step_fn():
     from ..kernels.queue_step import ops as qs_ops
 
     return qs_ops.queue_window
+
+
+# --------------------------------------------------------------------------- #
+# The window-at-a-time simulator
+# --------------------------------------------------------------------------- #
+def _np_window(q, served_prev, ext_chunk, warm, cap_serve_dt, cap_queue, routing):
+    """Advance one window in float64 numpy (the twin); returns the final
+    state and the ``warm``-weighted sums ``(q, served_prev, offered,
+    served, dropped, ext_admitted, ext_offered, q_int, q_max)``."""
+    b, n = q.shape
+    offered = np.zeros((b, n))
+    served_sum = np.zeros((b, n))
+    dropped = np.zeros((b, n))
+    ext_adm = np.zeros(b)
+    ext_off = np.zeros(b)
+    q_int = np.zeros((b, n))
+    q_max = np.zeros((b, n))
+    for t in range(ext_chunk.shape[0]):
+        ext_t = ext_chunk[t]
+        served = np.minimum(q, cap_serve_dt)
+        q1 = q - served
+        routed = np.einsum("bi,bij->bj", served_prev, routing)
+        inflow = ext_t + routed
+        space = np.maximum(cap_queue - q1, 0.0)
+        admitted = np.minimum(inflow, space)
+        drop_t = inflow - admitted
+        q = q1 + admitted
+        with np.errstate(divide="ignore", invalid="ignore"):
+            adm_frac = np.where(inflow > 0, admitted / np.maximum(inflow, 1e-300), 1.0)
+        w = warm[t]
+        offered += w * inflow
+        served_sum += w * served
+        dropped += w * drop_t
+        ext_adm += w * (ext_t * adm_frac).sum(axis=-1)
+        ext_off += w * ext_t.sum(axis=-1)
+        q_int += w * q
+        q_max = np.maximum(q_max, q)
+        served_prev = served
+    return q, served_prev, offered, served_sum, dropped, ext_adm, ext_off, q_int, q_max
+
+
+# The warm-weighted view of window_step_fn's 15 outputs: state, the
+# weighted sums, and the ungated peak backlog (at index 8).
+_WINDOW_VIEW = (0, 1, 9, 10, 11, 12, 13, 14, 8)
+
+
+class BatchQueueSim:
+    """Stateful batch simulator: B scenarios advanced window by window.
+
+    ``step_window(k, n_steps)`` advances every scenario under its
+    allocation ``k`` and returns that window's aggregates (the measurement
+    surface the window-at-a-time :class:`~repro_torch.api.session
+    .ScenarioRunner` turns into a ``MeasurementBatch``); ``run(k)`` is the
+    whole horizon at once.  State and results are float64 numpy.
+
+    ``backend="torch"`` runs each window through :func:`window_step_fn` on
+    ``device`` (default: the CUDA device, one ``queue_window`` launch per
+    window; on the CPU its plain version) in ``dtype`` (default float32,
+    the window kernel's type; float64 on a card raises ``TypeError``, it
+    is never cast down), with the arrivals, routing and queue bounds
+    staged there once.  ``backend="numpy"`` is the float64 twin
+    (:func:`_np_window`, host only).  A window that straddles the warm-up
+    boundary is run again through :func:`_np_window` on the gated mask for
+    the whole-run sums, as the reference does.
+    """
+
+    BACKENDS = ("torch", "numpy")
+
+    def __init__(self, arrays: BatchArrays, *, backend: str = "torch", device=None,
+                 dtype=None):
+        if backend not in self.BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of {self.BACKENDS}")
+        self.arrays = arrays
+        self.backend = backend
+        self._t = 0  # next step index
+        b, n = arrays.batch, arrays.n
+        self.q = np.zeros((b, n))
+        self._served_prev = np.zeros((b, n))
+        # Post-warmup whole-run accumulators (the result() view):
+        self._offered = np.zeros((b, n))
+        self._served = np.zeros((b, n))
+        self._dropped = np.zeros((b, n))
+        self._ext_adm = np.zeros(b)
+        self._ext_off = np.zeros(b)
+        self._q_int = np.zeros((b, n))
+        self._q_max = np.zeros((b, n))
+        self.device = self.dtype = None
+        if backend == "torch":
+            from ..device import resolve_device
+
+            self.device = resolve_device(device)
+            self.dtype = torch.float32 if dtype is None else dtype
+            if self.device.type == "cuda" and self.dtype != torch.float32:
+                raise TypeError(
+                    f"BatchQueueSim: the window kernel runs float32 on the card, got "
+                    f"{self.dtype}; pass device='cpu' for the plain window in {self.dtype}"
+                )
+            self._window = window_step_fn()
+            self._ext = self._tensor(arrays.ext)
+            self._cap_queue = self._tensor(arrays.cap_queue)
+            self._routing = self._tensor(arrays.routing)
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=self.dtype, device=self.device)
+
+    @property
+    def now(self) -> float:
+        return self._t * self.arrays.dt
+
+    @property
+    def step_index(self) -> int:
+        """Next step to simulate (``arrays.steps`` once exhausted)."""
+        return self._t
+
+    def capacity(self, k) -> np.ndarray:
+        a = self.arrays
+        return service_capacity(k, a.mu, a.group, a.alpha, a.speed)
+
+    def step_window(self, k, n_steps: int | None = None) -> dict:
+        """Advance ``n_steps`` (default: to the horizon) under allocation
+        ``k`` ([B, N] ints).  Returns this window's ungated aggregates
+        (offered / served / dropped per op, admitted and offered external
+        tuples, mean and final backlog, capacity) as float64 numpy; the
+        whole-run accumulators apply the warm-up gate themselves."""
+        a = self.arrays
+        if n_steps is None:
+            n_steps = a.steps - self._t
+        n_steps = min(n_steps, a.steps - self._t)
+        if n_steps <= 0:
+            raise ValueError("simulation horizon exhausted")
+        t0, t1 = self._t, self._t + n_steps
+        ext_chunk = a.ext[t0:t1]
+        warm_run = (np.arange(t0, t1) >= a.warmup_steps).astype(np.float64)
+        ones = np.ones(n_steps)
+        cap_serve_dt = self.capacity(k) * a.dt
+        if self.backend == "torch":
+            out = self._window(
+                self._tensor(self.q), self._tensor(self._served_prev), self._ext[t0:t1],
+                self._tensor(ones), self._tensor(cap_serve_dt), self._cap_queue,
+                self._routing,
+            )
+            (q, served_prev, offered, served_sum, dropped, ext_adm, ext_off, q_int,
+             q_max) = (out[i].cpu().numpy().astype(np.float64) for i in _WINDOW_VIEW)
+        else:
+            (q, served_prev, offered, served_sum, dropped, ext_adm, ext_off, q_int,
+             q_max) = _np_window(self.q, self._served_prev, ext_chunk, ones,
+                                 cap_serve_dt, a.cap_queue, a.routing)
+        if warm_run.all():
+            self._offered += offered
+            self._served += served_sum
+            self._dropped += dropped
+            self._ext_adm += ext_adm
+            self._ext_off += ext_off
+            self._q_int += q_int
+        elif warm_run.any():
+            (_q2, _sp2, off_w, srv_w, drop_w, ea_w, eo_w, qi_w, _qm2) = _np_window(
+                self.q, self._served_prev, ext_chunk, warm_run,
+                cap_serve_dt, a.cap_queue, a.routing,
+            )
+            self._offered += off_w
+            self._served += srv_w
+            self._dropped += drop_w
+            self._ext_adm += ea_w
+            self._ext_off += eo_w
+            self._q_int += qi_w
+        self._q_max = np.maximum(self._q_max, q_max)
+        self.q = q
+        self._served_prev = served_prev
+        self._t = t1
+        return {
+            "t0": t0 * a.dt,
+            "t1": t1 * a.dt,
+            "span": n_steps * a.dt,
+            "offered": offered,
+            "served": served_sum,
+            "dropped": dropped,
+            "ext_admitted": ext_adm,
+            "ext_offered": ext_off,
+            "q_mean": q_int / max(n_steps, 1),
+            "q_final": q,
+            "capacity": cap_serve_dt / a.dt,
+        }
+
+    def result(self) -> BatchSimResult:
+        """Whole-run (post-warmup) aggregates so far."""
+        a = self.arrays
+        warm_steps = max(min(self._t, a.steps) - a.warmup_steps, 0)
+        return BatchSimResult(
+            offered=self._offered.copy(),
+            served=self._served.copy(),
+            dropped=self._dropped.copy(),
+            ext_admitted=self._ext_adm.copy(),
+            ext_offered=self._ext_off.copy(),
+            q_final=self.q.copy(),
+            q_mean=self._q_int / max(warm_steps, 1),
+            max_backlog=self._q_max.copy(),
+            span=warm_steps * a.dt,
+            dt=a.dt,
+        )
+
+    def run(self, k) -> BatchSimResult:
+        """Advance to the horizon under a fixed allocation and aggregate."""
+        self.step_window(k)
+        return self.result()

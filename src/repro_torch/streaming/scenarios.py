@@ -2,7 +2,9 @@
 
 A :class:`Scenario` pins what one simulated experiment needs (AppGraph x
 arrival trace x service kind x overload policy x allocator x seed) and
-:func:`pack_scenarios` compiles a batch of them to
+compiles to either simulator: :meth:`Scenario.simulator` gives the event
+DES (:class:`~repro_torch.streaming.des.NetworkSimulator`) and
+:func:`pack_scenarios` compiles a batch to
 :class:`~repro_torch.streaming.batchsim.BatchArrays`.  :class:`ArrivalTrace`
 is the trace zoo (constant, diurnal sinusoid, flash-crowd step, 2-state
 MMPP, replay), :func:`random_appgraph` the random-topology zoo, and
@@ -10,7 +12,7 @@ MMPP, replay), :func:`random_appgraph` the random-topology zoo, and
 numpy and draws its randomness exactly as ``repro/streaming/scenarios.py``
 does, so the same seed gives the same scenarios and arrival counts in both
 packages.  :func:`control_trace` is the golden-trace surface, run through
-this package's fused loop.
+this package's :class:`~repro_torch.api.session.ScenarioRunner`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ __all__ = [
     "pack_allocations",
     "control_trace",
     "vld_scenario",
+    "fpd_scenario",
 ]
 
 
@@ -105,6 +108,22 @@ class ArrivalTrace:
         r = self.rates(grid, seed)
         integral = 0.5 * (r[1:] + r[:-1]).sum() * dt
         return float(integral / (grid[-1] - grid[0]))
+
+    def des_schedule(self, horizon: float, seed: int = 0, dt: float = 1.0):
+        """(initial ``ArrivalProcess`` kwargs, [(t, rate), ...] mid-run
+        changes): the trace as the event DES runs it, its rate grid at
+        ``dt`` spacing turned into ``schedule_arrival_change`` calls."""
+        if self.kind == "constant":
+            return {"rate": self.rate}, []
+        grid = np.arange(0.0, horizon + dt, dt)
+        rates = self.rates(grid, seed)
+        changes = []
+        last = rates[0]
+        for t, r in zip(grid[1:], rates[1:]):
+            if r != last:
+                changes.append((float(t), float(r)))
+                last = r
+        return {"rate": float(rates[0])}, changes
 
 
 def random_appgraph(
@@ -181,8 +200,10 @@ class Scenario:
     (``exponential``/``uniform`` sample Poisson step counts,
     ``deterministic`` uses exact fluid mass); ``k0`` is the starting
     allocation (None = plan Program (4)/(6) on the declared priors).
-    ``negotiated`` scenarios lease machines through a negotiator, which the
-    fused loop cannot run (see :class:`~repro_torch.api.session.ScenarioRunner`)."""
+    ``negotiated`` scenarios lease ``machine_size``-processor machines from
+    a pool of ``k_max`` through a negotiator instead of holding a static
+    budget; only the window-at-a-time loop runs them (see
+    :class:`~repro_torch.api.session.ScenarioRunner`)."""
 
     name: str
     graph: AppGraph
@@ -200,6 +221,7 @@ class Scenario:
     t_max: float | None = None
     k0: Mapping[str, int] | None = None
     negotiated: bool = False
+    machine_size: int = 4
     speed_factors: Mapping[str, float] | None = None
 
     _ARRIVAL_KINDS = ("exponential", "uniform", "deterministic")
@@ -302,6 +324,55 @@ class Scenario:
             {op.name: op.mu * float(self.speed_factors.get(op.name, 1.0)) for op in g.ops}
         )
 
+    def simulator(self, k, *, measurer=None, seed: int | None = None):
+        """The event-DES twin of this scenario: same topology, rate
+        schedule and overload policy, its own process randomness.
+        ``seed`` overrides the DES process randomness only; the trace
+        realization stays pinned to the scenario seed."""
+        from ..api.session import _group_effective_services
+        from .des import ArrivalProcess, NetworkSimulator, ServiceProcess, SimConfig
+
+        if self.speed_factors is None:
+            top = self.graph.topology()
+        else:
+            top = self.graph.topology(
+                {op.name: op.mu * float(self.speed_factors.get(op.name, 1.0))
+                 for op in self.graph.ops}
+            )
+        k_vec = self.graph.k_vector(k)
+        arrivals = []
+        changes: list[tuple[float, int, float]] = []
+        lam0 = self.graph.lam0_vector()
+        for i, name in enumerate(self.graph.names):
+            trace = self.traces.get(name)
+            if trace is None:
+                arrivals.append(ArrivalProcess(rate=float(lam0[i]), kind=self.arrival_kind))
+                continue
+            kw, sched = trace.des_schedule(self.horizon, self.seed)
+            arrivals.append(ArrivalProcess(rate=kw["rate"], kind=self.arrival_kind))
+            changes.extend((t, i, r) for t, r in sched)
+        # Chip-gang operators collapse to one effective server, as in the
+        # DES backend and the batch simulator's capacity rule.
+        services, k_eff = _group_effective_services(top, k_vec)
+        services = [ServiceProcess(rate=svc.rate, kind=self.service_kind) for svc in services]
+        sim = NetworkSimulator(
+            top,
+            k_eff,
+            config=SimConfig(
+                seed=self.seed if seed is None else int(seed),
+                horizon=self.horizon,
+                warmup=self.warmup,
+                queue_capacity=self.queue_capacity,
+                overload_policy=self.overload_policy,
+            ),
+            arrivals=arrivals,
+            services=services,
+            measurer=measurer,
+        )
+        for t, i, r in changes:
+            sim.schedule_arrival_change(t, i, r)
+        return sim
+
     def plan_k0(self) -> np.ndarray:
         """Starting allocation: declared ``k0`` or Program (4)/(6) on priors."""
         from ..core.allocator import allocate
@@ -403,10 +474,40 @@ def vld_scenario(**kw) -> Scenario:
     return Scenario(**defaults)
 
 
+def fpd_scenario(**kw) -> Scenario:
+    """The paper's FPD graph (generate -> detect[self-loop] -> report) as a
+    model-only negotiated scenario under a diurnal trace."""
+    loop_p = 0.3
+    graph = AppGraph(
+        [OpDef("generate", mu=4.0), OpDef("detect", mu=3.0), OpDef("report", mu=12.0)],
+        [
+            Edge("generate", "detect"),
+            Edge("detect", "detect", multiplicity=loop_p),
+            Edge("detect", "report", multiplicity=1.0 - loop_p),
+        ],
+        {"generate": 16.0},
+    )
+    defaults = dict(
+        name="fpd",
+        graph=graph,
+        traces={"generate": ArrivalTrace(kind="diurnal", rate=14.0, amplitude=8.0,
+                                         period=80.0)},
+        seed=11,
+        horizon=160.0,
+        warmup=10.0,
+        k_max=64,
+        t_max=3.0,
+        negotiated=True,
+    )
+    defaults.update(kw)
+    return Scenario(**defaults)
+
+
 def control_trace(
     scenarios: Sequence[Scenario],
     *,
     tick_interval: float = 10.0,
+    backend: str = "torch",
     fused_decide: bool = False,
     device=None,
     dtype=None,
@@ -414,13 +515,18 @@ def control_trace(
     """JSON-able decision trace of the control loop over ``scenarios`` (the
     golden-trace schema of ``repro.streaming.scenarios.control_trace``): per
     scenario the action sequence, the allocation in force after every tick
-    and the per-tick trajectory, run through this package's fused loop on
-    ``device`` (default: the CUDA device) in ``dtype``."""
+    and the per-tick trajectory.
+
+    ``backend="torch"`` (the default) runs on ``device`` (default: the CUDA
+    device) in ``dtype``: the fused loop when the scenarios allow it
+    (static budgets, a horizon divisible by the tick), else the
+    window-at-a-time loop over ``BatchQueueSim``'s torch window.
+    ``backend="numpy"`` is the reference's float64 twin, on the host."""
     from ..api.session import ScenarioRunner
 
     reports = ScenarioRunner(
-        scenarios, tick_interval=tick_interval, fused_decide=fused_decide,
-        device=device, dtype=dtype,
+        scenarios, tick_interval=tick_interval, backend=backend,
+        fused_decide=fused_decide, device=device, dtype=dtype,
     ).run()
 
     def _traj(tr):

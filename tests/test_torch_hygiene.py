@@ -37,6 +37,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.kernels.rwkv6_scan.ops, repro_torch.kernels.ssd_scan.ops\n"
         "import repro_torch.models.ssm, repro_torch.configs.rwkv6_1_6b\n"
         "import repro_torch.configs.zamba2_7b\n"
+        "import repro_torch.streaming.des, repro_torch.serving.router\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -80,18 +81,28 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
     from repro_torch.api.session import DRSSession, ScenarioRunner
     from repro_torch.convert import from_reference
     from repro_torch.core import controller as ctl
+    from repro_torch.core.batched import expected_sojourn_batch, solve_traffic_batch
     from repro_torch.streaming.apps.vld import VLDConfig, build_vld_graph, logo_library
+    from repro_torch.streaming.batchsim import BatchQueueSim
     from repro_torch.streaming.engine import Operator, StreamEngine
-    from repro_torch.streaming.scenarios import control_trace
+    from repro_torch.streaming.scenarios import control_trace, scenario_matrix
 
     scens = _small_fleet()
+    negotiated = scenario_matrix(7, seed=1, horizon=10.0, warmup=2.0, dt=0.05)[5:]
+    top = scens[0].mean_topology()
+    k = scens[0].plan_k0()[None]
     vld_cfg = VLDConfig()
     vld_graph, _ = build_vld_graph(vld_cfg, logo_library(vld_cfg), device="cpu")
     runner = ScenarioRunner(scens, tick_interval=5.0, device="cpu")
     st, pr = runner.static, runner.params
     calls = [
         lambda: ScenarioRunner(scens, tick_interval=5.0),
+        lambda: ScenarioRunner(negotiated, tick_interval=5.0, backend="torch"),
         lambda: control_trace(scens, tick_interval=5.0),
+        lambda: control_trace(negotiated, tick_interval=5.0),
+        lambda: BatchQueueSim(runner.arrays),
+        lambda: expected_sojourn_batch(top, k),
+        lambda: solve_traffic_batch(np.ones((1, top.n)), top.routing),
         lambda: ctl.make_fused_loop(runner.arrays, st, pr, steps_per_tick=100),
         lambda: ctl.make_decide(st, pr),
         lambda: from_reference(runner.arrays, st, pr, runner.k),
@@ -137,12 +148,38 @@ def _serving_calls_raise_without_a_card(arch):
 
 
 def test_runner_refuses_negotiated_scenarios():
+    """The reference's gate: the fused loop cannot lease machines between
+    ticks, so ``fused=True`` on a negotiated scenario raises; the
+    automatic gate sends it to the window-at-a-time loop."""
     from repro_torch.api.graph import GraphValidationError
     from repro_torch.api.session import ScenarioRunner
     from repro_torch.streaming.scenarios import vld_scenario
 
     with pytest.raises(GraphValidationError, match="negotiated"):
-        ScenarioRunner([vld_scenario()], device="cpu")
+        ScenarioRunner([vld_scenario()], device="cpu", fused=True)
+    assert not ScenarioRunner([vld_scenario()], device="cpu").fused
+
+
+def test_host_paths_run_without_a_card(no_cuda):
+    """The DES (``bind``'s default backend) and the numpy twin are host
+    code: they need no card and launch nothing."""
+    from repro_torch.api.graph import AppGraph
+    from repro_torch.api.session import DRSSession, ScenarioRunner
+    from repro_torch.core.batched import expected_sojourn_batch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.streaming.scenarios import scenario_matrix
+
+    before = dict(LAUNCHES)
+    graph = AppGraph.chain([("a", 5.0), ("b", 9.0)], 2.0)
+    assert DRSSession.bind(graph, horizon=30.0).simulate([1, 1]).completed > 0
+    assert graph.bind(horizon=30.0).backend.kind == "des"
+    scens = scenario_matrix(7, seed=1, horizon=10.0, warmup=2.0, dt=0.05)
+    reports = ScenarioRunner(scens, tick_interval=5.0, backend="numpy").run()
+    assert len(reports) == 7 and all(len(r.actions) == 2 for r in reports)
+    top = scens[0].mean_topology()
+    assert np.isfinite(expected_sojourn_batch(top, scens[0].plan_k0()[None], backend="numpy")
+                       ).all()
+    assert dict(LAUNCHES) == before
 
 
 def test_cpu_runner_reports_are_sane():

@@ -286,8 +286,9 @@ def test_live_vld_session_detects_what_the_reference_detects():
 def test_session_refuses_the_unported_backends_and_modes():
     graph = AppGraph.chain([("a", 5.0), ("b", 9.0)], 2.0).with_fns(
         {"a": lambda x: [("b", x)], "b": lambda x: []})
-    with pytest.raises(GraphValidationError, match="ROADMAP"):
-        DRSSession.bind(graph, "des")
+    # The DES is ported; it refuses the live protocol, as the reference's does.
+    with pytest.raises(GraphValidationError, match="batch-simulated"):
+        DRSSession.bind(graph, "des").start({"a": 1, "b": 1})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         graph.bind("engine", device="cpu", proactive=True)
     with pytest.raises(GraphValidationError, match="compute fn"):
