@@ -68,10 +68,34 @@ Phases, each printing one JSON line:
    numpy table); the first 256 lanes again on the CPU (the plain window:
    no (tick, lane) action or allocation may differ) and through the
    float64 twin (the cells that differ are printed, not checked);
+7b. ``proactive_loop``: the forecast/MPC plane and the sparse decide on
+   the card -- fleet-4096 with its last 256-lane tile on deterministic
+   arrivals (Poisson lanes measure a new window every tick; deterministic
+   constant lanes go quiet, so the sparse decide has lanes to skip) through
+   ``ScenarioRunner(proactive=True)`` with the fused decide off / on and
+   ``compact`` off / on, in turns (8 runs).  Checks: compact and dense
+   runs bitwise equal on every output (decisions, ``mpc_used``,
+   ``confident`` and every float); the two dispatches equal on codes, k
+   and ``mpc_used``; 256 lanes (128 of the first tile, 128 of the quiet
+   one) on the CPU against the card: no (tick, lane) cell of codes, k or
+   ``mpc_used`` differs; each run's launches equal ``loop_launch_rule``
+   (per tick: one ``queue_window``; ``erlang_c`` for ``stationary_wait``,
+   the two-pass decide and the planner's table; ``gain_topr`` or
+   ``decide_fused`` for the decide and the planner's allocator; under
+   compaction the decide and the planner run only on ticks with a
+   repriced / eligible lane, read from the run's own outputs); some lane
+   commits ``"proactive"`` and some tick reprices fewer than all lanes.
+   Reported: wall, device ms, launches by kernel and the busy share per
+   tick (one profiled run per config), the repriced share and the plans
+   used per tick, and ``decide_fused`` / ``gain_topr`` / ``erlang_c`` on
+   the planner's own inputs (3 x 4096 candidate rows, ``k_cur = 0``;
+   B (H+1) N loads), bitwise against their plain versions, timed beside
+   their bounds;
 8. the per-kernel JSON line (``launches``: the loop kernels summed over
    the four main-path runs, each of which must have launched (``erlang_c``
    1 / 2 times per fused / two-pass tick), plus ``twin_loop``'s
-   ``queue_window`` and ``erlang_c`` launches -- but
+   ``queue_window`` and ``erlang_c`` launches and the eight
+   ``proactive_loop`` runs' -- but
    ``queue_step``, whose steps the window kernel runs, and which is on no
    path; the two ``l2_match`` kernels from the ``vld_live`` run,
    where ``match_count`` runs once per frame and ``pairwise_sq_l2`` --
@@ -1140,6 +1164,275 @@ def twin_loop_phase(dev):
 
 
 # --------------------------------------------------------------------------- #
+# Phase 7b: the proactive (forecast/MPC) and compacted loop
+# --------------------------------------------------------------------------- #
+# The float outputs compaction must leave bitwise unchanged, beside the
+# decisions.
+PROACTIVE_EXACT = ("codes", "k", "applied", "mpc_used", "confident", "sojourn", "et_cur",
+                   "et_target", "miss", "k_final", "q_final", "offered", "served", "dropped",
+                   "ext_admitted", "ext_offered", "q_int", "q_max")
+PROACTIVE_CPU_LANES = 256  # card vs CPU: half from the first tile, half from the last
+
+
+def proactive_fleet():
+    """fleet-4096 with its last tile on deterministic arrivals: a
+    Poisson-sampled lane measures a new window every tick, so it reprices
+    every tick by design; a deterministic constant lane measures the same
+    window once its transient drains, and the sparse decide skips it."""
+    import dataclasses
+
+    distinct, fleet = fleet_scenarios()
+    quiet = [dataclasses.replace(s, arrival_kind="deterministic") for s in distinct]
+    return fleet[:-DISTINCT] + quiet
+
+
+def loop_launch_rule(out, n_ticks, *, fused_decide, compact):
+    """The loop kernels' launches per proactive run: per tick one
+    ``queue_window`` and one ``erlang_c`` (``stationary_wait``'s table);
+    the decide one ``decide_fused`` (fused) or one ``erlang_c`` and one
+    ``gain_topr`` (two-pass); the planner one ``erlang_c`` (its table over
+    the B (H+1) N peak and horizon loads) and one ``decide_fused`` (its
+    allocator over the 3B candidate rows, fused) or ``gain_topr`` (two-pass).
+    Under compaction the decide runs on a tick only if it reprices a lane,
+    the planner only if a lane is eligible (the run's own ``repriced`` /
+    ``eligible``)."""
+    import numpy as np
+
+    ones = np.ones(n_ticks, dtype=bool)
+    dec = int((out["repriced"].any(axis=1) if compact else ones).sum())
+    mpc = int((out["eligible"].any(axis=1) if compact else ones).sum())
+    return {"queue_step": 0, "queue_window": n_ticks,
+            "erlang_c": n_ticks + (0 if fused_decide else dec) + mpc,
+            "gain_topr": 0 if fused_decide else dec + mpc,
+            "decide_fused": dec + mpc if fused_decide else 0}
+
+
+def planner_kernel_rows(fleet, dev):
+    """``decide_fused`` and ``gain_topr`` on the planner's own inputs at 3B
+    rows (captured from one dense run of each dispatch, its launches not
+    counted) and the planner's Erlang-B table over B (H+1) N loads: each
+    against its plain version (bitwise), timed beside its bound."""
+    import torch
+
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.decide_fused import kernel as dk, ops as do, ref as dr
+    from repro_torch.kernels.erlang_c import kernel as ek, ops as eo, ref as er
+    from repro_torch.kernels.gain_topr import kernel as gk, ops as go, ref as gr
+
+    m = 3 * len(fleet)
+    seen = {}
+
+    def capture(mod, attr, key, rows):
+        real = getattr(mod, attr)
+
+        def wrapped(*args, **kw):
+            if rows(args):
+                seen[key] = ([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                             {k: v.clone() if isinstance(v, torch.Tensor) else v
+                              for k, v in kw.items()})
+            return real(*args, **kw)
+
+        setattr(mod, attr, wrapped)
+        return real
+
+    reals = [(do, "batch_decide", capture(do, "batch_decide", "decide_fused",
+                                          lambda a: a[0].shape[0] == m)),
+             (go, "gain_topr", capture(go, "gain_topr", "gain_topr",
+                                       lambda a: a[0].shape[0] == m)),
+             (eo, "erlang_b_table", capture(eo, "erlang_b_table", "erlang_c",
+                                            lambda a: a[0].shape[0] == len(fleet) * 4 * N_OPS))]
+    try:
+        for fd in (False, True):
+            ScenarioRunner(fleet, tick_interval=5.0, proactive=True, fused_decide=fd,
+                           device=dev).run()
+    finally:
+        for mod, attr, real in reals:
+            setattr(mod, attr, real)
+        LAUNCHES.clear()
+    check(set(seen) == {"decide_fused", "gain_topr", "erlang_c"},
+          f"proactive_loop: the planner's kernel calls at 3B rows were not seen ({sorted(seen)})")
+    rows = {}
+    args, kw = seen["decide_fused"]
+    got, want = dk.batch_decide(*args, **kw), dr.batch_decide(*args, **kw)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    check(err == 0.0 and bool((kw["k_cur"] == 0).all()),
+          f"proactive_loop: decide_fused at {m} planner rows differs from plain ({err})")
+    lanes = m * N_OPS
+    rows["decide_fused"] = dict(
+        M=m, k_hi=kw["k_hi"], j_cap=kw["j_cap"], max_abs_err=err,
+        ms=median_ms(lambda: dk.batch_decide(*args, **kw)),
+        plain_ms=median_ms(lambda: dr.batch_decide(*args, **kw), runs=5, inner=2),
+        device_us=device_us_per_call(lambda: dk.batch_decide(*args, **kw),
+                                     LOOP_SYMBOLS["decide_fused"], calls=20),
+        bound=bound(4 * (6 + 4) * lanes + 4 * m,
+                    25 * lanes * K_HI + 33 * 4 * lanes * K_HI))
+    (cand, budget), _kw = seen["gain_topr"]
+    err = max_abs_err(gk.gain_topr(cand, budget), gr.gain_topr(cand, budget))
+    check(err == 0.0, f"proactive_loop: gain_topr at {m} planner rows differs from plain ({err})")
+    elems = cand.numel()
+    rows["gain_topr"] = dict(
+        M=m, J=cand.shape[-1], max_abs_err=err, ms=median_ms(lambda: gk.gain_topr(cand, budget)),
+        plain_ms=median_ms(lambda: gr.gain_topr(cand, budget), runs=5, inner=2),
+        device_us=device_us_per_call(lambda: gk.gain_topr(cand, budget),
+                                     LOOP_SYMBOLS["gain_topr"], calls=20),
+        bound=bound(4 * elems + 4 * m + 4 * m * N_OPS, 34 * 2 * elems))
+    (a,), kw = seen["erlang_c"]
+    err = max_abs_err(ek.erlang_b_table(a, **kw), er.erlang_b_table(a, **kw))
+    check(err == 0.0, f"proactive_loop: the planner's erlang_c table differs from plain ({err})")
+    s = a.shape[0]
+    rows["erlang_c"] = dict(
+        S=s, k_hi=kw["k_hi"], max_abs_err=err, ms=median_ms(lambda: ek.erlang_b_table(a, **kw)),
+        plain_ms=median_ms(lambda: er.erlang_b_table(a, **kw), runs=5, inner=2),
+        device_us=device_us_per_call(lambda: ek.erlang_b_table(a, **kw),
+                                     LOOP_SYMBOLS["erlang_c"], calls=20),
+        bound=bound(4 * s + 4 * s * (kw["k_hi"] + 1), 4 * s * kw["k_hi"]))
+    return rows
+
+
+def proactive_loop_phase(dev):
+    """fleet-4096 (its last tile on deterministic arrivals) through
+    ``ScenarioRunner(proactive=True)`` with the fused decide off / on and the
+    sparse decide off / on, in turns.  Checks: (a) compact and dense runs
+    bitwise equal on every output; (b) the two dispatches on codes, k and
+    ``mpc_used``; (c) card and CPU on 256 lanes, no (tick, lane) cell of
+    codes, k or ``mpc_used`` differs; (d) each run's launches equal
+    :func:`loop_launch_rule`; (e) some lane commits ``"proactive"`` and some
+    tick reprices fewer than all lanes.  Returns the path's launches."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.core.controller import ACTIONS, make_fused_loop
+    from repro_torch.kernels import KERNELS, LAUNCHES
+
+    fleet = proactive_fleet()
+    b = len(fleet)
+    configs = [(False, None), (True, None), (False, True), (True, True)]
+
+    def runner(scens, fd, compact, device=dev):
+        return ScenarioRunner(scens, tick_interval=5.0, proactive=True, compact=compact,
+                              fused_decide=fd, device=device)
+
+    for fd, compact in configs:  # CUDA handles outside the counted runs
+        runner(fleet[:16], fd, compact).run()
+    outs, launches, rows = {}, {}, []
+    for fd, compact in configs + configs[::-1]:
+        r = runner(fleet, fd, compact)
+        check(r.fused, "proactive_loop: the static-budget fleet must take the fused loop")
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        r.run()
+        counts = {k: LAUNCHES[k] for k in KERNELS}
+        out = r.outputs
+        n_ticks = out["codes"].shape[0]
+        want = loop_launch_rule(out, n_ticks, fused_decide=fd, compact=compact)
+        check(counts == want,
+              f"proactive_loop fused_decide={fd} compact={compact}: launches {counts}, "
+              f"expected {want}")
+        check(np.isfinite(out["q_final"]).all() and (out["q_final"] >= 0).all(),
+              "proactive_loop: non-finite or negative backlog")
+        prev = outs.setdefault((fd, compact), out)
+        for key in PROACTIVE_EXACT:
+            check(np.array_equal(prev[key], out[key], equal_nan=out[key].dtype.kind == "f"),
+                  f"proactive_loop: two runs of fused_decide={fd} compact={compact} differ "
+                  f"on {key}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        rows.append({"fused_decide": fd, "compact": bool(compact), "launches": counts,
+                     "wall_ms_per_tick": r.loop_seconds * 1e3 / n_ticks,
+                     "scenario_ticks_per_s": b * n_ticks / r.loop_seconds})
+    for fd in (False, True):  # (a) compaction changes no output
+        dense, comp = outs[(fd, None)], outs[(fd, True)]
+        for key in PROACTIVE_EXACT:
+            check(np.array_equal(dense[key], comp[key], equal_nan=dense[key].dtype.kind == "f"),
+                  f"proactive_loop: compact and dense differ on {key} (fused_decide={fd})")
+    for key in ("codes", "k", "mpc_used"):  # (b) the two dispatches
+        check(np.array_equal(outs[(False, None)][key], outs[(True, None)][key]),
+              f"proactive_loop: fused decide on/off disagree on {key}")
+    card = outs[(False, True)]
+    repriced, eligible = card["repriced"], card["eligible"]
+    n_ticks = card["codes"].shape[0]
+    proactive_cells = int((card["codes"] == ACTIONS.index("proactive")).sum())
+    check(proactive_cells > 0 and int(repriced.sum(axis=1).min()) < b,
+          f"proactive_loop: {proactive_cells} proactive commits, repriced per tick "
+          f"{repriced.sum(axis=1).tolist()} of {b}")
+
+    # (c) the card against the CPU's plain versions on 256 lanes.
+    half = PROACTIVE_CPU_LANES // 2
+    lanes = np.r_[0:half, b - half:b]
+    cpu = runner([fleet[i] for i in lanes], False, True, device="cpu")
+    cpu.run()
+    differ = {key: int((cpu.outputs[key] != card[key][:, lanes]).reshape(n_ticks, len(lanes), -1)
+                       .any(axis=-1).sum()) for key in ("codes", "k", "mpc_used")}
+
+    # Device time and launches per tick: one more run of each config's
+    # loop, built (and its inputs staged on the card) outside the trace.
+    profiles = []
+    for fd, compact in configs:
+        r = runner(fleet, fd, compact)
+        loop, _ = make_fused_loop(r.arrays, r.static, r.params,
+                                  steps_per_tick=r._steps_per_tick,
+                                  warmup_seconds=fleet[0].warmup, proactive=r.proactive_cfg,
+                                  compact=r.compact, device=dev)
+        states = [loop.init(r.k0) for _ in range(PROFILE_ATTEMPTS)]
+        torch.cuda.synchronize()
+
+        def run():
+            t0 = time.perf_counter()
+            loop.run(states.pop())
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        events, profiled_s = profiled(run)
+        ev = [(e.key, e.self_device_time_total, e.count) for e in events
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        device_ms = sum(t for _k, t, _c in ev) / 1e3
+        copies_ms = sum(t for k, t, _c in ev if k.startswith(("Memcpy", "Memset"))) / 1e3
+        kernels = sum(c for k, _t, c in ev if not k.startswith(("Memcpy", "Memset")))
+        ours = {}
+        for name, symbols in LOOP_SYMBOLS.items():
+            hits = [(t, c) for k, t, c in ev if any(s in k for s in symbols)]
+            if hits:
+                ours[name] = {"launches_per_tick": sum(c for _t, c in hits) / n_ticks,
+                              "device_us_per_launch": sum(t for t, _c in hits)
+                              / sum(c for _t, c in hits)}
+        wall = [x["wall_ms_per_tick"] for x in rows
+                if (x["fused_decide"], x["compact"]) == (fd, bool(compact))]
+        profiles.append({"fused_decide": fd, "compact": bool(compact),
+                         "device_ms_per_tick": device_ms / n_ticks,
+                         "copies_ms_per_tick": copies_ms / n_ticks,
+                         "launches_per_tick": kernels / n_ticks,
+                         "unprofiled_wall_ms_per_tick": wall,
+                         "profiled_wall_ms_per_tick": profiled_s * 1e3 / n_ticks,
+                         "device_busy_share": device_ms / n_ticks / min(wall),
+                         "port_kernels": ours,
+                         "top": [{"kernel": k[:90], "device_ms_per_tick": t / 1e3 / n_ticks,
+                                  "launches_per_tick": c / n_ticks}
+                                 for k, t, c in sorted(ev, key=lambda r: -r[1])[:6]]})
+    planner = planner_kernel_rows(fleet, dev)
+    emit({"phase": "proactive_loop", "B": b, "ticks": n_ticks, "runs": rows,
+          "repriced_share_per_tick": (repriced.sum(axis=1) / b).tolist(),
+          "eligible_per_tick": eligible.sum(axis=1).tolist(),
+          "mpc_used_per_tick": card["mpc_used"].sum(axis=1).tolist(),
+          "proactive_commits": proactive_cells,
+          "actions": dict(zip(ACTIONS, np.bincount(card["codes"].ravel(),
+                                                   minlength=len(ACTIONS)).tolist())),
+          "card_vs_cpu": {"lanes": len(lanes), "tick_lane_cells": n_ticks * len(lanes),
+                          "differ": differ},
+          "profile": profiles,
+          "planner_kernels": {k: {kk: (vv if kk != "bound" else
+                                       {"ms": vv[0], "by": vv[1]})
+                                  for kk, vv in v.items()} for k, v in planner.items()},
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
+    check(not any(differ.values()),
+          f"proactive_loop: card and CPU differ in {differ} of {n_ticks * len(lanes)} "
+          f"(tick, lane) cells")
+    return launches
+
+
+# --------------------------------------------------------------------------- #
 # Phases 9-13: LLM serving (llama3.2-1b, the dense family)
 # --------------------------------------------------------------------------- #
 LLM_ARCH = "llama3.2-1b"
@@ -2130,6 +2423,8 @@ def main() -> int:
     vld_card_vs_cpu_phase(dev)
     launches.update(vld_live_phase(dev))
     for k, n in twin_loop_phase(dev).items():
+        launches[k] += n
+    for k, n in proactive_loop_phase(dev).items():
         launches[k] += n
     llm_card_vs_cpu_phase(dev)
     serve_launches, prompts_per_s, params, cfg = llm_serve_phase(dev)

@@ -46,9 +46,7 @@ from ..core.jackson import Topology
 from ..core.measurer import MeasurementBatch, Measurer
 from ..core.negotiator import Negotiator
 from ..core.rebalance import ExecutableCache, RebalanceCostModel
-from ..core.scheduler import (
-    PROACTIVE_NOT_PORTED, DRSScheduler, SchedulerConfig, SchedulerDecision,
-)
+from ..core.scheduler import DRSScheduler, SchedulerConfig, SchedulerDecision
 from ..device import resolve_device
 from .graph import AppGraph, GraphValidationError
 
@@ -272,6 +270,9 @@ class DRSSession:
     matrix, scaling modes) and the backend's measurer.  On the engine
     ``tick()`` pulls, models, decides, and *applies* the decision; on the
     DES :meth:`simulate` runs an allocation in simulated time.
+    ``proactive`` (True or an :class:`~repro_torch.forecast.mpc.MPCConfig`)
+    gives the scheduler the forecast/MPC plane; a ``"proactive"`` decision
+    is applied like a rebalance.
     """
 
     def __init__(
@@ -286,8 +287,6 @@ class DRSSession:
         on_decision=None,
         proactive=None,
     ):
-        if proactive is not None:
-            raise NotImplementedError(PROACTIVE_NOT_PORTED)
         self.graph = graph
         self.backend = backend
         self.config = config or SchedulerConfig()
@@ -295,6 +294,7 @@ class DRSSession:
         self.cost_model = cost_model
         self.executable_cache = executable_cache
         self.on_decision = on_decision
+        self.proactive = proactive  # forecast/MPC mode (MPCConfig | True)
         self.scheduler: DRSScheduler | None = None
 
     @classmethod
@@ -302,10 +302,10 @@ class DRSSession:
         """Bind ``graph`` to ``backend``: ``"des"`` (the default, as in the
         reference), ``"engine"``, or a built backend.  Session options
         (``config=``, ``negotiator=``, ``cost_model=``,
-        ``executable_cache=``, ``on_decision=``) are taken from ``kwargs``;
-        the rest go to the backend (the engine's ``device=``,
-        ``queue_capacity=``, ``overload_policy=``; the DES's ``seed=``,
-        ``horizon=``, ``warmup=``, ...)."""
+        ``executable_cache=``, ``on_decision=``, ``proactive=``) are taken
+        from ``kwargs``; the rest go to the backend (the engine's
+        ``device=``, ``queue_capacity=``, ``overload_policy=``; the DES's
+        ``seed=``, ``horizon=``, ``warmup=``, ...)."""
         session_keys = ("config", "negotiator", "cost_model", "executable_cache",
                         "on_decision", "proactive")
         session_kw = {k: kwargs.pop(k) for k in session_keys if k in kwargs}
@@ -355,6 +355,7 @@ class DRSSession:
             scaling=scaling,
             group_alpha=group_alpha,
             on_decision=self.on_decision,
+            proactive=self.proactive,
         )
 
     def start(self, k0: Mapping[str, int] | Sequence[int] | np.ndarray | None = None
@@ -373,7 +374,8 @@ class DRSSession:
         if self.scheduler is None:
             raise RuntimeError("session not started; call start() first")
         decision = self.scheduler.tick(now)
-        if decision.action in ("rebalance", "scale_out", "scale_in", "overloaded"):
+        if decision.action in ("rebalance", "scale_out", "scale_in", "overloaded",
+                               "proactive"):
             # "overloaded" with no feasible target keeps the current k.
             if decision.k_target is not None:
                 self.backend.apply_allocation(self.graph.k_dict(decision.k_target))
@@ -473,11 +475,21 @@ class ScenarioRunner:
     ``controlled=False`` freezes ``k`` (a pure simulation sweep).  A
     scenario object repeated in ``scenarios`` is planned and sampled once
     (fleets may tile a few distinct scenarios).
+
+    ``proactive`` (True for the default
+    :class:`~repro_torch.forecast.mpc.MPCConfig`, or one) switches on the
+    forecast/MPC plane on either loop; trajectories gain ``mpc_used`` /
+    ``confident``.  ``compact`` (True or a
+    :class:`~repro_torch.core.controller.CompactionConfig`) runs the sparse
+    decide: the fused loop's memo, or the twin's
+    :class:`~repro_torch.core.controller.TwinCompactionState`; the outputs
+    are the same either way.
     """
 
     def __init__(self, scenarios: Sequence, *, tick_interval: float = 10.0,
                  controlled: bool = True, backend: str = "torch", fused: bool | None = None,
-                 fused_decide: bool = False, device=None, dtype=None):
+                 fused_decide: bool = False, proactive=None, compact=None, device=None,
+                 dtype=None):
         from ..streaming.batchsim import BatchQueueSim
         from ..streaming.scenarios import pack_allocations, pack_scenarios
 
@@ -491,6 +503,12 @@ class ScenarioRunner:
         self.tick_interval = tick_interval
         self.controlled = controlled
         self.fused_decide = bool(fused_decide)
+        self.compact = compact or None
+        if proactive is True:
+            from ..forecast.mpc import MPCConfig
+
+            proactive = MPCConfig()
+        self.proactive_cfg = proactive
         self.arrays = pack_scenarios(self.scenarios)
         self._steps_per_tick = max(int(round(tick_interval / self.arrays.dt)), 1)
         plans: dict[int, np.ndarray] = {}
@@ -623,6 +641,19 @@ class ScenarioRunner:
         a = self.arrays
         t_max = np.array([np.nan if s.t_max is None else s.t_max for s in self.scenarios])
         hooks = self._ensure_hooks()
+        cstate = pc = None
+        if self.controlled and self.compact is not None:
+            cstate = ctl.TwinCompactionState.create(len(self.scenarios), self.static.n)
+        if self.controlled and self.proactive_cfg is not None:
+            from ..forecast.mpc import ProactiveController
+
+            pc = ProactiveController.create(
+                len(self.scenarios), self.static.n, self.proactive_cfg,
+                cap_queue=a.cap_queue, span=self._steps_per_tick * a.dt,
+            )
+            for tr in self._traj:
+                tr["mpc_used"] = []
+                tr["confident"] = []
         t0 = time.perf_counter()
         while self.sim.step_index < a.steps:
             w = self.sim.step_window(self.k, self._steps_per_tick)
@@ -636,7 +667,8 @@ class ScenarioRunner:
                 self._miss += miss_mask.astype(np.int64)
             if self.controlled:
                 batch = ctl.tick_batch(meas, self.k, self.static, self._params(),
-                                       ensure=hooks)
+                                       ensure=hooks, proactive=pc, q_backlog=w["q_final"],
+                                       compact_state=cstate)
                 for bi, row in enumerate(batch.rows):
                     s = self.scenarios[bi]
                     self.decisions[bi].append(
@@ -650,6 +682,9 @@ class ScenarioRunner:
                 tr["miss"].append(bool(miss_mask[bi]))
                 tr["sojourn"].append(float(sojourn[bi]))
                 tr["warm"].append(bool(warm))
+                if pc is not None:
+                    tr["mpc_used"].append(bool(pc.mpc_used[bi]))
+                    tr["confident"].append(bool(pc.confident[bi]))
         self.loop_seconds = time.perf_counter() - t0
         self._result = self.sim.result()
         return self.reports()
@@ -662,7 +697,8 @@ class ScenarioRunner:
         a = self.arrays
         loop, n_ticks = ctl.make_fused_loop(
             a, self.static, self.params, steps_per_tick=self._steps_per_tick,
-            warmup_seconds=self.scenarios[0].warmup, device=self.device, dtype=self.dtype,
+            warmup_seconds=self.scenarios[0].warmup, proactive=self.proactive_cfg,
+            compact=self.compact, device=self.device, dtype=self.dtype,
         )
         state = loop.init(self.k)
         t0 = time.perf_counter()
@@ -679,6 +715,10 @@ class ScenarioRunner:
             [s.t_max is not None for s in self.scenarios], out["miss"], 0
         ).astype(np.int64)
         t_max = np.array([np.nan if s.t_max is None else s.t_max for s in self.scenarios])
+        if self.proactive_cfg is not None:
+            for tr in self._traj:
+                tr["mpc_used"] = []
+                tr["confident"] = []
         for ti in range(n_ticks):
             now = (ti + 1) * self._steps_per_tick * a.dt
             warm = (ti * self._steps_per_tick * a.dt) >= self.scenarios[0].warmup
@@ -699,6 +739,9 @@ class ScenarioRunner:
                 tr["miss"].append(missed)
                 tr["sojourn"].append(soj)
                 tr["warm"].append(bool(warm))
+                if self.proactive_cfg is not None:
+                    tr["mpc_used"].append(bool(out["mpc_used"][ti, bi]))
+                    tr["confident"].append(bool(out["confident"][ti, bi]))
         warm_steps = max(a.steps - a.warmup_steps, 0)
         self._result = BatchSimResult(
             offered=out["offered"], served=out["served"], dropped=out["dropped"],

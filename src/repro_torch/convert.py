@@ -14,7 +14,11 @@ packages.  :func:`scenario_from_reference` rebuilds a reference ``Scenario``
 both packages run exactly the same fleet.  :func:`vld_from_reference`
 carries a reference ``VLDConfig`` and logo library (the VLD path's
 "weights") across, :func:`model_params_from_reference` a reference model's
-parameter pytree.
+parameter pytree.  :func:`mpc_config_from_reference`,
+:func:`predictor_params_from_reference` and
+:func:`compaction_config_from_reference` carry the proactive and sparse
+decide knobs, :func:`forecast_state_from_reference` a forecast state (as
+numpy arrays or, with ``device=``, tensors).
 """
 
 from __future__ import annotations
@@ -26,7 +30,10 @@ import torch
 
 from .api.graph import AppGraph, Edge, OpDef
 from .core.controller import ControllerParams, ControllerState, ControllerStatic, init_state
+from .core.controller import CompactionConfig
 from .core.measurer import MeasurementBatch
+from .forecast.mpc import MPCConfig
+from .forecast.predictors import PredictorParams
 from .device import resolve_device
 from .streaming.apps.vld import VLDConfig
 from .streaming.batchsim import BatchArrays
@@ -34,7 +41,9 @@ from .streaming.scenarios import ArrivalTrace, Scenario
 
 __all__ = ["from_reference", "static_from_reference", "params_from_reference",
            "measurement_from_reference", "scenario_from_reference", "vld_from_reference",
-           "model_params_from_reference"]
+           "model_params_from_reference", "predictor_params_from_reference",
+           "mpc_config_from_reference", "compaction_config_from_reference",
+           "forecast_state_from_reference"]
 
 
 def _arr(x, dtype=None):
@@ -168,3 +177,36 @@ def model_params_from_reference(params, cfg, *, device=None) -> dict:
         return _tensor(tree, cfg.dtype, dev)
 
     return walk(params)
+
+
+def predictor_params_from_reference(params) -> PredictorParams:
+    """This package's :class:`PredictorParams` from the reference's."""
+    return PredictorParams(**{f.name: getattr(params, f.name)
+                              for f in dataclasses.fields(PredictorParams)})
+
+
+def mpc_config_from_reference(cfg) -> MPCConfig:
+    """This package's :class:`MPCConfig` from the reference's (its
+    predictor carried too)."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(MPCConfig)}
+    kw["predictor"] = predictor_params_from_reference(cfg.predictor)
+    return MPCConfig(**kw)
+
+
+def compaction_config_from_reference(cfg) -> CompactionConfig:
+    """This package's :class:`CompactionConfig` from the reference's."""
+    cap = cfg.b_active_cap
+    return CompactionConfig(b_active_cap=None if cap is None else tuple(int(w) for w in cap))
+
+
+def forecast_state_from_reference(state, *, device=None, dtype=None) -> tuple:
+    """A reference forecast state (the flat tuple of ``forecast_init_state``
+    / ``forecast_step``: numpy or JAX arrays) as float64 numpy arrays, or as
+    tensors on ``device`` in ``dtype`` (default float32) when a device is
+    given."""
+    arrays = tuple(np.array(x, dtype=np.float64) for x in state)
+    if device is None:
+        return arrays
+    dev = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+    return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays)

@@ -25,6 +25,13 @@ over ``[B, N]`` tensors (the PyTorch counterpart of
   trigger, the capped propagation and snapshot completeness vectorised,
   then :func:`clamp_row` and :func:`decide_single` per scenario, with the
   negotiators' lease hooks.
+* ``proactive=`` (the forecast/MPC plane of :mod:`repro_torch.forecast`)
+  and ``compact=`` / ``compact_state=`` (the sparse decide: lanes whose
+  decide inputs are bitwise unchanged replay their cached outputs, the
+  rest are priced at the smallest rung of a static width ladder that holds
+  them) run in the fused loop, the standalone decide and the twin, with
+  the reference's outputs: compaction changes where the work runs, never
+  a result.
 
 Entry points run on the CUDA device unless ``device`` says otherwise; there
 the kernels run in float32.  On the CPU every kernel call takes its plain
@@ -34,7 +41,7 @@ PyTorch version, in float32 or float64.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Callable, NamedTuple, Sequence
 
 import numpy as np
@@ -60,6 +67,10 @@ __all__ = [
     "ControllerStatic",
     "ControllerParams",
     "ControllerState",
+    "CompactionConfig",
+    "DecideCache",
+    "TwinCompactionState",
+    "init_decide_cache",
     "FusedLoop",
     "init_state",
     "make_decide",
@@ -90,16 +101,6 @@ _CODE = {name: i for i, name in enumerate(ACTIONS)}
 # An operator shedding more than this fraction of its capacity is
 # overloaded even if its smoothed arrival rate sits below capacity.
 DROP_TRIGGER_FRACTION = 0.01
-
-# What the batched twin refuses, and where in ROADMAP.md each waits.
-PROACTIVE_NOT_PORTED = (
-    "the forecast/MPC scheduler (proactive=) is not ported to repro_torch yet: "
-    "ROADMAP.md Queue 1 item 5"
-)
-COMPACTION_NOT_PORTED = (
-    "the trigger-gated sparse decide (compact_state=) is not ported to "
-    "repro_torch yet: ROADMAP.md Queue 1 item 4"
-)
 
 # Control-plane pause charged by the cost gate: the value of
 # repro.core.rebalance.RebalanceCostModel().pause_cache_miss (5.0 s).
@@ -225,6 +226,222 @@ def _decide_statics(static: ControllerStatic, params: ControllerParams, *, devic
     }
 
 
+def _overloaded(lam_hat, mu_eff, drop_hat, k_cur, group, alpha, active):
+    """[B, N] bool: the overload trigger on tensors -- measured offered load
+    at capacity (k floored at 1) or shedding more than
+    ``DROP_TRIGGER_FRACTION`` of it, on active lanes with finite rates."""
+    k_floor = torch.clamp_min(k_cur, 1).to(lam_hat.dtype)
+    eff = 1.0 / (1.0 + alpha * (k_floor - 1.0))
+    capacity = torch.where(group, mu_eff * k_floor * eff, mu_eff * k_floor)
+    valid = torch.isfinite(lam_hat) & torch.isfinite(mu_eff) & (mu_eff > 0)
+    drops = torch.nan_to_num(drop_hat, nan=0.0)
+    return valid & active & (
+        (lam_hat >= capacity * (1.0 - 1e-9))
+        | (drops > DROP_TRIGGER_FRACTION * capacity)
+    )
+
+
+# --------------------------------------------------------------------------- #
+# Trigger-gated lane compaction (the sparse decide)
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class CompactionConfig:
+    """Knobs of the sparse decide.  ``b_active_cap`` is the ascending ladder
+    of compacted widths (the batch extent is always added as the dense
+    rung); ``None`` takes :func:`repro_torch.distributed.bucket_ladder`.
+
+    The compaction is exact: the decide is a pure function of ``(statics,
+    lam_hat, mu_hat, drop_hat, lam0_hat, k)``, so a lane whose inputs are
+    bitwise unchanged since it was last priced (NaN equal to NaN) replays
+    its cached outputs, which are what repricing would give.  A lane is
+    repriced when it has no cached entry, when an input changed, or when
+    the overload trigger fires on it."""
+
+    b_active_cap: tuple[int, ...] | None = None
+
+
+class DecideCache(NamedTuple):
+    """Per-lane memo of the sparse decide: the inputs each lane was last
+    priced with and the outputs it got.  Not part of
+    :class:`ControllerState`: a cold cache only makes the next tick price
+    every lane (the same outputs, more work)."""
+
+    ok: Any  # [B] bool: the lane has a priced entry
+    lam: Any  # [B, N]
+    mu: Any  # [B, N]
+    drop: Any  # [B, N]
+    lam0: Any  # [B]
+    k: Any  # [B, N] int32 allocation at entry
+    code: Any  # [B] int32
+    k_next: Any  # [B, N] int32
+    et_cur: Any  # [B]
+    et_target: Any  # [B]
+    applied: Any  # [B] bool
+
+
+def init_decide_cache(b: int, n: int, *, dtype, device) -> DecideCache:
+    """A cold cache: the first tick prices every lane."""
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return DecideCache(ok=z(b, dt=torch.bool), lam=z(b, n), mu=z(b, n), drop=z(b, n),
+                       lam0=z(b), k=z(b, n, dt=torch.int32), code=z(b, dt=torch.int32),
+                       k_next=z(b, n, dt=torch.int32), et_cur=z(b), et_target=z(b),
+                       applied=z(b, dt=torch.bool))
+
+
+def _resolve_ladder(compact, b: int) -> tuple[int, ...]:
+    """The ladder of compacted widths for a batch extent ``b``."""
+    from ..distributed.sharding import bucket_ladder
+
+    cfg = compact if isinstance(compact, CompactionConfig) else CompactionConfig()
+    if cfg.b_active_cap is None:
+        return bucket_ladder(b)
+    ladder = tuple(sorted({min(int(w), b) for w in cfg.b_active_cap} | {b}))
+    if ladder[0] < 1:
+        raise ValueError(f"bucket ladder widths must be >= 1: {cfg.b_active_cap}")
+    return ladder
+
+
+def _bucketed(ladder, b: int, mask, count: int, run_at_width, templates):
+    """Gather -> compute -> scatter over the ``count`` lanes of ``mask [B]``
+    at the smallest ladder width that holds them; the other lanes keep
+    their ``templates`` values.  ``count`` is ``mask``'s count as a host
+    int (the caller's one device-to-host read), so no rung runs when it is
+    0 and the scatter needs no sync.  ``run_at_width(idx)`` gets ``[w]``
+    lane indices: the masked lanes in order, then the clipped index ``b -
+    1`` in the tail rows, which compute garbage that is never scattered
+    (every op of the decide and the planner is per lane)."""
+    if count == 0:
+        return tuple(templates)
+    w = next(x for x in ladder if x >= count)
+    # A stable sort puts the masked lanes first, in index order.
+    order = torch.argsort((~mask).to(torch.uint8), stable=True)
+    idx = order[:w].clone()
+    idx[count:] = b - 1
+    outs = run_at_width(idx)
+    real = idx[:count]
+    return tuple(t.index_copy(0, real, o[:count]) for t, o in zip(templates, outs))
+
+
+def _neq(a, c):
+    """The bitwise change test, NaN equal to NaN (a persistently NaN
+    measurement must not keep a lane hot)."""
+    return (a != c) & ~(torch.isnan(a) & torch.isnan(c))
+
+
+def _make_compact_decide(core, b: int, ladder: tuple[int, ...]):
+    """The dense decide ``core`` behind the trigger scan and the bucketed
+    dispatch: ``decide(st, lam_hat, mu_hat, drop_hat, lam0_hat, k_current,
+    cache) -> ((code, k_next, et_cur, et_target, applied), repriced [B],
+    cache')``, equal to ``core(...)`` on every output.
+
+    ``decide.scan(...)`` is the O(B N) trigger scan alone; a caller that
+    has already run it (and read its count) passes ``repriced=`` and
+    ``count=``, else the decide reads the count itself, one device-to-host
+    copy per call."""
+
+    def scan(st, lam_hat, mu_hat, drop_hat, lam0_hat, k_in, cache):
+        mu_eff = mu_hat * st["speed"]
+        hot = _overloaded(lam_hat, mu_eff, drop_hat, k_in, st["group"], st["alpha"],
+                          st["active"]).any(dim=-1)
+        changed = (
+            _neq(lam_hat, cache.lam).any(dim=-1)
+            | _neq(mu_hat, cache.mu).any(dim=-1)
+            | _neq(drop_hat, cache.drop).any(dim=-1)
+            | _neq(lam0_hat, cache.lam0)
+            | (k_in != cache.k).any(dim=-1)
+        )
+        return ~cache.ok | changed | hot
+
+    def decide(st, lam_hat, mu_hat, drop_hat, lam0_hat, k_current, cache, *,
+               repriced=None, count: int | None = None):
+        k_in = k_current.to(torch.int32)
+        if repriced is None:
+            repriced = scan(st, lam_hat, mu_hat, drop_hat, lam0_hat, k_in, cache)
+        if count is None:
+            count = int(repriced.sum())
+
+        def price(g):
+            st_g = {key: val[g] for key, val in st.items()}
+            return core(st_g, lam_hat[g], mu_hat[g], drop_hat[g], lam0_hat[g], k_in[g])
+
+        code, k_next, et_cur, et_target, applied = _bucketed(
+            ladder, b, repriced, count, price,
+            (cache.code, cache.k_next, cache.et_cur, cache.et_target, cache.applied),
+        )
+        new_cache = DecideCache(
+            ok=torch.ones_like(cache.ok), lam=lam_hat, mu=mu_hat, drop=drop_hat,
+            lam0=lam0_hat, k=k_in, code=code, k_next=k_next, et_cur=et_cur,
+            et_target=et_target, applied=applied,
+        )
+        return (code, k_next, et_cur, et_target, applied), repriced, new_cache
+
+    decide.scan = scan
+    return decide
+
+
+@dataclass
+class TwinCompactionState:
+    """Per-lane memo of the float64 twin's reactive decide (mutable,
+    caller-owned: pass it to every :func:`tick_batch` of one run).  Lanes
+    with a negotiator ``ensure`` hook or a custom cost model are never
+    memoized; for the rest a bitwise-unchanged input tuple replays the
+    cached :class:`RowDecision`.  Valid for one ``(static, params)`` but
+    ``k_max``, which is compared per tick (leases move it)."""
+
+    valid: np.ndarray  # [B] bool
+    lam: np.ndarray  # [B, N]
+    mu: np.ndarray  # [B, N]
+    drop: np.ndarray  # [B, N]
+    lam0: np.ndarray  # [B]
+    k: np.ndarray  # [B, N] int64
+    k_max: np.ndarray  # [B] int64
+    rows: list  # [B] RowDecision | None
+    errors: list  # [B] Exception | None
+    replayed: np.ndarray  # [B] bool: the last tick's replayed lanes
+
+    @classmethod
+    def create(cls, b: int, n: int) -> "TwinCompactionState":
+        return cls(
+            valid=np.zeros(b, dtype=bool),
+            lam=np.full((b, n), np.nan),
+            mu=np.full((b, n), np.nan),
+            drop=np.full((b, n), np.nan),
+            lam0=np.full(b, np.nan),
+            k=np.zeros((b, n), dtype=np.int64),
+            k_max=np.zeros(b, dtype=np.int64),
+            rows=[None] * b,
+            errors=[None] * b,
+            replayed=np.zeros(b, dtype=bool),
+        )
+
+    def hit(self, bi, lam, mu, drop, lam0, k, k_max) -> bool:
+        return bool(
+            self.valid[bi]
+            and self.k_max[bi] == k_max
+            and np.array_equal(self.k[bi, : len(k)], k)
+            and np.array_equal(self.lam[bi, : len(lam)], lam, equal_nan=True)
+            and np.array_equal(self.mu[bi, : len(mu)], mu, equal_nan=True)
+            and np.array_equal(self.drop[bi, : len(drop)], drop, equal_nan=True)
+            and (
+                np.isnan(self.lam0[bi]) and np.isnan(lam0)
+                or self.lam0[bi] == lam0
+            )
+        )
+
+    def remember(self, bi, lam, mu, drop, lam0, k, k_max, row, error) -> None:
+        self.valid[bi] = True
+        self.lam[bi, : len(lam)] = lam
+        self.mu[bi, : len(mu)] = mu
+        self.drop[bi, : len(drop)] = drop
+        self.lam0[bi] = lam0
+        self.k[bi, : len(k)] = k
+        self.k_max[bi] = k_max
+        self.rows[bi] = row
+        self.errors[bi] = error
+
+
 def _make_decide_core(n: int, k_hi: int, pause: float, fused: bool = False,
                       j_cap: int | None = None):
     """The decide body: ``decide(st, lam_hat, mu_hat, drop_hat, lam0_hat,
@@ -253,15 +470,7 @@ def _make_decide_core(n: int, k_hi: int, pause: float, fused: bool = False,
         mu_eff = mu_hat * st["speed"]
         k_cur = k_current.to(torch.int32)
         # --- overload trigger + capped propagation ------------------------ #
-        k_floor = torch.clamp_min(k_cur, 1).to(dtype)
-        eff = 1.0 / (1.0 + alpha * (k_floor - 1.0))
-        capacity = torch.where(group, mu_eff * k_floor * eff, mu_eff * k_floor)
-        valid = torch.isfinite(lam_hat) & torch.isfinite(mu_eff) & (mu_eff > 0)
-        drops = torch.nan_to_num(drop_hat, nan=0.0)
-        overloaded = valid & active & (
-            (lam_hat >= capacity * (1.0 - 1e-9))
-            | (drops > DROP_TRIGGER_FRACTION * capacity)
-        )
+        overloaded = _overloaded(lam_hat, mu_eff, drop_hat, k_cur, group, alpha, active)
         hot = overloaded.any(dim=-1)
         out_c = overloaded
         for _ in range(n):
@@ -398,7 +607,7 @@ def _resolve(device, dtype):
 
 def make_decide(static: ControllerStatic, params: ControllerParams, *,
                 k_hi: int | None = None, pause_seconds: float | None = None,
-                fused: bool | None = None, device=None, dtype=None):
+                fused: bool | None = None, compact=None, device=None, dtype=None):
     """The batched decide over one fleet.
 
     Returns ``decide(lam_hat, mu_hat, drop_hat, lam0_hat, k_current) ->
@@ -408,6 +617,13 @@ def make_decide(static: ControllerStatic, params: ControllerParams, *,
     ``kernels/decide_fused`` instead of the two-pass ``erlang_c`` ->
     ``gain_topr`` path.  ``device`` defaults to the CUDA device (raising
     when there is none); ``dtype`` to float32.
+
+    ``compact`` (True or a :class:`CompactionConfig`) returns the sparse
+    decide instead: ``decide(lam_hat, mu_hat, drop_hat, lam0_hat,
+    k_current, cache) -> (outputs, repriced [B] bool, cache')`` with
+    ``decide.init_cache()`` the cold cache; its outputs equal the dense
+    decide's bitwise.  Each call reads the repriced count back to the host
+    once, to pick the rung.
     """
     dev, dtype = _resolve(device, dtype)
     n = static.n
@@ -424,9 +640,22 @@ def make_decide(static: ControllerStatic, params: ControllerParams, *,
     def f(x):
         return torch.as_tensor(x, device=dev).to(dtype)
 
+    def k_of(k_current):
+        return torch.as_tensor(k_current, device=dev).to(torch.int32)
+
+    if compact:
+        core_c = _make_compact_decide(core, static.batch, _resolve_ladder(compact, static.batch))
+
+        def decide_compact(lam_hat, mu_hat, drop_hat, lam0_hat, k_current, cache):
+            return core_c(st, f(lam_hat), f(mu_hat), f(drop_hat), f(lam0_hat),
+                          k_of(k_current), cache)
+
+        decide_compact.init_cache = lambda: init_decide_cache(static.batch, n, dtype=dtype,
+                                                              device=dev)
+        return decide_compact
+
     def decide(lam_hat, mu_hat, drop_hat, lam0_hat, k_current):
-        k = torch.as_tensor(k_current, device=dev).to(torch.int32)
-        return core(st, f(lam_hat), f(mu_hat), f(drop_hat), f(lam0_hat), k)
+        return core(st, f(lam_hat), f(mu_hat), f(drop_hat), f(lam0_hat), k_of(k_current))
 
     return decide
 
@@ -438,10 +667,10 @@ class ControllerState(NamedTuple):
     advancing needs no device sync); :meth:`FusedLoop.run` advances any
     number of ticks from it.  ``acc`` holds the post-warmup run aggregates
     (offered, served, dropped, ext_admitted, ext_offered, q_int, q_max).
-    ``fstate`` is the forecast-plane slot of the JAX package's carry,
-    empty here.  The loop updates the ``[B, N]`` buffers in place (the JAX
-    package donates them to XLA for the same effect): keep using the state
-    a run returns, never the one passed in.
+    ``fstate`` is the forecast state (history window and error tracker)
+    when the loop is proactive, else empty.  The loop updates the ``[B,
+    N]`` buffers in place (the JAX package donates them to XLA for the same
+    effect): keep using the state a run returns, never the one passed in.
     """
 
     q: Any  # [B, N] queue backlog
@@ -452,8 +681,9 @@ class ControllerState(NamedTuple):
     fstate: tuple = ()
 
 
-def init_state(k0, *, device, dtype) -> ControllerState:
-    """Tick-0 state: empty queues, ``k0`` in force, zero aggregates."""
+def init_state(k0, *, device, dtype, fstate: tuple = ()) -> ControllerState:
+    """Tick-0 state: empty queues, ``k0`` in force, zero aggregates (and
+    the proactive loop's tick-0 forecast state)."""
     k = torch.as_tensor(np.asarray(k0), device=device).to(torch.int32).clone()
     b, n = k.shape
 
@@ -464,7 +694,8 @@ def init_state(k0, *, device, dtype) -> ControllerState:
         return torch.zeros(b, dtype=dtype, device=device)
 
     acc = (zeros2(), zeros2(), zeros2(), zeros1(), zeros1(), zeros2(), zeros2())
-    return ControllerState(q=zeros2(), served_prev=zeros2(), k=k, acc=acc, tick=0)
+    return ControllerState(q=zeros2(), served_prev=zeros2(), k=k, acc=acc, tick=0,
+                           fstate=tuple(fstate))
 
 
 class FusedLoop:
@@ -501,7 +732,7 @@ class FusedLoop:
 def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, *,
                     steps_per_tick: int, k_hi: int | None = None,
                     warmup_seconds: float | None = None, fused: bool | None = None,
-                    device=None, dtype=None):
+                    proactive=None, compact=None, device=None, dtype=None):
     """Build the control loop over ``arrays`` (a
     :class:`~repro_torch.streaming.batchsim.BatchArrays`).
 
@@ -511,6 +742,27 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     n_ticks)``; the per-tick outputs and post-warmup aggregates carry the
     keys of ``repro.core.controller.make_fused_loop``.  ``device`` defaults
     to the CUDA device (raising when there is none), ``dtype`` to float32.
+
+    ``proactive`` (a :class:`~repro_torch.forecast.mpc.MPCConfig`) carries
+    the forecast state in ``ControllerState.fstate``: each tick also
+    advances the predictors on the window's rates, plans over the horizon
+    from the live backlog (:func:`~repro_torch.forecast.mpc.mpc_plan_torch`;
+    under the fused decide its allocator is ``kernels/decide_fused`` with
+    ``k_cur = 0``) and commits the plan where the confidence gate is open,
+    no operator is overloaded and some candidate meets T_max.  Outputs gain
+    ``mpc_used`` / ``confident`` per tick.
+
+    ``compact`` (True or a :class:`CompactionConfig`) runs the sparse
+    decide: the trigger scan reprices only the lanes whose inputs changed
+    (or that are hot), gathered to the smallest ladder rung, and with
+    ``proactive`` the planner prices only the commit-eligible lanes.  Every
+    output equals the dense loop's bitwise; ``repriced [ticks, B]`` (the
+    lanes the decide priced) is a new output, and with ``proactive``
+    ``eligible [ticks, B]`` (the lanes the planner priced), a diagnostic
+    the reference's loop does not return.  Picking the rungs costs one
+    device-to-host read per tick (the two counts together).  The memo cache
+    starts cold at every :meth:`FusedLoop.run` call (it is not part of the
+    state).
     """
     from ..streaming.batchsim import STATIONARY_K_CAP, composed_wait, window_step_fn
 
@@ -524,15 +776,22 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     j_cap = min(k_hi_res, max(int(params.k_max.max()), 1))
     decide_core = _make_decide_core(n, k_hi_res, PAUSE_SECONDS, fused=fused, j_cap=j_cap)
     window = window_step_fn()
-    # The largest allocation the decide can apply, a host number: in
+    compact_cfg = None
+    if compact:
+        compact_cfg = compact if isinstance(compact, CompactionConfig) else CompactionConfig()
+        ladder = _resolve_ladder(compact_cfg, b)
+        decide_c = _make_compact_decide(decide_core, b, ladder)
+    # The largest allocation the loop can apply, a host number: in
     # _make_decide_core (and kernels/decide_fused/ref.py) a lane takes only
     # candidates with `idx < k_hi`, so k4 = k_start + take <= k_hi, but for a
     # lane without a finite table row (`k_start = k_hi + 1`, take 0); and
     # `apply_mask` needs `feasible4`, i.e. `floor_total <= k_max`, so an
     # applied k4 also fits its scenario's k_max.  Otherwise `k_next = k_cur`.
-    # So every tick's k stays <= max(k_apply, k0.max()), and gang lanes
-    # serve with k_srv <= 1: stationary_wait's Erlang-B table needs no rows
-    # past that (nor past the cap, where the JAX loop stops too).
+    # A committed MPC plan is built the same way from the same k_hi and
+    # needs `floor_total <= k_max` too.  So every tick's k stays <=
+    # max(k_apply, k0.max()), and gang lanes serve with k_srv <= 1:
+    # stationary_wait's Erlang-B table needs no rows past that (nor past
+    # the cap, where the JAX loop stops too).
     k_apply = max(k_hi_res, min(k_hi_res + 1, int(params.k_max.max())))
     made = [None, 0]  # the k of the newest state this loop made, its bound
 
@@ -574,13 +833,55 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     t_max = f(np.nan_to_num(params.t_max, nan=np.inf))
     inf = float("inf")
 
+    if proactive is not None:
+        from ..forecast.mpc import forecast_init_state_torch, forecast_step_torch, mpc_plan_torch
+        from ..kernels.decide_fused import ops as fused_ops
+
+        def mpc_alloc_of(mu_eff_x, group_x, alpha_x, active_x):
+            """The MPC's candidate allocator through the fused decide pass:
+            the planner's budgets are absolute totals clipped to [floor,
+            k_max], so the pass's own budget ``k_max - floor`` from ``k_cur
+            = 0`` is the planner's extra and the takes are the top-R
+            route's.  The budget stays <= j_cap, so the kernel's window of
+            j_cap cells past the floor holds every take."""
+            def alloc(lam_m, budgets_m):
+                bx, m = active_x.shape[0], lam_m.shape[0]
+
+                def rep(x):
+                    return x[:, None, :].expand(bx, m // bx, x.shape[-1]).reshape(m, x.shape[-1])
+
+                k4, _, _, _ = fused_ops.batch_decide(
+                    lam_m.contiguous(), rep(mu_eff_x), group=rep(group_x), alpha=rep(alpha_x),
+                    active=rep(active_x),
+                    k_cur=torch.zeros(lam_m.shape, dtype=torch.int32, device=lam_m.device),
+                    k_max=budgets_m.to(torch.int32), k_hi=k_hi_res, j_cap=j_cap,
+                )
+                return k4
+
+            return alloc
+
+        def plan(g, q1, k, lam_pred):
+            """The planner over lanes ``g`` (all lanes when None)."""
+            def sel(x):
+                return x if g is None else x[g]
+
+            alloc = None
+            if fused:
+                alloc = mpc_alloc_of(sel(mu_eff), sel(group), sel(alpha), sel(active))
+            return mpc_plan_torch(
+                sel(lam_pred), sel(q1), sel(k), mu=sel(mu), group=sel(st["group"]),
+                alpha=sel(alpha), speed=sel(speed), active=sel(active), src_mask=sel(st["src"]),
+                cap_queue=sel(cap_queue), t_max=sel(t_max), k_max=sel(st["k_max"]),
+                span=span, cfg=proactive, k_hi=k_hi_res, alloc=alloc,
+            )
+
     def capacity_of(k):
         kf = torch.clamp_min(k.to(dtype), 0.0)
         eff = 1.0 / (1.0 + alpha * (kf - 1.0))
         spd = mu * speed
         return torch.where(group, spd * kf * eff, spd * kf)
 
-    def tick_fn(state: ControllerState, t_idx: int, k_bound: int):
+    def tick_fn(state: ControllerState, t_idx: int, k_bound: int, dcache):
         q, served_prev, k, acc = state.q, state.served_prev, state.k, state.acc
         cap_serve_dt = capacity_of(k) * dt
         (q1, served_prev1, offered, _served, dropped, ext_adm, _ext_off, q_int, q_max,
@@ -603,15 +904,63 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
         sojourn = torch.where(
             lam0 > 0, contrib.sum(dim=-1) / torch.clamp_min(lam0, 1e-300), float("nan")
         )
-        code, k_next, et_cur, et_target, applied = decide_core(
-            st, lam_hat, mu, drop_hat, lam0, k
-        )
+        fstate = state.fstate
+        if proactive is not None:
+            # The forecast plane, and the trigger and completeness the
+            # commit gate needs (the decide's own formulas), ahead of the
+            # decide so that one host read gives both rungs under compact.
+            fstate, lam_pred, conf = forecast_step_torch(fstate, lam_hat, active, proactive)
+            hot = _overloaded(lam_hat, mu_eff, drop_hat, k.to(torch.int32), group, alpha,
+                              active).any(dim=-1)
+            complete = (
+                torch.where(active, torch.isfinite(lam_hat) & torch.isfinite(mu), True)
+                .all(dim=-1)
+                & torch.isfinite(lam0)
+            )
+            # A plan is committed only where `use` below is open, a subset
+            # of this mask: pricing only these lanes is exact.
+            eligible = conf & complete & ~hot & torch.isfinite(t_max)
+        if compact_cfg is not None:
+            k_in = k.to(torch.int32)
+            repriced = decide_c.scan(st, lam_hat, mu, drop_hat, lam0, k_in, dcache)
+            marks = [repriced] if proactive is None else [repriced, eligible]
+            # The tick's one device-to-host read: the rungs' counts.
+            counts = torch.stack([m.sum() for m in marks]).tolist()
+            (code, k_next, et_cur, et_target, applied), repriced, dcache = decide_c(
+                st, lam_hat, mu, drop_hat, lam0, k_in, dcache, repriced=repriced,
+                count=counts[0])
+        else:
+            code, k_next, et_cur, et_target, applied = decide_core(
+                st, lam_hat, mu, drop_hat, lam0, k
+            )
+        if proactive is not None:
+            if compact_cfg is not None:
+                inf_l = torch.full((b,), inf, dtype=dtype, device=dev)
+                k_plan, any_ok, et_hold, et_plan = _bucketed(
+                    ladder, b, eligible, counts[1], lambda g: plan(g, q1, k, lam_pred)[:4],
+                    (torch.where(active, k, 0), torch.zeros(b, dtype=torch.bool, device=dev),
+                     inf_l, inf_l),
+                )
+            else:
+                k_plan, any_ok, et_hold, et_plan, _need = plan(None, q1, k, lam_pred)
+            use = conf & any_ok & complete & ~hot & torch.isfinite(t_max)
+            changed = use & ((k_plan != k) & active).any(dim=-1)
+            k_next = torch.where(use[:, None], torch.where(active, k_plan, k), k_next)
+            code = torch.where(use, changed.to(torch.int32) * _CODE["proactive"], code)
+            applied = torch.where(use, changed, applied)
+            et_cur = torch.where(use, et_hold, et_cur)
+            et_target = torch.where(use, et_plan, et_target)
         for a, w in zip(acc[:6], (w_off, w_srv, w_drop, w_ea, w_eo, w_qi)):
             a.add_(w)
         torch.maximum(acc[6], q_max, out=acc[6])
         new_state = ControllerState(q=q1, served_prev=served_prev1, k=k_next, acc=acc,
-                                    tick=state.tick + 1)
-        return new_state, (code, k_next, sojourn, et_cur, et_target, applied)
+                                    tick=state.tick + 1, fstate=fstate)
+        ys = (code, k_next, sojourn, et_cur, et_target, applied)
+        if proactive is not None:
+            ys = ys + (use, conf)
+        if compact_cfg is not None:
+            ys = ys + (repriced,) + (() if proactive is None else (eligible,))
+        return new_state, ys, dcache
 
     def run_fn(state: ControllerState, ticks: int):
         tick0 = state.tick
@@ -619,14 +968,16 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
             k_bound = made[1]
         else:  # a state this loop did not make: one host read of its k
             k_bound = bound_of(int(state.k.max()) if state.k.numel() else 0)
+        # The memo starts cold every run: it is not part of the state.
+        dcache = None if compact_cfg is None else init_decide_cache(b, n, dtype=dtype,
+                                                                    device=dev)
         ys = []
         for t_idx in range(tick0, tick0 + ticks):
-            state, y = tick_fn(state, t_idx, k_bound)
+            state, y, dcache = tick_fn(state, t_idx, k_bound, dcache)
             ys.append(y)
         record(state, k_bound)
-        codes, k_hist, sojourns, et_cur, et_target, applied = (
-            torch.stack(col) for col in zip(*ys)
-        )
+        cols = [torch.stack(col) for col in zip(*ys)]
+        codes, k_hist, sojourns, et_cur, et_target, applied = cols[:6]
         warm_flags = torch.as_tensor(tick_warm[tick0:tick0 + ticks], device=dev)
         miss = ((sojourns > t_max[None, :]) & warm_flags[:, None]).sum(dim=0)
         acc = state.acc
@@ -639,11 +990,19 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
             "ext_admitted": acc[3], "ext_offered": acc[4],
             "q_int": acc[5], "q_max": acc[6],
         }
+        if proactive is not None:
+            out["mpc_used"], out["confident"] = cols[6], cols[7]
+        if compact_cfg is not None:
+            out["repriced"] = cols[8 if proactive is not None else 6]
+            if proactive is not None:
+                out["eligible"] = cols[9]
         return state, out
 
     def init_fn(k0) -> ControllerState:
         k_top = int(np.max(np.asarray(k0), initial=0))
-        return record(init_state(k0, device=dev, dtype=dtype), bound_of(k_top))
+        fstate = () if proactive is None else forecast_init_state_torch(
+            b, n, proactive, dtype=dtype, device=dev)
+        return record(init_state(k0, device=dev, dtype=dtype, fstate=fstate), bound_of(k_top))
 
     return FusedLoop(n_ticks, init_fn, run_fn), n_ticks
 
@@ -987,7 +1346,8 @@ def tick_batch(
     ensure: Sequence[Callable[[int], int] | None] | None = None,
     cost_models: Sequence[RebalanceCostModel | None] | None = None,
     proactive=None,
-    compact_state=None,
+    q_backlog: np.ndarray | None = None,
+    compact_state: TwinCompactionState | None = None,
 ) -> BatchDecision:
     """One control tick for the whole batch (the float64 numpy twin).
 
@@ -1000,14 +1360,21 @@ def tick_batch(
     ``ensure[b]`` is scenario b's lease hook (target -> new k_max),
     ``cost_models[b]`` its cost model.
 
-    ``proactive=`` (the forecast/MPC plane) and ``compact_state=`` (the
-    sparse decide's replay cache) raise ``NotImplementedError`` naming
-    their ROADMAP items.
+    ``proactive`` (a :class:`~repro_torch.forecast.mpc.ProactiveController`)
+    switches on the forecast/MPC plane: the predictors advance every tick,
+    and scenarios whose forecast passes the confidence gate, whose snapshot
+    is complete, that are not overloaded and have a T_max commit the MPC
+    plan instead of the reactive decide; with lease hooks, the leases
+    follow the plan's demand (one re-plan when one moves).  ``q_backlog [B,
+    N]`` seeds the planner's rollout (0 without it).
+
+    ``compact_state`` (a caller-owned :class:`TwinCompactionState`) replays
+    the cached row of a lane whose decide inputs are bitwise unchanged and
+    that is not hot, has no lease hook or custom cost model; with
+    ``proactive`` the planner prices only the commit-eligible lanes.  The
+    decisions are the same either way; the ``need`` diagnostic is 0 on
+    unpriced lanes.
     """
-    if proactive is not None:
-        raise NotImplementedError(PROACTIVE_NOT_PORTED)
-    if compact_state is not None:
-        raise NotImplementedError(COMPACTION_NOT_PORTED)
     b, n = static.batch, static.n
     k_current = np.asarray(k_current, dtype=np.int64)
     mu_eff = meas.mu_hat * static.speed
@@ -1020,8 +1387,65 @@ def tick_batch(
         capped = capped_mask_batch(overloaded, static.base_routing, static.active)
     complete = meas.complete(static.active)
 
+    use = np.zeros(b, dtype=bool)
+    k_plan = et_hold = et_plan = need_mpc = None
+    if proactive is not None:
+        from ..forecast.mpc import forecast_step, mpc_plan, mpc_plan_compact
+
+        t_arr = np.nan_to_num(params.t_max, nan=np.inf)
+        k_hi = int(max(params.k_max.max(), k_current.max(), 1))
+        q0 = (np.zeros((b, n)) if q_backlog is None
+              else np.asarray(q_backlog, dtype=np.float64))
+        proactive.state, lam_pred, conf = forecast_step(
+            proactive.state, meas.lam_hat, static.active, proactive.cfg
+        )
+        plan_kw = dict(
+            mu=np.asarray(meas.mu_hat, dtype=np.float64),
+            group=static.group, alpha=static.alpha, speed=static.speed,
+            active=static.active, src_mask=_source_mask(static),
+            cap_queue=proactive.cap_queue, t_max=t_arr,
+            span=proactive.span, cfg=proactive.cfg, k_hi=k_hi,
+        )
+        # A plan can be committed only where the gate is open, the
+        # snapshot complete, the trigger quiet and T_max real: under
+        # compaction the planner prices exactly that set.
+        eligible = conf & complete & ~hot & np.isfinite(t_arr)
+
+        def _plan(k_max_arr):
+            if compact_state is None:
+                return mpc_plan(lam_pred, q0, k_current, k_max=k_max_arr, **plan_kw)
+            return mpc_plan_compact(eligible, lam_pred, q0, k_current, k_max=k_max_arr,
+                                    **plan_kw)
+
+        k_maxes = params.k_max.astype(np.int64).copy()
+        k_plan, any_ok, et_hold, et_plan, need_mpc = _plan(k_maxes)
+        use = conf & any_ok & complete & ~hot & np.isfinite(t_arr)
+        # Leases grow toward the plan's demand and are released (with
+        # hysteresis) when it shrinks; one re-plan if any moved.
+        if ensure is not None:
+            hyst = proactive.cfg.scale_in_hysteresis
+            moved = False
+            for bi in range(b):
+                hook = ensure[bi]
+                if hook is None or not use[bi]:
+                    continue
+                tgt, lease = int(need_mpc[bi]), int(k_maxes[bi])
+                if tgt > lease or tgt < hyst * lease:
+                    new_lease = int(hook(max(tgt, 1)))
+                    if new_lease != lease:
+                        k_maxes[bi] = new_lease
+                        moved = True
+            if moved:
+                k_plan, any_ok, et_hold, et_plan, need_mpc = _plan(k_maxes)
+                use = conf & any_ok & complete & ~hot & np.isfinite(t_arr)
+        proactive.mpc_used = use.copy()
+        proactive.confident = conf.copy()
+        proactive.need = np.asarray(need_mpc).copy()
+
     rows: list[RowDecision] = []
     errors: list = [None] * b
+    if compact_state is not None:
+        compact_state.replayed[:] = False
     for bi in range(b):
         ni = int(static.n_ops[bi])
         k_row = k_current[bi, :ni]
@@ -1033,11 +1457,44 @@ def tick_batch(
                 None, "padded lane", applied=False,
             ))
             continue
+        if use[bi]:
+            k_new = np.asarray(k_plan[bi, :ni], dtype=np.int64)
+            changed = bool((k_new != k_row).any())
+            rows.append(RowDecision(
+                "proactive" if changed else "none",
+                k_new.copy() if changed else k_row.copy(),
+                k_new, int(k_maxes[bi]), float(et_hold[bi]), float(et_plan[bi]),
+                int(need_mpc[bi]), None,
+                "MPC plan committed ahead of trigger" if changed else "proactive hold",
+                applied=changed,
+            ))
+            continue
         if not complete[bi]:
             rows.append(RowDecision(
                 "none", k_row.copy(), None, k_max, float("nan"), None, None,
                 None, "insufficient measurements", applied=False,
             ))
+            continue
+        # The sparse decide's replay: hot lanes always reprice; hooked and
+        # custom-cost lanes never memoize.
+        memo = (
+            compact_state is not None
+            and (ensure is None or ensure[bi] is None)
+            and (cost_models is None or cost_models[bi] is None)
+        )
+        lam_row = np.asarray(meas.lam_hat[bi, :ni], dtype=np.float64)
+        mu_row = np.asarray(meas.mu_hat[bi, :ni], dtype=np.float64)
+        drop_row = np.asarray(meas.drop_hat[bi, :ni], dtype=np.float64)
+        lam0_sc = float(meas.lam0_hat[bi])
+        if (
+            memo
+            and not overloaded[bi, :ni].any()
+            and compact_state.hit(bi, lam_row, mu_row, drop_row, lam0_sc, k_row, k_max)
+        ):
+            cached = compact_state.rows[bi]
+            rows.append(replace(cached, k_next=cached.k_next.copy()))
+            errors[bi] = compact_state.errors[bi]
+            compact_state.replayed[bi] = True
             continue
         names = static.names[bi]
         scaling = ["group" if g else "replica" for g in static.group[bi, :ni]]
@@ -1078,4 +1535,7 @@ def tick_batch(
                 None, None, str(e), applied=False,
             )
         rows.append(row)
+        if memo and not overloaded[bi, :ni].any():
+            compact_state.remember(bi, lam_row, mu_row, drop_row, lam0_sc, k_row.copy(),
+                                   k_max, row, errors[bi])
     return BatchDecision(rows, errors)

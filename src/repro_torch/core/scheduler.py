@@ -27,7 +27,10 @@ Overload is a defined path: when the measured utilisation
 is rebuilt from offered-load rates and the action is ``"overloaded"``,
 which bypasses the cost/benefit gate and the scale-in hysteresis.
 ``speed_factors`` scale the effective service rates of heterogeneous
-machine classes.  The forecast/MPC mode (``proactive=``) is not ported.
+machine classes.  ``proactive=`` (True or an
+:class:`~repro_torch.forecast.mpc.MPCConfig`) runs the forecast/MPC plane as
+one B = 1 float64 lane of the batched proactive tick: a confident, quiet,
+T_max-bound tick commits the plan ahead of the trigger (``"proactive"``).
 """
 
 from __future__ import annotations
@@ -49,8 +52,6 @@ from .rebalance import ExecutableCache, RebalanceCostModel, RebalancePlan
 logger = logging.getLogger(__name__)
 
 __all__ = ["SchedulerConfig", "SchedulerDecision", "DRSScheduler", "StragglerDetector"]
-
-PROACTIVE_NOT_PORTED = ctl.PROACTIVE_NOT_PORTED
 
 
 @dataclass(frozen=True)
@@ -79,6 +80,8 @@ class SchedulerDecision:
     #   immediate negotiator scale-out, no hysteresis / cost-benefit gate)
     # | "rebalance_hint" (no model-driven change, but the StragglerDetector
     #   flagged slow instances -- advisory)
+    # | "proactive" (the forecast/MPC plane committed an allocation ahead
+    #   of any trigger; only with a `proactive=` scheduler)
     action: str
     k_current: np.ndarray  # allocation in force after the tick
     k_target: np.ndarray | None
@@ -128,8 +131,6 @@ class DRSScheduler:
         straggler_detector: "StragglerDetector | None" = None,
         proactive=None,
     ):
-        if proactive is not None:
-            raise NotImplementedError(PROACTIVE_NOT_PORTED)
         self.names = list(operator_names)
         self.base_routing = np.asarray(base_routing, dtype=np.float64)
         self.k_current = np.asarray(k_current, dtype=np.int64).copy()
@@ -155,6 +156,17 @@ class DRSScheduler:
             )
         self._group = np.array([s == "group" for s in self.scaling], dtype=bool)
         self._alpha = np.asarray(self.group_alpha, dtype=np.float64)
+        # The forecast/MPC plane: one B = 1 lane of the batched proactive
+        # tick; the live path has no backlog probe, so the rollout starts
+        # from an empty queue.
+        self._proactive = None
+        if proactive is not None:
+            from ..forecast.mpc import MPCConfig, ProactiveController
+
+            cfg = MPCConfig() if proactive is True else proactive
+            self._proactive = ProactiveController.create(
+                1, len(self.names), cfg, span=config.tick_interval
+            )
         self.history: list[SchedulerDecision] = []
         self.rebalance_count = 0
 
@@ -233,8 +245,79 @@ class DRSScheduler:
             self._emit(d)
             return d
         overloaded = self.overloaded_mask(snap)
+        if self._proactive is not None:
+            d = self._tick_proactive(snap, now, overloaded)
+            if d is not None:
+                return d
         top = self.topology_from(snap, overloaded)
         return self.decide(top, snap, now, overloaded=overloaded)
+
+    def _tick_proactive(
+        self, snap: MeasurementSnapshot, now: float, overloaded: np.ndarray
+    ) -> SchedulerDecision | None:
+        """One proactive tick: advance the predictors on this (complete)
+        snapshot and commit the MPC plan when the confidence gate is open,
+        the trigger is quiet and some candidate meets T_max.  ``None``
+        falls back to the reactive decide."""
+        from ..forecast.mpc import forecast_step, mpc_plan
+
+        pc = self._proactive
+        n = len(self.names)
+        active = np.ones((1, n), dtype=bool)
+        pc.state, lam_pred, conf = forecast_step(
+            pc.state, np.asarray(snap.lam_hat, dtype=np.float64)[None], active, pc.cfg,
+        )
+        pc.confident = conf.copy()
+        pc.mpc_used = np.zeros(1, dtype=bool)
+        if self.config.t_max is None or overloaded.any() or not conf[0]:
+            return None
+        in_deg = self.base_routing.sum(axis=0)
+        src = in_deg == 0
+        if not src.any():
+            src[0] = True
+        speed = np.ones(n) if self.speed_factors is None else self.speed_factors
+        k_max = self._k_max()
+        plan_kw = dict(
+            mu=np.asarray(snap.mu_hat, dtype=np.float64)[None],
+            group=self._group[None], alpha=self._alpha[None],
+            speed=np.asarray(speed, dtype=np.float64)[None], active=active,
+            src_mask=src[None], cap_queue=pc.cap_queue,
+            t_max=np.array([float(self.config.t_max)]), span=pc.span, cfg=pc.cfg,
+        )
+        q0 = np.zeros((1, n))
+        k_cur = self.k_current[None]
+        k_hi = int(max(k_max, self.k_current.max(), 1))
+        k_plan, any_ok, et_hold, et_plan, need = mpc_plan(
+            lam_pred, q0, k_cur, k_max=np.array([k_max]), k_hi=k_hi, **plan_kw
+        )
+        pc.need = np.asarray(need).copy()
+        if self.negotiator is not None:
+            tgt = int(need[0])
+            if tgt > k_max or tgt < pc.cfg.scale_in_hysteresis * k_max:
+                self.negotiator.ensure(max(tgt, 1))
+                new_k_max = self._k_max()
+                if new_k_max != k_max:
+                    k_max = new_k_max
+                    k_hi = int(max(k_max, self.k_current.max(), 1))
+                    k_plan, any_ok, et_hold, et_plan, need = mpc_plan(
+                        lam_pred, q0, k_cur, k_max=np.array([k_max]), k_hi=k_hi, **plan_kw
+                    )
+                    pc.need = np.asarray(need).copy()
+        if not any_ok[0]:
+            return None  # no candidate meets T_max: reactive fallback
+        pc.mpc_used = np.ones(1, dtype=bool)
+        k_new = np.asarray(k_plan[0], dtype=np.int64)
+        changed = bool((k_new != self.k_current).any())
+        if changed:
+            self.k_current = k_new.copy()
+            self.rebalance_count += 1
+        d = SchedulerDecision(
+            now, "proactive" if changed else "none", self.k_current.copy(), k_new, k_max,
+            float(et_hold[0]), float(et_plan[0]), snap.sojourn_hat,
+            reason="MPC plan committed ahead of trigger" if changed else "proactive hold",
+        )
+        self._emit(d)
+        return d
 
     def _k_max(self) -> int:
         if self.config.k_max is not None:

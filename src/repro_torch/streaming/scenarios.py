@@ -507,41 +507,51 @@ def control_trace(
     scenarios: Sequence[Scenario],
     *,
     tick_interval: float = 10.0,
+    proactive=None,
     backend: str = "torch",
     fused_decide: bool = False,
+    compact=None,
     device=None,
     dtype=None,
 ) -> dict:
     """JSON-able decision trace of the control loop over ``scenarios`` (the
     golden-trace schema of ``repro.streaming.scenarios.control_trace``): per
     scenario the action sequence, the allocation in force after every tick
-    and the per-tick trajectory.
+    and the per-tick trajectory (with ``mpc_used`` / ``confident`` when
+    ``proactive``, True or an :class:`~repro_torch.forecast.mpc.MPCConfig`).
 
     ``backend="torch"`` (the default) runs on ``device`` (default: the CUDA
     device) in ``dtype``: the fused loop when the scenarios allow it
     (static budgets, a horizon divisible by the tick), else the
     window-at-a-time loop over ``BatchQueueSim``'s torch window.
-    ``backend="numpy"`` is the reference's float64 twin, on the host."""
+    ``backend="numpy"`` is the reference's float64 twin, on the host.
+    ``compact`` (True or a
+    :class:`~repro_torch.core.controller.CompactionConfig`) runs the sparse
+    decide, which leaves every trace unchanged."""
     from ..api.session import ScenarioRunner
 
     reports = ScenarioRunner(
-        scenarios, tick_interval=tick_interval, backend=backend,
-        fused_decide=fused_decide, device=device, dtype=dtype,
+        scenarios, tick_interval=tick_interval, backend=backend, proactive=proactive,
+        fused_decide=fused_decide, compact=compact, device=device, dtype=dtype,
     ).run()
 
     def _traj(tr):
         if tr is None:
             return None
-        return {
+        out = {
             "t": [round(float(t), 9) for t in tr["t"]],
             "k_total": list(tr["k_total"]),
             "miss": [int(m) for m in tr["miss"]],
             "warm": [int(w) for w in tr["warm"]],
         }
+        if "mpc_used" in tr:
+            out["mpc_used"] = [int(u) for u in tr["mpc_used"]]
+            out["confident"] = [int(c) for c in tr["confident"]]
+        return out
 
     return {
         "tick_interval": tick_interval,
-        "proactive": False,
+        "proactive": proactive is not None,
         "scenarios": {
             r.name: {
                 "actions": list(r.actions),

@@ -38,6 +38,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.models.ssm, repro_torch.configs.rwkv6_1_6b\n"
         "import repro_torch.configs.zamba2_7b\n"
         "import repro_torch.streaming.des, repro_torch.serving.router\n"
+        "import repro_torch.forecast, repro_torch.distributed\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

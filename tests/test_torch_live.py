@@ -289,8 +289,6 @@ def test_session_refuses_the_unported_backends_and_modes():
     # The DES is ported; it refuses the live protocol, as the reference's does.
     with pytest.raises(GraphValidationError, match="batch-simulated"):
         DRSSession.bind(graph, "des").start({"a": 1, "b": 1})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        graph.bind("engine", device="cpu", proactive=True)
     with pytest.raises(GraphValidationError, match="compute fn"):
         AppGraph.chain([("a", 5.0)], 1.0).bind("engine", device="cpu")
 

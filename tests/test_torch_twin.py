@@ -1,6 +1,7 @@
 """The port's window-at-a-time control loop against the JAX package: the
 float64 twin (``BatchQueueSim(backend="numpy")`` + ``tick_batch``) replays
-the four non-proactive goldens and the negotiated scenario matrix bit for
+the four non-proactive goldens (all five, compacted too, in
+``test_torch_compaction.py``) and the negotiated scenario matrix bit for
 bit; ``tick_batch`` on a converted ``MeasurementBatch`` gives the
 reference's rows; the torch window of ``BatchQueueSim`` matches the JAX
 window to 2e-6 in float32 and the window kernel's order bitwise; the
@@ -212,18 +213,6 @@ def test_tick_batch_on_a_converted_measurement_batch_gives_the_reference_rows():
     assert [None if e is None else (type(e).__name__, str(e)) for e in got.errors] == \
         [None if e is None else (type(e).__name__, str(e)) for e in want.errors]
     assert [n.k_max for n in tr.negotiators if n] == [n.k_max for n in jr.negotiators if n]
-
-
-def test_proactive_and_compaction_raise_naming_their_roadmap_items():
-    _ref, port = _zoo(4, seed=1, horizon=10.0, warmup=2.0)
-    runner = ScenarioRunner(port, tick_interval=5.0, backend="numpy")
-    w = runner.sim.step_window(runner.k, runner._steps_per_tick)
-    meas, _ = runner._window_measurement(w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tctl.tick_batch(meas, runner.k, runner.static, runner._params(), proactive=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tctl.tick_batch(meas, runner.k, runner.static, runner._params(),
-                        compact_state=object())
 
 
 # --------------------------------------------------------------------------- #
