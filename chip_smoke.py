@@ -91,11 +91,43 @@ Phases, each printing one JSON line:
    the planner's own inputs (3 x 4096 candidate rows, ``k_cur = 0``;
    B (H+1) N loads), bitwise against their plain versions, timed beside
    their bounds;
+7c. ``soak``: the checkpointed soak (``repro_torch.streaming.soak``) on
+   the card in float32 -- the full day of ``SoakConfig()`` (720 ticks of
+   240 steps, B = 1, a crash and restore every 96 ticks) reactive with the
+   two-pass decide and proactive with the fused decide, the 2 h day
+   (``SoakConfig.smoke()``) with ``compact`` off and on, and fleet-4096
+   (6 ticks) saved and restored every 2 ticks with ``compact`` on.  Hard:
+   each stitched run equals its straight run bitwise outside
+   ``DIAGNOSTIC_KEYS``, the restores counted, each straight run's launches
+   exactly :func:`soak_launch_rule`, the 2 h day card vs CPU 0 ticks of
+   codes / k.  Reported: wall ms per tick (straight and stitched),
+   launches per tick, ``save_async`` / wait / restore / rebuild / save ms,
+   ``soak_report(...).summary()``, and device ms and launches per tick of
+   one profiled 2 h run per mode (``soak_profile``);
+7d. ``fleet_plan``: ``FleetPlanner.plan_batched`` for the 256 distinct
+   fleet scenarios as tenants (mean topology, t_max; 1,298 operator rows,
+   floors 3,011) at a pool of floors + 2,048: one ``gain_topr`` launch on
+   the block route over [1, 1298, 2048].  Hard: takes equal to the plain
+   float32 plan's, the kernel bitwise its plain version on the tile,
+   totals within the pools, a pool of 3,000 overloaded as the scalar plan
+   says.  Reported: operators that differ from the float64 scalar plan,
+   plan ms, and the kernel call's ms, device us and bound;
+7e. ``fleet_live``: a ``FleetSession(solver="batched", k_max=16)`` over
+   two engine tenants on the card: VLD at ``vld_live``'s width and FPD at
+   32 items, patterns up to 3, a 50,000-transaction window and threshold
+   3,125, the window filled through ``apply`` first (timed); ~4.5 s of
+   frames and transactions with 3 fleet ticks.  Hard: every frame
+   completes with one ``match_count`` launch, every FPD event completes,
+   no operator fails, FPD's incremental counts equal one
+   ``support_counts`` over the final window, every plan within the pool,
+   one ``gain_topr`` launch per batched plan (warp route);
 8. the per-kernel JSON line (``launches``: the loop kernels summed over
    the four main-path runs, each of which must have launched (``erlang_c``
    1 / 2 times per fused / two-pass tick), plus ``twin_loop``'s
-   ``queue_window`` and ``erlang_c`` launches and the eight
-   ``proactive_loop`` runs' -- but
+   ``queue_window`` and ``erlang_c`` launches, the eight
+   ``proactive_loop`` runs', the ``soak`` runs' (straight and stitched),
+   ``fleet_plan``'s and ``fleet_live``'s ``gain_topr``, and
+   ``fleet_live``'s ``match_count`` -- but
    ``queue_step``, whose steps the window kernel runs, and which is on no
    path; the two ``l2_match`` kernels from the ``vld_live`` run,
    where ``match_count`` runs once per frame and ``pairwise_sq_l2`` --
@@ -1433,6 +1465,359 @@ def proactive_loop_phase(dev):
 
 
 # --------------------------------------------------------------------------- #
+# Phases 7c-7e: the checkpointed soak, the fleet planner, the live fleet
+# --------------------------------------------------------------------------- #
+SOAK_EXACT_CPU = ("codes", "k")  # card vs CPU cells of the 2 h day
+FLEET_POOL_EXTRA = 2048  # fleet_plan: the pool is the floors + this
+FLEET_LOW_POOL = 3000  # fleet_plan: a pool below the floors (3,011)
+FPD_LIVE = dict(n_items=32, max_pattern_size=3, window=50_000, support_threshold=3_125)
+FLEET_LIVE_K_MAX = 16
+FLEET_LIVE_TICKS = 3
+FLEET_LIVE_INJECT_S = 1.5  # injection between two fleet ticks
+
+
+def soak_launch_rule(out, n_ticks, *, proactive, fused_decide, compact):
+    """:func:`loop_launch_rule` for a reactive or proactive run: a reactive
+    run has no planner launches."""
+    import numpy as np
+
+    if proactive:
+        return loop_launch_rule(out, n_ticks, fused_decide=fused_decide, compact=compact)
+    dec = int((out["repriced"].any(axis=1) if compact else np.ones(n_ticks, bool)).sum())
+    return {"queue_step": 0, "queue_window": n_ticks,
+            "erlang_c": n_ticks + (0 if fused_decide else dec),
+            "gain_topr": 0 if fused_decide else dec,
+            "decide_fused": dec if fused_decide else 0}
+
+
+def loop_profile(make_loop, n_ticks):
+    """Device ms, device launches (copies left out) and our kernels'
+    launches per tick of one more run of a loop under torch.profiler; the
+    loop and its tick-0 states are built outside the trace."""
+    import torch
+    from torch.autograd import DeviceType
+
+    loop, k0 = make_loop()
+    states = [loop.init(k0) for _ in range(PROFILE_ATTEMPTS)]
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        loop.run(states.pop())
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    events, profiled_s = profiled(run)
+    ev = [(e.key, e.self_device_time_total, e.count) for e in events
+          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    ours = {name: sum(c for k, _t, c in ev if any(s in k for s in symbols)) / n_ticks
+            for name, symbols in LOOP_SYMBOLS.items()}
+    return {"device_ms_per_tick": sum(t for _k, t, _c in ev) / 1e3 / n_ticks,
+            "launches_per_tick": sum(c for k, _t, c in ev
+                                     if not k.startswith(("Memcpy", "Memset"))) / n_ticks,
+            "port_kernels_per_tick": {k: v for k, v in ours.items() if v},
+            "profiled_wall_ms_per_tick": profiled_s * 1e3 / n_ticks}
+
+
+def soak_phase(dev):
+    """The checkpointed soak on the card (float32): the full day (720
+    ticks of 240 steps, a crash and restore every 96 ticks) reactive
+    (two-pass decide) and proactive (fused decide), the 2 h day with
+    ``compact`` off and on (bitwise, and card vs CPU 0 cells of codes / k),
+    and fleet-4096 saved and restored every 2 ticks with ``compact`` on.
+    Every stitched run must equal its straight run bitwise outside
+    ``DIAGNOSTIC_KEYS``; every straight run's launches must equal
+    :func:`soak_launch_rule`.  Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.kernels import KERNELS, LAUNCHES
+    from repro_torch.streaming import soak
+
+    launches = {}
+    scratch = pathlib.Path(tempfile.mkdtemp(prefix="soak_", dir=ROOT / "build"))
+
+    def counted(fn, *args, **kw):
+        LAUNCHES.clear()
+        out = fn(*args, **kw)
+        counts = {k: LAUNCHES[k] for k in KERNELS}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        return out, counts
+
+    def one(name, cfg, *, proactive=False, fused_decide=False, compact=None, scenarios=None,
+            tick_interval=None, cpu=False):
+        kw = dict(proactive=proactive, fused_decide=fused_decide, compact=compact,
+                  scenarios=scenarios, tick_interval=tick_interval)
+        t_straight, t_chk = {}, {}
+        ref, counts = counted(soak.run_straight, cfg, device=dev, timings=t_straight, **kw)
+        n_ticks = ref["codes"].shape[0]
+        want = soak_launch_rule(ref, n_ticks, proactive=proactive, fused_decide=fused_decide,
+                                compact=compact)
+        check(counts == want, f"soak {name}: straight-run launches {counts}, expected {want}")
+        directory = scratch / name
+        chk, chk_counts = counted(soak.run_checkpointed, cfg, directory, device=dev,
+                                  timings=t_chk, **kw)
+        shutil.rmtree(directory, ignore_errors=True)
+        try:
+            soak.assert_bit_identical(ref, chk)
+            identical = True
+        except AssertionError as exc:
+            identical = str(exc).splitlines()[0]
+        n_chunks = -(-n_ticks // cfg.checkpoint_every)
+        row = {"run": name, "B": int(ref["codes"].shape[1]), "ticks": n_ticks,
+               "proactive": proactive, "fused_decide": fused_decide,
+               "compact": bool(compact), "n_restores": chk["n_restores"],
+               "bit_identical": identical,
+               "straight_wall_ms_per_tick": t_straight["run"][0] / n_ticks,
+               "stitched_wall_ms_per_tick": sum(t_chk["run"]) / n_ticks,
+               "launches_per_tick": {k: v / n_ticks for k, v in counts.items() if v},
+               "stitched_launches": {k: v for k, v in chk_counts.items() if v},
+               "build_ms": t_straight["rebuild"][0],
+               "rebuild_ms": t_chk["rebuild"], "save_async_ms": t_chk["save_async"],
+               "wait_ms": t_chk["wait"], "restore_ms": t_chk["restore"],
+               "save_ms": t_chk["save"]}
+        if scenarios is None:
+            row["report"] = soak.soak_report(cfg, chk).summary()
+            row["report_straight"] = soak.soak_report(cfg, ref).summary()
+        if cpu:
+            host = soak.run_straight(cfg, device="cpu", **kw)
+            row["card_vs_cpu_differ"] = {
+                key: int((host[key] != ref[key]).reshape(n_ticks, -1).any(axis=-1).sum())
+                for key in SOAK_EXACT_CPU}
+        emit({"phase": "soak", **row})
+        check(identical is True, f"soak {name}: stitched run differs from straight: {identical}")
+        check(chk["n_restores"] == n_chunks - 1,
+              f"soak {name}: {chk['n_restores']} restores, expected {n_chunks - 1}")
+        check(np.isfinite(ref["q_final"]).all(), f"soak {name}: non-finite backlog")
+        if cpu:
+            check(not any(row["card_vs_cpu_differ"].values()),
+                  f"soak {name}: card and CPU differ in {row['card_vs_cpu_differ']} ticks")
+        return ref
+
+    try:
+        day = soak.SoakConfig()
+        one("day-reactive", day)
+        one("day-proactive-fused", day, proactive=True, fused_decide=True)
+        smoke = soak.SoakConfig.smoke()
+        for compact in (None, True):
+            one(f"2h{'-compact' if compact else ''}", smoke, compact=compact, cpu=True)
+        # Device time per tick: one more profiled run of the 2 h day per mode.
+        profiles = {}
+        for name, proactive, fd in (("reactive", False, False),
+                                    ("proactive-fused", True, True)):
+            def make_loop(proactive=proactive, fd=fd):
+                r, loop, _ = soak._runner_and_loop(smoke, proactive=proactive, compact=None,
+                                                   fused_decide=fd, device=dev, dtype=None)
+                return loop, r.k
+            profiles[name] = loop_profile(make_loop, smoke.n_ticks)
+        emit({"phase": "soak_profile", "config": "2h", "profiles": profiles,
+              "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
+        _distinct, fleet = fleet_scenarios()
+        one("fleet-4096-compact", soak.SoakConfig(checkpoint_every=2), compact=True,
+            scenarios=fleet, tick_interval=5.0)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+    return launches
+
+
+def fleet_tenants():
+    """The 256 distinct fleet scenarios as planner tenants: each its mean
+    topology and its t_max (102 have none); 1,298 operator rows."""
+    from repro_torch.core.planner import Tenant
+
+    distinct, _fleet = fleet_scenarios()
+    return [Tenant(s.name, topology=s.mean_topology(), t_max=s.t_max) for s in distinct]
+
+
+def fleet_plan_phase(dev):
+    """``FleetPlanner.plan_batched`` for 256 tenants on the card: the whole
+    fleet one scenario of ``gain_topr``'s block route ([1, 1298, 2048]
+    float32).  Hard: the plan equals the plain float32 version's (on the
+    CPU) take for take, one launch per plan, ``total <= k_max``, and a pool
+    below the floors comes back overloaded as the scalar plan does.
+    Information: operators whose takes differ from the float64 scalar
+    plan.  The kernel call is timed beside its plain version and its
+    bound.  Returns the phase's launches."""
+    import torch
+
+    from repro_torch.core.allocator import candidate_window
+    from repro_torch.core.planner import FleetPlanner
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.gain_topr import kernel as gk, ref as gr
+
+    tenants = fleet_tenants()
+    rows_n = sum(t.topology.n for t in tenants)
+    probe = FleetPlanner(tenants, 10 ** 9)
+    _res, ctx = probe._floors(None, None)
+    floors = ctx["needed_total"]
+    pool = floors + FLEET_POOL_EXTRA
+    planner = FleetPlanner(tenants, pool)
+    t0 = time.perf_counter()
+    scalar = planner.plan()
+    scalar_ms = (time.perf_counter() - t0) * 1e3
+    plain = planner.plan_batched(device="cpu")
+    planner.plan_batched(device=dev)  # CUDA context and library outside the count
+    torch.cuda.synchronize()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    card = planner.plan_batched(device=dev)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"gain_topr": LAUNCHES["gain_topr"]}
+    differ_plain = sum(int((card.k[n] != plain.k[n]).sum()) for n in card.k)
+    differ_scalar = sum(int((card.k[n] != scalar.k[n]).sum()) for n in card.k)
+
+    LAUNCHES.clear()
+    low_card = FleetPlanner(tenants, FLEET_LOW_POOL).plan_batched(device=dev)
+    launches["gain_topr"] += LAUNCHES["gain_topr"]
+    low_scalar = FleetPlanner(tenants, FLEET_LOW_POOL).plan()
+
+    # The kernel call alone, on the plan's own candidate tile.
+    resolved, ctx = planner._floors(None, None)
+    g, k_start, _ = planner._gain_rows(resolved, ctx["starts"], ctx["budget"])
+    cand = torch.as_tensor(candidate_window(g, k_start, ctx["budget"]), device=dev
+                           ).to(torch.float32)[None].contiguous()
+    budget = torch.tensor([ctx["budget"]], dtype=torch.int32, device=dev)
+    err = max_abs_err(gk.gain_topr(cand, budget), gr.gain_topr(cand, budget))
+    elems = cand.numel()
+    row = dict(B=1, N=rows_n, J=cand.shape[-1], tile_mb=4 * elems / 1e6, max_abs_err=err,
+               # ~60 ms a call on one block of an H100: few runs keep the phase short.
+               ms=median_ms(lambda: gk.gain_topr(cand, budget), runs=5, inner=2),
+               plain_ms=median_ms(lambda: gr.gain_topr(cand, budget), runs=5, inner=2),
+               device_us=device_us_per_call(lambda: gk.gain_topr(cand, budget),
+                                            LOOP_SYMBOLS["gain_topr"], calls=3),
+               bound=bound(4 * elems + 4 + 4 * rows_n, 34 * 2 * elems))
+    emit({"phase": "fleet_plan", "tenants": len(tenants), "operator_rows": rows_n,
+          "floors": floors, "pool": pool, "budget": ctx["budget"],
+          "total": card.total, "overloaded": card.overloaded, "unmet": len(card.unmet),
+          "takes_differ_from_plain": differ_plain,
+          "operators_differ_from_float64_scalar": differ_scalar,
+          "plan_batched_ms": card_ms, "scalar_plan_ms": scalar_ms,
+          "low_pool": {"k_max": FLEET_LOW_POOL, "overloaded": low_card.overloaded,
+                       "scalar_overloaded": low_scalar.overloaded, "total": low_card.total},
+          "launches": launches,
+          "gain_topr": {k: (v if k != "bound" else {"ms": v[0], "by": v[1]})
+                        for k, v in row.items()},
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
+    check(differ_plain == 0 and err == 0.0,
+          f"fleet_plan: the card's takes differ from the plain float32 version's in "
+          f"{differ_plain} operators (kernel vs plain max err {err})")
+    check(card.total <= pool and low_card.total <= FLEET_LOW_POOL,
+          f"fleet_plan: totals {card.total} / {low_card.total} past the pools")
+    check(low_card.overloaded and low_card.overloaded == low_scalar.overloaded
+          and not card.overloaded,
+          f"fleet_plan: overloaded flags {card.overloaded} / {low_card.overloaded}, "
+          f"scalar {low_scalar.overloaded}")
+    check(launches["gain_topr"] == 2, f"fleet_plan: {launches} for two batched plans")
+    return launches
+
+
+def fleet_live_phase(dev):
+    """A batched ``FleetSession`` over two live engine tenants on the card:
+    VLD at ``vld_live``'s width and FPD at the paper's window (32 items,
+    patterns up to 3, 50,000 transactions, threshold 3,125), its window
+    filled through ``apply`` first.  Hard: every VLD frame completes with
+    one ``match_count`` launch; FPD's incremental counts equal one
+    ``support_counts`` over the final window; every plan within the pool;
+    one ``gain_topr`` launch per batched plan.  Returns the phase's
+    launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.api import FleetSession, SchedulerConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.streaming.apps.fpd import (
+        FPDConfig, build_fpd_graph, random_transaction, support_counts,
+    )
+    from repro_torch.streaming.apps.vld import VLDConfig, build_vld_graph, logo_library, make_frame
+
+    vcfg = VLDConfig(**VLD_WIDTH)
+    lib = logo_library(vcfg)
+    fcfg = FPDConfig(**FPD_LIVE)
+    rng = np.random.default_rng(0)
+    vgraph, detections = build_vld_graph(vcfg, lib, fps=4.0, device=dev)
+    fgraph, state, reports = build_fpd_graph(fcfg, rate=4.0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    changes = 0
+    for _ in range(fcfg.window):
+        changes += len(state.apply(random_transaction(fcfg, rng), True))
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fleet = FleetSession(
+        {"vld": vgraph.bind("engine", config=SchedulerConfig(t_max=2.0), device=dev),
+         "fpd": fgraph.bind("engine", config=SchedulerConfig(t_max=4.0), device=dev)},
+        k_max=FLEET_LIVE_K_MAX, solver="batched", device=dev,
+    )
+    LAUNCHES.clear()
+    frames = events = 0
+    decisions = []
+    t_start = time.perf_counter()
+    try:
+        started = fleet.start()
+        for _ in range(FLEET_LIVE_TICKS):
+            t_end = time.perf_counter() + FLEET_LIVE_INJECT_S
+            while time.perf_counter() < t_end:
+                if fleet.sessions["vld"].inject(make_frame(vcfg, rng, lib,
+                                                           rng.random() < 0.4)) is not None:
+                    frames += 1
+                for _ in range(8):
+                    if fleet.sessions["fpd"].inject((random_transaction(fcfg, rng), True)
+                                                    ) is not None:
+                        events += 1
+                time.sleep(0.01)
+            decisions.append(fleet.tick())
+        drained = {name: s.drain(timeout=120.0) for name, s in fleet.sessions.items()}
+        elapsed = time.perf_counter() - t_start
+    finally:
+        fleet.stop()
+    counts = {k: LAUNCHES[k] for k in ("gain_topr", "match_count", "pairwise_sq_l2")}
+    plans = [d.plan for d in decisions if d.plan is not None]
+    n_plans = 1 + len(plans)  # start() plans once
+    window = torch.as_tensor(np.asarray(state.window, dtype=np.int64), device=dev)
+    recount = support_counts(state.patterns_dev, window).to(torch.int64)
+    counts_equal = bool(torch.equal(recount, state.counts))
+    failures = {name: {k: v for k, v in s.backend.engine.failures.items() if v}
+                for name, s in fleet.sessions.items()}
+    vld_done = len(fleet.sessions["vld"].completed_sojourns)
+    fpd_done = len(fleet.sessions["fpd"].completed_sojourns)
+    emit({"phase": "fleet_live", "k_max": FLEET_LIVE_K_MAX, "vld": VLD_WIDTH, "fpd": FPD_LIVE,
+          "start": started,
+          "decisions": [{"action": d.action, "reason": d.reason, "k": d.k,
+                         "overloaded_tenants": list(d.overloaded_tenants),
+                         "plan_total": None if d.plan is None else d.plan.total,
+                         "needed_total": None if d.plan is None else d.plan.needed_total}
+                        for d in decisions],
+          "allocations_final": fleet.allocations(),
+          "fpd_fill": {"events": fcfg.window, "seconds": fill_s,
+                       "detector_ms_per_event": fill_s * 1e3 / fcfg.window,
+                       "mfp_changes": changes},
+          "vld_frames": {"injected": frames, "completed": vld_done,
+                         "detection_rows": len(detections), "per_s": vld_done / elapsed},
+          "fpd_events": {"injected": events, "completed": fpd_done, "per_s": fpd_done / elapsed,
+                         "reports": len(reports), "mfps": int(state.mfp_np.sum())},
+          "fpd_counts_equal_recount": counts_equal, "drained": drained, "failures": failures,
+          "seconds": elapsed, "plans": n_plans, "launches": counts,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
+    check(all(drained.values()) and not any(failures.values()),
+          f"fleet_live: tenants not drained ({drained}) or operators failed ({failures})")
+    check(vld_done == frames and len(detections) == frames
+          and counts["match_count"] == frames,
+          f"fleet_live: {vld_done} of {frames} frames completed, {len(detections)} detection "
+          f"rows, {counts['match_count']} match_count launches")
+    check(fpd_done == events, f"fleet_live: {fpd_done} of {events} FPD events completed")
+    check(counts_equal, "fleet_live: FPD's incremental counts differ from support_counts")
+    check(all(p.total <= p.k_max <= FLEET_LIVE_K_MAX for p in plans)
+          and sum(sum(v.values()) for v in fleet.allocations().values()) <= FLEET_LIVE_K_MAX,
+          "fleet_live: a plan or the allocation in force is past the pool")
+    check(counts["gain_topr"] == n_plans,
+          f"fleet_live: {counts['gain_topr']} gain_topr launches for {n_plans} batched plans")
+    return counts
+
+
+# --------------------------------------------------------------------------- #
 # Phases 9-13: LLM serving (llama3.2-1b, the dense family)
 # --------------------------------------------------------------------------- #
 LLM_ARCH = "llama3.2-1b"
@@ -2426,6 +2811,9 @@ def main() -> int:
         launches[k] += n
     for k, n in proactive_loop_phase(dev).items():
         launches[k] += n
+    for phase in (soak_phase, fleet_plan_phase, fleet_live_phase):
+        for k, n in phase(dev).items():
+            launches[k] += n
     llm_card_vs_cpu_phase(dev)
     serve_launches, prompts_per_s, params, cfg = llm_serve_phase(dev)
     dec_launches, tokens_per_s = llm_decode_32k_phase(dev, params, cfg)

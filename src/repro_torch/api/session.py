@@ -19,6 +19,10 @@
   :class:`~repro_torch.streaming.batchsim.BatchQueueSim` and the float64
   twin :func:`~repro_torch.core.controller.tick_batch`, with the
   negotiators' leases as hooks between windows.
+* :class:`FleetSession` schedules several sessions against one shared pool:
+  each tick stacks the tenants' measurements and solves the merged
+  Programs (4)/(6) (:class:`~repro_torch.core.planner.FleetPlanner`; with
+  ``solver="batched"`` one ``gain_topr`` launch on the card).
 
 Typical live use::
 
@@ -41,17 +45,18 @@ import numpy as np
 import torch
 
 from ..core import controller as ctl
-from ..core.allocator import AllocationResult, allocate
+from ..core.allocator import AllocationResult, InsufficientResourcesError, allocate
 from ..core.jackson import Topology
-from ..core.measurer import MeasurementBatch, Measurer
+from ..core.measurer import MeasurementBatch, Measurer, stack_snapshots
 from ..core.negotiator import Negotiator
+from ..core.planner import FleetPlan, FleetPlanner, Tenant
 from ..core.rebalance import ExecutableCache, RebalanceCostModel
 from ..core.scheduler import DRSScheduler, SchedulerConfig, SchedulerDecision
 from ..device import resolve_device
 from .graph import AppGraph, GraphValidationError
 
 __all__ = ["SchedulerConfig", "SchedulerDecision", "EngineBackend", "DESBackend",
-           "DRSSession", "ScenarioReport", "ScenarioRunner"]
+           "DRSSession", "FleetDecision", "FleetSession", "ScenarioReport", "ScenarioRunner"]
 
 
 def _group_effective_services(top: Topology, k_vec: np.ndarray):
@@ -436,6 +441,358 @@ class DRSSession:
         if isinstance(self.backend, DESBackend):
             return self.simulate(k, **kwargs)
         return self.start(k)
+
+
+# --------------------------------------------------------------------------- #
+# Fleet: several sessions against one shared pool
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class FleetDecision:
+    """One fleet control tick's outcome."""
+
+    t: float
+    # "none" | "rebalance" | "scale_in" | "overloaded" | "infeasible"
+    action: str
+    k_max: int
+    plan: FleetPlan | None
+    # tenant -> name-keyed allocation in force after the tick
+    k: dict
+    overloaded_tenants: tuple = ()
+    objective_current: float = float("inf")
+    reason: str = ""
+
+
+class FleetSession:
+    """Several :class:`DRSSession` tenants scheduled against ONE pool.
+
+    Every tick pulls each tenant's measurements, rebuilds each tenant's
+    model (with the scheduler's offered-load clamp where a tenant is
+    overloaded), and solves the merged Programs (4)/(6) with
+    :class:`~repro_torch.core.planner.FleetPlanner`; each tenant's ``T_max``
+    is its session's ``SchedulerConfig.t_max``.
+
+    Any tenant measuring ``rho >= 1``, or Program-(6) floors past the pool,
+    makes the tick ``"overloaded"``: the negotiator is asked for capacity at
+    once and the replan is applied with no improvement gate.  Model-only
+    tenants (never started: DES-bound sessions) feed the planner their
+    declared priors; their allocations are tracked, not applied.
+
+    ``solver="scalar"`` (the default, as in the reference) walks the merged
+    greedy on the host; ``solver="batched"`` selects it in one ``gain_topr``
+    launch (:meth:`FleetPlanner.plan_batched`) on ``device`` (default: the
+    CUDA device, raising when there is none) in ``dtype`` (default
+    float32).  ``mesh=`` (the sharded fleet reduction) is not ported yet.
+
+    Typical use::
+
+        fleet = FleetSession(
+            {"vld": vld_graph.bind("engine", config=SchedulerConfig(t_max=0.5)),
+             "fpd": fpd_graph.bind("engine", config=SchedulerConfig(t_max=2.0))},
+            k_max=64, solver="batched",
+        )
+        fleet.start()          # plans the pool split and starts each backend
+        ...inject per tenant...
+        fleet.tick()           # merged measure -> model -> replan -> apply
+    """
+
+    def __init__(
+        self,
+        sessions: Mapping[str, DRSSession],
+        *,
+        k_max: int | None = None,
+        negotiator: Negotiator | None = None,
+        objective: str = "fair",
+        min_improvement: float = 0.05,
+        headroom: float = 1.1,
+        scale_in_hysteresis: float = 0.8,
+        on_decision=None,
+        solver: str = "scalar",
+        mesh=None,
+        device=None,
+        dtype=None,
+    ):
+        if not sessions:
+            raise GraphValidationError("fleet needs at least one session")
+        if k_max is None and negotiator is None:
+            raise GraphValidationError("fleet needs k_max= and/or negotiator=")
+        if solver not in ("scalar", "batched"):
+            raise GraphValidationError(
+                f"unknown solver {solver!r}; expected 'scalar' or 'batched'"
+            )
+        if mesh is not None:
+            raise NotImplementedError(
+                "FleetSession(mesh=...) is not ported yet: ROADMAP Queue 1 item 10, "
+                "mesh sharding on torch.distributed")
+        self.sessions: dict[str, DRSSession] = dict(sessions)
+        self._static_k_max = k_max
+        self.negotiator = negotiator
+        self.objective = objective
+        self.min_improvement = min_improvement
+        self.headroom = headroom
+        self.scale_in_hysteresis = scale_in_hysteresis
+        self.on_decision = on_decision
+        self.solver = solver
+        self.device = resolve_device(device) if solver == "batched" else None
+        self.dtype = torch.float32 if dtype is None else dtype
+        self.history: list[FleetDecision] = []
+        # tenant -> index-ordered allocation in force
+        self._k: dict[str, np.ndarray] = {}
+
+    # ------------------------------------------------------------------ #
+    @property
+    def k_max(self) -> int:
+        if self.negotiator is not None:
+            k = self.negotiator.k_max
+            return max(k, self._static_k_max or 0)
+        return self._static_k_max
+
+    def tenants(self) -> list[Tenant]:
+        return [
+            Tenant(name=name, graph=s.graph, t_max=s.config.t_max)
+            for name, s in self.sessions.items()
+        ]
+
+    def planner(self) -> FleetPlanner:
+        return FleetPlanner(self.tenants(), self.k_max, objective=self.objective)
+
+    def plan(self, *, k_max: int | None = None) -> FleetPlan:
+        """Cross-tenant Programs (4)/(6) on the declared priors."""
+        return self._plan_with(self.planner(), k_max=k_max)
+
+    def _plan_with(self, planner: FleetPlanner, tops: dict | None = None, *,
+                   k_max: int | None = None) -> FleetPlan:
+        """Every plan goes through here, so the solver choice applies to
+        start and tick alike."""
+        if self.solver == "batched":
+            return planner.plan_batched(tops, k_max=k_max, device=self.device,
+                                        dtype=self.dtype)
+        return planner.plan(tops, k_max=k_max)
+
+    def allocations(self) -> dict[str, dict[str, int]]:
+        """tenant -> name-keyed allocation in force."""
+        return {
+            name: self.sessions[name].graph.k_dict(k) for name, k in self._k.items()
+        }
+
+    # ------------------------------------------------------------------ #
+    def start(self) -> dict[str, dict[str, int]]:
+        """Plan the pool split on priors and start every engine-backed
+        tenant under its share (model-only tenants are planned, not
+        started).  With a negotiator the first lease is taken here:
+        stability minima first, then the Program-(6) floors."""
+        try:
+            plan = self.plan()
+        except InsufficientResourcesError as e:
+            if self.negotiator is None:
+                raise
+            self.negotiator.ensure(int(np.ceil(e.needed * self.headroom)))
+            plan = self.plan()
+        if self.negotiator is not None and plan.needed_total > self.k_max:
+            self.negotiator.ensure(int(np.ceil(plan.needed_total * self.headroom)))
+            plan = self.plan()
+        for name, session in self.sessions.items():
+            k = plan.k[name]
+            self._k[name] = k.copy()
+            if isinstance(session.backend, EngineBackend):
+                session.start(k)
+            else:
+                # Arm the model side so tick() can track without a backend.
+                session.scheduler = session._build_scheduler(k.copy())
+        return self.allocations()
+
+    def stop(self) -> None:
+        for session in self.sessions.values():
+            if isinstance(session.backend, EngineBackend):
+                session.stop()
+
+    # ------------------------------------------------------------------ #
+    def _measured_topologies(self, now: float) -> tuple[dict, list[str]]:
+        """Per-tenant measured model rebuilds and the overloaded tenants.
+
+        The measurer pulls stay per tenant (live probes); the snapshots are
+        stacked into one :class:`~repro_torch.core.measurer.MeasurementBatch`
+        and the overload trigger and capped propagation run over the whole
+        fleet at once before the per-tenant offered-load clamp.  Tenants
+        without a complete snapshot (or never started) keep their declared
+        priors (the planner resolves those from the graph)."""
+        tops: dict[str, Topology] = {}
+        hot: list[str] = []
+        pulled: list[tuple[str, DRSScheduler]] = []
+        snaps = []
+        for name, session in self.sessions.items():
+            sched = session.scheduler
+            if sched is None:
+                continue
+            snap = sched.measurer.pull(now)
+            sched._observe_instances()
+            if not snap.complete():
+                continue
+            pulled.append((name, sched))
+            snaps.append(snap)
+        if not pulled:
+            return tops, hot
+        batch = stack_snapshots(snaps)
+        b, n = batch.lam_hat.shape
+        routing = np.zeros((b, n, n))
+        group = np.zeros((b, n), dtype=bool)
+        alpha = np.zeros((b, n))
+        active = np.zeros((b, n), dtype=bool)
+        k_cur = np.zeros((b, n), dtype=np.int64)
+        mu_eff = batch.mu_hat.copy()
+        for bi, (_, sched) in enumerate(pulled):
+            ni = len(sched.names)
+            routing[bi, :ni, :ni] = sched.base_routing
+            group[bi, :ni] = sched._group
+            alpha[bi, :ni] = sched._alpha
+            active[bi, :ni] = True
+            k_cur[bi, :ni] = sched.k_current
+            if sched.speed_factors is not None:
+                mu_eff[bi, :ni] = mu_eff[bi, :ni] * sched.speed_factors
+        over = ctl.overloaded_mask_batch(
+            batch.lam_hat, mu_eff, batch.drop_hat, k_cur, group, alpha
+        ) & active
+        capped = ctl.capped_mask_batch(over, routing, active)
+        for bi, (name, sched) in enumerate(pulled):
+            ni = len(sched.names)
+            mask = over[bi, :ni]
+            if mask.any():
+                hot.append(name)
+            tops[name] = ctl.clamp_row(
+                sched.names,
+                sched.base_routing,
+                batch.lam_hat[bi, :ni],
+                batch.mu_hat[bi, :ni],
+                float(batch.lam0_hat[bi]),
+                mask,
+                capped[bi, :ni],
+                sched.scaling,
+                sched.group_alpha,
+                speed=sched.speed_factors,
+            )
+        return tops, hot
+
+    def _objective_of(self, planner: FleetPlanner, tops: dict) -> float:
+        """Fleet objective of the allocations in force, weighted as the
+        planner weights, so the improvement gate compares like with like."""
+        if not self._k:
+            return float("inf")
+        total = 0.0
+        for tenant in planner.tenants:
+            k = self._k.get(tenant.name)
+            if k is None:
+                return float("inf")
+            top = tenant.resolve(tops.get(tenant.name))
+            et = top.expected_sojourn(k)
+            w = planner.weight(tenant, top)
+            total += w * top.lam0_total * et if np.isfinite(et) else float("inf")
+        return total
+
+    def _apply(self, plan: FleetPlan) -> dict:
+        for name, session in self.sessions.items():
+            k = plan.k[name]
+            self._k[name] = k.copy()
+            if session.scheduler is not None:
+                session.scheduler.k_current = k.copy()
+            if isinstance(session.backend, EngineBackend):
+                session.backend.apply_allocation(session.graph.k_dict(k))
+        return self.allocations()
+
+    def tick(self, now: float | None = None) -> FleetDecision:
+        """One fleet tick: pull every tenant, replan the pool, apply.
+
+        The gates are ``DRSScheduler.decide``'s at fleet level: an
+        improvement below ``min_improvement`` keeps the current split;
+        overload (a tenant's measured rho >= 1, or floors past the pool)
+        skips the gate and leases at once."""
+        now = time.time() if now is None else now
+        tops, hot = self._measured_topologies(now)
+        k_max = self.k_max
+        planner = FleetPlanner(self.tenants(), k_max, objective=self.objective)
+        try:
+            plan = self._plan_with(planner, tops, k_max=k_max)
+        except InsufficientResourcesError as e:
+            if self.negotiator is None:
+                return self._emit(FleetDecision(
+                    now, "infeasible", k_max, None, self.allocations(), tuple(hot),
+                    reason=str(e),
+                ))
+            self.negotiator.ensure(int(np.ceil(e.needed * self.headroom)))
+            k_max = self.k_max
+            try:
+                plan = self._plan_with(planner, tops, k_max=k_max)
+            except InsufficientResourcesError as e2:
+                return self._emit(FleetDecision(
+                    now, "infeasible", k_max, None, self.allocations(), tuple(hot),
+                    reason=str(e2),
+                ))
+
+        overloaded = bool(hot) or plan.overloaded
+        if overloaded and self.negotiator is not None and plan.needed_total > k_max:
+            # Overload: lease now, no hysteresis, no gate.
+            self.negotiator.ensure(int(np.ceil(plan.needed_total * self.headroom)))
+            if self.k_max > k_max:
+                k_max = self.k_max
+                plan = self._plan_with(planner, tops, k_max=k_max)
+        elif (
+            self.negotiator is not None
+            and self._static_k_max is None
+            # Scale in only when every tenant declares a T_max: otherwise the
+            # "need" is the stability minimum, not a latency target.
+            and all(t.t_max is not None for t in planner.tenants)
+            and plan.needed_total > 0
+            and np.ceil(plan.needed_total * self.headroom)
+            < self.scale_in_hysteresis * k_max
+        ):
+            # Shrink the lease and the allocation together: replan at the
+            # smaller pool and apply in the same tick, so the machines handed
+            # back are never still part of the split in force.
+            target = int(np.ceil(plan.needed_total * self.headroom))
+            self.negotiator.ensure(target)
+            if self.k_max < k_max:
+                cur_obj = self._objective_of(planner, tops)
+                k_max = self.k_max
+                plan = self._plan_with(planner, tops, k_max=k_max)
+                self._apply(plan)
+                return self._emit(FleetDecision(
+                    now, "scale_in", k_max, plan, self.allocations(), tuple(hot),
+                    cur_obj,
+                    reason=f"floors need {plan.needed_total} (headroom {target}) "
+                    f"<< leased; released to k_max={k_max}",
+                ))
+
+        cur_obj = self._objective_of(planner, tops)
+        if overloaded:
+            self._apply(plan)
+            return self._emit(FleetDecision(
+                now, "overloaded", k_max, plan, self.allocations(), tuple(hot),
+                cur_obj,
+                reason=f"overloaded tenants {hot}; floors need "
+                f"{plan.needed_total} of {k_max}",
+            ))
+        improvement = (
+            (cur_obj - plan.objective) / cur_obj
+            if np.isfinite(cur_obj) and cur_obj > 0
+            else float("inf")
+        )
+        unchanged = all(
+            np.array_equal(self._k.get(n), plan.k[n]) for n in self.sessions
+        )
+        if unchanged or improvement < self.min_improvement:
+            return self._emit(FleetDecision(
+                now, "none", k_max, plan, self.allocations(), tuple(hot), cur_obj,
+                reason=f"improvement {improvement:.1%} < {self.min_improvement:.0%}",
+            ))
+        self._apply(plan)
+        return self._emit(FleetDecision(
+            now, "rebalance", k_max, plan, self.allocations(), tuple(hot), cur_obj,
+            reason=f"fleet objective {cur_obj:.4g} -> {plan.objective:.4g}",
+        ))
+
+    def _emit(self, d: FleetDecision) -> FleetDecision:
+        self.history.append(d)
+        if self.on_decision:
+            self.on_decision(d)
+        return d
 
 
 @dataclass(frozen=True)

@@ -18,7 +18,13 @@ parameter pytree.  :func:`mpc_config_from_reference`,
 :func:`predictor_params_from_reference` and
 :func:`compaction_config_from_reference` carry the proactive and sparse
 decide knobs, :func:`forecast_state_from_reference` a forecast state (as
-numpy arrays or, with ``device=``, tensors).
+numpy arrays or, with ``device=``, tensors).  For the fleet and the soak:
+:func:`graph_from_reference` (an ``AppGraph``, without its compute
+``fn``s), :func:`topology_from_reference`, :func:`tenant_from_reference`,
+:func:`snapshot_from_reference` (a ``MeasurementSnapshot``),
+:func:`speed_pool_from_reference`, :func:`fpd_config_from_reference` and
+:func:`controller_state_from_reference` (a JAX ``ControllerState``, its
+``tick`` as a host int).
 """
 
 from __future__ import annotations
@@ -31,10 +37,14 @@ import torch
 from .api.graph import AppGraph, Edge, OpDef
 from .core.controller import ControllerParams, ControllerState, ControllerStatic, init_state
 from .core.controller import CompactionConfig
-from .core.measurer import MeasurementBatch
+from .core.heterogeneous import SpeedPool
+from .core.jackson import OperatorSpec, Topology
+from .core.measurer import MeasurementBatch, MeasurementSnapshot
+from .core.planner import Tenant
 from .forecast.mpc import MPCConfig
 from .forecast.predictors import PredictorParams
 from .device import resolve_device
+from .streaming.apps.fpd import FPDConfig
 from .streaming.apps.vld import VLDConfig
 from .streaming.batchsim import BatchArrays
 from .streaming.scenarios import ArrivalTrace, Scenario
@@ -43,7 +53,10 @@ __all__ = ["from_reference", "static_from_reference", "params_from_reference",
            "measurement_from_reference", "scenario_from_reference", "vld_from_reference",
            "model_params_from_reference", "predictor_params_from_reference",
            "mpc_config_from_reference", "compaction_config_from_reference",
-           "forecast_state_from_reference"]
+           "forecast_state_from_reference", "graph_from_reference",
+           "topology_from_reference", "tenant_from_reference", "snapshot_from_reference",
+           "speed_pool_from_reference", "fpd_config_from_reference",
+           "controller_state_from_reference"]
 
 
 def _arr(x, dtype=None):
@@ -116,10 +129,10 @@ def measurement_from_reference(meas) -> MeasurementBatch:
     )
 
 
-def scenario_from_reference(s) -> Scenario:
-    """This package's :class:`Scenario` with the reference scenario's graph,
-    traces and settings (read by attribute name)."""
-    g = s.graph
+def graph_from_reference(g) -> AppGraph:
+    """This package's :class:`AppGraph` with the reference graph's operators,
+    edges and sources (the operators' compute ``fn``s stay behind: the
+    result is a model, for the planner and the simulators)."""
     ops = [
         OpDef(name=op.name, mu=op.mu, scaling=op.scaling, group_alpha=op.group_alpha,
               min_k=op.min_k, max_k=op.max_k, service_kind=op.service_kind,
@@ -129,8 +142,14 @@ def scenario_from_reference(s) -> Scenario:
     edges = [Edge(e.src, e.dst, e.multiplicity) for e in g.edges]
     lam0 = np.asarray(g.lam0_vector())
     sources = {name: float(lam0[i]) for i, name in enumerate(g.names) if lam0[i] > 0}
-    graph = AppGraph(ops, edges, sources, arrival_kind=g.arrival_kind,
-                     validate_stability=g.validate_stability)
+    return AppGraph(ops, edges, sources, arrival_kind=g.arrival_kind,
+                    validate_stability=g.validate_stability)
+
+
+def scenario_from_reference(s) -> Scenario:
+    """This package's :class:`Scenario` with the reference scenario's graph,
+    traces and settings (read by attribute name)."""
+    graph = graph_from_reference(s.graph)
     trace_fields = [f.name for f in dataclasses.fields(ArrivalTrace)]
     traces = {
         name: ArrivalTrace(**{f: getattr(tr, f) for f in trace_fields})
@@ -210,3 +229,59 @@ def forecast_state_from_reference(state, *, device=None, dtype=None) -> tuple:
     dev = resolve_device(device)
     dtype = torch.float32 if dtype is None else dtype
     return tuple(torch.as_tensor(a, dtype=dtype, device=dev) for a in arrays)
+
+
+def topology_from_reference(top) -> Topology:
+    """This package's :class:`Topology` from the reference's (operator specs,
+    external arrivals and routing, read by name)."""
+    fields = [f.name for f in dataclasses.fields(OperatorSpec)]
+    ops = [OperatorSpec(**{f: getattr(op, f) for f in fields}) for op in top.operators]
+    return Topology(ops, _arr(top.lam0, np.float64), _arr(top.routing, np.float64))
+
+
+def tenant_from_reference(t) -> Tenant:
+    """This package's planner :class:`Tenant` from the reference's (its graph
+    or its topology carried across)."""
+    return Tenant(
+        name=t.name,
+        graph=None if t.graph is None else graph_from_reference(t.graph),
+        topology=None if t.topology is None else topology_from_reference(t.topology),
+        t_max=t.t_max, weight=t.weight,
+    )
+
+
+def snapshot_from_reference(snap) -> MeasurementSnapshot:
+    """This package's :class:`MeasurementSnapshot` from the reference's."""
+    return MeasurementSnapshot(
+        lam_hat=_arr(snap.lam_hat, np.float64), mu_hat=_arr(snap.mu_hat, np.float64),
+        lam0_hat=float(snap.lam0_hat), sojourn_hat=float(snap.sojourn_hat), t=float(snap.t),
+        drop_hat=_arr(snap.drop_hat, np.float64),
+    )
+
+
+def speed_pool_from_reference(pool) -> SpeedPool:
+    """This package's :class:`SpeedPool` from the reference's."""
+    return SpeedPool(tuple((float(s), int(n)) for s, n in pool.counts))
+
+
+def fpd_config_from_reference(cfg) -> FPDConfig:
+    """This package's :class:`FPDConfig` with the reference config's fields."""
+    return FPDConfig(**{f.name: getattr(cfg, f.name) for f in dataclasses.fields(FPDConfig)})
+
+
+def controller_state_from_reference(state, *, device=None, dtype=None) -> ControllerState:
+    """A JAX ``ControllerState`` (arrays, or their numpy copies) as this
+    package's on ``device`` (default: the CUDA device): the float leaves in
+    ``dtype`` (default float32), ``k`` int32, ``tick`` a host int."""
+    dev = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+
+    def f(x):
+        return torch.as_tensor(np.array(x), device=dev).to(dtype)
+
+    return ControllerState(
+        q=f(state.q), served_prev=f(state.served_prev),
+        k=torch.as_tensor(np.array(state.k), device=dev).to(torch.int32),
+        acc=tuple(f(a) for a in state.acc), tick=int(np.asarray(state.tick)),
+        fstate=tuple(f(x) for x in state.fstate),
+    )

@@ -28,6 +28,7 @@ __all__ = [
     "AllocationResult",
     "assign_processors",
     "min_processors",
+    "candidate_window",
     "greedy_increments",
     "assign_processors_table",
     "min_processors_table",
@@ -113,6 +114,18 @@ def _heap_greedy_counts(cand: np.ndarray, budget: int) -> np.ndarray:
     return take
 
 
+def candidate_window(G: np.ndarray, k_start: np.ndarray, budget: int) -> np.ndarray:
+    """The ``[n, budget]`` gains the greedy can reach: row i from its start
+    column ``k_start[i]`` (the batched planner selects from the same
+    window)."""
+    idx = k_start[:, None] + np.arange(budget)[None, :]
+    if idx.max() >= G.shape[1]:
+        raise ValueError(
+            f"gain table too narrow: need column {int(idx.max())}, have {G.shape[1]}"
+        )
+    return G[np.arange(G.shape[0])[:, None], idx]
+
+
 def greedy_increments(G: np.ndarray, k_start: np.ndarray, budget: int) -> np.ndarray:
     """How many of ``budget`` processors each operator receives when they are
     handed out one at a time to the largest current gain ``G[i, k]`` from
@@ -122,12 +135,7 @@ def greedy_increments(G: np.ndarray, k_start: np.ndarray, budget: int) -> np.nda
     n = G.shape[0]
     if budget <= 0:
         return np.zeros(n, dtype=np.int64)
-    idx = k_start[:, None] + np.arange(budget)[None, :]
-    if idx.max() >= G.shape[1]:
-        raise ValueError(
-            f"gain table too narrow: need column {int(idx.max())}, have {G.shape[1]}"
-        )
-    cand = G[np.arange(n)[:, None], idx]  # [n, budget]
+    cand = candidate_window(G, k_start, budget)
     if np.any(cand[:, 1:] > cand[:, :-1]):
         return _heap_greedy_counts(cand, budget)
     pos = cand > 0.0

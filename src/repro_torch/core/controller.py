@@ -848,7 +848,9 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
                 bx, m = active_x.shape[0], lam_m.shape[0]
 
                 def rep(x):
-                    return x[:, None, :].expand(bx, m // bx, x.shape[-1]).reshape(m, x.shape[-1])
+                    # contiguous: at bx = 1 the reshape is a stride-0 view
+                    return x[:, None, :].expand(bx, m // bx, x.shape[-1]).reshape(
+                        m, x.shape[-1]).contiguous()
 
                 k4, _, _, _ = fused_ops.batch_decide(
                     lam_m.contiguous(), rep(mu_eff_x), group=rep(group_x), alpha=rep(alpha_x),

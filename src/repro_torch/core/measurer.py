@@ -16,7 +16,8 @@ Arrivals are counted at the queue *tail* (Appendix C), so an overloaded
 operator still reports its offered load; shed tuples are reported through
 :meth:`InstanceProbe.on_dropped` and surface as ``drop_hat``.
 :class:`MeasurementBatch` stacks ``[B, N]`` snapshots, the batched
-controller's input (``tick_batch``).  Numpy and thread code only.
+controller's input (``tick_batch``); :func:`stack_snapshots` builds one
+from per-tenant snapshots (the fleet session's).  Numpy and thread code only.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ __all__ = [
     "Measurer",
     "MeasurementSnapshot",
     "MeasurementBatch",
+    "stack_snapshots",
 ]
 
 
@@ -267,6 +269,35 @@ class MeasurementBatch:
             drop_hat=(np.zeros_like(lam_hat) if drop_hat is None
                       else np.atleast_2d(np.asarray(drop_hat, dtype=np.float64))),
         )
+
+
+def stack_snapshots(
+    snaps: "list[MeasurementSnapshot]", n: int | None = None
+) -> MeasurementBatch:
+    """Stack per-scenario / per-tenant snapshots into one padded batch.
+
+    Padding lanes get zero arrival and drop rates and ``mu = 1`` (finite,
+    so they never fail the completeness check); ``n`` widens the batch
+    beyond the widest snapshot when the caller's static arrays demand it.
+    """
+    if not snaps:
+        raise ValueError("need at least one snapshot to stack")
+    width = max(len(s.lam_hat) for s in snaps)
+    n = width if n is None else max(n, width)
+    b = len(snaps)
+    lam = np.zeros((b, n))
+    mu = np.ones((b, n))
+    drop = np.zeros((b, n))
+    lam0 = np.zeros(b)
+    soj = np.zeros(b)
+    for bi, s in enumerate(snaps):
+        ni = len(s.lam_hat)
+        lam[bi, :ni] = s.lam_hat
+        mu[bi, :ni] = s.mu_hat
+        drop[bi, :ni] = s.drop_rates()
+        lam0[bi] = s.lam0_hat
+        soj[bi] = s.sojourn_hat
+    return MeasurementBatch(lam, mu, lam0, soj, float(snaps[0].t), drop)
 
 
 class Measurer:

@@ -39,6 +39,9 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.configs.zamba2_7b\n"
         "import repro_torch.streaming.des, repro_torch.serving.router\n"
         "import repro_torch.forecast, repro_torch.distributed\n"
+        "import repro_torch.checkpoint, repro_torch.streaming.soak\n"
+        "import repro_torch.core.planner, repro_torch.core.heterogeneous\n"
+        "import repro_torch.streaming.apps.fpd, repro_torch.api\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
@@ -79,11 +82,14 @@ def _small_fleet():
 
 
 def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
-    from repro_torch.api.session import DRSSession, ScenarioRunner
+    from repro_torch.api.session import DRSSession, FleetSession, ScenarioRunner
     from repro_torch.convert import from_reference
     from repro_torch.core import controller as ctl
     from repro_torch.core.batched import expected_sojourn_batch, solve_traffic_batch
+    from repro_torch.core.planner import FleetPlanner, Tenant
+    from repro_torch.streaming.apps.fpd import FPDConfig, SlidingWindowState, build_fpd_graph
     from repro_torch.streaming.apps.vld import VLDConfig, build_vld_graph, logo_library
+    from repro_torch.streaming.soak import SoakConfig, run_checkpointed, run_straight
     from repro_torch.streaming.batchsim import BatchQueueSim
     from repro_torch.streaming.engine import Operator, StreamEngine
     from repro_torch.streaming.scenarios import control_trace, scenario_matrix
@@ -96,6 +102,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
     vld_graph, _ = build_vld_graph(vld_cfg, logo_library(vld_cfg), device="cpu")
     runner = ScenarioRunner(scens, tick_interval=5.0, device="cpu")
     st, pr = runner.static, runner.params
+    planner = FleetPlanner([Tenant("a", topology=top)], 40)
+    tenants = {"a": vld_graph.bind(), "b": scens[1].graph.bind()}
+    soak_cfg = SoakConfig(day=240.0, checkpoint_every=1)
     calls = [
         lambda: ScenarioRunner(scens, tick_interval=5.0),
         lambda: ScenarioRunner(negotiated, tick_interval=5.0, backend="torch"),
@@ -111,6 +120,12 @@ def test_entry_points_default_to_the_card_and_raise_without_one(no_cuda):
         lambda: DRSSession.bind(vld_graph, "engine"),
         lambda: vld_graph.bind("engine"),
         lambda: StreamEngine([Operator("a", lambda x: [])]),
+        lambda: run_straight(soak_cfg),
+        lambda: run_checkpointed(soak_cfg, "unused"),
+        lambda: planner.plan_batched(),
+        lambda: FleetSession(tenants, k_max=40, solver="batched"),
+        lambda: build_fpd_graph(FPDConfig()),
+        lambda: SlidingWindowState(FPDConfig()),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -180,6 +195,16 @@ def test_host_paths_run_without_a_card(no_cuda):
     top = scens[0].mean_topology()
     assert np.isfinite(expected_sojourn_batch(top, scens[0].plan_k0()[None], backend="numpy")
                        ).all()
+    # The scalar fleet solver and the heterogeneous allocator are host code.
+    from repro_torch.api.session import FleetSession
+    from repro_torch.core.heterogeneous import SpeedPool, assign_heterogeneous
+
+    fleet = FleetSession({"a": graph.bind(), "b": AppGraph.chain([("c", 4.0)], 2.0).bind()},
+                         k_max=12)
+    fleet.start()
+    assert fleet.tick(now=0.0).plan.total <= 12
+    assert np.isfinite(assign_heterogeneous(top, SpeedPool.of({1.0: 40, 0.5: 8}))
+                       .expected_sojourn)
     assert dict(LAUNCHES) == before
 
 
