@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
    steps, with bounded and ``+inf`` queues, padded lanes and ``warm``
    switching inside the window, all 15 outputs, and at N = 40, its wide
    route; ``gain_topr`` at the fleet tile, with ``+inf`` gains, and at N =
-   40, its block route, the fleet tile by profiler symbol on the warp route
+   40, its grid route (``gain_topr_hist_kernel`` by profiler symbol), the
+   fleet tile by profiler symbol on the warp route
    (``gain_topr_warp_kernel``); ``l2_match``: at the VLD matcher's M = N =
    1024, D = 64 and at M = 1000, N = 777, D = 50): integer outputs exact,
    float outputs bitwise; each timed with
@@ -106,8 +107,8 @@ Phases, each printing one JSON line:
    one profiled 2 h run per mode (``soak_profile``);
 7d. ``fleet_plan``: ``FleetPlanner.plan_batched`` for the 256 distinct
    fleet scenarios as tenants (mean topology, t_max; 1,298 operator rows,
-   floors 3,011) at a pool of floors + 2,048: one ``gain_topr`` launch on
-   the block route over [1, 1298, 2048].  Hard: takes equal to the plain
+   floors 3,011) at a pool of floors + 2,048: one ``gain_topr`` call on
+   the grid route over [1, 1298, 2048].  Hard: takes equal to the plain
    float32 plan's, the kernel bitwise its plain version on the tile,
    totals within the pools, a pool of 3,000 overloaded as the scalar plan
    says.  Reported: operators that differ from the float64 scalar plan,
@@ -121,12 +122,26 @@ Phases, each printing one JSON line:
    no operator fails, FPD's incremental counts equal one
    ``support_counts`` over the final window, every plan within the pool,
    one ``gain_topr`` launch per batched plan (warp route);
+7f. ``fleet_mesh``: the mesh-sharded control plane on the card --
+   fleet-4096 cut to 4,090 lanes through ``ScenarioRunner(mesh=)``: (a) on
+   a one-rank NCCL mesh (``fleet_mesh()``) with the fused decide off and
+   on; (b) on four spawned ranks sharing the card (gloo on CUDA tensors;
+   two padded lanes) off and on, ``compact`` and ``proactive``; (c) the
+   256-tenant ``plan_batched(mesh=)`` on the four ranks; (d) the
+   1,024-tenant fleet (5,128 operator rows, past the 4,093 the old block
+   route held) planned on the one-rank mesh, its ``gain_topr`` grid-route
+   call timed beside its plain version and bound.  Hard: every sharded
+   run equals the unsharded card run on the decisions, allocations and
+   integer aggregates, on every rank; the plans equal the unsharded plans
+   and (d) the plain float32 plan, take for take.  Reported: each rank's
+   device and backend, wall ms per tick sharded and unsharded;
 8. the per-kernel JSON line (``launches``: the loop kernels summed over
    the four main-path runs, each of which must have launched (``erlang_c``
    1 / 2 times per fused / two-pass tick), plus ``twin_loop``'s
    ``queue_window`` and ``erlang_c`` launches, the eight
    ``proactive_loop`` runs', the ``soak`` runs' (straight and stitched),
-   ``fleet_plan``'s and ``fleet_live``'s ``gain_topr``, and
+   ``fleet_plan``'s, ``fleet_live``'s and ``fleet_mesh``'s ``gain_topr``
+   (and ``fleet_mesh``'s loop kernels, in its own process), and
    ``fleet_live``'s ``match_count`` -- but
    ``queue_step``, whose steps the window kernel runs, and which is on no
    path; the two ``l2_match`` kernels from the ``vld_live`` run,
@@ -234,7 +249,8 @@ LOOP_SYMBOLS = {
     "queue_step": ("queue_step_kernel",),
     "queue_window": tuple(WINDOW_ROUTE_SYMBOLS.values()),
     "erlang_c": ("erlang_b_kernel",),
-    "gain_topr": ("gain_topr_warp_kernel", "gain_topr_kernel"),
+    "gain_topr": ("gain_topr_warp_kernel", "gain_topr_hist_kernel", "gain_topr_rows_kernel",
+                  "gain_topr_take_kernel"),
     "decide_fused": ("decide_packed_kernel", "decide_fused_kernel"),
 }
 # The VLD application at full width: an SD frame, the paper's 16 query
@@ -568,7 +584,7 @@ def kernel_phase(dev):
     )
 
     # gain_topr at the two-pass decide's [4096, 7, 48] candidate tile (with
-    # +inf gains; the warp route), and at N = 40 (the block route)
+    # +inf gains; the warp route), and at N = 40 (the grid route)
     cand, budget = gain_topr_inputs(gen, MAIN_B, N_OPS, K_HI, dev)
     err = compare("gain_topr", [gk.gain_topr(cand, budget)], [gr.gain_topr(cand, budget)],
                   f"B={MAIN_B},N={N_OPS},J={K_HI}")
@@ -577,22 +593,21 @@ def kernel_phase(dev):
                            [gr.gain_topr(cand40, budget40)], f"B=256,N=40,J={K_HI}"))
     device_us = device_us_per_launch(
         {"gain_topr_warp_kernel": lambda: gk.gain_topr(cand, budget),
-         "gain_topr_kernel": lambda: gk.gain_topr(cand40, budget40)})
+         "gain_topr_hist_kernel": lambda: gk.gain_topr(cand40, budget40)})
     check(device_us["gain_topr_warp_kernel"] is not None,
           f"gain_topr at B={MAIN_B}, N={N_OPS}, J={K_HI} did not run gain_topr_warp_kernel")
+    check(device_us["gain_topr_hist_kernel"] is not None,
+          f"gain_topr at B=256, N=40, J={K_HI} did not run the grid route")
     emit({"phase": "gain_topr_routes", "shape": f"B={MAIN_B},N={N_OPS},J={K_HI}",
           "plan": gk.plan(N_OPS, K_HI), "plan_N40": gk.plan(40, K_HI),
           "device_us": device_us})
-    elems = MAIN_B * N_OPS * K_HI
     rows["gain_topr"] = dict(
         source="src/repro_torch/csrc/gain_topr.cu",
         replaces="src/repro/kernels/gain_topr/kernel.py:98",
         max_abs_err=err, ms=median_ms(lambda: gk.gain_topr(cand, budget)),
         plain_ms=median_ms(lambda: gr.gain_topr(cand, budget)),
         device_us=device_us["gain_topr_warp_kernel"],
-        # 34 passes (positives, 31 bisection steps, strict, ties) of a
-        # compare and an add per element.
-        bound=bound(4 * elems + 4 * MAIN_B + 4 * MAIN_B * N_OPS, 34 * 2 * elems),
+        bound=topr_bound(cand),
     )
 
     # decide_fused at [4096, 7], k_hi = j_cap = 48, and at k_hi = 512, N = 32
@@ -1302,13 +1317,12 @@ def planner_kernel_rows(fleet, dev):
     (cand, budget), _kw = seen["gain_topr"]
     err = max_abs_err(gk.gain_topr(cand, budget), gr.gain_topr(cand, budget))
     check(err == 0.0, f"proactive_loop: gain_topr at {m} planner rows differs from plain ({err})")
-    elems = cand.numel()
     rows["gain_topr"] = dict(
         M=m, J=cand.shape[-1], max_abs_err=err, ms=median_ms(lambda: gk.gain_topr(cand, budget)),
         plain_ms=median_ms(lambda: gr.gain_topr(cand, budget), runs=5, inner=2),
         device_us=device_us_per_call(lambda: gk.gain_topr(cand, budget),
                                      LOOP_SYMBOLS["gain_topr"], calls=20),
-        bound=bound(4 * elems + 4 * m + 4 * m * N_OPS, 34 * 2 * elems))
+        bound=topr_bound(cand))
     (a,), kw = seen["erlang_c"]
     err = max_abs_err(ek.erlang_b_table(a, **kw), er.erlang_b_table(a, **kw))
     check(err == 0.0, f"proactive_loop: the planner's erlang_c table differs from plain ({err})")
@@ -1623,18 +1637,54 @@ def soak_phase(dev):
     return launches
 
 
-def fleet_tenants():
-    """The 256 distinct fleet scenarios as planner tenants: each its mean
-    topology and its t_max (102 have none); 1,298 operator rows."""
+def fleet_tenants(count=DISTINCT):
+    """``count`` fleet scenarios (``scenario_matrix(count, seed=5)``) as
+    planner tenants: each its mean topology and its t_max.  The 256
+    distinct fleet scenarios have 1,298 operator rows (102 tenants without
+    a t_max); 1,024 have 5,128."""
     from repro_torch.core.planner import Tenant
+    from repro_torch.streaming.scenarios import scenario_matrix
 
-    distinct, _fleet = fleet_scenarios()
-    return [Tenant(s.name, topology=s.mean_topology(), t_max=s.t_max) for s in distinct]
+    scens = scenario_matrix(count, seed=5, horizon=30.0, warmup=5.0, dt=0.05, k_max=48)
+    return [Tenant(s.name, topology=s.mean_topology(), t_max=s.t_max) for s in scens]
+
+
+def fleet_tile(planner, dev):
+    """The planner's merged candidate tile ``[1, R, budget]`` float32 and its
+    budget on ``dev``: the one ``gain_topr`` call of ``plan_batched``."""
+    import torch
+
+    from repro_torch.core.allocator import candidate_window
+
+    resolved, ctx = planner._floors(None, None)
+    g, k_start, _ = planner._gain_rows(resolved, ctx["starts"], ctx["budget"])
+    cand = torch.as_tensor(candidate_window(g, k_start, ctx["budget"]), device=dev
+                           ).to(torch.float32)[None].contiguous()
+    return cand, torch.tensor([ctx["budget"]], dtype=torch.int32, device=dev)
+
+
+def fleet_planner(count, dev=None):
+    """``(planner, floors)``: ``count`` fleet tenants at a pool of their
+    Program-(6) floors + ``FLEET_POOL_EXTRA``."""
+    from repro_torch.core.planner import FleetPlanner
+
+    tenants = fleet_tenants(count)
+    _res, ctx = FleetPlanner(tenants, 10 ** 9)._floors(None, None)
+    floors = ctx["needed_total"]
+    return FleetPlanner(tenants, floors + FLEET_POOL_EXTRA), floors
+
+
+def topr_bound(cand):
+    """``gain_topr``'s bound on a tile: the tile and budgets read, the takes
+    written; a compare and a count per gain in each of the grid route's
+    four passes over it (three radix digits, the row counts)."""
+    b, n, _j = cand.shape
+    return bound(4 * cand.numel() + 4 * b + 4 * b * n, 4 * 2 * cand.numel())
 
 
 def fleet_plan_phase(dev):
     """``FleetPlanner.plan_batched`` for 256 tenants on the card: the whole
-    fleet one scenario of ``gain_topr``'s block route ([1, 1298, 2048]
+    fleet one scenario of ``gain_topr``'s grid route ([1, 1298, 2048]
     float32).  Hard: the plan equals the plain float32 version's (on the
     CPU) take for take, one launch per plan, ``total <= k_max``, and a pool
     below the floors comes back overloaded as the scalar plan does.
@@ -1643,18 +1693,14 @@ def fleet_plan_phase(dev):
     bound.  Returns the phase's launches."""
     import torch
 
-    from repro_torch.core.allocator import candidate_window
     from repro_torch.core.planner import FleetPlanner
     from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.gain_topr import kernel as gk, ref as gr
 
-    tenants = fleet_tenants()
+    planner, floors = fleet_planner(DISTINCT)
+    tenants = planner.tenants
     rows_n = sum(t.topology.n for t in tenants)
-    probe = FleetPlanner(tenants, 10 ** 9)
-    _res, ctx = probe._floors(None, None)
-    floors = ctx["needed_total"]
-    pool = floors + FLEET_POOL_EXTRA
-    planner = FleetPlanner(tenants, pool)
+    pool = planner.k_max
     t0 = time.perf_counter()
     scalar = planner.plan()
     scalar_ms = (time.perf_counter() - t0) * 1e3
@@ -1675,35 +1721,22 @@ def fleet_plan_phase(dev):
     low_scalar = FleetPlanner(tenants, FLEET_LOW_POOL).plan()
 
     # The kernel call alone, on the plan's own candidate tile.
-    resolved, ctx = planner._floors(None, None)
-    g, k_start, _ = planner._gain_rows(resolved, ctx["starts"], ctx["budget"])
-    cand = torch.as_tensor(candidate_window(g, k_start, ctx["budget"]), device=dev
-                           ).to(torch.float32)[None].contiguous()
-    budget = torch.tensor([ctx["budget"]], dtype=torch.int32, device=dev)
-    err = max_abs_err(gk.gain_topr(cand, budget), gr.gain_topr(cand, budget))
-    elems = cand.numel()
-    row = dict(B=1, N=rows_n, J=cand.shape[-1], tile_mb=4 * elems / 1e6, max_abs_err=err,
-               # ~60 ms a call on one block of an H100: few runs keep the phase short.
-               ms=median_ms(lambda: gk.gain_topr(cand, budget), runs=5, inner=2),
-               plain_ms=median_ms(lambda: gr.gain_topr(cand, budget), runs=5, inner=2),
-               device_us=device_us_per_call(lambda: gk.gain_topr(cand, budget),
-                                            LOOP_SYMBOLS["gain_topr"], calls=3),
-               bound=bound(4 * elems + 4 + 4 * rows_n, 34 * 2 * elems))
+    cand, budget = fleet_tile(planner, dev)
+    row = topr_row(cand, budget)
     emit({"phase": "fleet_plan", "tenants": len(tenants), "operator_rows": rows_n,
-          "floors": floors, "pool": pool, "budget": ctx["budget"],
+          "floors": floors, "pool": pool, "budget": int(budget[0]),
           "total": card.total, "overloaded": card.overloaded, "unmet": len(card.unmet),
           "takes_differ_from_plain": differ_plain,
           "operators_differ_from_float64_scalar": differ_scalar,
           "plan_batched_ms": card_ms, "scalar_plan_ms": scalar_ms,
           "low_pool": {"k_max": FLEET_LOW_POOL, "overloaded": low_card.overloaded,
                        "scalar_overloaded": low_scalar.overloaded, "total": low_card.total},
-          "launches": launches,
-          "gain_topr": {k: (v if k != "bound" else {"ms": v[0], "by": v[1]})
-                        for k, v in row.items()},
+          "launches": launches, "gain_topr": row,
           "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
-    check(differ_plain == 0 and err == 0.0,
+    check(differ_plain == 0 and row["max_abs_err"] == 0.0,
           f"fleet_plan: the card's takes differ from the plain float32 version's in "
-          f"{differ_plain} operators (kernel vs plain max err {err})")
+          f"{differ_plain} operators (kernel vs plain max err {row['max_abs_err']})")
+    check(row["route"][0] == "grid", f"fleet_plan: gain_topr planned {row['route']}")
     check(card.total <= pool and low_card.total <= FLEET_LOW_POOL,
           f"fleet_plan: totals {card.total} / {low_card.total} past the pools")
     check(low_card.overloaded and low_card.overloaded == low_scalar.overloaded
@@ -1711,6 +1744,207 @@ def fleet_plan_phase(dev):
           f"fleet_plan: overloaded flags {card.overloaded} / {low_card.overloaded}, "
           f"scalar {low_scalar.overloaded}")
     check(launches["gain_topr"] == 2, f"fleet_plan: {launches} for two batched plans")
+    return launches
+
+
+def topr_row(cand, budget):
+    """One ``gain_topr`` call on a planner's tile: its route, max error
+    against the plain version, ms, device us, plain ms and bound."""
+    from repro_torch.kernels.gain_topr import kernel as gk, ref as gr
+
+    b, n, j = cand.shape
+    bound_ms, bound_by = topr_bound(cand)
+    return dict(B=b, N=n, J=j, tile_mb=4 * cand.numel() / 1e6, route=list(gk.plan(n, j)),
+                max_abs_err=max_abs_err(gk.gain_topr(cand, budget), gr.gain_topr(cand, budget)),
+                ms=median_ms(lambda: gk.gain_topr(cand, budget)),
+                plain_ms=median_ms(lambda: gr.gain_topr(cand, budget), runs=5, inner=2),
+                device_us=device_us_per_call(lambda: gk.gain_topr(cand, budget),
+                                             LOOP_SYMBOLS["gain_topr"], calls=20),
+                bound={"ms": bound_ms, "by": bound_by})
+
+
+MESH_B = MAIN_B - 6  # fleet_mesh: 4,090 lanes, so four ranks pad two
+MESH_RANKS = 4
+#: fleet_mesh's loop modes: ScenarioRunner keywords.
+MESH_MODES = {"dense": {}, "fused": {"fused_decide": True}, "compact": {"compact": True},
+              "proactive": {"proactive": True}}
+#: Outputs a sharded run must equal bitwise (the fleet's decisions,
+#: allocations and integer aggregates); the E[T] diagnostics are printed.
+MESH_EXACT = ("codes", "k", "applied", "miss", "warm_windows", "k_final", "q_final",
+              "offered", "served", "dropped", "ext_admitted", "ext_offered", "q_int",
+              "q_max", "mpc_used", "confident")
+MESH_CLOSE = ("sojourn", "et_cur", "et_target")
+
+
+def mesh_fleet():
+    """fleet-4096 cut to ``MESH_B`` lanes."""
+    return fleet_scenarios()[1][:MESH_B]
+
+
+def mesh_runner_out(fleet, mode, mesh, dev):
+    """One ``ScenarioRunner`` run of ``fleet`` in ``mode``: (outputs, wall
+    ms per tick)."""
+    from repro_torch.api.session import ScenarioRunner
+
+    runner = ScenarioRunner(fleet, tick_interval=5.0, mesh=mesh, device=dev,
+                            **MESH_MODES[mode])
+    runner.run()
+    ticks = runner.outputs["codes"].shape[0]
+    return runner.outputs, runner.loop_seconds * 1e3 / ticks
+
+
+def mesh_differences(ref, got):
+    """(exact keys that differ, the largest relative difference of the
+    E[T] diagnostics)."""
+    import numpy as np
+
+    bad = [k for k in MESH_EXACT if k in ref and not np.array_equal(ref[k], got[k])]
+    rel = 0.0
+    for k in MESH_CLOSE:
+        a, b = np.asarray(ref[k], np.float64), np.asarray(got[k], np.float64)
+        both = np.isfinite(a) & np.isfinite(b)
+        if not np.array_equal(np.isfinite(a), np.isfinite(b)):
+            bad.append(k)
+        if both.any():
+            rel = max(rel, float(np.max(np.abs(a[both] - b[both])
+                                         / np.maximum(np.abs(a[both]), 1e-30))))
+    return bad, rel
+
+
+def _mesh_rank(rank, world, work_dir):
+    """One of ``MESH_RANKS`` ranks on the card (gloo on CUDA tensors): the
+    mesh fleet in every mode, then the 256-tenant plan; each result saved
+    under ``work_dir`` for the parent."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import fleet_backend, fleet_mesh
+
+    work = pathlib.Path(work_dir)
+    backend = fleet_backend("cuda", world)
+    dist.init_process_group(backend, init_method=(work / "store").as_uri(), world_size=world,
+                            rank=rank)
+    try:
+        dev = torch.device("cuda")
+        mesh = fleet_mesh(world, device=dev)
+        fleet = mesh_fleet()
+        info = {"rank": rank, "device": str(mesh.device), "backend": mesh.backend}
+        for mode in MESH_MODES:
+            out, ms = mesh_runner_out(fleet, mode, mesh, dev)
+            np.savez(work / f"r{rank}-{mode}.npz", **out)
+            info[f"{mode}_ms_per_tick"] = ms
+        planner, _floors = fleet_planner(DISTINCT)
+        plan = planner.plan_batched(mesh=mesh, device=dev)
+        np.savez(work / f"r{rank}-plan.npz", **plan.k)
+        (work / f"r{rank}.json").write_text(json.dumps(info))
+    finally:
+        dist.destroy_process_group()
+
+
+def fleet_mesh_phase(dev):
+    """The mesh-sharded control plane on the card (``fleet_mesh``).
+    (a) one rank on NCCL: ``ScenarioRunner(mesh=fleet_mesh())`` over the
+    4,090-lane fleet with the fused decide off and on; (b) four ranks
+    sharing the card (spawned, gloo on CUDA tensors): the same fleet
+    (two padded lanes) off and on, one ``compact`` and one ``proactive``
+    run; (c) the 256-tenant ``plan_batched(mesh=)`` on those ranks; (d)
+    the 1,024-tenant fleet's plan (5,128 rows) on the one-rank mesh.
+    Hard: every run equals the unsharded card run on the exact keys and
+    on which E[T] values are finite, every rank returns the whole fleet,
+    the plans equal the unsharded plans take for take, and (d) equals the
+    plain float32 plan.  Reported: each rank's device and backend, wall
+    ms per tick against the unsharded run, (d)'s ``gain_topr`` call beside
+    its plain version and its bound.  Returns the phase's launches in this
+    process (the unsharded runs and plan, the one-rank runs and (d)'s
+    plan; the four ranks count in their own processes)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from repro_torch.distributed import fleet_mesh
+    from repro_torch.kernels import LAUNCHES
+
+    t_phase = time.perf_counter()
+    fleet = mesh_fleet()
+    LAUNCHES.clear()
+    plain = {mode: mesh_runner_out(fleet, mode, None, dev) for mode in MESH_MODES}
+    planner, _floors = fleet_planner(DISTINCT)
+    plain_plan = planner.plan_batched(device=dev)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = pathlib.Path(tmp)
+        # (a) and (d): one rank, NCCL.
+        dist.init_process_group("nccl", init_method=(work / "nccl").as_uri(), world_size=1,
+                                rank=0)
+        try:
+            one = fleet_mesh()
+            one_rank = {}
+            for mode in ("dense", "fused"):
+                out, ms = mesh_runner_out(fleet, mode, one, dev)
+                bad, rel = mesh_differences(plain[mode][0], out)
+                check(not bad, f"fleet_mesh (a) {mode}: {bad} differ from the unsharded run")
+                one_rank[mode] = {"ms_per_tick": ms, "unsharded_ms_per_tick": plain[mode][1],
+                                  "et_max_rel_diff": rel}
+            big, big_floors = fleet_planner(4 * DISTINCT)
+            t0 = time.perf_counter()
+            big_card = big.plan_batched(mesh=one, device=dev)
+            big_ms = (time.perf_counter() - t0) * 1e3
+            backend = one.backend
+        finally:
+            dist.destroy_process_group()
+        launches = {k: LAUNCHES[k] for k in ("queue_window", "erlang_c", "gain_topr",
+                                             "decide_fused")}
+        big_plain = big.plan_batched(device="cpu")
+        big_row = topr_row(*fleet_tile(big, dev))
+        big_differ = sum(int((big_card.k[n] != big_plain.k[n]).sum()) for n in big_card.k)
+        check(big_differ == 0 and big_row["max_abs_err"] == 0.0,
+              f"fleet_mesh (d): {big_differ} takes differ from the plain float32 plan "
+              f"(kernel vs plain {big_row['max_abs_err']})")
+        check(big_row["N"] > 4093 and big_row["route"][0] == "grid",
+              f"fleet_mesh (d): tile {big_row['N']} rows on {big_row['route']}")
+        # (b) and (c): four ranks sharing the card.
+        t0 = time.perf_counter()
+        ctx = mp.spawn(_mesh_rank, args=(MESH_RANKS, str(work)), nprocs=MESH_RANKS,
+                       join=False)
+        try:
+            while not ctx.join(timeout=5.0):
+                check(time.perf_counter() - t0 < 300, "fleet_mesh (b): ranks still running")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(timeout=10)
+        spawn_s = time.perf_counter() - t0
+        ranks = [json.loads((work / f"r{r}.json").read_text()) for r in range(MESH_RANKS)]
+        rels = {}
+        for mode in MESH_MODES:
+            for r in range(MESH_RANKS):
+                with np.load(work / f"r{r}-{mode}.npz") as z:
+                    got = {k: z[k] for k in z.files}
+                bad, rel = mesh_differences(plain[mode][0], got)
+                check(not bad, f"fleet_mesh (b) {mode}, rank {r}: {bad} differ from the "
+                               "unsharded run")
+                check(got["codes"].shape[1] == MESH_B, f"fleet_mesh (b): rank {r} shape")
+                rels[mode] = max(rels.get(mode, 0.0), rel)
+            for r in range(MESH_RANKS):
+                with np.load(work / f"r{r}-plan.npz") as z:
+                    differ = sum(int((z[n] != plain_plan.k[n]).sum()) for n in plain_plan.k)
+                check(differ == 0, f"fleet_mesh (c): rank {r}'s plan differs in {differ} takes")
+    emit({"phase": "fleet_mesh", "B": MESH_B, "ranks": MESH_RANKS,
+          "one_rank": {"backend": backend, **one_rank},
+          "four_ranks": {"ranks": ranks, "spawn_and_run_s": spawn_s,
+                         "unsharded_ms_per_tick": {m: plain[m][1] for m in MESH_MODES},
+                         "et_max_rel_diff": rels},
+          "plan_256": {"ranks": MESH_RANKS, "equal": True},
+          "plan_1024": {"tenants": 4 * DISTINCT, "floors": big_floors,
+                        "pool": big.k_max, "total": big_card.total,
+                        "plan_batched_ms": big_ms, "takes_differ_from_plain": big_differ,
+                        "gain_topr": big_row},
+          "launches": launches, "seconds": time.perf_counter() - t_phase,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu")})
     return launches
 
 
@@ -2811,7 +3045,7 @@ def main() -> int:
         launches[k] += n
     for k, n in proactive_loop_phase(dev).items():
         launches[k] += n
-    for phase in (soak_phase, fleet_plan_phase, fleet_live_phase):
+    for phase in (soak_phase, fleet_plan_phase, fleet_live_phase, fleet_mesh_phase):
         for k, n in phase(dev).items():
             launches[k] += n
     llm_card_vs_cpu_phase(dev)

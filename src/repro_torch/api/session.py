@@ -481,7 +481,10 @@ class FleetSession:
     greedy on the host; ``solver="batched"`` selects it in one ``gain_topr``
     launch (:meth:`FleetPlanner.plan_batched`) on ``device`` (default: the
     CUDA device, raising when there is none) in ``dtype`` (default
-    float32).  ``mesh=`` (the sharded fleet reduction) is not ported yet.
+    float32); ``mesh=`` (a 1-D :class:`~repro_torch.distributed.FleetMesh`,
+    ``solver="batched"`` only) runs that selection as the fleet reduction
+    over the mesh's ranks (:meth:`FleetPlanner.plan_batched`), on the
+    mesh's device unless ``device`` says otherwise.
 
     Typical use::
 
@@ -519,10 +522,8 @@ class FleetSession:
             raise GraphValidationError(
                 f"unknown solver {solver!r}; expected 'scalar' or 'batched'"
             )
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetSession(mesh=...) is not ported yet: ROADMAP Queue 1 item 10, "
-                "mesh sharding on torch.distributed")
+        if mesh is not None and solver != "batched":
+            raise GraphValidationError("mesh= requires solver='batched'")
         self.sessions: dict[str, DRSSession] = dict(sessions)
         self._static_k_max = k_max
         self.negotiator = negotiator
@@ -532,6 +533,9 @@ class FleetSession:
         self.scale_in_hysteresis = scale_in_hysteresis
         self.on_decision = on_decision
         self.solver = solver
+        self.mesh = mesh
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device) if solver == "batched" else None
         self.dtype = torch.float32 if dtype is None else dtype
         self.history: list[FleetDecision] = []
@@ -564,8 +568,8 @@ class FleetSession:
         """Every plan goes through here, so the solver choice applies to
         start and tick alike."""
         if self.solver == "batched":
-            return planner.plan_batched(tops, k_max=k_max, device=self.device,
-                                        dtype=self.dtype)
+            return planner.plan_batched(tops, k_max=k_max, mesh=self.mesh,
+                                        device=self.device, dtype=self.dtype)
         return planner.plan(tops, k_max=k_max)
 
     def allocations(self) -> dict[str, dict[str, int]]:
@@ -840,13 +844,17 @@ class ScenarioRunner:
     :class:`~repro_torch.core.controller.CompactionConfig`) runs the sparse
     decide: the fused loop's memo, or the twin's
     :class:`~repro_torch.core.controller.TwinCompactionState`; the outputs
-    are the same either way.
+    are the same either way.  ``mesh`` (a 1-D
+    :class:`~repro_torch.distributed.FleetMesh`) shards the fused loop's
+    batch axis over its ranks (every rank builds the same runner and gets
+    the whole fleet's reports); it needs the fused loop, and ``device``
+    defaults to the mesh's.
     """
 
     def __init__(self, scenarios: Sequence, *, tick_interval: float = 10.0,
                  controlled: bool = True, backend: str = "torch", fused: bool | None = None,
-                 fused_decide: bool = False, proactive=None, compact=None, device=None,
-                 dtype=None):
+                 fused_decide: bool = False, proactive=None, compact=None, mesh=None,
+                 device=None, dtype=None):
         from ..streaming.batchsim import BatchQueueSim
         from ..streaming.scenarios import pack_allocations, pack_scenarios
 
@@ -854,7 +862,10 @@ class ScenarioRunner:
             raise ValueError(
                 f"unknown backend {backend!r}; expected one of {BatchQueueSim.BACKENDS}")
         self.backend = backend
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device) if backend == "torch" else None
+        self.mesh = mesh
         self.dtype = torch.float32 if dtype is None else dtype
         self.scenarios = list(scenarios)
         self.tick_interval = tick_interval
@@ -896,6 +907,11 @@ class ScenarioRunner:
                 f"scenarios: {[s.name for s in self.scenarios if s.negotiated]}"
             )
         self.fused = bool(fused)
+        if mesh is not None and not self.fused:
+            raise GraphValidationError(
+                "mesh= shards the fused loop's batch axis; it has no effect "
+                "on the window-at-a-time path (pass fused=True or drop mesh)"
+            )
         self.sim = None if self.fused else BatchQueueSim(
             self.arrays, backend=backend, device=self.device, dtype=self.dtype)
         # Per-scenario decision parameters; negotiator leases move the
@@ -1055,7 +1071,7 @@ class ScenarioRunner:
         loop, n_ticks = ctl.make_fused_loop(
             a, self.static, self.params, steps_per_tick=self._steps_per_tick,
             warmup_seconds=self.scenarios[0].warmup, proactive=self.proactive_cfg,
-            compact=self.compact, device=self.device, dtype=self.dtype,
+            compact=self.compact, mesh=self.mesh, device=self.device, dtype=self.dtype,
         )
         state = loop.init(self.k)
         t0 = time.perf_counter()

@@ -18,6 +18,14 @@
   memory before it returns (the fused loop updates its carry in place, so a
   view of a CPU tensor would change under the writer) and writes on a
   background thread, one save in flight at a time.
+* **Sharded carries**: a fused loop under a fleet mesh returns its whole
+  (padded) carry on every rank, so its checkpoint is the same directory as
+  an unsharded loop's and restores onto either layout's template where the
+  extents agree.  ``CheckpointStore(directory, mesh=mesh)`` is the store
+  every rank of the mesh opens on one directory: the mesh's first rank
+  writes, and :meth:`~CheckpointStore.save` and
+  :meth:`~CheckpointStore.wait` end in a barrier of the mesh's ranks, so a
+  restore after either reads a complete directory on every rank.
 """
 
 from __future__ import annotations
@@ -146,12 +154,19 @@ def _restore_leaf(arr: np.ndarray, logical: str, want, key: str):
 
 
 class CheckpointStore:
-    def __init__(self, directory: str | Path):
+    def __init__(self, directory: str | Path, *, mesh=None):
         self.dir = Path(directory)
-        self.dir.mkdir(parents=True, exist_ok=True)
+        self.mesh = mesh
+        self._writer = mesh is None or mesh.rank == 0
+        if self._writer:
+            self.dir.mkdir(parents=True, exist_ok=True)
         self._thread: threading.Thread | None = None
         self._lock = threading.Lock()
         self.save_count = 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     # ------------------------------------------------------------------ #
     def _step_dir(self, step: int) -> Path:
@@ -163,11 +178,16 @@ class CheckpointStore:
 
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> Path:
         """Synchronous atomic save."""
-        return self._write(step, self._snapshot(tree), extra or {})
+        if self._writer:
+            self._write(step, self._snapshot(tree), extra or {})
+        self._barrier()
+        return self._step_dir(step)
 
     def save_async(self, step: int, tree: Any, *, extra: dict | None = None) -> None:
         """Copy every leaf to host memory now, write on a background thread."""
         self.wait()  # one in-flight save at a time
+        if not self._writer:
+            return
         host = self._snapshot(tree)  # device -> host copies, before returning
         self._thread = threading.Thread(
             target=self._write, args=(step, host, extra or {}), daemon=True
@@ -178,6 +198,7 @@ class CheckpointStore:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        self._barrier()
 
     def _write(self, step: int, host: list, extra: dict) -> Path:
         final = self._step_dir(step)

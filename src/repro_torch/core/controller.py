@@ -40,6 +40,7 @@ PyTorch version, in float32 or float64.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, replace
 from typing import Any, Callable, NamedTuple, Sequence
@@ -71,6 +72,8 @@ __all__ = [
     "DecideCache",
     "TwinCompactionState",
     "init_decide_cache",
+    "pad_static",
+    "pad_params",
     "FusedLoop",
     "init_state",
     "make_decide",
@@ -191,6 +194,79 @@ class ControllerParams:
             allocator=tuple(c.allocator for c in configs),
             fused_decide=flags.pop() if flags else False,
         )
+
+
+# --------------------------------------------------------------------------- #
+# Batch-axis padding (a fleet mesh needs B % rank count == 0)
+# --------------------------------------------------------------------------- #
+def pad_static(static: ControllerStatic, b_total: int) -> ControllerStatic:
+    """Append ``b_total - B`` inert scenario lanes: no operators
+    (``n_ops = 0``), ``active`` all False, zero routing and alpha, unit
+    speed.  A padded lane decides ``"none"`` with its allocation unchanged,
+    in the decide and in the twin, so it never moves a real lane."""
+    b, n = static.batch, static.n
+    if b_total < b:
+        raise ValueError(f"b_total {b_total} < batch {b}")
+    if b_total == b:
+        return static
+    pad = b_total - b
+    return ControllerStatic(
+        base_routing=np.concatenate([static.base_routing, np.zeros((pad, n, n))], axis=0),
+        group=np.concatenate([static.group, np.zeros((pad, n), dtype=bool)]),
+        alpha=np.concatenate([static.alpha, np.zeros((pad, n))]),
+        active=np.concatenate([static.active, np.zeros((pad, n), dtype=bool)]),
+        speed=np.concatenate([static.speed, np.ones((pad, n))]),
+        n_ops=np.concatenate([static.n_ops, np.zeros(pad, dtype=np.int64)]),
+        names=static.names + ((),) * pad,
+    )
+
+
+def pad_params(params: ControllerParams, b_total: int) -> ControllerParams:
+    """Decision parameters of inert padded lanes: no constraint (``t_max =
+    NaN``), zero budget and an infinite improvement gate, so every gate of
+    the decide stays closed on them."""
+    b = params.k_max.shape[0]
+    if b_total < b:
+        raise ValueError(f"b_total {b_total} < batch {b}")
+    if b_total == b:
+        return params
+    pad = b_total - b
+    return ControllerParams(
+        t_max=np.concatenate([params.t_max, np.full(pad, np.nan)]),
+        k_max=np.concatenate([params.k_max, np.zeros(pad, dtype=np.int64)]),
+        headroom=np.concatenate([params.headroom, np.ones(pad)]),
+        scale_in_hysteresis=np.concatenate([params.scale_in_hysteresis, np.zeros(pad)]),
+        min_improvement=np.concatenate([params.min_improvement, np.full(pad, np.inf)]),
+        horizon_seconds=np.concatenate([params.horizon_seconds, np.zeros(pad)]),
+        allocator=params.allocator + ("table",) * pad,
+        fused_decide=params.fused_decide,
+    )
+
+
+def _mesh_axis(mesh) -> tuple[str, int]:
+    """The (axis name, rank count) of a 1-D fleet mesh; anything else is
+    refused."""
+    from ..distributed.sharding import mesh_axis
+
+    return mesh_axis(mesh, "controller")
+
+
+def _padded_batch(b: int, n_shards: int) -> int:
+    """B rounded up to a multiple of the shard count."""
+    return -(-b // n_shards) * n_shards
+
+
+def _lanes(x, sl: slice):
+    """Rows ``sl`` of every ``[B, ...]`` leaf of a tensor tree (tuples,
+    NamedTuples, dicts), as contiguous copies."""
+    if isinstance(x, torch.Tensor):
+        return x[sl].clone()
+    if isinstance(x, dict):
+        return {k: _lanes(v, sl) for k, v in x.items()}
+    if isinstance(x, tuple):
+        vals = [_lanes(v, sl) for v in x]
+        return type(x)(*vals) if hasattr(x, "_fields") else tuple(vals)
+    return x
 
 
 def _source_mask(static: ControllerStatic) -> np.ndarray:
@@ -607,7 +683,7 @@ def _resolve(device, dtype):
 
 def make_decide(static: ControllerStatic, params: ControllerParams, *,
                 k_hi: int | None = None, pause_seconds: float | None = None,
-                fused: bool | None = None, compact=None, device=None, dtype=None):
+                fused: bool | None = None, compact=None, mesh=None, device=None, dtype=None):
     """The batched decide over one fleet.
 
     Returns ``decide(lam_hat, mu_hat, drop_hat, lam0_hat, k_current) ->
@@ -624,9 +700,20 @@ def make_decide(static: ControllerStatic, params: ControllerParams, *,
     ``decide.init_cache()`` the cold cache; its outputs equal the dense
     decide's bitwise.  Each call reads the repriced count back to the host
     once, to pick the rung.
+
+    ``mesh`` (a 1-D :class:`~repro_torch.distributed.FleetMesh`) shards the
+    batch axis over its ranks: every rank passes the whole fleet's inputs,
+    decides its own lane shard (B padded to a multiple of the rank count
+    with :func:`pad_static` lanes) and returns the whole fleet's outputs,
+    gathered and cut back to B.  Every op of the decide is per lane, so the
+    outputs equal the unsharded decide's.  With ``compact`` each rank
+    compacts its own shard on a ladder of its shard's extent, and the cache
+    a rank holds is its shard of the padded-extent cache.  ``device``
+    defaults to the mesh's.
     """
-    dev, dtype = _resolve(device, dtype)
-    n = static.n
+    dev, dtype = _resolve(mesh.device if device is None and mesh is not None else device,
+                          dtype)
+    b, n = static.batch, static.n
     k_hi = int(k_hi if k_hi is not None else max(int(params.k_max.max()), 1))
     pause = float(PAUSE_SECONDS if pause_seconds is None else pause_seconds)
     if fused is None:
@@ -635,27 +722,53 @@ def make_decide(static: ControllerStatic, params: ControllerParams, *,
     # <= its k_max, so the fleet max keeps the truncation exact.
     j_cap = min(k_hi, max(int(params.k_max.max()), 1))
     core = _make_decide_core(n, k_hi, pause, fused=fused, j_cap=j_cap)
+    lanes = slice(0, b)
+    if mesh is not None:
+        _, n_shards = _mesh_axis(mesh)
+        b_pad = _padded_batch(b, n_shards)
+        static, params = pad_static(static, b_pad), pad_params(params, b_pad)
+        lanes = mesh.shard(b_pad)
     st = _decide_statics(static, params, device=dev, dtype=dtype)
+    if mesh is not None:
+        st = _lanes(st, lanes)
+    b_local = lanes.stop - lanes.start
 
-    def f(x):
-        return torch.as_tensor(x, device=dev).to(dtype)
+    def shard(x, fill, dt):
+        """The rank's lanes of a whole-fleet input, inert lanes past B."""
+        x = torch.as_tensor(x, device=dev).to(dt)
+        if mesh is None:
+            return x
+        if x.shape[0] < static.batch:
+            x = torch.cat([x, torch.full((static.batch - x.shape[0],) + tuple(x.shape[1:]),
+                                         fill, dtype=dt, device=dev)])
+        return x[lanes]
 
-    def k_of(k_current):
-        return torch.as_tensor(k_current, device=dev).to(torch.int32)
+    def inputs(lam_hat, mu_hat, drop_hat, lam0_hat, k_current):
+        return (shard(lam_hat, 0.0, dtype), shard(mu_hat, 1.0, dtype),
+                shard(drop_hat, 0.0, dtype), shard(lam0_hat, 0.0, dtype),
+                shard(k_current, 0, torch.int32))
+
+    def whole(outs):
+        """The whole fleet's outputs from every rank's shard, cut to B."""
+        if mesh is None:
+            return outs
+        return tuple(mesh.all_gather(o)[:b] for o in outs)
 
     if compact:
-        core_c = _make_compact_decide(core, static.batch, _resolve_ladder(compact, static.batch))
+        core_c = _make_compact_decide(core, b_local, _resolve_ladder(compact, b_local))
 
         def decide_compact(lam_hat, mu_hat, drop_hat, lam0_hat, k_current, cache):
-            return core_c(st, f(lam_hat), f(mu_hat), f(drop_hat), f(lam0_hat),
-                          k_of(k_current), cache)
+            outs, repriced, cache = core_c(
+                st, *inputs(lam_hat, mu_hat, drop_hat, lam0_hat, k_current), cache)
+            outs, (repriced,) = whole(outs), whole((repriced,))
+            return outs, repriced, cache
 
-        decide_compact.init_cache = lambda: init_decide_cache(static.batch, n, dtype=dtype,
+        decide_compact.init_cache = lambda: init_decide_cache(b_local, n, dtype=dtype,
                                                               device=dev)
         return decide_compact
 
     def decide(lam_hat, mu_hat, drop_hat, lam0_hat, k_current):
-        return core(st, f(lam_hat), f(mu_hat), f(drop_hat), f(lam0_hat), k_of(k_current))
+        return whole(core(st, *inputs(lam_hat, mu_hat, drop_hat, lam0_hat, k_current)))
 
     return decide
 
@@ -732,7 +845,7 @@ class FusedLoop:
 def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, *,
                     steps_per_tick: int, k_hi: int | None = None,
                     warmup_seconds: float | None = None, fused: bool | None = None,
-                    proactive=None, compact=None, device=None, dtype=None):
+                    proactive=None, compact=None, mesh=None, device=None, dtype=None):
     """Build the control loop over ``arrays`` (a
     :class:`~repro_torch.streaming.batchsim.BatchArrays`).
 
@@ -763,17 +876,125 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     device-to-host read per tick (the two counts together).  The memo cache
     starts cold at every :meth:`FusedLoop.run` call (it is not part of the
     state).
+
+    ``mesh`` (a 1-D :class:`~repro_torch.distributed.FleetMesh`) shards the
+    batch axis of the whole loop over its ranks: B is padded to a multiple
+    of the rank count with inert lanes (:func:`pad_static`,
+    :func:`pad_params`, ``BatchArrays.pad_batch``), and each rank cuts the
+    statics, the simulator's arrays, the arrivals and the carry to its lane
+    shard and runs the per-lane loop above on it (with ``compact``, on a
+    ladder of its shard's extent).  Each :meth:`FusedLoop.run` gathers the
+    per-tick outputs to ``[ticks, B, ...]`` and the carry to the padded
+    extent, so every rank returns the whole fleet's outputs (cut back to
+    B) and its whole :class:`ControllerState` (padded), which a checkpoint
+    saves and a resume continues bit for bit.  Every op of a tick is per
+    lane, so the outputs equal the unsharded loop's.  ``device`` defaults
+    to the mesh's.
     """
+    k_top = int(params.k_max.max())
+    kw = dict(steps_per_tick=steps_per_tick,
+              k_hi=int(k_hi if k_hi is not None else max(k_top, 1)),
+              warmup_seconds=warmup_seconds,
+              fused=bool(params.fused_decide) if fused is None else fused,
+              proactive=proactive, compact=compact, k_top=k_top)
+    if mesh is None:
+        return _make_lane_loop(arrays, static, params, device=device, dtype=dtype, **kw)
+    return _make_sharded_loop(arrays, static, params, mesh,
+                              device=mesh.device if device is None else device, dtype=dtype,
+                              **kw)
+
+
+def _cut_lanes(obj, sl: slice):
+    """A ``ControllerStatic`` / ``ControllerParams`` / ``BatchArrays`` of
+    the lanes ``sl`` (the arrivals' batch axis is their second)."""
+    changes = {}
+    for fld in dataclasses.fields(obj):
+        v = getattr(obj, fld.name)
+        if fld.name == "ext":
+            changes[fld.name] = v[:, sl]
+        elif isinstance(v, np.ndarray) or fld.name in ("names", "allocator"):
+            changes[fld.name] = v[sl]
+    return replace(obj, **changes)
+
+
+def _make_sharded_loop(arrays, static: ControllerStatic, params: ControllerParams, mesh, *,
+                       device, dtype, proactive, **kw):
+    """:func:`make_fused_loop` under a fleet mesh: the per-lane loop on this
+    rank's shard, its outputs and carry gathered after every run."""
+    dev, dtype = _resolve(device, dtype)
+    _mesh_axis(mesh)
+    b_real, n = static.batch, static.n
+    b_pad = _padded_batch(b_real, mesh.size)
+    lanes = mesh.shard(b_pad)
+    static, params = pad_static(static, b_pad), pad_params(params, b_pad)
+    arrays = arrays.pad_batch(b_pad)
+    inner, n_ticks = _make_lane_loop(
+        _cut_lanes(arrays, lanes), _cut_lanes(static, lanes), _cut_lanes(params, lanes),
+        proactive=proactive, device=dev, dtype=dtype, **kw)
+    # The newest whole-fleet state this loop returned and the shard state
+    # it was gathered from: resuming from it needs no cut and no host read.
+    held = [None, None]
+
+    def whole_state(s: ControllerState) -> ControllerState:
+        return ControllerState(
+            q=mesh.all_gather(s.q), served_prev=mesh.all_gather(s.served_prev),
+            k=mesh.all_gather(s.k), acc=tuple(mesh.all_gather(a) for a in s.acc),
+            tick=s.tick, fstate=tuple(mesh.all_gather(x) for x in s.fstate))
+
+    def run_fn(state: ControllerState, ticks: int):
+        local = held[1] if state is held[0] else _lanes(state, lanes)
+        local, out = inner.run(local, ticks)
+        state = whole_state(local)
+        held[:] = [state, local]
+        got = {}
+        for key, v in out.items():
+            if key in _AGGREGATE_KEYS:
+                continue
+            if key == "miss":
+                got[key] = mesh.all_gather(v)[:b_real]
+            elif isinstance(v, torch.Tensor):
+                got[key] = mesh.all_gather(v, dim=1)[:, :b_real]
+            else:
+                got[key] = v
+        acc = state.acc
+        got.update({"k_final": state.k[:b_real], "q_final": state.q[:b_real]})
+        got.update({key: a[:b_real] for key, a in zip(_AGGREGATE_KEYS[2:], acc)})
+        return state, {key: got[key] for key in out}
+
+    def init_fn(k0) -> ControllerState:
+        k0 = np.asarray(k0)
+        if k0.shape[0] < b_pad:  # padded lanes hold no processors
+            k0 = np.concatenate([k0, np.zeros((b_pad - k0.shape[0], n), dtype=k0.dtype)])
+        fstate = ()
+        if proactive is not None:
+            from ..forecast.mpc import forecast_init_state_torch
+
+            fstate = forecast_init_state_torch(b_pad, n, proactive, dtype=dtype, device=dev)
+        return init_state(k0, device=dev, dtype=dtype, fstate=fstate)
+
+    return FusedLoop(n_ticks, init_fn, run_fn), n_ticks
+
+
+#: The whole-run aggregates of a loop run, in output order: the carry's
+#: allocation and backlog, then ``ControllerState.acc``.
+_AGGREGATE_KEYS = ("k_final", "q_final", "offered", "served", "dropped", "ext_admitted",
+                   "ext_offered", "q_int", "q_max")
+
+
+def _make_lane_loop(arrays, static: ControllerStatic, params: ControllerParams, *,
+                    steps_per_tick: int, k_hi: int, warmup_seconds: float | None,
+                    fused: bool, proactive, compact, k_top: int, device, dtype):
+    """:func:`make_fused_loop` over the lanes it is given.  ``k_hi`` and
+    ``k_top`` (the largest budget) are the whole fleet's, so a shard
+    prices with the fleet's table width and candidate window."""
     from ..streaming.batchsim import STATIONARY_K_CAP, composed_wait, window_step_fn
 
     dev, dtype = _resolve(device, dtype)
     b, n = static.batch, static.n
     dt = float(arrays.dt)
     n_ticks = arrays.steps // steps_per_tick
-    k_hi_res = int(k_hi if k_hi is not None else max(int(params.k_max.max()), 1))
-    if fused is None:
-        fused = bool(params.fused_decide)
-    j_cap = min(k_hi_res, max(int(params.k_max.max()), 1))
+    k_hi_res = k_hi
+    j_cap = min(k_hi_res, max(k_top, 1))
     decide_core = _make_decide_core(n, k_hi_res, PAUSE_SECONDS, fused=fused, j_cap=j_cap)
     window = window_step_fn()
     compact_cfg = None
@@ -792,7 +1013,7 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     # max(k_apply, k0.max()), and gang lanes serve with k_srv <= 1:
     # stationary_wait's Erlang-B table needs no rows past that (nor past
     # the cap, where the JAX loop stops too).
-    k_apply = max(k_hi_res, min(k_hi_res + 1, int(params.k_max.max())))
+    k_apply = max(k_hi_res, min(k_hi_res + 1, k_top))
     made = [None, 0]  # the k of the newest state this loop made, its bound
 
     def bound_of(k_top: int) -> int:

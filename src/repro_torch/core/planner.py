@@ -183,15 +183,22 @@ class FleetPlanner:
         on the CPU) the plan equals the scalar one bit for bit; in float32
         the cast can resolve near-ties differently, as the reference's does
         without x64.  On the card the whole fleet is one scenario of the
-        kernel: past 32 rows or 512 gains it takes the block route, which
-        holds up to 4,093 rows and raises past them.
+        kernel: past 32 rows or 512 gains it takes the grid route, which
+        spreads the tile over the whole card and holds any number of rows.
 
-        ``mesh`` (the cross-device fleet reduction) is not ported yet.
+        ``mesh`` (a 1-D :class:`~repro_torch.distributed.FleetMesh`) runs the
+        selection as the fleet reduction over its ranks: the rows are
+        sharded, every rank gathers the whole table and selects over it,
+        keeps its own rows' takes, and the takes are gathered back, so every
+        rank returns the same plan, equal to the unsharded one.  ``device``
+        defaults to the mesh's.
         """
         if mesh is not None:
-            raise NotImplementedError(
-                "plan_batched(mesh=...) is not ported yet: ROADMAP Queue 1 item 10, "
-                "mesh sharding on torch.distributed")
+            from ..distributed.sharding import mesh_axis
+
+            mesh_axis(mesh, "fleet")
+            if device is None:
+                device = mesh.device
         dev = resolve_device(device)
         dtype = torch.float32 if dtype is None else dtype
         resolved, ctx = self._floors(topologies, k_max)
@@ -199,7 +206,8 @@ class FleetPlanner:
         if ctx["budget"] > 0:
             rows, k_start, evals = self._gain_rows(resolved, ctx["starts"], ctx["budget"])
             ctx["evals"] += evals
-            take = _merged_topr(rows, k_start, ctx["budget"], device=dev, dtype=dtype)
+            take = _merged_topr(rows, k_start, ctx["budget"], mesh=mesh, device=dev,
+                                dtype=dtype)
         return self._assemble(resolved, take, ctx)
 
     # ------------------------------------------------------------------ #
@@ -301,13 +309,19 @@ class FleetPlanner:
         )
 
 
-def _merged_topr(G: np.ndarray, k_start: np.ndarray, budget: int, *, device,
+def _merged_topr(G: np.ndarray, k_start: np.ndarray, budget: int, *, mesh=None, device,
                  dtype) -> np.ndarray:
     """``greedy_increments``'s selection as one ``gain_topr`` call over the
     merged fleet rows: the whole fleet's budget to the globally largest
     positive gains of the candidate window (finite: every start sits at or
     above its stability minimum), as a single scenario (``[1, R,
-    budget]``)."""
+    budget]``).
+
+    With ``mesh`` the rows are padded with zero-gain rows (never selected)
+    to a multiple of the rank count and cut per rank; each rank
+    ``all_gather``s the whole table, selects over it (the same selection on
+    every rank), keeps its own rows' takes, and the takes are gathered
+    back."""
     from ..kernels.gain_topr import ops as topr_ops
 
     r = G.shape[0]
@@ -315,5 +329,14 @@ def _merged_topr(G: np.ndarray, k_start: np.ndarray, budget: int, *, device,
         return np.zeros(r, dtype=np.int64)
     cand = torch.as_tensor(candidate_window(G, k_start, budget)).to(device=device, dtype=dtype)
     budget_t = torch.tensor([budget], dtype=torch.int32, device=device)
-    take = topr_ops.gain_topr(cand[None].contiguous(), budget_t)[0]
+    if mesh is None:
+        take = topr_ops.gain_topr(cand[None].contiguous(), budget_t)[0]
+        return take.cpu().numpy().astype(np.int64)
+    r_pad = -(-r // mesh.size) * mesh.size
+    if r_pad > r:
+        cand = torch.cat([cand, cand.new_zeros((r_pad - r, budget))])
+    rows = mesh.shard(r_pad)
+    merged = mesh.all_gather(cand[rows].contiguous())
+    take_all = topr_ops.gain_topr(merged[None], budget_t)[0]
+    take = mesh.all_gather(take_all[rows].contiguous())[:r]
     return take.cpu().numpy().astype(np.int64)

@@ -148,7 +148,7 @@ def library():
                 "repro_queue_step": [p] * 7 + [i, i, p],
                 "repro_queue_window": [p] * 9 + [i] * 6 + [p],
                 "repro_erlang_b_table": [p, p, i, i, i, p],
-                "repro_gain_topr": [p, p, p, i, i, i, i, i, i, p],
+                "repro_gain_topr": [p, p, p, p, i, i, i, i, i, i, p],
                 "repro_decide_fused": [p] * 11 + [i] * 7 + [p],
                 "repro_pairwise_sq_l2": [p, p, p, i, i, i, i, i, p],
                 "repro_match_count": [p, p, p, f, p, i, i, i, i, i, p],
@@ -165,8 +165,8 @@ def library():
                 fn.restype = i
             lib.repro_decode_attention_blocks_per_sm.argtypes = [i] * 4 + [ctypes.POINTER(i)]
             lib.repro_decode_attention_blocks_per_sm.restype = i
-            lib.repro_gain_topr_smem_bytes.argtypes = [i]
-            lib.repro_gain_topr_smem_bytes.restype = i
+            lib.repro_gain_topr_work_ints.argtypes = [i, i]
+            lib.repro_gain_topr_work_ints.restype = ll
             _lib = lib
         return _lib
 

@@ -211,6 +211,36 @@ class BatchArrays:
     def n(self) -> int:
         return self.ext.shape[2]
 
+    def pad_batch(self, b_total: int) -> "BatchArrays":
+        """Append ``b_total - B`` inert batch lanes (a fleet mesh's padding):
+        zero arrivals and routing, unit service rate, unbounded queues,
+        inactive.  They stay zero through the recurrence and the controller
+        decides ``"none"`` on them, so padding never moves a real lane."""
+        t, b, n = self.ext.shape
+        if b_total < b:
+            raise ValueError(f"b_total {b_total} < batch {b}")
+        if b_total == b:
+            return self
+        pad = b_total - b
+
+        def ones_or_none(x):
+            return None if x is None else np.concatenate([x, np.ones((pad, n))])
+
+        return BatchArrays(
+            ext=np.concatenate([self.ext, np.zeros((t, pad, n))], axis=1),
+            routing=np.concatenate([self.routing, np.zeros((pad, n, n))]),
+            mu=np.concatenate([self.mu, np.ones((pad, n))]),
+            group=np.concatenate([self.group, np.zeros((pad, n), dtype=bool)]),
+            alpha=np.concatenate([self.alpha, np.zeros((pad, n))]),
+            cap_queue=np.concatenate([self.cap_queue, np.full((pad, n), np.inf)]),
+            dt=self.dt,
+            warmup_steps=self.warmup_steps,
+            active=np.concatenate([self.active, np.zeros((pad, n), dtype=bool)]),
+            speed=ones_or_none(self.speed),
+            ca2=ones_or_none(self.ca2),
+            cs2=ones_or_none(self.cs2),
+        )
+
 
 @dataclass
 class BatchSimResult:

@@ -382,10 +382,13 @@ class Scenario:
         return allocate(self.mean_topology(), k_max=self.k_max, t_max=self.t_max).k
 
 
-def pack_scenarios(scenarios: Sequence[Scenario]) -> BatchArrays:
+def pack_scenarios(scenarios: Sequence[Scenario], *, pad_to: int | None = None) -> BatchArrays:
     """Pack B scenarios (shared dt/horizon/warmup) into one batch; narrower
     scenarios get inactive zero-traffic lanes (mu = 1, no routing).  A
-    scenario object that repeats in the sequence is sampled once."""
+    scenario object that repeats in the sequence is sampled once.
+    ``pad_to`` pads the batch axis to that extent with inert scenario lanes
+    (``BatchArrays.pad_batch``: a fleet mesh needs B to be a multiple of
+    its rank count)."""
     if not scenarios:
         raise ValueError("need at least one scenario")
     dts = {s.dt for s in scenarios}
@@ -431,11 +434,12 @@ def pack_scenarios(scenarios: Sequence[Scenario]) -> BatchArrays:
         if sv is not None:
             speed[bi, :ni] = sv
             heterogeneous = True
-    return BatchArrays(
+    arrays = BatchArrays(
         ext=ext, routing=routing, mu=mu, group=group, alpha=alpha, cap_queue=cap_queue,
         dt=dt, warmup_steps=int(round(scenarios[0].warmup / dt)), active=active,
         speed=speed if heterogeneous else None, ca2=ca2, cs2=cs2,
     )
+    return arrays if pad_to is None else arrays.pad_batch(int(pad_to))
 
 
 def pack_allocations(scenarios: Sequence[Scenario], ks) -> np.ndarray:

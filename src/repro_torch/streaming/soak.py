@@ -149,15 +149,8 @@ def build_scenario(cfg: SoakConfig):
     return replace(s, t_max=t_max)
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded soak) is not ported yet: ROADMAP Queue 1 item 10, "
-            "mesh sharding on torch.distributed")
-
-
 def _runner_and_loop(cfg: SoakConfig, *, proactive: bool, compact, fused_decide: bool,
-                     device, dtype, scenarios=None, tick_interval=None):
+                     device, dtype, scenarios=None, tick_interval=None, mesh=None):
     from ..api.session import ScenarioRunner
     from ..core import controller as ctl
 
@@ -165,12 +158,12 @@ def _runner_and_loop(cfg: SoakConfig, *, proactive: bool, compact, fused_decide:
     r = ScenarioRunner(
         scens, tick_interval=cfg.tick_interval if tick_interval is None else tick_interval,
         backend="torch", proactive=proactive or None, compact=compact,
-        fused_decide=fused_decide, device=device, dtype=dtype,
+        fused_decide=fused_decide, mesh=mesh, device=device, dtype=dtype,
     )
     loop, n_ticks = ctl.make_fused_loop(
         r.arrays, r.static, r._params(), steps_per_tick=r._steps_per_tick,
         warmup_seconds=scens[0].warmup, proactive=r.proactive_cfg, compact=compact,
-        device=r.device, dtype=r.dtype,
+        mesh=mesh, device=r.device, dtype=r.dtype,
     )
     return r, loop, n_ticks
 
@@ -190,10 +183,12 @@ def run_straight(cfg: SoakConfig, *, proactive: bool = False, mesh=None, compact
     through the same harness (``cfg`` then only gives
     ``checkpoint_every``).  ``timings``, a dict, receives the host
     milliseconds of the build (``"rebuild"``) and of the run (``"run"``,
-    ending in a device sync)."""
-    _no_mesh(mesh)
+    ending in a device sync).  ``mesh`` (a 1-D
+    :class:`~repro_torch.distributed.FleetMesh`) shards the fleet's lanes
+    over its ranks (B = 1 pads to one lane per rank); every rank runs this
+    call and returns the whole run."""
     t0 = time.perf_counter()
-    r, loop, _ = _runner_and_loop(cfg, proactive=proactive, compact=compact,
+    r, loop, _ = _runner_and_loop(cfg, proactive=proactive, mesh=mesh, compact=compact,
                                   fused_decide=fused_decide, device=device, dtype=dtype,
                                   scenarios=scenarios, tick_interval=tick_interval)
     t1 = time.perf_counter()
@@ -217,14 +212,16 @@ def run_checkpointed(cfg: SoakConfig, directory, *, proactive: bool = False, mes
     aggregates from the final chunk -- plus ``n_restores``.  ``timings``, a
     dict, receives lists of host milliseconds per chunk under ``"run"``,
     ``"save_async"`` (until it returns), ``"wait"``, ``"rebuild"``,
-    ``"restore"`` and ``"save"`` (the final synchronous save).
+    ``"restore"`` and ``"save"`` (the final synchronous save).  Under
+    ``mesh`` every rank runs this call on one ``directory``: the loop's
+    carry is the whole fleet's on every rank, the mesh's first rank writes
+    it, and every rank restores it after the save's barrier.
     """
     from ..checkpoint.store import CheckpointStore
     from ..core import controller as ctl
 
-    _no_mesh(mesh)
-    kw = dict(proactive=proactive, compact=compact, fused_decide=fused_decide, device=device,
-              dtype=dtype, scenarios=scenarios, tick_interval=tick_interval)
+    kw = dict(proactive=proactive, mesh=mesh, compact=compact, fused_decide=fused_decide,
+              device=device, dtype=dtype, scenarios=scenarios, tick_interval=tick_interval)
     times: dict[str, list] = {k: [] for k in ("run", "save_async", "wait", "rebuild",
                                               "restore", "save")}
 
@@ -237,7 +234,7 @@ def run_checkpointed(cfg: SoakConfig, directory, *, proactive: bool = False, mes
         return res
 
     r, loop, n_ticks = _runner_and_loop(cfg, **kw)
-    store = CheckpointStore(directory)
+    store = CheckpointStore(directory, mesh=mesh)
     state = loop.init(r.k)
     chunks: list[dict] = []
     restores = 0

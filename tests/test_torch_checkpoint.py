@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_ranks as _ranks
 import repro.core.controller as jctl
 from repro.api.session import ScenarioRunner as JaxRunner
 from repro.checkpoint.store import CheckpointStore as JaxStore
@@ -354,6 +355,50 @@ def test_port_keys_equal_the_jax_stores_keys(tmp_path):
     assert {"q", "served_prev", "k", "acc/6", "tick", "fstate/6"} <= set(keys[1])
     assert keys[1]["tick"] == ([], "int32")
     assert jnp.asarray(jstate.tick).dtype == jnp.int32
+
+
+@pytest.fixture(scope="module")
+def layouts(tmp_path_factory):
+    """Two gloo ranks (B = 4, no padding): ``plain/`` holds an unsharded
+    carry saved after one tick before the ranks start; the ranks save their
+    sharded carry after one tick to ``sharded/`` and run the rest from
+    ``plain/`` restored onto the sharded loop's template."""
+    work = tmp_path_factory.mktemp("layouts")
+    r = _ranks.runner(_ranks.scens(4, 19), "dense")
+    loop, _ = _ranks.loop_of(r)
+    state, _ = loop.run(loop.init(r.k), 1)
+    CheckpointStore(work / "plain").save(1, state)
+    straight = _ranks.np_out(_ranks.loop_of(r)[0](r.k))
+    return work, _ranks.run_ranks(2, ("checkpoint",), work), straight
+
+
+def test_sharded_carry_restores_onto_the_unsharded_template(layouts):
+    """The reference's tests/test_checkpoint.py:178: a carry saved from a
+    sharded loop (the first rank writes) resumes on the unsharded loop and
+    finishes the run as the straight run does."""
+    work, _res, straight = layouts
+    r = _ranks.runner(_ranks.scens(4, 19), "dense")
+    loop, _ = _ranks.loop_of(r)
+    restored, _ = CheckpointStore(work / "sharded").restore(loop.init(r.k), step=1)
+    _, out = loop.run(ctl.ControllerState(*restored))
+    out = _ranks.np_out(out)
+    for key in ("codes", "k", "applied"):
+        np.testing.assert_array_equal(out[key], straight[key][1:], err_msg=key)
+    for key in ("k_final", "q_final", "offered", "served", "dropped", "q_int", "q_max"):
+        np.testing.assert_array_equal(out[key], straight[key], err_msg=key)
+
+
+def test_unsharded_carry_restores_onto_the_sharded_template(layouts):
+    """The reference's tests/test_checkpoint.py:289: an unsharded carry
+    restores onto the sharded loop's template on every rank and finishes
+    the run as the straight unsharded run does."""
+    _work, res, straight = layouts
+    for rank, got in res.items():
+        out = got["checkpoint"]
+        for key in ("codes", "k", "applied"):
+            np.testing.assert_array_equal(out[key], straight[key][1:], err_msg=f"{rank} {key}")
+        for key in ("k_final", "q_final", "offered", "served", "dropped", "q_int", "q_max"):
+            np.testing.assert_array_equal(out[key], straight[key], err_msg=f"{rank} {key}")
 
 
 @pytest.fixture

@@ -39,6 +39,7 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.configs.zamba2_7b\n"
         "import repro_torch.streaming.des, repro_torch.serving.router\n"
         "import repro_torch.forecast, repro_torch.distributed\n"
+        "import repro_torch.distributed.sharding\n"
         "import repro_torch.checkpoint, repro_torch.streaming.soak\n"
         "import repro_torch.core.planner, repro_torch.core.heterogeneous\n"
         "import repro_torch.streaming.apps.fpd, repro_torch.api\n"

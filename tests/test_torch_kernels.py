@@ -429,11 +429,14 @@ def test_cuda_queue_window_matches_plain_bitwise(cuda_device, b, n, steps, route
 @pytest.mark.parametrize("b,n,j,misaligned", [
     (4096, 7, 48, False), (4096, 7, 48, True), (67, 7, 47, False), (67, 32, 16, False),
     (67, 1, 1, False), (67, 5, 13, True), (67, 33, 4, False), (67, 8, 100, False),
+    (256, 40, 48, False), (7, 1298, 2048, False), (2, 5128, 2048, False),
+    (3, 4100, 24, True), (67, 2100, 3, False), (1, 4094, 1, False),
 ])
 def test_cuda_gain_topr_matches_plain_on_both_routes(cuda_device, b, n, j, misaligned):
     """The warp route (also on a view that is not 16-byte aligned) and the
-    block route past N = 32 or 512 gains; ties, +inf, NaN and negative
-    gains, budgets of 0, below 0, at and past the positives."""
+    grid route past N = 32 or 512 gains, up to the fleet planner's tiles
+    and past the 4,093 rows the old block route held; ties, +inf, NaN and
+    negative gains, budgets of 0, below 0, at and past the positives."""
     rng = np.random.default_rng(b + n + j)
     raw = rng.integers(0, 9, (b, n, j)).astype(np.float32) * 0.5
     cand = -np.sort(-raw, axis=-1)

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_ranks as ranks
 import repro.core.planner as jplanner
 from repro.core import assign_processors_naive
 from repro.api import AppGraph as JGraph
@@ -35,6 +36,7 @@ from repro_torch.core.allocator import InsufficientResourcesError
 from repro_torch.core.measurer import stack_snapshots
 from repro_torch.core.negotiator import Machine, Negotiator, ResourcePool
 from repro_torch.core.planner import FleetPlanner, Tenant
+from repro_torch.distributed import FleetMesh, fleet_mesh
 
 
 def chain_graph(i: int, lam0: float, mus=(2.0, 6.0, 30.0)) -> AppGraph:
@@ -231,9 +233,55 @@ def test_plan_batched_float32_equals_jax_plan_batched(case):
 
 
 def test_plan_batched_refuses_a_mesh():
+    """What ``mesh=`` still refuses: a mesh that is not a 1-D fleet mesh
+    (the reference's message for a 2-D one)."""
     _, tp = _both(j_ten_tenants(), 220)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    two_d = FleetMesh(group=None, size=1, rank=0, device=torch.device("cpu"),
+                      axis_names=("a", "b"))
+    with pytest.raises(ValueError, match="fleet mesh must be 1-D"):
+        tp.plan_batched(device="cpu", mesh=two_d)
+    with pytest.raises(ValueError, match="FleetMesh"):
         tp.plan_batched(device="cpu", mesh=object())
+
+
+@pytest.fixture(scope="module")
+def mesh_plans(tmp_path_factory):
+    """The reference planner's cases and a batched FleetSession on gloo
+    meshes of 2 and 4 ranks (the CPU)."""
+    return {d: ranks.run_ranks(d, ("plans", "fleet-session"), tmp_path_factory.mktemp(f"p{d}"))
+            for d in (2, 4)}
+
+
+@pytest.mark.parametrize("d", [2, 4])
+@pytest.mark.parametrize("case", sorted(ranks.PLAN_CASES))
+def test_plan_batched_on_a_mesh_equals_the_unsharded_plans(mesh_plans, case, d):
+    """The fleet reduction over 2 and 4 ranks (4 pads the rows): every rank's
+    float64 plan is the scalar greedy's and the reference's ``plan()``, its
+    float32 plan the unsharded float32 plan, take for take."""
+    make, k_max, objective = ranks.PLAN_CASES[case]
+    j_make = {"ten-fair": j_ten_tenants, "ten-throughput": j_ten_tenants,
+              "overloaded": j_overloaded_tenants, "tight": j_ten_tenants}[case]
+    jp, tp = _both(j_make(), k_max, objective)
+    want = {"float64": jp.plan(), "float32": tp.plan_batched(device="cpu")}
+    _plans_equal(tp.plan(), want["float64"])
+    for rank, res in mesh_plans[d].items():
+        got = res["plans"]
+        for dt, plan in want.items():
+            tag = f"{case}/{dt}"
+            for name, k in plan.k.items():
+                np.testing.assert_array_equal(got[f"{tag}/{name}"], k, err_msg=f"{rank} {tag}")
+            assert int(got[f"{tag}/total"]) == plan.total
+            assert bool(got[f"{tag}/overloaded"]) == plan.overloaded
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_fleet_session_on_a_mesh_equals_the_unsharded_session(mesh_plans, d):
+    want = ranks.fleet_session_plans()
+    for rank, res in mesh_plans[d].items():
+        got = res["fleet-session"]
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{rank} {key}")
 
 
 def _fleet_256():
@@ -382,9 +430,9 @@ def test_fleet_session_requires_budget_and_known_solver():
         FleetSession(make_sessions(2))
     with pytest.raises(GraphValidationError):
         FleetSession(make_sessions(2), k_max=20, solver="heap")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        FleetSession(make_sessions(2), k_max=20, solver="batched", device="cpu",
-                     mesh=object())
+    with pytest.raises(GraphValidationError, match="mesh= requires solver='batched'"):
+        FleetSession(make_sessions(2), k_max=20, device="cpu",
+                     mesh=fleet_mesh(1, device="cpu"))
 
 
 def test_fleet_session_engine_tenants_live():
@@ -486,12 +534,22 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def test_cuda_plan_batched_equals_the_plain_float32_plan(cuda_device):
-    """The 256-tenant fleet's [1, 1298, 2048] tile on the block route: the
-    kernel's plan equals the plain version's, and one launch per plan."""
+@pytest.mark.parametrize("tenants", [256, 1024])
+def test_cuda_plan_batched_equals_the_plain_float32_plan(cuda_device, tenants):
+    """The 256-tenant fleet's [1, 1298, 2048] tile and the 1,024-tenant
+    fleet's [1, 5128, 2048] (past the 4,093 rows the old block route held)
+    on the grid route: the kernel's plan equals the plain version's, and
+    one launch per plan."""
+    from repro.streaming.scenarios import scenario_matrix
+
     from repro_torch.kernels import LAUNCHES
 
-    tp = FleetPlanner([tenant_from_reference(t) for t in _fleet_256()], 5059)
+    if tenants == 256:
+        tp = FleetPlanner([tenant_from_reference(t) for t in _fleet_256()], 5059)
+    else:
+        scens = scenario_matrix(1024, seed=5, horizon=30.0, warmup=5.0, dt=0.05, k_max=48)
+        tp = FleetPlanner([tenant_from_reference(jplanner.Tenant(
+            s.name, topology=s.mean_topology(), t_max=s.t_max)) for s in scens], 11690 + 2048)
     before = LAUNCHES["gain_topr"]
     got = tp.plan_batched(device=cuda_device)
     assert LAUNCHES["gain_topr"] == before + 1

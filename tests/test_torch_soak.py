@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_mesh_ranks as ranks
 from repro.streaming import soak as jsoak
+from repro_torch.distributed import FleetMesh
 from repro_torch.streaming import soak
 from repro_torch.streaming.soak import (
     SoakConfig,
@@ -124,11 +126,32 @@ def test_float32_soak_equals_the_jax_soak(mode):
 
 
 def test_soak_refuses_a_mesh(tmp_path):
+    """What the sharded soak still refuses: a mesh that is not a 1-D fleet
+    mesh (the reference's message for a 2-D one)."""
     cfg = SoakConfig.smoke()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        run_straight(cfg, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    two_d = FleetMesh(group=None, size=1, rank=0, device=torch.device("cpu"),
+                      axis_names=("a", "b"))
+    with pytest.raises(ValueError, match="controller mesh must be 1-D"):
+        run_straight(cfg, device="cpu", mesh=two_d)
+    with pytest.raises(ValueError, match="FleetMesh"):
         run_checkpointed(cfg, tmp_path, device="cpu", mesh=object())
+
+
+def test_sharded_soak_stitched_equals_straight_and_the_unsharded_day(tmp_path):
+    """The two-hour day on two gloo ranks (B = 1 padded to one lane per
+    rank): on every rank the stitched run (three crashes and restores, the
+    first rank writing the checkpoints) equals the straight run bitwise,
+    and both equal the unsharded day."""
+    res = ranks.run_ranks(2, ("soak",), tmp_path)
+    ref = _straight("reactive", "float32")
+    for rank, out in res.items():
+        got = out["soak"]
+        straight = {k[len("straight/"):]: v for k, v in got.items() if k.startswith("straight/")}
+        stitched = {k[len("stitched/"):]: v for k, v in got.items() if k.startswith("stitched/")}
+        assert int(stitched.pop("n_restores")) == 3, rank
+        assert set(straight) == set(ref)
+        assert_bit_identical(straight, stitched)
+        assert_bit_identical(ref, straight)
 
 
 def test_soak_keys_are_the_references():

@@ -303,12 +303,127 @@ def test_radix_select_finds_the_budget_th_largest(seed):
         assert _radix(vals, need) == pos[need - 1]
 
 
+# --------------------------------------------------------------------------- #
+# gain_topr's grid route, emulated
+# --------------------------------------------------------------------------- #
+GRID_DIGITS = ((20, 2048, None), (9, 2048, 20), (0, 512, 9))  # shift, bins, prefix bits above
+
+
+def _grid_hist_pass(flat, nb, pass_, prefix):
+    """One ``gain_topr_hist_kernel`` pass over a scenario: each of ``nb``
+    blocks histograms its grid-stride share of the tile (256 threads), and
+    the shares add into the scenario's histogram."""
+    shift, bins, above = GRID_DIGITS[pass_]
+    total = np.zeros(bins, np.int64)
+    idx = np.arange(flat.size)
+    for blk in range(nb):
+        mine = flat[((idx // 256) % nb) == blk]
+        u = _bits(mine[mine > 0])
+        if above is not None:
+            u = u[(u >> above) == (prefix >> above)]
+        total += np.bincount((u >> shift) & (bins - 1), minlength=bins)
+    return total
+
+
+def _grid_select(hist, need, prefix, shift):
+    """The last block's bin choice: thread t owns bins [per t, per t +
+    per), its inclusive suffix sum over the threads says whether the
+    need-th largest lies in its bins, and it walks them from the top."""
+    per = hist.size // 256
+    sums = hist.reshape(256, per).sum(axis=1)
+    suffix = np.cumsum(sums[::-1])[::-1]
+    above = suffix - sums
+    (t,) = np.nonzero((above < need) & (suffix >= need))
+    assert t.size == 1
+    t = int(t[0])
+    acc = int(above[t])
+    for k in range(per - 1, -1, -1):
+        if acc + hist[per * t + k] >= need:
+            return prefix | ((per * t + k) << shift), need - acc
+        acc += int(hist[per * t + k])
+    raise AssertionError("no bin")
+
+
+def grid_topr(cand, budget):
+    """``gain_topr``'s grid route in numpy: three radix passes with the
+    last block's selection, the warps' row counts, and the take kernel's
+    block scan of the ties over runs of ceil(N / 1024) rows."""
+    b, n, j = cand.shape
+    route, nb = tgk.plan(n, j)
+    take = np.zeros((b, n), np.int32)
+    for sc in range(b):
+        flat = cand[sc].reshape(-1)
+        bud = int(budget[sc])
+        prefix, need, mode = 0, bud, "select"
+        for pass_ in range(3):
+            hist = _grid_hist_pass(flat, nb, pass_, prefix)
+            if pass_ == 0:
+                total = int(hist.sum())
+                mode = "none" if bud <= 0 else ("all" if total <= bud else "select")
+            if mode != "select":
+                break
+            prefix, need = _grid_select(hist, need, prefix, GRID_DIGITS[pass_][0])
+        if mode == "none":
+            continue
+        thresh = np.float32(np.inf) if mode == "all" else (
+            np.array([prefix], np.int32).view(F32)[0])
+        rows = cand[sc]
+        pos_m = rows > 0
+        strict = (pos_m & (rows > thresh)).sum(axis=1)
+        ties = (pos_m & (rows == thresh)).sum(axis=1)
+        pos = pos_m.sum(axis=1)
+        if mode == "all":
+            take[sc] = pos
+            continue
+        chunk = -(-n // 1024)
+        run_ties = [ties[t * chunk:(t + 1) * chunk].sum() for t in range(1024)]
+        before_run = np.cumsum(run_ties) - run_ties
+        rem = bud - strict.sum()
+        for t in range(1024):
+            before = int(before_run[t])
+            for r in range(t * chunk, min(n, (t + 1) * chunk)):
+                take[sc, r] = strict[r] + max(min(ties[r], rem - before), 0)
+                before += int(ties[r])
+    return take
+
+
+@pytest.mark.parametrize("n,j,seed", [
+    (40, 48, 0), (33, 2, 1), (8, 65, 2), (7, 600, 3), (64, 129, 4), (1, 700, 5),
+    (300, 20, 6), (2100, 3, 7),
+])
+def test_grid_topr_emulation_equals_sorted_plain(n, j, seed):
+    """The grid route's passes against the sort: ties, +inf, NaN, negative
+    and zero gains, budgets of 0, below 0, at and past the positives, runs
+    of rows longer than one per thread (N > 1,024) and several blocks per
+    scenario (N J > 4,096)."""
+    cand, budget = topr_case(6, n, j, seed)
+    assert tgk.plan(n, j)[0] == "grid"
+    want = tgr.gain_topr(_t(cand), _t(budget)).numpy()
+    np.testing.assert_array_equal(grid_topr(cand, budget), want)
+
+
+def test_grid_topr_emulation_on_a_fleet_planners_tile():
+    """One scenario of decreasing gain rows over thousands of rows (past
+    the old block route's 4,093) with a shared threshold across many rows:
+    the grid route's selection is the sort's."""
+    rng = np.random.default_rng(3)
+    n, j = 4100, 24
+    base = rng.choice(np.array([0.5, 0.25, 0.125], F32), (n, 1))
+    cand = (base * F32(0.5) ** np.arange(j, dtype=F32)[None, :]).astype(F32)[None]
+    for bud in (1, 4100, 4101, 9000, int((cand > 0).sum()) + 3):
+        budget = np.array([bud], np.int32)
+        want = tgr.gain_topr(_t(cand), _t(budget)).numpy()
+        np.testing.assert_array_equal(grid_topr(cand, budget), want)
+
+
 @pytest.mark.parametrize("n,j,route,slots", [
     (7, 48, "warp", 12), (1, 1, "warp", 4), (4, 32, "warp", 4), (4, 33, "warp", 8),
-    (32, 16, "warp", 16), (16, 32, "warp", 16), (32, 17, "block", 0), (33, 2, "block", 0),
-    (8, 65, "block", 0), (7, 0, "warp", 4),
+    (32, 16, "warp", 16), (16, 32, "warp", 16), (32, 17, "grid", 1), (33, 2, "grid", 1),
+    (8, 65, "grid", 1), (7, 0, "warp", 4), (40, 48, "grid", 1), (1298, 2048, "grid", 649),
+    (5200, 2048, "grid", 1024), (4094, 1, "grid", 1),
 ])
 def test_gain_topr_plan_routes_by_tile(n, j, route, slots):
     """The warp route holds 4 ceil(N J / 128) values per lane, up to 16 (N J
-    <= 512) and N <= 32; larger tiles take the block route."""
+    <= 512) and N <= 32; larger tiles take the grid route, with one block
+    per 4,096 gains of a scenario for its radix passes, up to 1,024."""
     assert tgk.plan(n, j) == (route, slots)

@@ -26,8 +26,10 @@ constants.
 - ``queue_window`` at the fleet's window (B 4096, N 7, 100 steps): the
   segment route at widths 8 and 32, and the wide route (a 32-thread
   block per scenario);
-- ``gain_topr`` at the two-pass decide's [4096, 7, 48] tile: the warp
-  route and the block route.
+- ``gain_topr`` at the two-pass decide's [4096, 7, 48] tile (warp and
+  grid routes), at [256, 40, 48] and at the fleet planner's single
+  scenario of 256 and 1,024 tenants ([1, 1298, 2048], [1, 5128, 2048]):
+  every route each shape admits, beside the plain version and the bound.
 
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
@@ -225,25 +227,38 @@ def window_plans(torch, cs, _build, dev, gen):
 
 
 def topr_plans(torch, cs, _build, dev, gen):
+    """Each ``gain_topr`` route a shape admits, at the shapes the paths run:
+    the two-pass decide's tile (warp route), ``chip_smoke.py``'s N = 40 tile
+    and the fleet planner's single scenario of 256 and 1,024 tenants."""
     from repro_torch.kernels.gain_topr import kernel as gk, ref as gr
 
     plan = gk.plan
-    cand, budget = cs.gain_topr_inputs(torch.Generator().manual_seed(1234), cs.MAIN_B,
-                                       cs.N_OPS, cs.K_HI, dev)
-    want = gr.gain_topr(cand, budget)
-    chosen = plan(cs.N_OPS, cs.K_HI)
-    for choice in (chosen, ("block", 0)):  # the fleet tile takes the warp route
-        gk.plan = lambda *_a, _c=choice: _c
-        try:
-            ok = torch.equal(gk.gain_topr(cand, budget), want)
-            dus = cs.device_us_per_call(lambda: gk.gain_topr(cand, budget),
-                                        cs.LOOP_SYMBOLS["gain_topr"], calls=20)
-        finally:
-            gk.plan = plan
-        print(json.dumps({"kernel": "gain_topr",
-                          "shape": f"B={cs.MAIN_B},N={cs.N_OPS},J={cs.K_HI}",
-                          "route": choice[0], "slots": choice[1], "chosen": choice == chosen,
-                          "bitwise": ok, "device_us": dus}), flush=True)
+    cpu_gen = torch.Generator().manual_seed(1234)
+    tiles = [("decide", *cs.gain_topr_inputs(cpu_gen, cs.MAIN_B, cs.N_OPS, cs.K_HI, dev)),
+             ("N=40", *cs.gain_topr_inputs(cpu_gen, 256, 40, cs.K_HI, dev))]
+    for count in (cs.DISTINCT, 4 * cs.DISTINCT):
+        planner, _floors = cs.fleet_planner(count)
+        tiles.append((f"fleet-{count}", *cs.fleet_tile(planner, dev)))
+    for name, cand, budget in tiles:
+        b, n, j = cand.shape
+        want = gr.gain_topr(cand, budget)
+        chosen = plan(n, j)
+        routes = [chosen, ("grid", plan(33, j)[1] if n <= 32 else chosen[1])]
+        plain_ms = cs.median_ms(lambda: gr.gain_topr(cand, budget), runs=5, inner=2)
+        for choice in dict.fromkeys(routes):
+            gk.plan = lambda *_a, _c=choice: _c
+            try:
+                ok = torch.equal(gk.gain_topr(cand, budget), want)
+                ms = cs.median_ms(lambda: gk.gain_topr(cand, budget), runs=15, inner=5)
+                dus = cs.device_us_per_call(lambda: gk.gain_topr(cand, budget),
+                                            cs.LOOP_SYMBOLS["gain_topr"], calls=20)
+            finally:
+                gk.plan = plan
+            print(json.dumps({"kernel": "gain_topr", "tile": name, "shape": f"B={b},N={n},J={j}",
+                              "route": choice[0], "slots": choice[1],
+                              "chosen": choice == chosen, "bitwise": ok, "ms": ms,
+                              "device_us": dus, "plain_ms": plain_ms,
+                              "bound_ms": cs.topr_bound(cand)}), flush=True)
 
 
 if __name__ == "__main__":
