@@ -130,7 +130,12 @@ Phases, each printing one JSON line:
    256-tenant ``plan_batched(mesh=)`` on the four ranks; (d) the
    1,024-tenant fleet (5,128 operator rows, past the 4,093 the old block
    route held) planned on the one-rank mesh, its ``gain_topr`` grid-route
-   call timed beside its plain version and bound.  Hard: every sharded
+   call timed beside its plain version and bound; (e) the fused loop as a
+   chunked resume, unsharded, on the one rank and on each of the four:
+   each rank's carry and per-tick outputs hold ``B_pad / D`` lanes between
+   runs, ``init`` and ``run`` make no ``all_gather``, ``gather`` gives the
+   unsharded outputs, and each rank's peak device memory is set beside the
+   unsharded run's.  Hard: every sharded
    run equals the unsharded card run on the decisions, allocations and
    integer aggregates, on every rank; the plans equal the unsharded plans
    and (d) the plain float32 plan, take for take.  Reported: each rank's
@@ -155,7 +160,9 @@ Phases, each printing one JSON line:
    (decode: on the valid prefix) and null for ``swiglu`` and the two scans
    (no single PyTorch call computes a chunked linear recurrence).
    Launches of the attention and SwiGLU kernels sum the llama3.2-1b and
-   zamba2-7b paths, each counted from zero;
+   zamba2-7b serving paths and the ``train`` run, each counted from zero;
+   the two also carry ``train_fwd_bwd_ms`` / ``train_plain_fwd_bwd_ms``
+   from ``train_kernels`` (bf16);
 9. ``llm_kernels`` (with the parity phase, before the main path):
    ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
    plain versions on the card, in bf16 and float32 (tolerances in the
@@ -179,12 +186,14 @@ Phases, each printing one JSON line:
 12. ``llm_decode_32k``: the decode step at 16 sequences x 32,000 cached
     tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps timed
     against the step's bound (KV prefix + weights over 3.35 TB/s);
-13. ``serving_plan``: DRS's prefill / decode chip split
-    (``ServingModel.plan(4.0, k_max=24)``) from the two measured rates,
-    then ``serving_sim``: that plan through the discrete-event serving
-    simulation (``ServingSimulation(model, 4.0, horizon=600.0,
-    warmup=60.0)``, host code), its mean and p95 latency beside the
-    model's E[T] (at least one request completed, finite latencies);
+13. ``serving_plan``: DRS's prefill / decode chip split through the
+    port's launcher (``launch/serve.py``: ``stage_rates`` of the measured
+    rates, ``plan(4.0, chips=24)``) from the B = 4 cell of each arch (the
+    4 x 4096 prefill's prompts / s, the B = 4 decode step's tokens / s),
+    then ``serving_sim``: that plan through the launcher's discrete-event
+    serving simulation (horizon 600 s, warm-up 60 s, host code), its mean
+    and p95 latency beside the model's E[T] (at least one request
+    completed, finite latencies);
 14. ``ssm_kernels`` (with the parity phases, before the main path):
     ``rwkv6_scan`` and ``ssd_scan`` against their plain versions at the
     serving shapes (4 x 4096; rwkv6-1.6b's 32 heads of 64, zamba2-7b's 112
@@ -211,7 +220,30 @@ Phases, each printing one JSON line:
     ``decode_attention`` and 28 ``swiglu`` per step), tokens/s, ms per
     step, peak memory and ``torch.profiler`` breakdowns;
 17. ``serving_plan`` and ``serving_sim`` for each of the two from its own
-    measured rates.
+    measured rates;
+18. ``launch_serve``: ``python -m repro_torch.launch.serve`` (its
+    ``main(argv)``, in this process) for all three archs on their B = 4
+    rates (``--prefill-rate`` / ``--decode-rate``): the split must equal
+    ``serving_plan``'s;
+19. ``train_kernels``: ``FlashAttentionFn`` at llama's training shape (B 2,
+    Hq 32 / Hkv 8, S 4096, Dh 64) and ``SwiGLUFn`` at T 8,192, D 2,048, F
+    8,192, bf16 and float32: the forward within ``ATTN_TOL`` / ``SWIGLU_TOL``
+    of the plain version and equal to the kernel bitwise, each input's
+    gradient within the same tolerance of autograd of the plain version;
+    forward + backward ms beside the plain version's;
+20. ``train_card_vs_cpu``: llama3.2-1b at full width cut to 2 layers,
+    float32, B 2 x S 256: every parameter's gradient non-zero on the card,
+    then 3 ``make_train_step`` steps on the card and on the CPU from the
+    same parameters: losses and grad norms within 1e-3 relative;
+21. ``train``: llama3.2-1b at full width and depth (bf16 parameters,
+    float32 moments) through ``TrainLoop`` on ``train_4k``'s sequence with
+    the batch cut 256 -> 2: 8 steps with a checkpoint every 4 (one
+    ``flash_attention`` and two ``swiglu`` launches per layer per step),
+    then a crash at 4 and a resume to 8, all under
+    ``torch.use_deterministic_algorithms``: losses finite, the resumed
+    run's losses for steps 5-8 and its final parameters bitwise the
+    straight run's; tokens / s, step ms, peak memory, the loader's worker
+    counts.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -220,7 +252,9 @@ directory without the package beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import math
 import pathlib
 import statistics
@@ -1765,6 +1799,7 @@ def topr_row(cand, budget):
 
 MESH_B = MAIN_B - 6  # fleet_mesh: 4,090 lanes, so four ranks pad two
 MESH_RANKS = 4
+MESH_SHARD = -(-MESH_B // MESH_RANKS)  # lanes per rank: 4,092 / 4
 #: fleet_mesh's loop modes: ScenarioRunner keywords.
 MESH_MODES = {"dense": {}, "fused": {"fused_decide": True}, "compact": {"compact": True},
               "proactive": {"proactive": True}}
@@ -1811,6 +1846,54 @@ def mesh_differences(ref, got):
     return bad, rel
 
 
+def mesh_carry(fleet, mesh, dev):
+    """The fused loop (fused decide) over ``fleet`` on ``mesh`` (None:
+    unsharded), run as a chunked resume (one tick, then the rest): the
+    lanes this rank's carry and per-tick outputs hold between runs, the
+    ``all_gather`` calls ``init`` and ``run`` made (through a wrapped
+    ``FleetMesh.all_gather``), the peak device memory of the build and the
+    runs over what was allocated before, and wall ms per tick; with the
+    gathered outputs."""
+    import torch
+
+    from repro_torch.api.session import ScenarioRunner
+    from repro_torch.core import controller as ctl
+    from repro_torch.distributed import FleetMesh
+
+    runner = ScenarioRunner(fleet, tick_interval=5.0, mesh=mesh, device=dev, fused_decide=True)
+    calls = [0]
+    plain = FleetMesh.all_gather
+
+    def counted(self, x, dim=0):
+        calls[0] += 1
+        return plain(self, x, dim)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    FleetMesh.all_gather = counted
+    try:
+        loop, n_ticks = ctl.make_fused_loop(
+            runner.arrays, runner.static, runner.params, steps_per_tick=runner._steps_per_tick,
+            warmup_seconds=fleet[0].warmup, mesh=mesh, device=dev)
+        state = loop.init(runner.k)
+        t0 = time.perf_counter()
+        state, _first = loop.run(state, 1)
+        state, out = loop.run(state)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n_ticks
+        in_runs = calls[0]
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 1e6
+        carry = sorted({t.shape[0] for t in (state.q, state.served_prev, state.k, *state.acc)})
+        out_lanes = int(out["codes"].shape[1])
+        whole = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v)
+                 for k, v in loop.gather(out).items()}
+    finally:
+        FleetMesh.all_gather = plain
+    return {"carry_lanes": carry, "out_lanes": out_lanes, "gathers_in_runs": in_runs,
+            "peak_mb": peak_mb, "ms_per_tick": ms}, whole
+
+
 def _mesh_rank(rank, world, work_dir):
     """One of ``MESH_RANKS`` ranks on the card (gloo on CUDA tensors): the
     mesh fleet in every mode, then the 256-tenant plan; each result saved
@@ -1834,6 +1917,8 @@ def _mesh_rank(rank, world, work_dir):
             out, ms = mesh_runner_out(fleet, mode, mesh, dev)
             np.savez(work / f"r{rank}-{mode}.npz", **out)
             info[f"{mode}_ms_per_tick"] = ms
+        info["carry"], whole = mesh_carry(fleet, mesh, dev)
+        np.savez(work / f"r{rank}-carry.npz", **whole)
         planner, _floors = fleet_planner(DISTINCT)
         plan = planner.plan_batched(mesh=mesh, device=dev)
         np.savez(work / f"r{rank}-plan.npz", **plan.k)
@@ -1874,6 +1959,7 @@ def fleet_mesh_phase(dev):
     plain = {mode: mesh_runner_out(fleet, mode, None, dev) for mode in MESH_MODES}
     planner, _floors = fleet_planner(DISTINCT)
     plain_plan = planner.plan_batched(device=dev)
+    plain_carry, plain_whole = mesh_carry(fleet, None, dev)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         work = pathlib.Path(tmp)
         # (a) and (d): one rank, NCCL.
@@ -1888,6 +1974,11 @@ def fleet_mesh_phase(dev):
                 check(not bad, f"fleet_mesh (a) {mode}: {bad} differ from the unsharded run")
                 one_rank[mode] = {"ms_per_tick": ms, "unsharded_ms_per_tick": plain[mode][1],
                                   "et_max_rel_diff": rel}
+            one_rank["carry"], one_whole = mesh_carry(fleet, one, dev)
+            bad, _rel = mesh_differences(plain_whole, one_whole)
+            check(not bad and one_rank["carry"]["gathers_in_runs"] == 0
+                  and one_rank["carry"]["carry_lanes"] == [MESH_B],
+                  f"fleet_mesh (a) carry: {one_rank['carry']}, {bad} differ")
             big, big_floors = fleet_planner(4 * DISTINCT)
             t0 = time.perf_counter()
             big_card = big.plan_batched(mesh=one, device=dev)
@@ -1929,12 +2020,25 @@ def fleet_mesh_phase(dev):
                                "unsharded run")
                 check(got["codes"].shape[1] == MESH_B, f"fleet_mesh (b): rank {r} shape")
                 rels[mode] = max(rels.get(mode, 0.0), rel)
-            for r in range(MESH_RANKS):
-                with np.load(work / f"r{r}-plan.npz") as z:
-                    differ = sum(int((z[n] != plain_plan.k[n]).sum()) for n in plain_plan.k)
-                check(differ == 0, f"fleet_mesh (c): rank {r}'s plan differs in {differ} takes")
+        for r in range(MESH_RANKS):
+            with np.load(work / f"r{r}-carry.npz") as z:
+                bad, _rel = mesh_differences(plain_whole, {k: z[k] for k in z.files})
+            carry = ranks[r]["carry"]
+            check(not bad and carry["gathers_in_runs"] == 0
+                  and carry["carry_lanes"] == [MESH_SHARD]
+                  and carry["out_lanes"] == MESH_SHARD,
+                  f"fleet_mesh (b) carry, rank {r}: {carry}, {bad} differ")
+        for r in range(MESH_RANKS):
+            with np.load(work / f"r{r}-plan.npz") as z:
+                differ = sum(int((z[n] != plain_plan.k[n]).sum()) for n in plain_plan.k)
+            check(differ == 0, f"fleet_mesh (c): rank {r}'s plan differs in {differ} takes")
     emit({"phase": "fleet_mesh", "B": MESH_B, "ranks": MESH_RANKS,
           "one_rank": {"backend": backend, **one_rank},
+          "carry": {"unsharded": plain_carry, "one_rank": one_rank["carry"],
+                    "four_ranks": [r["carry"] for r in ranks],
+                    "peak_mb_per_rank_over_unsharded": [r["carry"]["peak_mb"]
+                                                        / plain_carry["peak_mb"]
+                                                        for r in ranks]},
           "four_ranks": {"ranks": ranks, "spawn_and_run_s": spawn_s,
                          "unsharded_ms_per_tick": {m: plain[m][1] for m in MESH_MODES},
                          "et_max_rel_diff": rels},
@@ -2299,7 +2403,8 @@ def llm_kernels_phase(dev):
 
 
 def _cpu_copy(params):
-    return {k: _cpu_copy(v) if isinstance(v, dict) else v.cpu() for k, v in params.items()}
+    return {k: _cpu_copy(v) if isinstance(v, dict) else v.to("cpu", copy=True)
+            for k, v in params.items()}
 
 
 def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8):
@@ -2407,7 +2512,8 @@ def breakdown_json(wall_ms, device_ms, rows):
 
 def llm_serve_phase(dev):
     """Full llama3.2-1b: prefill 4 x 4096, 32 greedy decode steps, launch
-    counts checked; returns (launches, prompts/s, params, cfg)."""
+    counts checked; returns (launches, prompts/s, the B = 4 step's
+    tokens/s, params, cfg)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2473,7 +2579,7 @@ def llm_serve_phase(dev):
     check(launches == want, f"llm_serve: launches {launches}, expected {want}")
     del cache, cache_4096, tokens
     torch.cuda.empty_cache()
-    return launches, SERVE_B / prefill_s, params, cfg
+    return launches, SERVE_B / prefill_s, SERVE_B * SERVE_STEPS / decode_s, params, cfg
 
 
 def llm_decode_32k_phase(dev, params, cfg):
@@ -2535,31 +2641,36 @@ def llm_decode_32k_phase(dev, params, cfg):
 
 
 def serving_plan_phase(prompts_per_s, tokens_per_s, arch=LLM_ARCH):
-    """DRS's chip split of the serving pipeline from the card's own rates
-    (``launch/serve.py``'s defaults: 4 requests/s, 24 chips, 64 tokens)."""
-    from repro_torch.serving.pipeline import ServingModel, StageRates
+    """DRS's chip split of the serving pipeline from the card's own rates of
+    the B = 4 cell (a 4 x 4096 prefill's prompts / s, the B = 4 decode
+    step's tokens / s), through the port's launcher (``launch/serve.py``:
+    ``stage_rates``, ``plan`` at its defaults of 4 requests / s, 24 chips
+    and 64 tokens, then ``serving_sim``); returns the rates and the split."""
+    from repro_torch.launch import serve as launcher
 
-    rates = StageRates(prefill_per_chip=prompts_per_s, decode_per_chip=tokens_per_s)
-    model = ServingModel(rates, mean_output_tokens=64)
-    alloc = model.plan(4.0, k_max=24)
-    split = model.split(alloc)
-    emit({"phase": "serving_plan", "arch": arch,
+    rates, src = launcher.stage_rates(arch, prefill_rate=prompts_per_s,
+                                      decode_rate=tokens_per_s)
+    model, alloc, split = launcher.plan(rates, 4.0, chips=24, mean_tokens=64.0)
+    emit({"phase": "serving_plan", "arch": arch, "rates_from": src,
+          "cell": f"B = {SERVE_B}: {SERVE_B} x {SERVE_S} prefill, B = {SERVE_B} decode step",
           "rates": {"prefill_prompts_per_s_per_chip": prompts_per_s,
-                                             "decode_tokens_per_s_per_chip": tokens_per_s},
+                    "decode_tokens_per_s_per_chip": tokens_per_s},
           "lam0": 4.0, "k_max": 24, "mean_output_tokens": 64, "split": split,
           "expected_sojourn_s": alloc.expected_sojourn,
           "expected_latency_s": model.expected_latency(4.0, split)})
     check(split["prefill"] >= 1 and split["decode"] >= 1, f"serving_plan: split {split}")
     serving_sim_phase(model, split, arch)
+    return {"prefill": prompts_per_s, "decode": tokens_per_s, "split": split}
 
 
 def serving_sim_phase(model, split, arch):
-    """The plan just printed through the discrete-event serving simulation
-    (host code): simulated mean and p95 latency beside the model's E[T]."""
-    from repro_torch.serving.router import ServingSimulation
+    """The plan just printed through the launcher's discrete-event serving
+    simulation (host code): simulated mean and p95 latency beside the
+    model's E[T]."""
+    from repro_torch.launch import serve as launcher
 
     t0 = time.perf_counter()
-    rep = ServingSimulation(model, 4.0, horizon=600.0, warmup=60.0).run(split)
+    rep = launcher.simulate(model, split, 4.0, horizon=600.0)
     emit({"phase": "serving_sim", "arch": arch, "split": split, "lam0": 4.0,
           "horizon_s": 600.0, "warmup_s": 60.0, "completed": rep.completed,
           "mean_latency_s": rep.mean_latency, "p95_latency_s": rep.p95_latency,
@@ -2570,6 +2681,37 @@ def serving_sim_phase(model, split, arch):
           and math.isfinite(rep.p95_latency),
           f"serving_sim: {rep.completed} completed, mean {rep.mean_latency}, "
           f"p95 {rep.p95_latency}")
+
+
+def launch_serve_phase(plans):
+    """``python -m repro_torch.launch.serve`` as a user runs it, in this
+    process (``main(argv)``), for each arch on its B = 4 rates measured
+    above (``--prefill-rate`` / ``--decode-rate``, ``--horizon 600``): the
+    split must be the one ``serving_plan`` printed, every request finite."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import serve as launcher
+
+    t0 = time.perf_counter()
+    out = {}
+    for arch, plan in plans.items():
+        argv = ["--arch", arch, "--prefill-rate", repr(plan["prefill"]),
+                "--decode-rate", repr(plan["decode"]), "--horizon", "600"]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            res = launcher.main(argv)
+        rep = res["report"]
+        out[arch] = {"argv": argv, "source": res["source"], "split": res["split"],
+                     "expected_sojourn_s": res["alloc"].expected_sojourn,
+                     "mean_latency_s": rep.mean_latency, "p95_latency_s": rep.p95_latency,
+                     "completed": rep.completed, "printed_lines": len(buf.getvalue().splitlines())}
+        check(res["split"] == plan["split"] and res["source"] == "measured on the card",
+              f"launch_serve {arch}: split {res['split']} from {res['source']}, "
+              f"serving_plan had {plan['split']}")
+        check(rep.completed > 0 and math.isfinite(rep.mean_latency),
+              f"launch_serve {arch}: {rep.completed} completed")
+    emit({"phase": "launch_serve", "archs": out, "seconds": time.perf_counter() - t0})
 
 # --------------------------------------------------------------------------- #
 # Phases 14-17: the ssm and hybrid families (rwkv6-1.6b, zamba2-7b)
@@ -2997,6 +3139,333 @@ def ssm_serve_phase(dev, arch):
     return launches, SERVE_B / prefill_s, SERVE_B * SERVE_STEPS / decode_s
 
 
+# --------------------------------------------------------------------------- #
+# Phases 19-21: training (llama3.2-1b, the dense family)
+# --------------------------------------------------------------------------- #
+# train_4k (src/repro/configs/shapes.py:40) cut from batch 256 to 2 to fit
+# one card: params, grads and moments ~15 GB, float32 logits and their grad
+# ~8.4 GB, the plain attention backward's [2, 32, 4096, 4096] float32 score
+# block ~4.3 GB (a few live at once) per layer.
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 2, 4096, 8, 4
+# SwiGLUFn at two llama sequences of train_4k's length.
+TRAIN_T = TRAIN_B * TRAIN_S
+# train_card_vs_cpu: full width, 2 layers, float32, B 2 x S 256, 3 steps.
+TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_STEPS, TRAIN_CPU_TOL = 2, 256, 3, 1e-3
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside the block (with
+    the cuBLAS workspace setting it asks for)."""
+    import torch
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _fwd_bwd(fn, inputs, grad_out):
+    """One forward and backward of ``fn`` on fresh leaves of ``inputs``."""
+    import torch
+
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return out, torch.autograd.grad(out, leaves, grad_out)
+
+
+def train_kernels_phase(dev):
+    """``FlashAttentionFn`` at llama's training shape (B 2, Hq 32 / Hkv 8,
+    S 4096, Dh 64) and ``SwiGLUFn`` at T 8,192, D 2,048, F 8,192, in bf16
+    and float32: the forward held to the plain version within ``ATTN_TOL``
+    / ``SWIGLU_TOL`` and equal to the kernel's output bitwise (the routing
+    check: the Function launches the kernel), every input's gradient within
+    the same tolerance of autograd of the plain version on the same inputs
+    and output gradient (the backward recomputes the plain version, so this
+    checks its wiring: strides, GQA grouping, which inputs get one); forward +
+    backward ms of the Function against the plain version's (CUDA events).
+    Returns the kernel-table fields of the two kernels (bf16)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.flash_attention.grad import FlashAttentionFn
+    from repro_torch.kernels.swiglu import kernel as gk, ref as gr
+    from repro_torch.kernels.swiglu.grad import SwiGLUFn
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = dtype_name(dtype)
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+        # the model's layout: [B, S, H, Dh] buffers as heads-first views
+        q = rnd(TRAIN_B, TRAIN_S, HQ, DH).transpose(1, 2)
+        k = rnd(TRAIN_B, TRAIN_S, HKV, DH).transpose(1, 2)
+        v = rnd(TRAIN_B, TRAIN_S, HKV, DH).transpose(1, 2)
+        go = rnd(TRAIN_B, HQ, TRAIN_S, DH)
+
+        def attn_fn(a, b, c):
+            return FlashAttentionFn.apply(a, b, c, True, None, None)
+
+        out, grads = _fwd_bwd(attn_fn, (q, k, v), go)
+        with torch.no_grad():
+            # routing: the Function's forward is the kernel's launch
+            check(torch.equal(out, fk.attention(q, k, v)),
+                  f"train_kernels: FlashAttentionFn {name} forward is not the kernel's")
+        plain_out, want = _fwd_bwd(fr.attention, (q, k, v), go)
+        fwd_err = hold("train_kernels", "flash_attention", f"forward {name}", out.detach(),
+                       plain_out.detach(), ATTN_TOL[name])
+        errs = {g: hold("train_kernels", "flash_attention", f"grad {g} {name}", got, w,
+                        ATTN_TOL[name])
+                for g, got, w in zip("qkv", grads, want)}
+        del out, grads, plain_out, want
+        torch.cuda.empty_cache()
+        fn_ms = median_ms(lambda: _fwd_bwd(attn_fn, (q, k, v), go), runs=5, inner=2)
+        plain_ms = median_ms(lambda: _fwd_bwd(fr.attention, (q, k, v), go), runs=3, inner=1)
+        emit({"phase": "train_kernels", "kernel": "flash_attention", "dtype": name,
+              "shape": {"B": TRAIN_B, "Hq": HQ, "Hkv": HKV, "S": TRAIN_S, "Dh": DH},
+              "forward_bitwise_kernel": True, "forward_max_abs_err": fwd_err,
+              "grad_max_abs_err": errs, "fwd_bwd_ms": fn_ms, "plain_fwd_bwd_ms": plain_ms,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+        if dtype == torch.bfloat16:
+            rows["flash_attention"] = {"train_fwd_bwd_ms": fn_ms,
+                                       "train_plain_fwd_bwd_ms": plain_ms}
+        del q, k, v, go
+        torch.cuda.empty_cache()
+
+        x = rnd(TRAIN_T, D_MODEL)
+        wg, wu = rnd(D_MODEL, D_FF, scale=D_MODEL ** -0.5), rnd(D_MODEL, D_FF,
+                                                                scale=D_MODEL ** -0.5)
+        wo = rnd(D_FF, D_MODEL, scale=D_FF ** -0.5)
+        go = rnd(TRAIN_T, D_MODEL)
+        out, grads = _fwd_bwd(SwiGLUFn.apply, (x, wg, wu, wo), go)
+        with torch.no_grad():
+            # routing: the Function's forward is the kernel's launches
+            check(torch.equal(out, gk.swiglu(x, wg, wu, wo)),
+                  f"train_kernels: SwiGLUFn {name} forward is not the kernel's")
+        plain_out, want = _fwd_bwd(gr.swiglu, (x, wg, wu, wo), go)
+        fwd_err = hold("train_kernels", "swiglu", f"forward {name}", out.detach(),
+                       plain_out.detach(), SWIGLU_TOL[name])
+        errs = {g: hold("train_kernels", "swiglu", f"grad {g} {name}", got, w,
+                        SWIGLU_TOL[name])
+                for g, got, w in zip(("x", "wg", "wu", "wo"), grads, want)}
+        fn_ms = median_ms(lambda: _fwd_bwd(SwiGLUFn.apply, (x, wg, wu, wo), go), runs=5,
+                          inner=3)
+        plain_ms = median_ms(lambda: _fwd_bwd(gr.swiglu, (x, wg, wu, wo), go), runs=5, inner=3)
+        emit({"phase": "train_kernels", "kernel": "swiglu", "dtype": name,
+              "shape": {"T": TRAIN_T, "D": D_MODEL, "F": D_FF},
+              "forward_bitwise_kernel": True, "forward_max_abs_err": fwd_err,
+              "grad_max_abs_err": errs,
+              "fwd_bwd_ms": fn_ms, "plain_fwd_bwd_ms": plain_ms})
+        if dtype == torch.bfloat16:
+            rows["swiglu"] = {"train_fwd_bwd_ms": fn_ms, "train_plain_fwd_bwd_ms": plain_ms}
+        del x, wg, wu, wo, go, out, grads, plain_out, want
+        torch.cuda.empty_cache()
+    emit({"phase": "train_kernels", "seconds": time.perf_counter() - t_phase})
+    return rows
+
+
+def train_card_vs_cpu_phase(dev):
+    """llama3.2-1b at full width cut to 2 layers, float32: the gradients of
+    one batch on the card (every parameter's non-zero; repeated bitwise
+    under deterministic algorithms, and the leaves that a default second
+    backward does not repeat bitwise reported), then
+    ``TRAIN_CPU_STEPS`` ``make_train_step`` steps on the card and on the
+    CPU (plain versions) from the same parameters and stream: losses and
+    grad norms within ``TRAIN_CPU_TOL`` relative."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.transformer import init_params, loss_fn
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.training.train_step import TrainState, make_train_step
+    from repro_torch.tree import flatten_with_paths, tree_map
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_ARCH, "full"), n_layers=2, dtype=torch.float32)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_CPU_B, seq_len=TRAIN_CPU_S, seed=2)
+    params = init_params(cfg, seed=2, device=dev)
+    batch0 = {k: torch.as_tensor(v, device=dev).long()
+              for k, v in next(SyntheticTokens(data)).items()}
+
+    def gradients():
+        tree = tree_map(lambda t: t.detach().requires_grad_(), params)
+        leaves = flatten_with_paths(tree)
+        total, _ = loss_fn(tree, cfg, batch0)
+        return dict(zip([k for k, _t in leaves],
+                        torch.autograd.grad(total, [t for _k, t in leaves])))
+
+    grads = gradients()
+    zero = [k for k, g in grads.items() if not bool((g != 0).any())]
+    # the same backward twice, by default and under deterministic algorithms:
+    # the leaves whose gradient is not bitwise repeatable
+    repeat = {"default": [k for k, g in gradients().items() if not torch.equal(g, grads[k])]}
+    with _deterministic():
+        first = gradients()
+        repeat["deterministic"] = [k for k, g in gradients().items()
+                                   if not torch.equal(g, first[k])]
+    del grads, first
+
+    def run(device, params):
+        state = TrainState(params, adamw_init(params, opt),
+                           torch.zeros((), dtype=torch.int32, device=device))
+        step = make_train_step(cfg, opt)
+        source = SyntheticTokens(data)
+        hist = []
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_CPU_STEPS):
+            batch = {k: torch.as_tensor(v, device=device).long() for k, v in next(source).items()}
+            state, m = step(state, batch)
+            hist.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+        return hist, time.perf_counter() - t0
+
+    params_cpu = _cpu_copy(params)
+    card, card_s = run(dev, params)
+    del params
+    torch.cuda.empty_cache()
+    host, cpu_s = run(torch.device("cpu"), params_cpu)
+    rel = max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(card, host)
+              for key in ("loss", "grad_norm"))
+    emit({"phase": "train_card_vs_cpu", "arch": cfg.arch, "dtype": "float32", "layers": 2,
+          "batch": TRAIN_CPU_B, "seq_len": TRAIN_CPU_S, "steps": TRAIN_CPU_STEPS,
+          "card": card, "cpu": host, "max_rel_diff": rel, "tol": TRAIN_CPU_TOL,
+          "zero_gradient_params": zero, "grads_not_repeatable": repeat, "card_seconds": card_s, "cpu_seconds": cpu_s,
+          "seconds": time.perf_counter() - t_phase})
+    check(not zero, f"train_card_vs_cpu: parameters with an all-zero gradient: {zero}")
+    check(not repeat["deterministic"], "train_card_vs_cpu: gradients not repeatable under "
+          f"deterministic algorithms: {repeat['deterministic']}")
+    check(rel <= TRAIN_CPU_TOL and all(math.isfinite(h["loss"]) for h in card),
+          f"train_card_vs_cpu: card vs CPU relative difference {rel}")
+
+
+def train_phase(dev):
+    """llama3.2-1b at full width and depth (16 layers, d 2048, vocab
+    128,256, bf16 parameters, float32 moments) through ``TrainLoop``:
+    ``train_4k``'s sequence of 4096 with its batch cut from 256 to 2, 8
+    steps with a checkpoint every 4 (launches counted exactly: one
+    ``flash_attention`` and two ``swiglu`` per layer per step, forward
+    only), then a second loop that crashes at step 4 and a third that
+    resumes to 8.  The three loops run under
+    ``torch.use_deterministic_algorithms`` (an op with a nondeterministic
+    CUDA implementation, such as the accumulating backward of the
+    embedding gather, takes its deterministic one or raises), so a resume
+    that restores every leaf and the stream position repeats the straight
+    run exactly.  Hard: losses finite, the resumed losses of steps 5-8
+    and the final parameters bitwise the straight run's (the reference's
+    test allows 2e-2, which a resume from the wrong state would also meet
+    at this learning rate).  Reported: tokens / s, step ms, peak memory,
+    checkpoint times, the loader's worker counts.  Returns the straight run's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.training.optimizer import AdamWConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(LLM_ARCH, "full")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, decay_steps=TRAIN_STEPS)
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
+    with _deterministic():
+        out = _train_loops(dev, cfg, opt, data)
+    return _train_report(cfg, *out, time.perf_counter() - t_phase)
+
+
+def _train_loops(dev, cfg, opt, data):
+    """``train_phase``'s three loops: the straight run (launches, times,
+    peak memory), the crash at ``TRAIN_CKPT`` and the resume."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.training.loop import LoopConfig, TrainLoop
+    from repro_torch.tree import flatten_with_paths
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = pathlib.Path(tmp)
+
+        def loop(name):
+            return TrainLoop(cfg, opt, LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+                                                  log_every=1),
+                             ckpt_dir=work / name, data_cfg=data, device=dev)
+
+        torch.cuda.reset_peak_memory_stats()
+        straight = loop("straight")
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        state_a = straight.run()
+        straight_s = time.perf_counter() - t0
+        launches = {k: LAUNCHES[k] for k in ("flash_attention", "swiglu", "decode_attention")}
+        want = {"flash_attention": cfg.n_layers * TRAIN_STEPS,
+                "swiglu": 2 * cfg.n_layers * TRAIN_STEPS, "decode_attention": 0}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        params_a = {k: t.float().cpu() for k, t in flatten_with_paths(state_a.params)}
+        workers = straight.loader_workers
+        del state_a
+        shutil.rmtree(work / "straight")
+        torch.cuda.empty_cache()
+        first = loop("resumed")
+        crashed = False
+        t0 = time.perf_counter()
+        try:
+            first.run(crash_at=TRAIN_CKPT)
+        except RuntimeError:
+            crashed = True
+        second = loop("resumed")
+        state_b = second.run()
+        resumed_s = time.perf_counter() - t0
+        diff = max(float((params_a[k] - t.float().cpu()).abs().max())
+                   for k, t in flatten_with_paths(state_b.params))
+        differ = [k for k, t in flatten_with_paths(state_b.params)
+                  if not torch.equal(params_a[k], t.float().cpu())]
+        del state_b
+        torch.cuda.empty_cache()
+    return (straight, first, second, crashed, launches, want, peak_gb, workers, straight_s,
+            resumed_s, diff, differ)
+
+
+def _train_report(cfg, straight, first, second, crashed, launches, want, peak_gb, workers,
+                  straight_s, resumed_s, diff, differ, seconds):
+    """Emit ``train_phase``'s record, make its checks, return its launches."""
+    losses = [m["loss"] for m in straight.metrics_history]
+    resumed = [m["loss"] for m in first.metrics_history + second.metrics_history]
+    steps_ms = [m["step_time"] * 1e3 for m in straight.metrics_history]
+    steady = statistics.median(steps_ms[1:])
+    emit({"phase": "train", "arch": cfg.arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab, "params": cfg.params_count(), "param_dtype": "bfloat16",
+          "moment_dtype": "float32",
+          "cut": f"train_4k batch 256 -> {TRAIN_B} (sequence {TRAIN_S} kept)",
+          "steps": TRAIN_STEPS, "ckpt_every": TRAIN_CKPT, "losses": losses,
+          "resumed_losses": resumed, "grad_norms": [m["grad_norm"] for m in
+                                                    straight.metrics_history],
+          "step_ms": steps_ms, "step_ms_median_after_first": steady,
+          "tokens_per_s": TRAIN_B * TRAIN_S / (steady / 1e3),
+          "peak_memory_gb": peak_gb, "loader_workers": workers,
+          "straight_run_s": straight_s, "crash_and_resume_s": resumed_s,
+          "deterministic_algorithms": True, "resume_losses_equal": resumed == losses,
+          "resume_max_abs_param_diff": diff, "resume_params_differing": differ,
+          "stragglers": len(straight.straggler_events),
+          "launches": launches, "launches_expected": want,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
+          "seconds": seconds})
+    check(all(math.isfinite(x) for x in losses + resumed), "train: non-finite loss")
+    check(crashed and len(second.metrics_history) == TRAIN_STEPS - TRAIN_CKPT,
+          "train: the crash-and-resume did not resume at the checkpoint")
+    check(resumed == losses, f"train: resumed losses {resumed} are not the straight run's {losses}")
+    check(not differ, f"train: resumed parameters differ from the straight run's in {differ} "
+                      f"(max abs diff {diff})")
+    check(launches == want, f"train: launches {launches}, expected {want}")
+    return {k: launches[k] for k in ("flash_attention", "swiglu")}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found beside this script", file=sys.stderr)
@@ -3049,10 +3518,10 @@ def main() -> int:
         for k, n in phase(dev).items():
             launches[k] += n
     llm_card_vs_cpu_phase(dev)
-    serve_launches, prompts_per_s, params, cfg = llm_serve_phase(dev)
-    dec_launches, tokens_per_s = llm_decode_32k_phase(dev, params, cfg)
+    serve_launches, prompts_per_s, tokens_per_s, params, cfg = llm_serve_phase(dev)
+    dec_launches, _tokens_per_s_32k = llm_decode_32k_phase(dev, params, cfg)
     launches.update({k: serve_launches[k] + dec_launches[k] for k in serve_launches})
-    serving_plan_phase(prompts_per_s, tokens_per_s)
+    plans = {LLM_ARCH: serving_plan_phase(prompts_per_s, tokens_per_s)}
     del params
     torch.cuda.empty_cache()
     ssm_card_vs_cpu_phase(dev)
@@ -3060,7 +3529,12 @@ def main() -> int:
         ssm_launches, prompts_per_s, tokens_per_s = ssm_serve_phase(dev, arch)
         for k, n in ssm_launches.items():
             launches[k] = launches.get(k, 0) + n
-        serving_plan_phase(prompts_per_s, tokens_per_s, arch)
+        plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
+    launch_serve_phase(plans)
+    train_rows = train_kernels_phase(dev)
+    train_card_vs_cpu_phase(dev)
+    for k, n in train_phase(dev).items():
+        launches[k] += n
 
     kernels = []
     for k, row in rows.items():
@@ -3070,7 +3544,7 @@ def main() -> int:
             "name": k, "route": "cuda", "source": row["source"], "replaces": row["replaces"],
             "launches": launches[k], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": row.get("library_ms"),
+            "library_ms": row.get("library_ms"), **train_rows.get(k, {}),
         })
     print(card, flush=True)
     emit({"kernels": kernels})

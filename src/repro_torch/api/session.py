@@ -1080,7 +1080,7 @@ class ScenarioRunner:
             torch.cuda.synchronize(self.device)
         self.loop_seconds = time.perf_counter() - t0
         out = {key: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
-               for key, v in out.items()}
+               for key, v in loop.gather(out).items()}
         self.outputs = out  # the loop's per-tick outputs and aggregates (numpy)
         self.k = out["k_final"].astype(np.int64)
         self._windows_warm = int(out["warm_windows"])

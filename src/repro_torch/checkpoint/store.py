@@ -18,14 +18,17 @@
   memory before it returns (the fused loop updates its carry in place, so a
   view of a CPU tensor would change under the writer) and writes on a
   background thread, one save in flight at a time.
-* **Sharded carries**: a fused loop under a fleet mesh returns its whole
-  (padded) carry on every rank, so its checkpoint is the same directory as
-  an unsharded loop's and restores onto either layout's template where the
-  extents agree.  ``CheckpointStore(directory, mesh=mesh)`` is the store
-  every rank of the mesh opens on one directory: the mesh's first rank
-  writes, and :meth:`~CheckpointStore.save` and
-  :meth:`~CheckpointStore.wait` end in a barrier of the mesh's ranks, so a
-  restore after either reads a complete directory on every rank.
+* **Sharded carries**: ``CheckpointStore(directory, mesh=mesh)`` is the
+  store every rank of a fleet mesh opens on one directory, for trees whose
+  tensor leaves are each rank's shard of the batch axis (dim 0), as a
+  sharded fused loop's carry is.  A save gathers the shards (a collective
+  every rank joins) and the mesh's first rank writes the whole fleet's
+  leaves, the layout an unsharded loop (or the JAX store) writes; a
+  restore reads them and hands each rank its own block of lanes.  So a
+  directory restores across layouts where the padded extents agree.
+  :meth:`~CheckpointStore.save` and :meth:`~CheckpointStore.wait` end in
+  a barrier of the mesh's ranks, so a restore after either reads a
+  complete directory on every rank.
 """
 
 from __future__ import annotations
@@ -40,6 +43,9 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..tree import flatten_with_paths as _flatten_with_paths
+from ..tree import unflatten as _unflatten
+
 __all__ = ["CheckpointStore"]
 
 # Logical dtype -> (the torch dtype, the same-width carrier it is saved as).
@@ -51,53 +57,6 @@ _EXOTIC = {
 _EXOTIC_BY_TORCH = {v[0]: k for k, v in _EXOTIC.items()}
 # A host scalar leaf's 0-d array type (the JAX loop's tick is an int32 scalar).
 _SCALARS = {bool: np.bool_, int: np.int32, float: np.float64}
-
-
-def _is_namedtuple(x) -> bool:
-    return isinstance(x, tuple) and hasattr(x, "_fields")
-
-
-def _children(node) -> list[tuple[str, Any]] | None:
-    """``(key, child)`` pairs of a container node, None for a leaf.  Dict keys
-    are visited sorted, as JAX flattens them."""
-    if _is_namedtuple(node):
-        return [(name, getattr(node, name)) for name in node._fields]
-    if isinstance(node, (tuple, list)):
-        return [(str(i), c) for i, c in enumerate(node)]
-    if isinstance(node, dict):
-        return [(str(k), node[k]) for k in sorted(node)]
-    return None
-
-
-def _flatten_with_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """``(path, leaf)`` pairs in JAX's order; ``None`` is an empty subtree."""
-    if tree is None:
-        return []
-    kids = _children(tree)
-    if kids is None:
-        return [(prefix, tree)]
-    out = []
-    for key, child in kids:
-        out += _flatten_with_paths(child, f"{prefix}/{key}" if prefix else key)
-    return out
-
-
-def _unflatten(template: Any, leaves: dict[str, Any], prefix: str = "") -> Any:
-    """``template``'s structure with each leaf replaced by ``leaves[path]``."""
-    if template is None:
-        return None
-    kids = _children(template)
-    if kids is None:
-        return leaves[prefix]
-
-    def sub(key, child):
-        return _unflatten(child, leaves, f"{prefix}/{key}" if prefix else key)
-
-    if _is_namedtuple(template):
-        return type(template)(*(sub(k, c) for k, c in kids))
-    if isinstance(template, (tuple, list)):
-        return type(template)(sub(k, c) for k, c in kids)
-    return {k: sub(str(k), template[k]) for k in template}
 
 
 def _host_copy(leaf) -> tuple[np.ndarray, str]:
@@ -176,8 +135,18 @@ class CheckpointStore:
     def _snapshot(tree: Any) -> list[tuple[str, np.ndarray, str]]:
         return [(key, *_host_copy(leaf)) for key, leaf in _flatten_with_paths(tree)]
 
+    def _whole(self, tree: Any) -> Any:
+        """Under a mesh, every tensor leaf's shards gathered along dim 0
+        (every rank calls this); the tree itself without one."""
+        if self.mesh is None:
+            return tree
+        leaves = {key: self.mesh.all_gather(leaf) if isinstance(leaf, torch.Tensor) else leaf
+                  for key, leaf in _flatten_with_paths(tree)}
+        return _unflatten(tree, leaves)
+
     def save(self, step: int, tree: Any, *, extra: dict | None = None) -> Path:
         """Synchronous atomic save."""
+        tree = self._whole(tree)
         if self._writer:
             self._write(step, self._snapshot(tree), extra or {})
         self._barrier()
@@ -186,6 +155,7 @@ class CheckpointStore:
     def save_async(self, step: int, tree: Any, *, extra: dict | None = None) -> None:
         """Copy every leaf to host memory now, write on a background thread."""
         self.wait()  # one in-flight save at a time
+        tree = self._whole(tree)
         if not self._writer:
             return
         host = self._snapshot(tree)  # device -> host copies, before returning
@@ -237,7 +207,9 @@ class CheckpointStore:
         Python scalars).  Returns ``(tree, extra)``.  Each leaf takes the
         template's dtype (an explicit cast, so a float32 checkpoint restores
         onto a bfloat16 template) and, for a tensor, its device; every
-        restored tensor is a new buffer."""
+        restored tensor is a new buffer.  Under a mesh a tensor leaf whose
+        template holds ``1 / size`` of the saved lanes takes this rank's
+        block of them."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -248,7 +220,11 @@ class CheckpointStore:
             meta = manifest["leaves"].get(key)
             if meta is None:
                 raise KeyError(f"checkpoint at step {step} missing leaf {key}")
-            leaves[key] = _restore_leaf(np.load(d / meta["file"]), meta["dtype"], want, key)
+            arr = np.load(d / meta["file"])
+            if (self.mesh is not None and isinstance(want, torch.Tensor) and want.ndim
+                    and arr.ndim and arr.shape[0] == want.shape[0] * self.mesh.size):
+                arr = arr[self.mesh.shard(arr.shape[0])]
+            leaves[key] = _restore_leaf(arr, meta["dtype"], want, key)
         return _unflatten(template, leaves), manifest.get("extra", {})
 
     def prune(self, keep: int = 3) -> int:

@@ -24,7 +24,12 @@ numpy arrays or, with ``device=``, tensors).  For the fleet and the soak:
 :func:`snapshot_from_reference` (a ``MeasurementSnapshot``),
 :func:`speed_pool_from_reference`, :func:`fpd_config_from_reference` and
 :func:`controller_state_from_reference` (a JAX ``ControllerState``, its
-``tick`` as a host int).
+``tick`` as a host int).  For training, :func:`train_state_from_reference`
+and :func:`opt_state_from_reference` carry a JAX ``TrainState`` /
+``OptState`` across (parameters in the config's dtype, moments in their
+own), and :func:`train_state_to_arrays` gives a port ``TrainState`` back as
+numpy arrays in the same tree (bf16 leaves widened to float32, exactly), for
+the JAX package to load.
 """
 
 from __future__ import annotations
@@ -56,7 +61,8 @@ __all__ = ["from_reference", "static_from_reference", "params_from_reference",
            "forecast_state_from_reference", "graph_from_reference",
            "topology_from_reference", "tenant_from_reference", "snapshot_from_reference",
            "speed_pool_from_reference", "fpd_config_from_reference",
-           "controller_state_from_reference"]
+           "controller_state_from_reference", "opt_state_from_reference",
+           "train_state_from_reference", "train_state_to_arrays"]
 
 
 def _arr(x, dtype=None):
@@ -285,3 +291,54 @@ def controller_state_from_reference(state, *, device=None, dtype=None) -> Contro
         acc=tuple(f(a) for a in state.acc), tick=int(np.asarray(state.tick)),
         fstate=tuple(f(x) for x in state.fstate),
     )
+
+
+def _tree_tensors(tree, *, device, dtype=None):
+    """Every leaf of a nested dict as a tensor on ``device`` (in ``dtype``,
+    else its own dtype; bf16 bit for bit)."""
+    if isinstance(tree, dict):
+        return {k: _tree_tensors(v, device=device, dtype=dtype) for k, v in tree.items()}
+    t = _tensor(tree, None, device)
+    return t if dtype is None else t.to(dtype)
+
+
+def opt_state_from_reference(opt, *, device=None):
+    """A JAX ``OptState`` (step, mu, nu) as the port's, moments in their own
+    dtype on ``device`` (default: the CUDA device)."""
+    from .training.optimizer import OptState
+
+    dev = resolve_device(device)
+    return OptState(step=torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev),
+                    mu=_tree_tensors(opt.mu, device=dev), nu=_tree_tensors(opt.nu, device=dev))
+
+
+def train_state_from_reference(state, cfg, *, device=None):
+    """A JAX ``TrainState`` (params, opt, step) as the port's: parameters in
+    ``cfg.dtype`` on ``device`` (default: the CUDA device)."""
+    from .training.train_step import TrainState
+
+    dev = resolve_device(device)
+    return TrainState(params=model_params_from_reference(state.params, cfg, device=dev),
+                      opt=opt_state_from_reference(state.opt, device=dev),
+                      step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                                        device=dev))
+
+
+def train_state_to_arrays(state):
+    """A port ``TrainState`` as the same NamedTuples of host numpy arrays
+    (bf16 leaves as float32, which holds them exactly; steps as int32
+    scalars), for ``jnp.asarray`` on the JAX side."""
+    from .training.optimizer import OptState
+    from .training.train_step import TrainState
+
+    def arr(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy().copy()
+
+    def walk(tree):
+        return {k: walk(v) for k, v in tree.items()} if isinstance(tree, dict) else arr(tree)
+
+    return TrainState(params=walk(state.params),
+                      opt=OptState(step=arr(state.opt.step), mu=walk(state.opt.mu),
+                                   nu=walk(state.opt.nu)),
+                      step=arr(state.step))

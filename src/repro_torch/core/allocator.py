@@ -8,8 +8,11 @@ give the same allocation.  Program (6) (min sum k_i s.t. E[T] <= T_max)
 bisects the greedy's nested increment count on the table
 (:func:`min_processors_table`) or runs the heap greedy until the bound
 holds (:func:`min_processors`).  :func:`allocate` dispatches between
-Programs (4) and (6).  Host-side float64 spec code, as in
-``repro/core/allocator.py``.
+Programs (4) and (6).  :func:`assign_processors_naive` is Algorithm 1 as
+the paper writes it (every round prices every operator's marginal benefit
+and increments the argmax) and :func:`brute_force_optimal` enumerates
+Program (4) on tiny instances: the two oracles the others are held to.
+Host-side float64 spec code, as in ``repro/core/allocator.py``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ __all__ = [
     "InsufficientResourcesError",
     "AllocationResult",
     "assign_processors",
+    "assign_processors_naive",
+    "brute_force_optimal",
     "min_processors",
     "candidate_window",
     "greedy_increments",
@@ -65,6 +70,25 @@ def _marginal(top: Topology, lam: np.ndarray, i: int, k_i: int) -> float:
     if math.isinf(t0):
         return math.inf
     return lam[i] * (t0 - t1)
+
+
+def assign_processors_naive(top: Topology, k_max: int) -> AllocationResult:
+    """Paper Algorithm 1, literal transcription (the oracle)."""
+    lam = top.arrival_rates
+    k = top.min_feasible_allocation()
+    evals = 0
+    if int(k.sum()) > k_max:
+        raise InsufficientResourcesError(int(k.sum()), k_max, k)
+    while int(k.sum()) < k_max:
+        deltas = np.empty(top.n)
+        for i in range(top.n):
+            deltas[i] = _marginal(top, lam, i, int(k[i]))
+            evals += 2
+        j = int(np.argmax(deltas))
+        if deltas[j] <= 0.0:
+            break  # no operator benefits
+        k[j] += 1
+    return AllocationResult(k, top.expected_sojourn(k), int(k.sum()), evals)
 
 
 def assign_processors(top: Topology, k_max: int) -> AllocationResult:
@@ -297,3 +321,26 @@ def allocate(top: Topology, *, k_max: int | None = None, t_max: float | None = N
                 raise
     assert k_max is not None
     return assign_processors_table(top, k_max)
+
+
+def brute_force_optimal(top: Topology, k_max: int) -> tuple[np.ndarray, float]:
+    """Exhaustive Program (4) for tests (tiny instances only)."""
+    k_min = top.min_feasible_allocation()
+    if int(k_min.sum()) > k_max:
+        raise InsufficientResourcesError(int(k_min.sum()), k_max, k_min)
+    best_k, best_t = None, math.inf
+    n = top.n
+
+    def rec(i: int, remaining: int, k: list[int]) -> None:
+        nonlocal best_k, best_t
+        if i == n:
+            t = top.expected_sojourn(np.array(k))
+            if t < best_t:
+                best_t, best_k = t, np.array(k)
+            return
+        for extra in range(remaining + 1):
+            rec(i + 1, remaining - extra, k + [int(k_min[i]) + extra])
+
+    rec(0, k_max - int(k_min.sum()), [])
+    assert best_k is not None
+    return best_k, best_t

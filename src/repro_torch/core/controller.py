@@ -817,13 +817,18 @@ class FusedLoop:
     ``loop(k0)`` runs the whole horizon and returns the output dict;
     ``state = loop.init(k0)`` then ``state, out = loop.run(state, ticks)``
     advances in chunks (per-tick outputs cover the chunk; the aggregates in
-    ``state.acc`` cover everything since tick 0).
+    ``state.acc`` cover everything since tick 0).  Under a fleet mesh
+    ``init`` and ``run`` keep to this rank's lanes: the carry and the
+    outputs cover its ``B_pad / D`` lanes, and :meth:`gather` assembles the
+    whole fleet's outputs (cut back to B) on every rank; ``loop(k0)``
+    returns them gathered.
     """
 
-    def __init__(self, n_ticks: int, init_fn, run_fn):
+    def __init__(self, n_ticks: int, init_fn, run_fn, gather_fn=None):
         self.n_ticks = n_ticks
         self._init_fn = init_fn
         self._run_fn = run_fn
+        self._gather_fn = gather_fn
 
     def init(self, k0) -> ControllerState:
         return self._init_fn(k0)
@@ -837,9 +842,14 @@ class FusedLoop:
             )
         return self._run_fn(state, ticks)
 
+    def gather(self, out: dict) -> dict:
+        """The whole fleet's outputs from a :meth:`run`'s (the same dict
+        without a mesh; under one, a collective every rank calls)."""
+        return out if self._gather_fn is None else self._gather_fn(out)
+
     def __call__(self, k0) -> dict:
         _, out = self.run(self.init(k0), self.n_ticks)
-        return out
+        return self.gather(out)
 
 
 def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, *,
@@ -883,13 +893,13 @@ def make_fused_loop(arrays, static: ControllerStatic, params: ControllerParams, 
     :func:`pad_params`, ``BatchArrays.pad_batch``), and each rank cuts the
     statics, the simulator's arrays, the arrivals and the carry to its lane
     shard and runs the per-lane loop above on it (with ``compact``, on a
-    ladder of its shard's extent).  Each :meth:`FusedLoop.run` gathers the
-    per-tick outputs to ``[ticks, B, ...]`` and the carry to the padded
-    extent, so every rank returns the whole fleet's outputs (cut back to
-    B) and its whole :class:`ControllerState` (padded), which a checkpoint
-    saves and a resume continues bit for bit.  Every op of a tick is per
-    lane, so the outputs equal the unsharded loop's.  ``device`` defaults
-    to the mesh's.
+    ladder of its shard's extent).  :meth:`FusedLoop.init` and
+    :meth:`FusedLoop.run` keep the carry and the per-tick outputs on the
+    shard, with no collective; :meth:`FusedLoop.gather` assembles the
+    outputs to ``[ticks, B, ...]`` when a caller reports, and
+    ``CheckpointStore(mesh=)`` writes the carry in the whole fleet's layout.
+    Every op of a tick is per lane, so the gathered outputs equal the
+    unsharded loop's.  ``device`` defaults to the mesh's.
     """
     k_top = int(params.k_max.max())
     kw = dict(steps_per_tick=steps_per_tick,
@@ -920,59 +930,46 @@ def _cut_lanes(obj, sl: slice):
 def _make_sharded_loop(arrays, static: ControllerStatic, params: ControllerParams, mesh, *,
                        device, dtype, proactive, **kw):
     """:func:`make_fused_loop` under a fleet mesh: the per-lane loop on this
-    rank's shard, its outputs and carry gathered after every run."""
+    rank's shard.  Its carry and per-tick outputs stay on the shard; the
+    loop's :meth:`~FusedLoop.gather` assembles the whole fleet's outputs."""
     dev, dtype = _resolve(device, dtype)
     _mesh_axis(mesh)
     b_real, n = static.batch, static.n
     b_pad = _padded_batch(b_real, mesh.size)
     lanes = mesh.shard(b_pad)
+    width = lanes.stop - lanes.start
     static, params = pad_static(static, b_pad), pad_params(params, b_pad)
     arrays = arrays.pad_batch(b_pad)
     inner, n_ticks = _make_lane_loop(
         _cut_lanes(arrays, lanes), _cut_lanes(static, lanes), _cut_lanes(params, lanes),
         proactive=proactive, device=dev, dtype=dtype, **kw)
-    # The newest whole-fleet state this loop returned and the shard state
-    # it was gathered from: resuming from it needs no cut and no host read.
-    held = [None, None]
-
-    def whole_state(s: ControllerState) -> ControllerState:
-        return ControllerState(
-            q=mesh.all_gather(s.q), served_prev=mesh.all_gather(s.served_prev),
-            k=mesh.all_gather(s.k), acc=tuple(mesh.all_gather(a) for a in s.acc),
-            tick=s.tick, fstate=tuple(mesh.all_gather(x) for x in s.fstate))
 
     def run_fn(state: ControllerState, ticks: int):
-        local = held[1] if state is held[0] else _lanes(state, lanes)
-        local, out = inner.run(local, ticks)
-        state = whole_state(local)
-        held[:] = [state, local]
+        if state.q.shape[0] != width:
+            raise ValueError(
+                f"this rank's loop runs its {width} lanes, got a carry of {state.q.shape[0]} "
+                "(a whole-fleet checkpoint restores onto the shard through "
+                "CheckpointStore(mesh=))")
+        return inner.run(state, ticks)
+
+    def gather_fn(out: dict) -> dict:
         got = {}
         for key, v in out.items():
-            if key in _AGGREGATE_KEYS:
-                continue
-            if key == "miss":
-                got[key] = mesh.all_gather(v)[:b_real]
-            elif isinstance(v, torch.Tensor):
-                got[key] = mesh.all_gather(v, dim=1)[:, :b_real]
-            else:
+            if not isinstance(v, torch.Tensor):
                 got[key] = v
-        acc = state.acc
-        got.update({"k_final": state.k[:b_real], "q_final": state.q[:b_real]})
-        got.update({key: a[:b_real] for key, a in zip(_AGGREGATE_KEYS[2:], acc)})
-        return state, {key: got[key] for key in out}
+            elif key in _AGGREGATE_KEYS or key == "miss":
+                got[key] = mesh.all_gather(v)[:b_real]
+            else:
+                got[key] = mesh.all_gather(v, dim=1)[:, :b_real]
+        return got
 
     def init_fn(k0) -> ControllerState:
         k0 = np.asarray(k0)
         if k0.shape[0] < b_pad:  # padded lanes hold no processors
             k0 = np.concatenate([k0, np.zeros((b_pad - k0.shape[0], n), dtype=k0.dtype)])
-        fstate = ()
-        if proactive is not None:
-            from ..forecast.mpc import forecast_init_state_torch
+        return inner.init(k0[lanes])
 
-            fstate = forecast_init_state_torch(b_pad, n, proactive, dtype=dtype, device=dev)
-        return init_state(k0, device=dev, dtype=dtype, fstate=fstate)
-
-    return FusedLoop(n_ticks, init_fn, run_fn), n_ticks
+    return FusedLoop(n_ticks, init_fn, run_fn, gather_fn), n_ticks
 
 
 #: The whole-run aggregates of a loop run, in output order: the carry's
@@ -1568,6 +1565,7 @@ def tick_batch(
     *,
     ensure: Sequence[Callable[[int], int] | None] | None = None,
     cost_models: Sequence[RebalanceCostModel | None] | None = None,
+    raise_errors: bool = False,
     proactive=None,
     q_backlog: np.ndarray | None = None,
     compact_state: TwinCompactionState | None = None,
@@ -1579,7 +1577,8 @@ def tick_batch(
     trigger and the throughput-capped propagation.  Per scenario: the
     offered-load clamping, the Jackson solve, Programs (4)/(6) and the
     negotiator and cost calls (:func:`decide_single`).  Model hard
-    failures become per-row ``errors`` with an ``"infeasible"`` row.
+    failures become per-row ``errors`` with an ``"infeasible"`` row, or
+    propagate with ``raise_errors`` (the scalar scheduler's semantics).
     ``ensure[b]`` is scenario b's lease hook (target -> new k_max),
     ``cost_models[b]`` its cost model.
 
@@ -1596,7 +1595,7 @@ def tick_batch(
     that is not hot, has no lease hook or custom cost model; with
     ``proactive`` the planner prices only the commit-eligible lanes.  The
     decisions are the same either way; the ``need`` diagnostic is 0 on
-    unpriced lanes.
+    unpriced lanes.  ``raise_errors`` callers never replay.
     """
     b, n = static.batch, static.n
     k_current = np.asarray(k_current, dtype=np.int64)
@@ -1702,6 +1701,7 @@ def tick_batch(
         # custom-cost lanes never memoize.
         memo = (
             compact_state is not None
+            and not raise_errors
             and (ensure is None or ensure[bi] is None)
             and (cost_models is None or cost_models[bi] is None)
         )
@@ -1752,6 +1752,8 @@ def tick_batch(
                 names=names,
             )
         except (InsufficientResourcesError, UnstableTopologyError) as e:
+            if raise_errors:
+                raise
             errors[bi] = e
             row = RowDecision(
                 "infeasible", k_row.copy(), None, k_max, float("inf"), None,

@@ -1,7 +1,9 @@
-"""Batch-axis layout of the control plane (the port's copy of the part of
-``repro/distributed/`` it runs: the fleet mesh over ``torch.distributed``
-and the sparse decide's bucket ladder)."""
+"""Distribution layer of the port: the part of ``repro/distributed/`` it
+runs -- the fleet mesh over ``torch.distributed`` (``sharding``) and int8
+gradient compression (``compress``)."""
 
+from . import compress
 from .sharding import FleetMesh, bucket_ladder, fleet_backend, fleet_mesh, mesh_axis
 
-__all__ = ["FleetMesh", "bucket_ladder", "fleet_backend", "fleet_mesh", "mesh_axis"]
+__all__ = ["FleetMesh", "bucket_ladder", "compress", "fleet_backend", "fleet_mesh",
+           "mesh_axis"]

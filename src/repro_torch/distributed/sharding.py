@@ -6,9 +6,11 @@
   control plane is data-parallel over the scenario / tenant axis B, so its
   mesh is one axis.  Every rank calls the same entry points with the same
   arguments (SPMD, as under ``shard_map``); each computes its own lane
-  shard and the collectives here (``all_gather`` and ``barrier`` on the
-  group) assemble the whole fleet's outputs on every rank.  The caller initialises the process group; its backend is the
-  group's own (:func:`fleet_backend` gives the rule).
+  shard and keeps it; the collectives here (``all_gather`` and
+  ``barrier`` on the group) assemble the whole fleet's outputs on every
+  rank when a caller reports or saves.  The caller initialises the
+  process group; its backend is the group's own (:func:`fleet_backend`
+  gives the rule).
 * :func:`bucket_ladder` is the sparse decide's static ladder of compacted
   widths (per shard under a mesh).
 """

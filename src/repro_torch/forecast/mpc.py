@@ -213,16 +213,22 @@ def _price(T, k_vec, lam, lam0, k_hi: int):
 
 @_quiet
 def mpc_plan(lam_pred, q0, k_cur, *, mu, group, alpha, speed, active, src_mask, cap_queue,
-             t_max, k_max, span: float, cfg: MPCConfig, k_hi: int):
+             t_max, k_max, span: float, cfg: MPCConfig, k_hi: int, topr=None, alloc=None):
     """One planning pass over the forecast horizon (float64 numpy twin).
 
     ``lam_pred [B, H, N]`` predicted offered rates, ``q0 [B, N]`` backlog,
     ``k_cur [B, N]`` allocation, ``mu/group/alpha/speed/active/src_mask/
     cap_queue [B, N]`` statics, ``t_max [B]`` (inf: no constraint), ``k_max
-    [B]`` budgets, ``span`` seconds per tick; the top-R selection is
-    :func:`gain_topr_np`.  Returns ``(k_plan [B, N], any_ok [B], et_hold
-    [B], et_plan [B], need [B])``.
+    [B]`` budgets, ``span`` seconds per tick.  ``topr(cand [M, N, J],
+    budget [M]) -> take [M, N]`` is the top-R selection (default
+    :func:`gain_topr_np`).  ``alloc(lam_m [M, N], budgets_m [M]) -> k_alloc
+    [M, N]``, when given, replaces the floor and top-R block with one
+    allocator call over every candidate budget (absolute totals: the hook
+    recomputes the same floor and spends ``budget - floor``).  Returns
+    ``(k_plan [B, N], any_ok [B], et_hold [B], et_plan [B], need [B])``.
     """
+    if topr is None:
+        topr = gain_topr_np
     dtype = lam_pred.dtype
     b, h, n = lam_pred.shape
     lam_pred = np.where(active[:, None, :], lam_pred, 0.0)
@@ -271,10 +277,16 @@ def mpc_plan(lam_pred, q0, k_cur, *, mu, group, alpha, speed, active, src_mask, 
     step = int(cfg.neighbor)
     budgets = np.stack([need, need - step, need + step], axis=-1)  # [B, 3]
     budgets = np.clip(budgets, floor_total[:, None], k_max[:, None])
-    extra = np.clip(budgets - floor_total[:, None], 0, None).astype(np.int32)
-    cand_rep = np.broadcast_to(cand[:, None, :, :], (b, 3, n, k_hi)).reshape(b * 3, n, k_hi)
-    take = gain_topr_np(cand_rep, extra.reshape(b * 3))
-    k_alloc = k_start[:, None, :] + take.reshape(b, 3, n).astype(np.int32)
+    if alloc is not None:
+        lam_rep = np.broadcast_to(lam_peak[:, None, :], (b, 3, n)).reshape(b * 3, n)
+        k_alloc = np.asarray(alloc(lam_rep, budgets.reshape(b * 3))).reshape(b, 3, n)
+        k_alloc = k_alloc.astype(np.int32)
+    else:
+        extra = np.clip(budgets - floor_total[:, None], 0, None).astype(np.int32)
+        cand_rep = np.broadcast_to(cand[:, None, :, :], (b, 3, n, k_hi)).reshape(b * 3, n,
+                                                                                  k_hi)
+        take = topr(cand_rep, extra.reshape(b * 3))
+        k_alloc = k_start[:, None, :] + take.reshape(b, 3, n).astype(np.int32)
     k_alloc = np.where(active[:, None, :], k_alloc, 0)
     k_hold = np.where(active, k_cur, 0).astype(np.int32)[:, None, :]
     k_cand = np.concatenate([k_hold, k_alloc], axis=1)  # [B, C=4, N]

@@ -15,7 +15,7 @@ from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "rms_norm", "rope_frequencies", "apply_rope"]
+__all__ = ["ModelConfig", "rms_norm", "rope_frequencies", "apply_rope", "cross_entropy_loss"]
 
 
 @dataclass(frozen=True)
@@ -130,3 +130,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean next-token cross entropy in float32; logits [B, S, V], labels
+    [B, S] (the reference's ``logsumexp - gold``, masked mean with
+    ``mask``)."""
+    logits = logits.to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, labels[..., None].to(torch.int64), dim=-1)[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()

@@ -6,7 +6,7 @@ the hidden rounded once), on the CPU the kernel reference's (gate and up
 rounded to the activation dtype first).  The reference model's own
 ``ffn.swiglu`` rounds ``silu(gate)`` and the product separately; in bf16
 the three differ by bf16 rounding, in float32 they agree (ROADMAP Queue 3).
-MoE waits (ROADMAP Queue 1 item 11b).
+MoE waits (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

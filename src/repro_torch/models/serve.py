@@ -16,7 +16,7 @@ would otherwise copy the whole cache) and return a new dict with the new
 ``length``.  The decode write position and the attention kernel's length
 both come from that device tensor, so a step makes no host sync.  The moe,
 vlm and audio families raise ``NotImplementedError`` (ROADMAP Queue 1 item
-11b).
+5).
 """
 
 from __future__ import annotations

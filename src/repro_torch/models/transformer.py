@@ -13,7 +13,7 @@ stacked ``[1, ...]``), so a reference pytree carries over one to one
 (:func:`repro_torch.convert.model_params_from_reference`).  The layers run
 in a Python loop (no ``lax.scan``); attention, the FFN and the two scans
 go through the Hopper kernels.  The moe, vlm and audio families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11b).
+``NotImplementedError`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -27,12 +27,12 @@ from ..device import resolve_device
 from ..kernels.rwkv6_scan import ops as rwkv6_ops
 from ..kernels.ssd_scan import ops as ssd_ops
 from .attention import attention_train
-from .common import ModelConfig, apply_rope, rms_norm
+from .common import ModelConfig, apply_rope, cross_entropy_loss, rms_norm
 from .ffn import swiglu
 from .ssm import rwkv6_step, ssd_step
 
-__all__ = ["init_params", "param_shapes", "forward", "layer_params", "require_ported",
-           "PORTED_FAMILIES"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "layer_params",
+           "require_ported", "PORTED_FAMILIES"]
 
 #: The families the port runs.
 PORTED_FAMILIES = ("dense", "ssm", "hybrid")
@@ -45,7 +45,7 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port runs the dense, "
-            "ssm and hybrid families (ROADMAP Queue 1 item 11b)")
+            "ssm and hybrid families (ROADMAP Queue 1 item 5)")
 
 
 def _normal(shape, scale=None):
@@ -386,3 +386,13 @@ def forward(params: dict, cfg: ModelConfig, batch: dict):
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01):
+    """(total, {"loss", "aux_loss", "total"}): the cross entropy of
+    :func:`forward`'s logits against ``batch["labels"]`` (masked by
+    ``batch["mask"]`` when present) plus ``aux_weight`` times the aux loss."""
+    logits, aux = forward(params, cfg, batch)
+    loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux_loss": aux, "total": total}

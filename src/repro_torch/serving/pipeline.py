@@ -8,22 +8,23 @@ decode queue with probability p = 1 - 1 / E[output_len], so the traffic
 equations give lambda_decode = lambda_0 * E[output_len].  DRS Program
 (4) / (6) then splits chips between the prefill and decode groups.
 
-Service rates are per-chip priors; ``chip_smoke.py`` measures them on the
-card (prompts / s of a prefill, tokens / s of a decode step) and plans
-from them.  The reference's ``rates_from_dryrun`` reads the TPU dry-run's
-roofline records, which the port does not produce (ROADMAP Queue 1 item
-11).
+Service rates are per-chip priors: measured on the card (prompts / s of a
+prefill, tokens / s of a decode step; ``launch/serve.py --prefill-rate /
+--decode-rate``), or read by :func:`rates_from_dryrun` from the dry-run's
+roofline records, whose port waits (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass
+from pathlib import Path
 
 from ..api.graph import AppGraph, Edge, OpDef
 from ..core.allocator import AllocationResult, allocate
 from ..core.jackson import Topology
 
-__all__ = ["StageRates", "ServingModel"]
+__all__ = ["StageRates", "ServingModel", "rates_from_dryrun"]
 
 
 @dataclass(frozen=True)
@@ -32,6 +33,31 @@ class StageRates:
 
     prefill_per_chip: float  # prompts / s per chip
     decode_per_chip: float  # tokens / s per chip (one decode visit = 1 token)
+
+
+def rates_from_dryrun(arch: str, results_dir: str | Path,
+                      mesh: str = "pod16x16") -> StageRates:
+    """Stage rates from the dry-run's roofline records
+    ``{arch}--{shape}--{mesh}.json`` (the reference's format): the bound of
+    a compiled step is max(compute, memory, collective) seconds; a
+    ``prefill_32k`` step serves 32 requests and a ``decode_32k`` step 128
+    tokens on the record's ``chips``.  Raises ``FileNotFoundError`` for a
+    missing record or one whose status is not ``"ok"``."""
+    results_dir = Path(results_dir)
+
+    def load(shape):
+        rec = json.loads((results_dir / f"{arch}--{shape}--{mesh}.json").read_text())
+        if rec.get("status") != "ok":
+            raise FileNotFoundError(f"no ok dry-run for {arch} x {shape}")
+        r = rec["roofline"]
+        return max(r["compute_s"], r["memory_s"], r["collective_s"]), rec
+
+    pre_bound, pre = load("prefill_32k")
+    dec_bound, _dec = load("decode_32k")
+    pre_batch, dec_batch = 32, 128  # requests / tokens per compiled step
+    chips = pre["chips"]
+    return StageRates(prefill_per_chip=pre_batch / (pre_bound * chips),
+                      decode_per_chip=dec_batch / (dec_bound * chips))
 
 
 class ServingModel:

@@ -40,6 +40,7 @@ import torch
 
 __all__ = [
     "STATIONARY_K_CAP",
+    "little_wait",
     "BatchArrays",
     "BatchSimResult",
     "BatchQueueSim",
@@ -141,15 +142,22 @@ def _erlang_b_rows(a, k_srv, k_bound: int):
     return table.gather(0, row.reshape(1, -1)).reshape(a.shape)
 
 
-def composed_wait(q_mean, admitted_rate, dt, span, k, mu, group, alpha,
-                  speed=None, ca2=None, cs2=None, *, k_bound: int | None = None):
-    """The measurement-surface wait ``max(little, min(stationary, span))``;
-    ``k_bound`` as in :func:`stationary_wait`."""
-    fluid = torch.where(
+def little_wait(q_mean, admitted_rate, dt: float):
+    """Little's-law per-operator wait from a time-averaged backlog, minus
+    the one-step admission floor (a tuple admitted at step t is served at
+    step t + 1 at the earliest); 0 where nothing was admitted."""
+    return torch.where(
         admitted_rate > 0,
         torch.clamp_min(q_mean / torch.clamp_min(admitted_rate, 1e-300) - dt, 0.0),
         0.0,
     )
+
+
+def composed_wait(q_mean, admitted_rate, dt, span, k, mu, group, alpha,
+                  speed=None, ca2=None, cs2=None, *, k_bound: int | None = None):
+    """The measurement-surface wait ``max(little, min(stationary, span))``;
+    ``k_bound`` as in :func:`stationary_wait`."""
+    fluid = little_wait(q_mean, admitted_rate, dt)
     stat = stationary_wait(k, admitted_rate, mu, group, alpha, speed, ca2, cs2,
                            k_bound=k_bound)
     return torch.maximum(fluid, torch.clamp_max(stat, span))

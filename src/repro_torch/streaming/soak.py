@@ -213,9 +213,10 @@ def run_checkpointed(cfg: SoakConfig, directory, *, proactive: bool = False, mes
     dict, receives lists of host milliseconds per chunk under ``"run"``,
     ``"save_async"`` (until it returns), ``"wait"``, ``"rebuild"``,
     ``"restore"`` and ``"save"`` (the final synchronous save).  Under
-    ``mesh`` every rank runs this call on one ``directory``: the loop's
-    carry is the whole fleet's on every rank, the mesh's first rank writes
-    it, and every rank restores it after the save's barrier.
+    ``mesh`` every rank runs this call on one ``directory``: each rank's
+    carry holds its own lanes, a save gathers them and the mesh's first
+    rank writes the whole fleet's, every rank restores its lanes after the
+    save's barrier, and each chunk's outputs are gathered for the report.
     """
     from ..checkpoint.store import CheckpointStore
     from ..core import controller as ctl
@@ -241,7 +242,7 @@ def run_checkpointed(cfg: SoakConfig, directory, *, proactive: bool = False, mes
     while int(state.tick) < n_ticks:
         ticks = min(cfg.checkpoint_every, n_ticks - int(state.tick))
         state, out = timed("run", loop.run, state, ticks)
-        chunks.append(_np_out(out))
+        chunks.append(_np_out(loop.gather(out)))
         done = int(state.tick)
         if done >= n_ticks:
             timed("save", store.save, done, state)  # nothing left to overlap

@@ -89,7 +89,7 @@ def chunked_run(b: int, mesh=None) -> dict:
     loop, _ = loop_of(r, mesh)
     state, first = loop.run(loop.init(r.k), 1)
     _state, rest = loop.run(state)
-    first, rest = np_out(first), np_out(rest)
+    first, rest = np_out(loop.gather(first)), np_out(loop.gather(rest))
     for key in ("codes", "k", "sojourn", "et_cur", "et_target", "applied"):
         rest[key] = np.concatenate([first[key], rest[key]])
     rest["miss"] = rest["miss"] + first["miss"]
@@ -225,13 +225,56 @@ def checkpoint_layouts(directory: pathlib.Path, mesh) -> dict:
     restored, _ = CheckpointStore(directory / "plain", mesh=mesh).restore(loop.init(r.k),
                                                                           step=1)
     _, out = loop.run(ctl.ControllerState(*restored))
-    return np_out(out)
+    return np_out(loop.gather(out))
+
+
+def carry_shards(b: int, mode: str, mesh) -> dict:
+    """What a rank holds between runs: the lanes of its carry and of each
+    per-tick output after one tick and after the rest, and the
+    ``all_gather`` calls each ``run`` and the ``gather`` made (counted
+    through a wrapped ``FleetMesh.all_gather``).  The gathered outputs of
+    the chunked run are returned too."""
+    from repro_torch.distributed import FleetMesh
+
+    calls = [0]
+    plain = FleetMesh.all_gather
+
+    def counted(self, x, dim=0):
+        calls[0] += 1
+        return plain(self, x, dim)
+
+    r = runner(scens(b), mode, mesh)
+    loop, _ = loop_of(r, mesh)
+    FleetMesh.all_gather = counted
+    try:
+        state = loop.init(r.k)
+        res = {"init_gathers": np.array(calls[0])}
+        state, first = loop.run(state, 1)
+        res["run1_gathers"] = np.array(calls[0] - res["init_gathers"])
+        state, rest = loop.run(state)
+        res["run2_gathers"] = np.array(calls[0] - res["init_gathers"] - res["run1_gathers"])
+        res["carry_lanes"] = np.array([t.shape[0] for t in (state.q, state.served_prev,
+                                                             state.k, *state.acc,
+                                                             *state.fstate)])
+        res["out_lanes"] = np.array([v.shape[1] for key, v in rest.items()
+                                     if isinstance(v, torch.Tensor) and v.ndim >= 2
+                                     and key not in ("k_final", "q_final", "offered",
+                                                     "served", "dropped", "q_int", "q_max")])
+        before = calls[0]
+        whole = np_out(loop.gather(rest))
+        res["gather_calls"] = np.array(calls[0] - before)
+    finally:
+        FleetMesh.all_gather = plain
+    res.update({f"out/{k}": v for k, v in whole.items()})
+    return res
 
 
 CASES = {
     **{f"loop-{mode}-{b}": (lambda m, d, _b=b, _mode=mode: loop_run(_b, _mode, m))
        for mode in LOOP_MODES for b in (6, 8)},
     "chunked-8": lambda m, d: chunked_run(8, m),
+    **{f"carry-{mode}-{b}": (lambda m, d, _b=b, _mode=mode: carry_shards(_b, _mode, m))
+       for mode in LOOP_MODES for b in (6, 8)},
     "decide-8": lambda m, d: decide_run(8, False, m),
     "decide-compact-8": lambda m, d: decide_run(8, True, m),
     "runner-6": lambda m, d: runner_reports(6, m),

@@ -43,6 +43,10 @@ def test_port_and_chip_smoke_load_no_jax_and_no_repro():
         "import repro_torch.checkpoint, repro_torch.streaming.soak\n"
         "import repro_torch.core.planner, repro_torch.core.heterogeneous\n"
         "import repro_torch.streaming.apps.fpd, repro_torch.api\n"
+        "import repro_torch.core, repro_torch.streaming, repro_torch.models\n"
+        "import repro_torch.serving, repro_torch.data, repro_torch.training\n"
+        "import repro_torch.distributed.compress, repro_torch.configs.shapes\n"
+        "import repro_torch.launch.serve, repro_torch.launch.train, repro_torch.tree\n"
         f"runpy.run_path({str(ROOT / 'chip_smoke.py')!r}, run_name='chip_smoke_import')\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"

@@ -50,8 +50,9 @@ from repro_torch.streaming.scenarios import pack_scenarios
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 D2_CASES = (*(f"loop-{m}-8" for m in ranks.LOOP_MODES), "chunked-8", "decide-8",
-            "decide-compact-8", "runner-6")
-D4_CASES = tuple(f"loop-{m}-6" for m in ranks.LOOP_MODES)
+            "decide-compact-8", "runner-6", *(f"carry-{m}-8" for m in ranks.LOOP_MODES))
+D4_CASES = (*(f"loop-{m}-6" for m in ranks.LOOP_MODES),
+            *(f"carry-{m}-6" for m in ranks.LOOP_MODES))
 
 
 @pytest.fixture(scope="module")
@@ -189,6 +190,32 @@ def test_two_ranks_fused_loop_equals_the_unsharded_loop(d2, mode):
 def test_four_ranks_padded_fused_loop_equals_the_unsharded_loop(d4, mode):
     """B = 6 on four ranks: two inert lanes of padding, cut off again."""
     ranks.assert_outs_match(ranks.loop_run(6, mode), _every_rank(d4, f"loop-{mode}-6"))
+
+
+@pytest.mark.parametrize("mode", sorted(ranks.LOOP_MODES))
+@pytest.mark.parametrize("world,b", [(2, 8), (4, 6)], ids=["2-ranks", "4-ranks-padded"])
+def test_each_rank_keeps_its_lanes_and_a_run_gathers_nothing(request, world, b, mode):
+    """Between runs every rank holds ``B_pad / D`` lanes of carry (state,
+    aggregates and forecast state) and of each per-tick output; ``init``
+    and ``run`` make no ``all_gather``, and ``gather`` assembles outputs
+    equal to the unsharded loop's (ticks 1 onward, and the aggregates)."""
+    res = request.getfixturevalue(f"d{world}")
+    lanes = -(-b // world)
+    want = ranks.loop_run(b, mode)
+    for rank, got in res.items():
+        c = got[f"carry-{mode}-{b}"]
+        for when in ("init", "run1", "run2"):
+            assert int(c[f"{when}_gathers"]) == 0, (rank, when)
+        np.testing.assert_array_equal(c["carry_lanes"], lanes, err_msg=str(rank))
+        assert c["out_lanes"].size >= 6 and (c["out_lanes"] == lanes).all(), rank
+        assert int(c["gather_calls"]) > 0
+        out = {k[len("out/"):]: v for k, v in c.items() if k.startswith("out/")}
+        for key in PER_TICK:
+            if key in out and key not in ranks.CLOSE:
+                np.testing.assert_array_equal(out[key], want[key][1:], err_msg=key)
+        for key in ("k_final", "q_final", "offered", "served", "dropped", "ext_admitted",
+                    "ext_offered", "q_int", "q_max"):
+            np.testing.assert_array_equal(out[key], want[key], err_msg=key)
 
 
 def test_two_ranks_chunked_resume_equals_the_straight_run(d2):
