@@ -159,10 +159,14 @@ Phases, each printing one JSON line:
    (``enable_gqa=True``) on the same inputs for the two attention kernels
    (decode: on the valid prefix) and null for ``swiglu`` and the two scans
    (no single PyTorch call computes a chunked linear recurrence).
-   Launches of the attention and SwiGLU kernels sum the llama3.2-1b and
-   zamba2-7b serving paths and the ``train`` run, each counted from zero;
-   the two also carry ``train_fwd_bwd_ms`` / ``train_plain_fwd_bwd_ms``
-   from ``train_kernels`` (bf16);
+   Launches of the attention and SwiGLU kernels sum the llama3.2-1b,
+   phi3-medium-14b and zamba2-7b serving paths and the ``train`` runs, the
+   scans' the rwkv6 / zamba2 serving and training paths, each counted from
+   zero; the four training kernels also carry ``train_fwd_bwd_ms`` /
+   ``train_plain_fwd_bwd_ms`` from ``train_kernels`` (bf16); the two
+   attention rows carry ``dh128`` (head dim 128: ms, device us, SDPA ms,
+   bound and ``phi3_serve``'s launches) and SwiGLU ``widths`` (the three
+   head-dim-128 archs' FFN widths);
 9. ``llm_kernels`` (with the parity phase, before the main path):
    ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
    plain versions on the card, in bf16 and float32 (tolerances in the
@@ -173,11 +177,18 @@ Phases, each printing one JSON line:
    one call computes the same function, and its bound (bytes over 3.35
    TB/s or operations over 989 TFLOP/s bf16 / 67 TFLOP/s float32);
    ``other_shapes`` adds decode at llama's own step (B 4, S_max 4128,
-   length 4,097);
-10. ``llm_card_vs_cpu``: llama3.2-1b at full width cut to 2 layers, in
-    bf16 and float32, prefill of 2 x 256 tokens and 8 greedy steps on the
-    card and on the CPU (plain versions) with the same parameters: logits
-    within the stated tolerance, the share of agreeing greedy tokens;
+   length 4,097); then at head dim 128 (``llm128_kernels_phase``): flash at
+   phi3-medium-14b's prefill (4 x 4096, 40 / 10 heads; windowed and
+   bidirectional at B 1), decode at the (128, 4 / 7 / 8) pairs of phi3,
+   yi-34b and command-r-35b at a B 4 step over 4,097 cached tokens and at
+   length 0, and (128, 4) at 16 x 32,000 cached; SwiGLU at the three FFN
+   widths (T 16, the streaming route, and 4,096 / 16,384, the wgmma
+   route), each timed beside SDPA and its bound;
+10. ``llm_card_vs_cpu``: llama3.2-1b and the three head-dim-128 archs at
+    full width cut to 2 layers, in bf16 and float32, prefill of 2 x 256
+    tokens and 8 greedy steps (the 128-dim archs 1 x 128 and 4) on the card
+    and on the CPU (plain versions) with the same parameters: logits within
+    the stated tolerance, the share of agreeing greedy tokens;
 11. ``llm_serve``: the full 16-layer llama3.2-1b in bf16 (parameters drawn
     on the card from seed 0): 4 prompts x 4096 tokens prefilled into a
     cache of 4128, then 32 greedy decode steps, with each kernel's launch
@@ -186,6 +197,11 @@ Phases, each printing one JSON line:
 12. ``llm_decode_32k``: the decode step at 16 sequences x 32,000 cached
     tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps timed
     against the step's bound (KV prefix + weights over 3.35 TB/s);
+12a. ``phi3_serve``: phase 11 for phi3-medium-14b at full width and depth
+    (40 layers, head dim 128, 14.66 B parameters, 29.3 GB in bf16): 40
+    ``flash_attention`` and 80 ``swiglu`` launches per prefill, 40
+    ``decode_attention`` and 80 ``swiglu`` per step, with its
+    ``serving_plan``;
 13. ``serving_plan``: DRS's prefill / decode chip split through the
     port's launcher (``launch/serve.py``: ``stage_rates`` of the measured
     rates, ``plan(4.0, chips=24)``) from the B = 4 cell of each arch (the
@@ -212,38 +228,51 @@ Phases, each printing one JSON line:
     67 TFLOP/s);
 15. ``ssm_card_vs_cpu``: rwkv6-1.6b and zamba2-7b at full width cut to 2
     layers (zamba2: one shared-block site), bf16 and float32, as phase 10;
-16. ``rwkv6_serve`` and ``zamba2_serve``: each full model (24 / 81 layers)
-    in bf16, parameters drawn on the card from seed 0: 4 x 4096 prefill and
-    32 greedy decode steps, launches checked exactly (rwkv6: 24
-    ``rwkv6_scan`` per prefill, no kernel per step; zamba2: 81
-    ``ssd_scan``, 14 ``flash_attention`` and 28 ``swiglu`` per prefill, 14
-    ``decode_attention`` and 28 ``swiglu`` per step), tokens/s, ms per
-    step, peak memory and ``torch.profiler`` breakdowns;
+16. ``rwkv6_serve`` and ``zamba2_serve``: each model at full width in
+    bf16 (rwkv6 cut from 24 to 12 layers; zamba2 from 81 to 18, 3 of its
+    14 shared-block sites), parameters drawn on the card from seed 0: 4 x
+    4096 prefill and 32 greedy decode steps, launches checked exactly
+    (rwkv6: 12 ``rwkv6_scan`` per prefill, no kernel per step;
+    zamba2: 18 ``ssd_scan``, 3 ``flash_attention`` and 6 ``swiglu`` per
+    prefill, 3 ``decode_attention`` and 6 ``swiglu`` per step), tokens/s,
+    ms per step, peak memory and ``torch.profiler`` breakdowns;
 17. ``serving_plan`` and ``serving_sim`` for each of the two from its own
     measured rates;
 18. ``launch_serve``: ``python -m repro_torch.launch.serve`` (its
-    ``main(argv)``, in this process) for all three archs on their B = 4
+    ``main(argv)``, in this process) for all four archs on their B = 4
     rates (``--prefill-rate`` / ``--decode-rate``): the split must equal
     ``serving_plan``'s;
 19. ``train_kernels``: ``FlashAttentionFn`` at llama's training shape (B 2,
-    Hq 32 / Hkv 8, S 4096, Dh 64) and ``SwiGLUFn`` at T 8,192, D 2,048, F
-    8,192, bf16 and float32: the forward within ``ATTN_TOL`` / ``SWIGLU_TOL``
-    of the plain version and equal to the kernel bitwise, each input's
-    gradient within the same tolerance of autograd of the plain version;
-    forward + backward ms beside the plain version's;
-20. ``train_card_vs_cpu``: llama3.2-1b at full width cut to 2 layers,
-    float32, B 2 x S 256: every parameter's gradient non-zero on the card,
-    then 3 ``make_train_step`` steps on the card and on the CPU from the
-    same parameters: losses and grad norms within 1e-3 relative;
-21. ``train``: llama3.2-1b at full width and depth (bf16 parameters,
-    float32 moments) through ``TrainLoop`` on ``train_4k``'s sequence with
-    the batch cut 256 -> 2: 8 steps with a checkpoint every 4 (one
-    ``flash_attention`` and two ``swiglu`` launches per layer per step),
-    then a crash at 4 and a resume to 8, all under
+    Hq 32 / Hkv 8, S 4096, Dh 64), ``SwiGLUFn`` at T 8,192, D 2,048, F
+    8,192, ``Rwkv6ScanFn`` at rwkv6's (B 2, H 32, S 4096, Dk = Dv = 64) and
+    ``SsdScanFn`` at zamba2's (B 2, H 112, S 4096, Dh = Dst = 64, B and C
+    shared by the heads), bf16 and float32: the forward within
+    ``ATTN_TOL`` / ``SWIGLU_TOL`` / ``SCAN_TOL`` of the plain version and
+    equal to the kernel bitwise, each input's gradient (the scans' initial
+    state's and B / C's, summed over the heads, included) within the same
+    tolerance of autograd of the plain version; forward + backward ms
+    beside the plain version's;
+20. ``train_card_vs_cpu``: llama3.2-1b, rwkv6-1.6b and zamba2-7b at full
+    width cut to 2 layers (zamba2: one shared-block site; llama to 1),
+    float32, B 2 x S 256 (rwkv6 and zamba2: 128): every parameter's
+    gradient non-zero on the card, then 3
+    ``make_train_step`` steps on the card and on the CPU from the same
+    parameters: losses and grad norms within 1e-3 relative;
+21. ``train``: llama3.2-1b (cut to 8 of its 16 layers) and rwkv6-1.6b (at
+    full depth), both at full width (bf16 parameters, float32 moments)
+    through ``TrainLoop`` on ``train_4k``'s
+    sequence with the batch cut 256 -> 2: 8 steps with a checkpoint every 4
+    (launches exactly :func:`train_launch_rule`: one ``flash_attention``
+    and two ``swiglu`` per llama layer, one ``rwkv6_scan`` per rwkv6 layer,
+    per step), then a crash at 4 and a resume to 8, all under
     ``torch.use_deterministic_algorithms``: losses finite, the resumed
     run's losses for steps 5-8 and its final parameters bitwise the
     straight run's; tokens / s, step ms, peak memory, the loader's worker
-    counts.
+    counts; then zamba2-7b at full width cut to 12 layers (two shared-block
+    sites; the full 6.75 B parameters need ~81 GB before activations): 4
+    steps, losses finite, launches exactly the rule (one ``ssd_scan`` per
+    mamba layer, one ``flash_attention`` and two ``swiglu`` per site),
+    peak memory under 75 GB.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -275,7 +304,7 @@ WINDOW_STEPS = 100  # fleet-4096: a 5 s tick of 0.05 s steps
 # Kernels that no path of the port launches (their rows are still held to
 # their plain versions and timed).
 OFF_PATH = ("queue_step", "pairwise_sq_l2")
-PROFILE_ATTEMPTS = 3  # profiler sessions tried before an empty trace stands
+PROFILE_ATTEMPTS = 5  # profiler sessions tried before an empty trace stands
 # Device-function names of the window kernel's routes, by plan route.
 WINDOW_ROUTE_SYMBOLS = {"segment": "queue_window_seg_kernel", "wide": "queue_window_wide_kernel"}
 # Device-function names of the control-loop kernels, by launch counter.
@@ -307,12 +336,12 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def median_ms(fn, *, runs=25, inner=10):
+def median_ms(fn, *, runs=25, inner=10, warmup=3):
     """Median over ``runs`` of the per-call time of ``inner`` back-to-back
-    calls, from CUDA events, after a warm-up."""
+    calls, from CUDA events, after ``warmup`` calls."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -2402,16 +2431,162 @@ def llm_kernels_phase(dev):
     return rows
 
 
+# The dense family at head dim 128 (phi3-medium-14b, yi-34b, command-r-35b):
+# phi3's attention (40 / 10 heads) and the three (head dim, GQA ratio) pairs
+# of decode; each arch's FFN width.
+DENSE128_ARCHS = ("phi3-medium-14b", "yi-34b", "command-r-35b")
+PHI3_ARCH = "phi3-medium-14b"
+DH128, PHI3_HQ, PHI3_HKV = 128, 40, 10
+DECODE128 = {"phi3-medium-14b": (40, 10), "yi-34b": (56, 8), "command-r-35b": (64, 8)}
+FFN128 = {"phi3-medium-14b": (5120, 17920), "yi-34b": (7168, 20480),
+          "command-r-35b": (8192, 22528)}
+
+
+def llm128_kernels_phase(dev):
+    """``flash_attention`` and ``decode_attention`` at head dim 128 and
+    ``swiglu`` at the three archs' FFN widths against their plain versions
+    on the card, in bf16 and float32 within ``ATTN_TOL`` / ``SWIGLU_TOL``:
+    flash at phi3's prefill (4 x 4096, 40 / 10 heads; also windowed and
+    bidirectional at B 1); decode at each arch's (128, ratio) pair at a B 4
+    step over 4,097 cached tokens, at length 0, and (128, 4) at 16 x 32,000
+    cached; SwiGLU at T 16 (the streaming route) and 4,096 (the wgmma
+    route in bf16).  The serving shapes are timed (CUDA events,
+    ``torch.profiler`` device time) beside SDPA and the bound.  Returns
+    ``{kernel: {"dh128" or "widths": ...}}`` for the kernel-table rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.swiglu import kernel as sk, ref as sr
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(128)
+    bf16, f32 = torch.bfloat16, torch.float32
+    heavy = dict(runs=5, inner=2)
+    out = {}
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    def parity(name, case, got, want, tol_rule):
+        return hold("llm_parity", name, case, got, want, tol_rule)
+
+    hq, hkv, dh = PHI3_HQ, PHI3_HKV, DH128
+    errs = {}
+    for b, s, dtype, window, causal in (
+            (1, FLASH_S, f32, 256, True), (1, 1000, f32, None, False),
+            (SERVE_B, SERVE_S, f32, None, True), (1, FLASH_S, bf16, 256, True),
+            (1, 1000, bf16, None, False), (SERVE_B, SERVE_S, bf16, None, True)):
+        q = randn((b, s, hq, dh), dtype).transpose(1, 2)
+        k, v = (randn((b, s, hkv, dh), dtype).transpose(1, 2) for _ in range(2))
+        case = f"B={b},S={s},H={hq}/{hkv},Dh={dh},{dtype_name(dtype)}" + (
+            f",window={window}" if window else ",causal" if causal else ",bidirectional")
+        kw = dict(window=window, causal=causal)
+        e = parity("flash_attention", case, fk.attention(q, k, v, **kw),
+                   fr.attention(q, k, v, **kw), ATTN_TOL[dtype_name(dtype)])
+        errs[dtype_name(dtype)] = max(errs.get(dtype_name(dtype), 0.0), e)
+        if dtype == f32:
+            del q, k, v
+            torch.cuda.empty_cache()
+    pairs = sum(min(i + 1, SERVE_S) for i in range(SERVE_S))
+    out["flash_attention"] = {"dh128": dict(
+        shape=f"B={SERVE_B},S={SERVE_S},H={hq}/{hkv},Dh={dh},bf16,causal",
+        max_abs_err=errs["bfloat16"], max_abs_err_float32=errs["float32"],
+        ms=median_ms(lambda: fk.attention(q, k, v), **heavy),
+        plain_ms=median_ms(lambda: fr.attention(q, k, v), runs=3, inner=1),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), **heavy),
+        device_us=device_us_per_call(lambda: fk.attention(q, k, v),
+                                     LLM_SYMBOLS["flash_attention"]),
+        bound=bound(2 * SERVE_B * SERVE_S * dh * (2 * hq + 2 * hkv),
+                    4 * dh * pairs * SERVE_B * hq, PEAK_BF16_OPS_PER_S))}
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    def decode_case(arch, b, s_max, length, dtype, timed):
+        hq_, hkv_ = DECODE128[arch]
+        qd = randn((b, hq_, dh), dtype)
+        kc, vc = (randn((b, s_max, hkv_, dh), dtype) for _ in range(2))
+        n = torch.tensor(length, dtype=torch.int32, device=dev)
+        case = (f"{arch},B={b},S_max={s_max},length={length},H={hq_}/{hkv_},Dh={dh},"
+                f"{dtype_name(dtype)}")
+        e = parity("decode_attention", case, dk.decode_attention(qd, kc, vc, n),
+                   dr.decode_attention(qd, kc, vc, n), ATTN_TOL[dtype_name(dtype)])
+        row = {"case": case, "max_abs_err": e}
+        if timed:
+            q4 = qd[:, :, None]
+            kv = [t[:, :length].transpose(1, 2).contiguous() for t in (kc, vc)]
+            size = kc.element_size()
+            row.update(
+                ms=median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
+                plain_ms=median_ms(lambda: dr.decode_attention(qd, kc, vc, n), **heavy),
+                library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                    q4, *kv, enable_gqa=True)),
+                device_us=device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
+                                             LLM_SYMBOLS["decode_attention"]),
+                bound=bound(size * (2 * b * hq_ * dh + 2 * b * length * hkv_ * dh),
+                            4 * dh * length * b * hq_, PEAK_BF16_OPS_PER_S))
+            del q4, kv
+        del qd, kc, vc
+        torch.cuda.empty_cache()
+        return row
+
+    step = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)
+    decode = {}
+    for arch in DENSE128_ARCHS:
+        for dtype in (f32, bf16):
+            decode_case(arch, SERVE_B, SERVE_S + SERVE_STEPS, 0, dtype, False)
+            row = decode_case(arch, *step, dtype, dtype == bf16)
+            if dtype == bf16:
+                decode[arch] = row
+    decode_case(PHI3_ARCH, DEC_B, DEC_SMAX, DEC_LEN, f32, False)
+    decode[PHI3_ARCH + "_32k"] = decode_case(PHI3_ARCH, DEC_B, DEC_SMAX, DEC_LEN, bf16, True)
+    out["decode_attention"] = {"dh128": decode}
+
+    widths = {}
+    for arch, (d, f) in FFN128.items():
+        def inputs(t, dtype):
+            return (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
+                    randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
+
+        row = {}
+        for t, dtype in ((16, f32), (16, bf16), (4096, bf16)):
+            args = inputs(t, dtype)
+            row[f"max_abs_err_T{t}_{dtype_name(dtype)}"] = parity(
+                "swiglu", f"{arch},T={t},D={d},F={f},{dtype_name(dtype)}", sk.swiglu(*args),
+                sr.swiglu(*args), SWIGLU_TOL[dtype_name(dtype)])
+        t = SERVE_B * SERVE_S
+        args = inputs(t, bf16)
+        row.update(shape=f"T={t},D={d},F={f},bf16",
+                   ms=median_ms(lambda: sk.swiglu(*args), **heavy),
+                   plain_ms=median_ms(lambda: sr.swiglu(*args), **heavy),
+                   device_us=device_us_per_call(lambda: sk.swiglu(*args),
+                                                LLM_SYMBOLS["swiglu"]),
+                   bound=bound(2 * (2 * t * d + 3 * d * f), 6 * t * d * f,
+                               PEAK_BF16_OPS_PER_S))
+        widths[arch] = row
+        del args
+        torch.cuda.empty_cache()
+    out["swiglu"] = {"widths": widths}
+    _build.LAUNCHES.clear()  # parity and timing launches are not the path's
+    emit({"phase": "llm_kernels", "head_dim": 128, "seconds": time.perf_counter() - t_phase,
+          "rows": out})
+    return out
+
+
 def _cpu_copy(params):
     return {k: _cpu_copy(v) if isinstance(v, dict) else v.to("cpu", copy=True)
             for k, v in params.items()}
 
 
-def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8):
+def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2):
     """``cfg`` with parameters drawn on the card from seed 1: a greedy run
     on the card (the kernels) against the CPU's plain versions
     teacher-forced on the card's tokens.  Logits within ``tol * (1 +
-    |cpu|)``, greedy tokens agreeing on all (float32) or >= 75 % (bf16)."""
+    |cpu|)`` (1e-3 in float32, ``bf16_tol`` in bf16), greedy tokens
+    agreeing on all (float32) or >= 75 % (bf16)."""
     import torch
 
     from repro_torch.models import serve
@@ -2419,7 +2594,7 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8):
 
     cpu = torch.device("cpu")
     dtype = cfg.dtype
-    tol = {torch.float32: 1e-3, torch.bfloat16: 5e-2}[dtype]
+    tol = {torch.float32: 1e-3, torch.bfloat16: bf16_tol}[dtype]
     min_agree = {torch.float32: 1.0, torch.bfloat16: 0.75}[dtype]
     t_phase = time.perf_counter()
     params = init_params(cfg, seed=1, device=dev)
@@ -2462,16 +2637,29 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8):
 
 
 def llm_card_vs_cpu_phase(dev):
-    """llama3.2-1b at full width, 2 layers, in bf16 and float32."""
+    """llama3.2-1b and the three head-dim-128 archs at full width, 2
+    layers, in bf16 and float32; the 128-dim archs on 1 x 128 prompt tokens
+    and 4 greedy steps (command-r's 256,000 x 8,192 embedding alone is 8.4
+    GB in float32 on the host, whose plain versions run the CPU half).  Their bf16 logit
+    tolerance is llama's 5e-2 times sqrt(d_model / 2048): the two sides
+    round their hidden states to bf16 at different places (the kernels keep
+    attention's and the FFN's intermediates in float32, the plain versions
+    round them), and the logit's share of that noise grows as the root of
+    the width of the products it sums (0.079 / 0.094 / 0.100 at d_model
+    5,120 / 7,168 / 8,192)."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
 
-    for dtype in (torch.bfloat16, torch.float32):
-        cfg = dataclasses.replace(get_config(LLM_ARCH, "full"), n_layers=2, dtype=dtype)
-        card_vs_cpu(dev, cfg, "llm_card_vs_cpu")
+    for arch in (LLM_ARCH, *DENSE128_ARCHS):
+        cfg = get_config(arch, "full")
+        shape = {} if arch == LLM_ARCH else {
+            "b": 1, "s": 128, "steps": 4, "bf16_tol": 5e-2 * math.sqrt(cfg.d_model / D_MODEL)}
+        for dtype in (torch.bfloat16, torch.float32):
+            card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2, dtype=dtype),
+                        "llm_card_vs_cpu", **shape)
 
 
 def profile_breakdown(fn, calls=1):
@@ -2510,10 +2698,11 @@ def breakdown_json(wall_ms, device_ms, rows):
                     for k, t, c in rows[:10]]}
 
 
-def llm_serve_phase(dev):
-    """Full llama3.2-1b: prefill 4 x 4096, 32 greedy decode steps, launch
-    counts checked; returns (launches, prompts/s, the B = 4 step's
-    tokens/s, params, cfg)."""
+def llm_serve_phase(dev, arch=LLM_ARCH):
+    """A full dense model in bf16 (llama3.2-1b; phi3-medium-14b, 40 layers
+    at head dim 128, as ``phi3_serve``): prefill 4 x 4096, 32 greedy decode
+    steps, launch counts checked; returns (launches, prompts/s, the B = 4
+    step's tokens/s, params, cfg)."""
     import torch
 
     from repro_torch.configs import get_config
@@ -2523,7 +2712,7 @@ def llm_serve_phase(dev):
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(LLM_ARCH, "full")
+    cfg = get_config(arch, "full")
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_phase
@@ -2562,7 +2751,8 @@ def llm_serve_phase(dev):
         lambda: serve.prefill(params, cfg, {"tokens": tokens}, cache_4096, device=dev)))
     step = breakdown_json(*profile_breakdown(
         lambda: serve.decode_step(params, cfg, tok, cache_4096, device=dev), calls=5))
-    emit({"phase": "llm_serve", "arch": cfg.arch, "layers": n_layers, "dtype": "bfloat16",
+    phase = "llm_serve" if arch == LLM_ARCH else arch.split("-")[0] + "_serve"
+    emit({"phase": phase, "arch": cfg.arch, "layers": n_layers, "dtype": "bfloat16",
           "params": cfg.params_count(), "prompts": SERVE_B, "prompt_tokens": SERVE_S,
           "decode_steps": SERVE_STEPS, "launches": launches, "launches_expected": want,
           "cache_length": length, "init_seconds": init_s, "prefill_seconds": prefill_s,
@@ -2574,9 +2764,9 @@ def llm_serve_phase(dev):
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
           "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
           "seconds": time.perf_counter() - t_phase})
-    check(prefill_finite and decode_finite, "llm_serve: non-finite logits")
-    check(length == SERVE_S + SERVE_STEPS, f"llm_serve: cache length {length}")
-    check(launches == want, f"llm_serve: launches {launches}, expected {want}")
+    check(prefill_finite and decode_finite, f"{phase}: non-finite logits")
+    check(length == SERVE_S + SERVE_STEPS, f"{phase}: cache length {length}")
+    check(launches == want, f"{phase}: launches {launches}, expected {want}")
     del cache, cache_4096, tokens
     torch.cuda.empty_cache()
     return launches, SERVE_B / prefill_s, SERVE_B * SERVE_STEPS / decode_s, params, cfg
@@ -3147,10 +3337,21 @@ def ssm_serve_phase(dev, arch):
 # ~8.4 GB, the plain attention backward's [2, 32, 4096, 4096] float32 score
 # block ~4.3 GB (a few live at once) per layer.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 2, 4096, 8, 4
+# Depth cuts of ``train``: llama at 8 of its 16 layers (a time cut: with
+# its crash-and-resume, the phase's slowest loops are llama's and rwkv6's);
+# zamba2-7b at ZAMBA_TRAIN_LAYERS of its 81 (a memory cut: the whole
+# model's 6.75 B parameters, gradients and moments alone are ~81 GB), 4
+# straight steps, no resume (its checkpoints would copy ~10 bytes per
+# parameter four times over).  Every run's peak stays under TRAIN_PEAK_GB.
+ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS, TRAIN_PEAK_GB = 24, 4, 75.0
+TRAIN_LAYERS = {LLM_ARCH: 8, "zamba2-7b": ZAMBA_TRAIN_LAYERS}
 # SwiGLUFn at two llama sequences of train_4k's length.
 TRAIN_T = TRAIN_B * TRAIN_S
-# train_card_vs_cpu: full width, 2 layers, float32, B 2 x S 256, 3 steps.
+# train_card_vs_cpu: full width, 2 layers, float32, B 2 x S 256 (the scan
+# archs 128: 4 / 2 chunks, so the state recurrence between chunks and its
+# backward run; the CPU half is most of the phase), 3 steps.
 TRAIN_CPU_B, TRAIN_CPU_S, TRAIN_CPU_STEPS, TRAIN_CPU_TOL = 2, 256, 3, 1e-3
+TRAIN_SCAN_CPU_S = 128
 
 
 @contextlib.contextmanager
@@ -3266,15 +3467,111 @@ def train_kernels_phase(dev):
             rows["swiglu"] = {"train_fwd_bwd_ms": fn_ms, "train_plain_fwd_bwd_ms": plain_ms}
         del x, wg, wu, wo, go, out, grads, plain_out, want
         torch.cuda.empty_cache()
+        rows.update(_train_scan_kernels(dev, gen, dtype))
     emit({"phase": "train_kernels", "seconds": time.perf_counter() - t_phase})
     return rows
 
 
-def train_card_vs_cpu_phase(dev):
-    """llama3.2-1b at full width cut to 2 layers, float32: the gradients of
-    one batch on the card (every parameter's non-zero; repeated bitwise
-    under deterministic algorithms, and the leaves that a default second
-    backward does not repeat bitwise reported), then
+def _train_scan_kernels(dev, gen, dtype):
+    """``train_kernels``' two scans in ``dtype``: ``Rwkv6ScanFn`` at rwkv6's
+    training shape (B 2, H 32, S 4096, Dk = Dv = 64, chunk 32) and
+    ``SsdScanFn`` at zamba2's (B 2, H 112, S 4096, Dh = Dst = 64, chunk 64,
+    B and C [B, S, Dst] leaves expanded over the heads inside the call, so
+    their gradients are summed over the heads by autograd), each with a
+    non-zero initial state and gradients on both outputs: the forward
+    within ``SCAN_TOL`` of the plain version and bitwise the kernel's,
+    every input's gradient (the state's and the bonus's included) within
+    ``SCAN_TOL`` of autograd of the plain version.  In bf16: forward +
+    backward ms of the Function and of the plain version, and one profiled
+    Function call (device ms, launches, busy share: the plain backward's
+    chunk loop runs on the host).  Returns the bf16 kernel-table fields."""
+    import torch
+
+    from repro_torch.kernels.rwkv6_scan import kernel as rk, ref as rr
+    from repro_torch.kernels.rwkv6_scan.grad import Rwkv6ScanFn
+    from repro_torch.kernels.ssd_scan import kernel as sk, ref as sr
+    from repro_torch.kernels.ssd_scan.grad import SsdScanFn
+
+    name, f32 = dtype_name(dtype), torch.float32
+    b, s = TRAIN_B, TRAIN_S
+    rows = {}
+
+    def rnd(*shape, dt=dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dt)
+
+    def log_uniform(shape, lo, hi):
+        x = torch.rand(shape, generator=gen, device=dev) * (math.log(hi) - math.log(lo))
+        return -torch.exp(x + math.log(lo))
+
+    h, d = RWKV_H, RWKV_D
+    rwkv = dict(
+        inputs=(*(rnd(b, s, h, d).transpose(1, 2) for _ in range(3)),
+                log_uniform((b, s, h, d), 5e-4, -math.log(0.05)).transpose(1, 2),
+                torch.rand((h, d), generator=gen, device=dev) * 0.6 - 0.3,
+                rnd(b, h, d, d, dt=f32)),
+        grad_out=(rnd(b, h, s, d), rnd(b, h, d, d, dt=f32)),
+        fn=lambda *t: Rwkv6ScanFn.apply(*t, 32),
+        plain=lambda *t: rr.rwkv6_scan(*t, chunk=32),
+        kernel=lambda *t: rk.rwkv6_scan(*t, chunk=32),
+        names=("r", "k", "v", "lw", "u", "s0"),
+        shape={"B": b, "H": h, "S": s, "Dk": d, "Dv": d, "chunk": 32})
+    h, d = SSD_H, SSD_D
+
+    def expand(t):
+        return t[:, None].expand(b, h, s, d)
+
+    ssd = dict(
+        inputs=(rnd(b, s, h, d).transpose(1, 2),
+                log_uniform((b, s, h), 1e-3, 6.0).transpose(1, 2),
+                rnd(b, s, d), rnd(b, s, d), rnd(b, h, d, d, dt=f32)),
+        grad_out=(rnd(b, h, s, d), rnd(b, h, d, d, dt=f32)),
+        fn=lambda x, a, bm, cm, s0: SsdScanFn.apply(x, a, expand(bm), expand(cm), s0, 64),
+        plain=lambda x, a, bm, cm, s0: sr.ssd_scan(x, a, expand(bm), expand(cm), s0, chunk=64),
+        kernel=lambda x, a, bm, cm, s0: sk.ssd_scan(x, a, expand(bm), expand(cm), s0, chunk=64),
+        names=("x", "a", "bmat", "cmat", "s0"),
+        shape={"B": b, "H": h, "S": s, "Dh": d, "Dst": d, "chunk": 64, "shared_bc": True})
+    for kname, case in (("rwkv6_scan", rwkv), ("ssd_scan", ssd)):
+        inputs, grad_out = case["inputs"], case["grad_out"]
+        out, grads = _fwd_bwd(case["fn"], inputs, grad_out)
+        with torch.no_grad():
+            kern = case["kernel"](*inputs)
+        check(all(torch.equal(a, k) for a, k in zip(out, kern)),
+              f"train_kernels: {kname} Function {name} forward is not the kernel's")
+        plain_out, want = _fwd_bwd(case["plain"], inputs, grad_out)
+        fwd_err = [hold("train_kernels", kname, f"forward {part} {name}", o.detach(),
+                        p.detach(), SCAN_TOL[name if part == "out" else "float32"])
+                   for part, o, p in zip(("out", "state"), out, plain_out)]
+        errs = {g: hold("train_kernels", kname, f"grad {g} {name}", got, w,
+                        SCAN_TOL[dtype_name(got.dtype)])
+                for g, got, w in zip(case["names"], grads, want)}
+        check(all(g.shape == t.shape for g, t in zip(grads, inputs)),
+              f"train_kernels: {kname} gradient shapes")
+        del out, grads, plain_out, want, kern
+        torch.cuda.empty_cache()
+        row = {"phase": "train_kernels", "kernel": kname, "dtype": name, "shape": case["shape"],
+               "forward_bitwise_kernel": True, "forward_max_abs_err": fwd_err,
+               "grad_max_abs_err": errs}
+        if dtype == torch.bfloat16:
+            fn_ms = median_ms(lambda: _fwd_bwd(case["fn"], inputs, grad_out), runs=2, inner=1,
+                              warmup=1)
+            plain_ms = median_ms(lambda: _fwd_bwd(case["plain"], inputs, grad_out), runs=2,
+                                 inner=1, warmup=1)
+            wall_ms, device_ms, prof = profile_breakdown(
+                lambda: _fwd_bwd(case["fn"], inputs, grad_out))
+            row.update(fwd_bwd_ms=fn_ms, plain_fwd_bwd_ms=plain_ms,
+                       profile=breakdown_json(wall_ms, device_ms, prof))
+            rows[kname] = {"train_fwd_bwd_ms": fn_ms, "train_plain_fwd_bwd_ms": plain_ms}
+        emit({**row, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return rows
+
+
+def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
+    """``arch`` (llama3.2-1b, rwkv6-1.6b, zamba2-7b) at full width cut to 2
+    layers (zamba2: two mamba layers and one shared-block site), float32,
+    B 2 x S 256 (the scan archs S 128):
+    the gradients of one batch on the card (every parameter's non-zero;
+    repeated bitwise under deterministic algorithms, and the leaves that a
+    default second backward does not repeat bitwise reported), then
     ``TRAIN_CPU_STEPS`` ``make_train_step`` steps on the card and on the
     CPU (plain versions) from the same parameters and stream: losses and
     grad norms within ``TRAIN_CPU_TOL`` relative."""
@@ -3290,10 +3587,17 @@ def train_card_vs_cpu_phase(dev):
     from repro_torch.tree import flatten_with_paths, tree_map
 
     t_phase = time.perf_counter()
-    cfg = dataclasses.replace(get_config(LLM_ARCH, "full"), n_layers=2, dtype=torch.float32)
+    cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2, dtype=torch.float32)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
-    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_CPU_B, seq_len=TRAIN_CPU_S, seed=2)
+    seq = TRAIN_CPU_S if cfg.family == "dense" else TRAIN_SCAN_CPU_S
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_CPU_B, seq_len=seq, seed=2)
     params = init_params(cfg, seed=2, device=dev)
+    if "w_lora_b" in params["layers"]:
+        # rwkv6 starts its decay LoRA's second factor at zero, which zeroes
+        # the first factor's gradient; drawn here so every leaf has one.
+        lora_b = params["layers"]["w_lora_b"]
+        lora_b.copy_(torch.randn(lora_b.shape, generator=torch.Generator(device=dev)
+                                 .manual_seed(3), device=dev) * lora_b.shape[1] ** -0.5)
     batch0 = {k: torch.as_tensor(v, device=dev).long()
               for k, v in next(SyntheticTokens(data)).items()}
 
@@ -3335,51 +3639,78 @@ def train_card_vs_cpu_phase(dev):
     host, cpu_s = run(torch.device("cpu"), params_cpu)
     rel = max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(card, host)
               for key in ("loss", "grad_norm"))
-    emit({"phase": "train_card_vs_cpu", "arch": cfg.arch, "dtype": "float32", "layers": 2,
-          "batch": TRAIN_CPU_B, "seq_len": TRAIN_CPU_S, "steps": TRAIN_CPU_STEPS,
+    emit({"phase": "train_card_vs_cpu", "arch": cfg.arch, "dtype": "float32",
+          "layers": cfg.n_layers,
+          "batch": TRAIN_CPU_B, "seq_len": seq, "steps": TRAIN_CPU_STEPS,
           "card": card, "cpu": host, "max_rel_diff": rel, "tol": TRAIN_CPU_TOL,
           "zero_gradient_params": zero, "grads_not_repeatable": repeat, "card_seconds": card_s, "cpu_seconds": cpu_s,
           "seconds": time.perf_counter() - t_phase})
-    check(not zero, f"train_card_vs_cpu: parameters with an all-zero gradient: {zero}")
-    check(not repeat["deterministic"], "train_card_vs_cpu: gradients not repeatable under "
-          f"deterministic algorithms: {repeat['deterministic']}")
+    check(not zero, f"train_card_vs_cpu {arch}: parameters with an all-zero gradient: {zero}")
+    check(not repeat["deterministic"], f"train_card_vs_cpu {arch}: gradients not repeatable "
+          f"under deterministic algorithms: {repeat['deterministic']}")
     check(rel <= TRAIN_CPU_TOL and all(math.isfinite(h["loss"]) for h in card),
-          f"train_card_vs_cpu: card vs CPU relative difference {rel}")
+          f"train_card_vs_cpu {arch}: card vs CPU relative difference {rel}")
 
 
-def train_phase(dev):
-    """llama3.2-1b at full width and depth (16 layers, d 2048, vocab
-    128,256, bf16 parameters, float32 moments) through ``TrainLoop``:
-    ``train_4k``'s sequence of 4096 with its batch cut from 256 to 2, 8
-    steps with a checkpoint every 4 (launches counted exactly: one
-    ``flash_attention`` and two ``swiglu`` per layer per step, forward
-    only), then a second loop that crashes at step 4 and a third that
-    resumes to 8.  The three loops run under
+def train_launch_rule(cfg, steps):
+    """Kernel launches of ``steps`` training steps, forward only (the
+    backward runs the plain versions): per step one ``flash_attention`` and
+    two ``swiglu`` per dense layer or zamba2 shared-block site, one
+    ``rwkv6_scan`` per rwkv6 layer, one ``ssd_scan`` per mamba layer."""
+    from repro_torch.kernels import LLM_KERNELS, SSM_KERNELS
+    from repro_torch.models.transformer import shared_sites
+
+    per = dict.fromkeys(LLM_KERNELS + SSM_KERNELS, 0)
+    if cfg.family == "dense":
+        per.update(flash_attention=cfg.n_layers, swiglu=2 * cfg.n_layers)
+    elif cfg.family == "ssm":
+        per.update(rwkv6_scan=cfg.n_layers)
+    else:
+        sites = len(shared_sites(cfg))
+        per.update(ssd_scan=cfg.n_layers, flash_attention=sites, swiglu=2 * sites)
+    return {k: n * steps for k, n in per.items()}
+
+
+def train_phase(dev, arch=LLM_ARCH, steps=TRAIN_STEPS, resume=True):
+    """``arch`` at full width (llama3.2-1b: d 2048, vocab 128,256, cut to 8
+    of its 16 layers; rwkv6-1.6b at full depth, 24 layers, d 2048, vocab
+    65,536; zamba2-7b: d 3584, cut to ``ZAMBA_TRAIN_LAYERS`` of its 81
+    layers -- ``TRAIN_LAYERS``; bf16 parameters, float32 moments) through
+    ``TrainLoop``: ``train_4k``'s sequence of 4096 with its batch cut from
+    256 to 2, ``steps`` steps with a checkpoint every ``TRAIN_CKPT``
+    (launches counted exactly, :func:`train_launch_rule`), then, with
+    ``resume``, a second loop that crashes at step ``TRAIN_CKPT`` and a
+    third that resumes to ``steps``.  The loops run under
     ``torch.use_deterministic_algorithms`` (an op with a nondeterministic
     CUDA implementation, such as the accumulating backward of the
     embedding gather, takes its deterministic one or raises), so a resume
     that restores every leaf and the stream position repeats the straight
-    run exactly.  Hard: losses finite, the resumed losses of steps 5-8
-    and the final parameters bitwise the straight run's (the reference's
-    test allows 2e-2, which a resume from the wrong state would also meet
-    at this learning rate).  Reported: tokens / s, step ms, peak memory,
-    checkpoint times, the loader's worker counts.  Returns the straight run's launches."""
+    run exactly.  Hard: losses finite, peak memory under ``TRAIN_PEAK_GB``,
+    the resumed losses and the final parameters bitwise the straight run's
+    (the reference's test allows 2e-2, which a resume from the wrong state
+    would also meet at this learning rate).  Reported: tokens / s, step
+    ms, peak memory, checkpoint times, the loader's worker counts.
+    Returns the straight run's launches."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.training.optimizer import AdamWConfig
 
     t_phase = time.perf_counter()
-    cfg = get_config(LLM_ARCH, "full")
-    opt = AdamWConfig(lr=3e-4, warmup_steps=2, decay_steps=TRAIN_STEPS)
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS.get(arch, full.n_layers))
+    opt = AdamWConfig(lr=3e-4, warmup_steps=2, decay_steps=steps)
     data = DataConfig(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
     with _deterministic():
-        out = _train_loops(dev, cfg, opt, data)
-    return _train_report(cfg, *out, time.perf_counter() - t_phase)
+        out = _train_loops(dev, cfg, opt, data, steps, resume)
+    return _train_report(cfg, steps, *out, time.perf_counter() - t_phase)
 
 
-def _train_loops(dev, cfg, opt, data):
-    """``train_phase``'s three loops: the straight run (launches, times,
-    peak memory), the crash at ``TRAIN_CKPT`` and the resume."""
+def _train_loops(dev, cfg, opt, data, steps, resume):
+    """``train_phase``'s loops: the straight run (launches, times, peak
+    memory) and, with ``resume``, the crash at ``TRAIN_CKPT`` and the
+    resume (else those three are None)."""
     import shutil
     import tempfile
 
@@ -3393,7 +3724,7 @@ def _train_loops(dev, cfg, opt, data):
         work = pathlib.Path(tmp)
 
         def loop(name):
-            return TrainLoop(cfg, opt, LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT,
+            return TrainLoop(cfg, opt, LoopConfig(total_steps=steps, ckpt_every=TRAIN_CKPT,
                                                   log_every=1),
                              ckpt_dir=work / name, data_cfg=data, device=dev)
 
@@ -3403,67 +3734,86 @@ def _train_loops(dev, cfg, opt, data):
         t0 = time.perf_counter()
         state_a = straight.run()
         straight_s = time.perf_counter() - t0
-        launches = {k: LAUNCHES[k] for k in ("flash_attention", "swiglu", "decode_attention")}
-        want = {"flash_attention": cfg.n_layers * TRAIN_STEPS,
-                "swiglu": 2 * cfg.n_layers * TRAIN_STEPS, "decode_attention": 0}
+        want = train_launch_rule(cfg, steps)
+        launches = {k: LAUNCHES[k] for k in want}
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        params_a = {k: t.float().cpu() for k, t in flatten_with_paths(state_a.params)}
         workers = straight.loader_workers
+        # host copies in the parameters' own dtype: compared bitwise below
+        params_a = ({k: t.cpu() for k, t in flatten_with_paths(state_a.params)} if resume
+                    else None)
         del state_a
         shutil.rmtree(work / "straight")
         torch.cuda.empty_cache()
-        first = loop("resumed")
-        crashed = False
-        t0 = time.perf_counter()
-        try:
-            first.run(crash_at=TRAIN_CKPT)
-        except RuntimeError:
-            crashed = True
-        second = loop("resumed")
-        state_b = second.run()
-        resumed_s = time.perf_counter() - t0
-        diff = max(float((params_a[k] - t.float().cpu()).abs().max())
-                   for k, t in flatten_with_paths(state_b.params))
-        differ = [k for k, t in flatten_with_paths(state_b.params)
-                  if not torch.equal(params_a[k], t.float().cpu())]
-        del state_b
-        torch.cuda.empty_cache()
+        first = second = None
+        crashed, resumed_s, diff, differ = False, None, 0.0, []
+        if resume:
+            first = loop("resumed")
+            t0 = time.perf_counter()
+            try:
+                first.run(crash_at=TRAIN_CKPT)
+            except RuntimeError:
+                crashed = True
+            second = loop("resumed")
+            state_b = second.run()
+            resumed_s = time.perf_counter() - t0
+            params_b = {k: t.cpu() for k, t in flatten_with_paths(state_b.params)}
+            differ = [k for k, t in params_b.items() if not torch.equal(params_a[k], t)]
+            diff = max((float((params_a[k].float() - params_b[k].float()).abs().max())
+                        for k in differ), default=0.0)
+            del state_b, params_a, params_b
+            torch.cuda.empty_cache()
     return (straight, first, second, crashed, launches, want, peak_gb, workers, straight_s,
             resumed_s, diff, differ)
 
 
-def _train_report(cfg, straight, first, second, crashed, launches, want, peak_gb, workers,
-                  straight_s, resumed_s, diff, differ, seconds):
+def _train_report(cfg, steps, straight, first, second, crashed, launches, want, peak_gb,
+                  workers, straight_s, resumed_s, diff, differ, seconds):
     """Emit ``train_phase``'s record, make its checks, return its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import shared_sites
+
+    full = get_config(cfg.arch)
     losses = [m["loss"] for m in straight.metrics_history]
-    resumed = [m["loss"] for m in first.metrics_history + second.metrics_history]
+    norms = [m["grad_norm"] for m in straight.metrics_history]
+    resumed = (None if first is None
+               else [m["loss"] for m in first.metrics_history + second.metrics_history])
     steps_ms = [m["step_time"] * 1e3 for m in straight.metrics_history]
     steady = statistics.median(steps_ms[1:])
+    sites = len(shared_sites(cfg)) if cfg.family == "hybrid" else None
     emit({"phase": "train", "arch": cfg.arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "params": cfg.params_count(), "param_dtype": "bfloat16",
+          "vocab": cfg.vocab, "sites": sites, "params": cfg.params_count(),
+          "params_full_depth": full.params_count(), "param_dtype": "bfloat16",
           "moment_dtype": "float32",
-          "cut": f"train_4k batch 256 -> {TRAIN_B} (sequence {TRAIN_S} kept)",
-          "steps": TRAIN_STEPS, "ckpt_every": TRAIN_CKPT, "losses": losses,
-          "resumed_losses": resumed, "grad_norms": [m["grad_norm"] for m in
-                                                    straight.metrics_history],
+          "cut": f"train_4k batch 256 -> {TRAIN_B} (sequence {TRAIN_S} kept)" + (
+              f"; depth {full.n_layers} -> {cfg.n_layers} layers"
+              if full.n_layers != cfg.n_layers else ""),
+          "steps": steps, "ckpt_every": TRAIN_CKPT, "losses": losses,
+          "resumed_losses": resumed, "grad_norms": norms,
           "step_ms": steps_ms, "step_ms_median_after_first": steady,
           "tokens_per_s": TRAIN_B * TRAIN_S / (steady / 1e3),
-          "peak_memory_gb": peak_gb, "loader_workers": workers,
+          "peak_memory_gb": peak_gb, "peak_limit_gb": TRAIN_PEAK_GB, "loader_workers": workers,
           "straight_run_s": straight_s, "crash_and_resume_s": resumed_s,
-          "deterministic_algorithms": True, "resume_losses_equal": resumed == losses,
+          "deterministic_algorithms": True,
+          "resume_losses_equal": None if resumed is None else resumed == losses,
           "resume_max_abs_param_diff": diff, "resume_params_differing": differ,
           "stragglers": len(straight.straggler_events),
           "launches": launches, "launches_expected": want,
           "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
           "seconds": seconds})
-    check(all(math.isfinite(x) for x in losses + resumed), "train: non-finite loss")
-    check(crashed and len(second.metrics_history) == TRAIN_STEPS - TRAIN_CKPT,
-          "train: the crash-and-resume did not resume at the checkpoint")
-    check(resumed == losses, f"train: resumed losses {resumed} are not the straight run's {losses}")
-    check(not differ, f"train: resumed parameters differ from the straight run's in {differ} "
-                      f"(max abs diff {diff})")
-    check(launches == want, f"train: launches {launches}, expected {want}")
-    return {k: launches[k] for k in ("flash_attention", "swiglu")}
+    name = f"train {cfg.arch}"
+    check(all(math.isfinite(x) for x in losses + norms + (resumed or [])),
+          f"{name}: non-finite loss or grad norm")
+    check(peak_gb < TRAIN_PEAK_GB, f"{name}: peak memory {peak_gb:.2f} GB")
+    check(sites is None or sites >= 2, f"{name}: fewer than two shared-block sites")
+    check(launches == want, f"{name}: launches {launches}, expected {want}")
+    if resumed is not None:
+        check(crashed and len(second.metrics_history) == steps - TRAIN_CKPT,
+              f"{name}: the crash-and-resume did not resume at the checkpoint")
+        check(resumed == losses,
+              f"{name}: resumed losses {resumed} are not the straight run's {losses}")
+        check(not differ, f"{name}: resumed parameters differ from the straight run's in "
+                          f"{differ} (max abs diff {diff})")
+    return launches
 
 
 def main() -> int:
@@ -3499,6 +3849,8 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     rows.update(llm_kernels_phase(dev))
+    for k, extra in llm128_kernels_phase(dev).items():
+        rows[k].update(extra)
     rows.update(ssm_kernels_phase(dev))
     if quick:
         emit({"phase": "kernels_only", "rows": {k: {kk: vv for kk, vv in v.items()
@@ -3524,6 +3876,14 @@ def main() -> int:
     plans = {LLM_ARCH: serving_plan_phase(prompts_per_s, tokens_per_s)}
     del params
     torch.cuda.empty_cache()
+    # phi3-medium-14b at full width and depth: the dense path at head dim 128
+    dense128, prompts_per_s, tokens_per_s, params, _cfg = llm_serve_phase(dev, PHI3_ARCH)
+    del params
+    torch.cuda.empty_cache()
+    dh128_launches = dict(dense128)
+    for k, n in dense128.items():
+        launches[k] += n
+    plans[PHI3_ARCH] = serving_plan_phase(prompts_per_s, tokens_per_s, PHI3_ARCH)
     ssm_card_vs_cpu_phase(dev)
     for arch in SSM_ARCHS:
         ssm_launches, prompts_per_s, tokens_per_s = ssm_serve_phase(dev, arch)
@@ -3532,9 +3892,14 @@ def main() -> int:
         plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
     launch_serve_phase(plans)
     train_rows = train_kernels_phase(dev)
-    train_card_vs_cpu_phase(dev)
-    for k, n in train_phase(dev).items():
-        launches[k] += n
+    for arch in (LLM_ARCH, *SSM_ARCHS):
+        train_card_vs_cpu_phase(dev, arch)
+    for arch, steps, resume in ((LLM_ARCH, TRAIN_STEPS, True), ("rwkv6-1.6b", TRAIN_STEPS, True),
+                                ("zamba2-7b", ZAMBA_TRAIN_STEPS, False)):
+        for k, n in train_phase(dev, arch, steps, resume).items():
+            launches[k] = launches.get(k, 0) + n
+    for k in ("flash_attention", "decode_attention"):
+        rows[k]["dh128"]["launches"] = dh128_launches[k]
 
     kernels = []
     for k, row in rows.items():
@@ -3545,6 +3910,7 @@ def main() -> int:
             "launches": launches[k], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": row.get("library_ms"), **train_rows.get(k, {}),
+            **{key: row[key] for key in ("dh128", "widths") if key in row},
         })
     print(card, flush=True)
     emit({"kernels": kernels})

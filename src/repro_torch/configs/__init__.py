@@ -3,9 +3,11 @@
 ``get_config(arch, preset)`` returns a :class:`~repro_torch.models.common
 .ModelConfig`: preset ``"full"`` is the published configuration, ``"smoke"``
 a reduced one of the same family for CPU tests.  Ported: the dense
-family's ``llama3.2-1b``, the ssm family's ``rwkv6-1.6b`` and the hybrid
-family's ``zamba2-7b``; every other architecture in :data:`ARCHS` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+family's ``llama3.2-1b`` (head dim 64) and ``phi3-medium-14b``, ``yi-34b``
+and ``command-r-35b`` (head dim 128), the ssm family's ``rwkv6-1.6b`` and
+the hybrid family's ``zamba2-7b``; every other architecture in
+:data:`ARCHS` raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -27,13 +29,12 @@ ARCHS = [
     "whisper-medium",
 ]
 
-_MODULES = {"llama3.2-1b": "llama3_2_1b", "rwkv6-1.6b": "rwkv6_1_6b", "zamba2-7b": "zamba2_7b"}
+_MODULES = {"llama3.2-1b": "llama3_2_1b", "phi3-medium-14b": "phi3_medium_14b",
+            "yi-34b": "yi_34b", "command-r-35b": "command_r_35b", "rwkv6-1.6b": "rwkv6_1_6b",
+            "zamba2-7b": "zamba2_7b"}
 
 # Where each unported architecture waits (ROADMAP Queue 1 item 5).
 _WAITS = {
-    "command-r-35b": "dense family beyond llama3.2-1b",
-    "yi-34b": "dense family beyond llama3.2-1b",
-    "phi3-medium-14b": "dense family beyond llama3.2-1b",
     "qwen2-vl-2b": "vlm family: M-RoPE and patch embeddings",
     "mixtral-8x22b": "moe family: moe_layer and expert parallelism",
     "kimi-k2-1t-a32b": "moe family: moe_layer and expert parallelism",

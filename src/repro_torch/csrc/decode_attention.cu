@@ -362,18 +362,39 @@ cudaError_t launch_shape(const Args& a, int device, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Instantiated for llama3.2-1b's head dim and query heads per KV head (64,
-// 32 / 8 = 4) and zamba2-7b's shared attention (112, MHA: 1); other shapes
-// are added when a config needs them.  `a == nullptr` asks for the split
-// kernel's blocks per SM instead of launching.
+template <typename T, int DH, int NREP>
+cudaError_t run(const Args* a, int device, cudaStream_t s, int* blocks_per_sm) {
+  return a ? launch_shape<T, DH, NREP>(*a, device, s)
+           : prepare<T, DH, NREP>(device, blocks_per_sm);
+}
+
+// Instantiated for the (head dim, query heads per KV head) pairs of the
+// ported configs: llama3.2-1b (64, 32 / 8 = 4), zamba2-7b's shared
+// attention (112, MHA: 1), phi3-medium-14b (128, 40 / 10 = 4), yi-34b
+// (128, 56 / 8 = 7) and command-r-35b (128, 64 / 8 = 8); and the smoke
+// configs of the last three at the kernels' head dim of 64
+// (`configs.for_kernels` widens their head dims and keeps their ratios of
+// 2, 7 and 8).  Other shapes are added when a config needs them.  `a ==
+// nullptr` asks for the split kernel's blocks per SM instead of launching.
 template <typename T>
 cudaError_t dispatch(int dh, int n_rep, const Args* a, int device, cudaStream_t s,
                      int* blocks_per_sm) {
-  if (dh == 64 && n_rep == 4)
-    return a ? launch_shape<T, 64, 4>(*a, device, s) : prepare<T, 64, 4>(device, blocks_per_sm);
-  if (dh == 112 && n_rep == 1)
-    return a ? launch_shape<T, 112, 1>(*a, device, s)
-             : prepare<T, 112, 1>(device, blocks_per_sm);
+  if (dh == 64) {
+    switch (n_rep) {
+      case 2: return run<T, 64, 2>(a, device, s, blocks_per_sm);
+      case 4: return run<T, 64, 4>(a, device, s, blocks_per_sm);
+      case 7: return run<T, 64, 7>(a, device, s, blocks_per_sm);
+      case 8: return run<T, 64, 8>(a, device, s, blocks_per_sm);
+    }
+  } else if (dh == 112 && n_rep == 1) {
+    return run<T, 112, 1>(a, device, s, blocks_per_sm);
+  } else if (dh == 128) {
+    switch (n_rep) {
+      case 4: return run<T, 128, 4>(a, device, s, blocks_per_sm);
+      case 7: return run<T, 128, 7>(a, device, s, blocks_per_sm);
+      case 8: return run<T, 128, 8>(a, device, s, blocks_per_sm);
+    }
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -50,14 +50,22 @@
 // Tiles, chosen by timing variants on the H100: head dim 64 takes 4 warps x
 // 32 rows (MT 2) and 64-key tiles (255 registers, 2 blocks per SM); head
 // dim 112 takes 8 warps x 16 rows and 32-key tiles (its 56 accumulator
-// registers per row tile leave no room for MT 2).  The copies need
+// registers per row tile leave no room for MT 2); head dim 128 (phi3,
+// yi, command-r) takes 4 warps x 16 rows and 64-key tiles: its 64
+// accumulator and 32 Q-fragment registers per thread fit under the 255
+// that two 128-thread blocks per SM allow, where 8 warps would be held to
+// 128 and spill (`tools/kernel_plans.py flash_dh128` times the variants).
+// Head dim 128's Q tile and two-stage K / V ring take 87 KB of dynamic
+// shared memory (`repro::allow_smem` lifts the 48 KB default).  The copies need
 // 16-byte-aligned rows: the wrapper checks the base pointers and strides
 // and raises otherwise.  wgmma + TMA with a producer warp is later work.
 //
 // float32 (the parity path; tensor cores would mean TF32, which the 2e-5
 // rule excludes): `flash_fwd_kernel` on CUDA cores -- four threads per
 // query row, each holding an interleaved quarter of the head dims, 32-key
-// float32 tiles in shared memory, explicit fmaf.
+// float32 tiles in shared memory, explicit fmaf.  Its static K and V tiles
+// are 2 x 32 x (Dh + 4) floats: 33.8 KB at head dim 128, under the 48 KB
+// static limit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -490,9 +498,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, Str
 
 // `window` <= 0 means no window; it applies only when `causal` is set (as
 // in the reference).  The wrapper checks the shapes, the head dims and, for
-// bf16, the 16-byte alignment of every row.  llama3.2-1b's head dim (64)
-// and zamba2-7b's (3584 / 32 = 112); other widths are instantiated when a
-// config needs them.
+// bf16, the 16-byte alignment of every row.  llama3.2-1b's head dim (64),
+// zamba2-7b's (3584 / 32 = 112) and the 128 of phi3-medium-14b, yi-34b and
+// command-r-35b; other widths are instantiated when a config needs them.
+// The GQA ratio is a runtime argument.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* o,
                                      long long q_sb, long long q_sh, long long q_ss,
                                      long long k_sb, long long k_sh, long long k_ss,
@@ -513,11 +522,17 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   } else if (is_bf16 && dh == 112) {
     err = launch_mma<112, 8, 1, 32>(q, k, v, o, qs, ks, vs, os, b, h, hkv, sq, skv, scale,
                                     causal, window, device, s);
+  } else if (is_bf16 && dh == 128) {
+    err = launch_mma<128, 4, 1, 64>(q, k, v, o, qs, ks, vs, os, b, h, hkv, sq, skv, scale,
+                                    causal, window, device, s);
   } else if (!is_bf16 && dh == 64) {
     err = launch_f32<64>(q, k, v, o, qs, ks, vs, os, b, h, hkv, sq, skv, scale, causal,
                          window, s);
   } else if (!is_bf16 && dh == 112) {
     err = launch_f32<112>(q, k, v, o, qs, ks, vs, os, b, h, hkv, sq, skv, scale, causal,
+                          window, s);
+  } else if (!is_bf16 && dh == 128) {
+    err = launch_f32<128>(q, k, v, o, qs, ks, vs, os, b, h, hkv, sq, skv, scale, causal,
                           window, s);
   } else {
     err = cudaErrorInvalidValue;

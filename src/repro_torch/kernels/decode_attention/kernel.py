@@ -3,8 +3,10 @@ the Hopper counterpart of ``repro/kernels/decode_attention/kernel.py``'s
 ``decode_attention_pallas``.  Any S_max; GQA with the cache read in place
 (never repeated); ``length`` stays on the device, so a decode step needs
 no host sync.  Instantiated for llama3.2-1b's attention (head dim 64, four
-query heads per KV head) and zamba2-7b's shared MHA block (head dim 112,
-one query head per KV head).
+query heads per KV head), zamba2-7b's shared MHA block (head dim 112, one
+query head per KV head), phi3-medium-14b, yi-34b and command-r-35b (head
+dim 128; 4, 7 and 8 query heads per KV head) and those three's smoke
+configs as ``configs.for_kernels`` widens them (head dim 64; 2, 7, 8).
 
 Split-KV: the cache of each (sequence, KV head) is cut into ``n_splits``
 slices, one block each, and a combine pass merges their partials.  The
@@ -27,7 +29,7 @@ __all__ = ["decode_attention", "SHAPES", "split_plan", "valid_range", "split_ran
            "rows_per_step"]
 
 #: (head dim, query heads per KV head) pairs the kernel is instantiated for.
-SHAPES = ((64, 4), (112, 1))
+SHAPES = ((64, 2), (64, 4), (64, 7), (64, 8), (112, 1), (128, 4), (128, 7), (128, 8))
 
 #: Fewest cache rows worth a split of their own.
 MIN_SPLIT_ROWS = 256

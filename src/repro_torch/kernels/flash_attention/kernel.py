@@ -13,8 +13,9 @@ from .. import _build
 
 __all__ = ["attention", "HEAD_DIMS"]
 
-#: Head dims the kernel is instantiated for (llama3.2-1b's 64, zamba2-7b's 112).
-HEAD_DIMS = (64, 112)
+#: Head dims the kernel is instantiated for (llama3.2-1b's 64, zamba2-7b's
+#: 112; phi3-medium-14b's, yi-34b's and command-r-35b's 128).
+HEAD_DIMS = (64, 112, 128)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -1,4 +1,6 @@
-"""Dispatch: the CUDA kernel for CUDA tensors, the plain version for CPU.
+"""Dispatch: the CUDA kernel for CUDA tensors (through
+:class:`~.grad.Rwkv6ScanFn` when an input requires grad), the plain
+version for CPU tensors (which autograd differentiates directly).
 
 Every stream keeps its own bonus ``u``.  (The JAX package's CPU dispatch,
 ``repro/kernels/rwkv6_scan/ops.py:17``, passes ``u[:1]`` and so applies
@@ -9,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import kernel as _kernel, ref as _ref
+from .grad import Rwkv6ScanFn
 
 __all__ = ["rwkv6_scan"]
 
@@ -19,8 +22,6 @@ def rwkv6_scan(r, k, v, lw, u, s0=None, *, chunk: int = 32):
     if r.is_cuda:
         if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                            for t in (r, k, v, lw, u, s0)):
-            raise NotImplementedError(
-                "rwkv6_scan: the CUDA kernel has no autograd Function yet, so its inputs would "
-                "get no gradient (ssm / hybrid training, ROADMAP Queue 1 item 7)")
+            return Rwkv6ScanFn.apply(r, k, v, lw, u, s0, chunk)
         return _kernel.rwkv6_scan(r, k, v, lw, u, s0, chunk=chunk)
     return _ref.rwkv6_scan(r, k, v, lw, u, s0, chunk=chunk)

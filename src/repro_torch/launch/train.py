@@ -1,12 +1,16 @@
-"""Training driver of the port: a llama-family model through the
-checkpointed :class:`~repro_torch.training.loop.TrainLoop` (async
-checkpoints, straggler log, crash and resume) on the card, or on the CPU
-with ``--device cpu``.  ``--preset full`` trains the published width and
+"""Training launcher of the port: a model of the dense (llama3.2-1b,
+phi3-medium-14b, yi-34b, command-r-35b), ssm (rwkv6-1.6b) or hybrid
+(zamba2-7b) family through the checkpointed
+:class:`~repro_torch.training.loop.TrainLoop` (async checkpoints,
+straggler log, crash and resume) on the card, or on the CPU with
+``--device cpu``.  ``--preset full`` trains the published width and
 depth and needs the card; on the card ``--preset smoke`` runs at the
 attention kernels' head dim (``configs.for_kernels``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --preset smoke --steps 200 --ckpt build/train_ckpt --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
+      --steps 20 --ckpt build/train_rwkv6 --device cpu
 """
 
 from __future__ import annotations

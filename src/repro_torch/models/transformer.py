@@ -12,8 +12,10 @@ Parameters are a plain dict with the reference's names and its stacked
 stacked ``[1, ...]``), so a reference pytree carries over one to one
 (:func:`repro_torch.convert.model_params_from_reference`).  The layers run
 in a Python loop (no ``lax.scan``); attention, the FFN and the two scans
-go through the Hopper kernels.  The moe, vlm and audio families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 5).
+go through the Hopper kernels, and in training through their autograd
+Functions (kernel forward, plain backward).  All three families serve and
+train; the moe, vlm and audio families raise ``NotImplementedError``
+(ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations

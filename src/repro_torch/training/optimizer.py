@@ -92,15 +92,21 @@ def adamw_update(params: Any, grads: Any, state: OptState,
     bc2 = 1.0 - torch.pow(b2, stepf)
 
     def upd(p, g, m, v):
-        g32 = g.to(torch.float32)
-        m32 = m.to(torch.float32) * b1 + (1 - b1) * g32
-        v32 = v.to(torch.float32) * b2 + (1 - b2) * g32 * g32
-        mhat = m32 / bc1
-        vhat = v32 / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
-        p.copy_(p.to(torch.float32) - lr * delta)
-        m.copy_(m32)
-        v.copy_(v32)
+        # The reference's expressions, each rounded in the same order,
+        # computed in place with one scratch tensor (float32 moments are
+        # updated where they lie): two allocations per leaf.
+        g32, m32, v32, p32 = (t.to(torch.float32) for t in (g, m, v, p))
+        tmp = torch.mul(g32, 1 - b1)
+        m32.mul_(b1).add_(tmp)  # m * b1 + (1 - b1) * g
+        torch.mul(g32, 1 - b2, out=tmp).mul_(g32)
+        v32.mul_(b2).add_(tmp)  # v * b2 + (1 - b2) * g * g
+        delta = torch.div(m32, bc1)  # mhat
+        torch.div(v32, bc2, out=tmp).sqrt_().add_(cfg.eps)  # sqrt(vhat) + eps
+        delta.div_(tmp).add_(torch.mul(p32, cfg.weight_decay, out=tmp)).mul_(lr)
+        p32.sub_(delta)  # p - lr * delta
+        for dst, src in ((p, p32), (m, m32), (v, v32)):
+            if src is not dst:
+                dst.copy_(src)
         return p
 
     tree_map(upd, params, grads, state.mu, state.nu)

@@ -2,13 +2,14 @@
 gradients -> clip -> AdamW -> the new state.
 
 Gradients come from autograd through the model's forward: on the card the
-attention and the FFN run their Hopper kernels forward and the plain
-versions backward (``kernels/flash_attention/grad.py``,
-``kernels/swiglu/grad.py``).  ``compress_grads`` passes the gradients
+attention, the FFN and the two scans run their Hopper kernels forward and
+the plain versions backward (``kernels/flash_attention/grad.py``,
+``kernels/swiglu/grad.py``, ``kernels/rwkv6_scan/grad.py``,
+``kernels/ssd_scan/grad.py``).  ``compress_grads`` passes the gradients
 through int8 quantisation (``distributed/compress.py``) before the update,
-as the reference does ahead of its cross-replica reduction.  Only the dense
-family trains: the ssm and hybrid scans have no autograd Function yet
-(ROADMAP Queue 1 item 7).
+as the reference does ahead of its cross-replica reduction.  The dense,
+ssm and hybrid families train; the moe, vlm and audio families wait for
+their ports (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ __all__ = ["TrainState", "TRAINED_FAMILIES", "require_trained", "init_train_stat
            "make_train_step"]
 
 #: The families whose every kernel on the forward has an autograd Function.
-TRAINED_FAMILIES = ("dense",)
+TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 class TrainState(NamedTuple):
@@ -39,8 +40,8 @@ class TrainState(NamedTuple):
 def require_trained(cfg: ModelConfig) -> None:
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.arch}) waits for autograd Functions of "
-            "its scan kernels (ROADMAP Queue 1 item 7); the port trains the dense family")
+            f"training the {cfg.family} family ({cfg.arch}) waits for its port (ROADMAP Queue 1 "
+            "item 5); the port trains the dense, ssm and hybrid families")
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0, *,

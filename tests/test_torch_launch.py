@@ -137,7 +137,8 @@ def test_shapes_equal_the_references():
 _DT = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "zamba2-7b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "zamba2-7b", "phi3-medium-14b",
+                                  "yi-34b", "command-r-35b"])
 @pytest.mark.parametrize("shape", sorted(jshapes.SHAPES))
 def test_input_specs_are_meta_tensors_of_the_reference_shapes(arch, shape):
     got = shapes.input_specs(arch, shape)

@@ -115,10 +115,51 @@ def test_cuda_decode_matches_plain(cuda_device, dtype, b, s_max, length, window)
     _assert_attention_close(got, want)
 
 
+# Head dim 128 (phi3-medium-14b, yi-34b, command-r-35b): flash at phi3's
+# 40 / 10 heads (cut to 8 / 2) off the tiles, windowed and bidirectional.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,window,causal", [
+    (2, 200, 200, None, True), (2, 129, 300, None, True), (2, 300, 300, 100, True),
+    (2, 200, 300, None, False), (1, 1, 77, None, True)])
+def test_cuda_flash_head_dim_128_matches_plain(cuda_device, dtype, b, sq, skv, window, causal):
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn(b, sq, 8, 128, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+    k = torch.randn(b, skv, 2, 128, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+    v = torch.randn(b, skv, 2, 128, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+    got = tfk.attention(q, k, v, causal=causal, window=window)
+    _assert_attention_close(got, tfr.attention(q, k, v, causal=causal, window=window))
+
+
+# Every instantiated (head dim, query heads per KV head) pair: the three
+# 128-dim archs' and their smoke configs' at the kernels' head dim 64
+# (ratios 2, 7, 8), each from length 0 to S_max.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,n_rep", [(128, 4), (128, 7), (128, 8), (64, 2), (64, 7), (64, 8)])
+@pytest.mark.parametrize("length,window", [(0, None), (257, None), (1024, 100)])
+def test_cuda_decode_gqa_pairs_match_plain(cuda_device, dtype, dh, n_rep, length, window):
+    gen = torch.Generator().manual_seed(5)
+    b, hkv, s_max = 3, 2, 1024
+    q = torch.randn(b, hkv * n_rep, dh, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+    n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    got = tdk.decode_attention(q, k, v, n, window=window)
+    _assert_attention_close(got, tdr.decode_attention(q, k, v, n, window=window))
+
+
+def test_cuda_decode_refuses_a_pair_it_is_not_built_for(cuda_device):
+    q = torch.randn(1, 6, 128, device=cuda_device)
+    kv = torch.randn(1, 16, 1, 128, device=cuda_device)
+    with pytest.raises(ValueError, match="supported"):
+        tdk.decode_attention(q, kv, kv, torch.tensor(4, dtype=torch.int32, device=cuda_device))
+
+
 # (D, F): a small ragged width, llama3.2-1b's FFN and zamba2-7b's.  T: the
 # weight-streaming path (1, 4, 15, 16 rows), the tiled path just past it
 # (17), off the 128-row tiles (129, 200) and several row tiles (4,100).
 SWIGLU_WIDTHS = [(256, 520), (2048, 8192), (3584, 14336)]
+# phi3-medium-14b's, yi-34b's and command-r-35b's FFN widths.
+SWIGLU_WIDTHS_128 = [(5120, 17920), (7168, 20480), (8192, 22528)]
 
 
 def _swiglu_inputs(dev, dtype, t, d, f, seed=2):
@@ -153,3 +194,15 @@ def test_cuda_swiglu_is_deterministic(cuda_device, dtype, t, d, f):
     two runs give the same bits."""
     args = _swiglu_inputs(cuda_device, dtype, t, d, f, seed=4)
     assert torch.equal(tgk.swiglu(*args), tgk.swiglu(*args))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-3), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("t", [4, 16, 17, 300])
+@pytest.mark.parametrize("d,f", SWIGLU_WIDTHS_128)
+def test_cuda_swiglu_at_the_head_dim_128_archs_widths(cuda_device, dtype, tol, t, d, f):
+    """The streaming route (T <= 16) and the tiled route at the three FFN
+    widths."""
+    args = _swiglu_inputs(cuda_device, dtype, t, d, f)
+    got, want = tgk.swiglu(*args).float(), tgr.swiglu(*args).float()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.abs().max()))

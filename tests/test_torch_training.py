@@ -22,7 +22,8 @@
 * The autograd Functions of the two training kernels on CPU tensors (their
   forward is then the plain version): forward and every gradient equal to
   autograd of the plain version bitwise; ``ops`` on the CPU leaves them
-  out.  The ssm and hybrid families refuse to train.
+  out.  (The ssm and hybrid families train in
+  ``tests/test_torch_ssm_training.py``.)
 """
 
 from __future__ import annotations
@@ -134,6 +135,41 @@ def test_adamw_moves_toward_minimum():
         grads = {"w": 2 * params["w"]}
         params, state, _ = adamw_update(params, grads, state, cfg)
     assert float(params["w"].abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("param_dtype,moment_dtype", [(torch.float32, torch.float32),
+                                                      (torch.bfloat16, torch.float32),
+                                                      (torch.bfloat16, torch.bfloat16)])
+def test_adamw_update_in_place_is_the_expression_bitwise(param_dtype, moment_dtype):
+    """``adamw_update`` computes in place, but each leaf's result is
+    bitwise the reference's expressions evaluated out of place in the
+    same order (float32 moments, one cast back), over five steps."""
+    gen = torch.Generator().manual_seed(0)
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=10, grad_clip=0.7,
+                      moment_dtype=moment_dtype)
+    shapes = {"a": (37, 11), "b": (5,), "c": (64, 64)}
+    params = {k: (torch.randn(s, generator=gen) * 0.5).to(param_dtype) for k, s in shapes.items()}
+    want = {k: t.clone() for k, t in params.items()}
+    mu = {k: torch.zeros(s, dtype=moment_dtype) for k, s in shapes.items()}
+    nu = {k: torch.zeros(s, dtype=moment_dtype) for k, s in shapes.items()}
+    state = adamw_init(params, cfg)
+    f32 = torch.float32
+    for step in range(1, 6):
+        grads = {k: (torch.randn(s, generator=gen) * 3).to(param_dtype) for k, s in shapes.items()}
+        clipped, _ = clip_by_global_norm(grads, cfg.grad_clip)
+        params, state, _ = adamw_update(params, grads, state, cfg)
+        lr = lr_schedule(torch.tensor(step, dtype=torch.int32), cfg)
+        bc1 = 1.0 - torch.pow(cfg.b1, torch.tensor(step, dtype=f32))
+        bc2 = 1.0 - torch.pow(cfg.b2, torch.tensor(step, dtype=f32))
+        for k in shapes:
+            g = clipped[k].to(f32)
+            m = mu[k].to(f32) * cfg.b1 + (1 - cfg.b1) * g
+            v = nu[k].to(f32) * cfg.b2 + (1 - cfg.b2) * g * g
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * want[k].to(f32)
+            want[k] = (want[k].to(f32) - lr * delta).to(param_dtype)
+            mu[k], nu[k] = m.to(moment_dtype), v.to(moment_dtype)
+            assert torch.equal(params[k], want[k]), (step, k)
+            assert torch.equal(state.mu[k], mu[k]) and torch.equal(state.nu[k], nu[k]), (step, k)
 
 
 def test_lr_schedule_shape():
@@ -627,7 +663,7 @@ def test_train_step_compress_grads_updates_every_parameter():
 def test_for_kernels_widens_only_head_dims_the_kernels_lack():
     from repro_torch.configs import for_kernels
 
-    for arch in ("llama3.2-1b", "zamba2-7b"):
+    for arch in ("llama3.2-1b", "zamba2-7b", "phi3-medium-14b", "yi-34b", "command-r-35b"):
         full = get_config(arch, "full")
         assert for_kernels(full) is full
     smoke = get_config(ARCH, "smoke")
@@ -635,15 +671,6 @@ def test_for_kernels_widens_only_head_dims_the_kernels_lack():
     assert (wide.head_dim_, wide.d_model, wide.d_ff) == (64, 256, 512)
     assert (wide.n_layers, wide.n_heads, wide.n_kv_heads, wide.vocab) == (
         smoke.n_layers, smoke.n_heads, smoke.n_kv_heads, smoke.vocab)
-
-
-@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
-def test_ssm_and_hybrid_training_wait_for_their_scans(tmp_path, arch):
-    cfg = get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        make_train_step(cfg, AdamWConfig())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7"):
-        TrainLoop(cfg, AdamWConfig(), LoopConfig(), ckpt_dir=tmp_path, device="cpu")
 
 
 def test_elastic_controller_resumes_from_the_latest_checkpoint(tmp_path, smoke_cfg):

@@ -30,6 +30,11 @@ constants.
   grid routes), at [256, 40, 48] and at the fleet planner's single
   scenario of 256 and 1,024 tenants ([1, 1298, 2048], [1, 5128, 2048]):
   every route each shape admits, beside the plain version and the bound.
+- ``flash_dh128`` at phi3-medium-14b's prefill (4 x 4096, 40 / 10 heads
+  of 128, causal), bf16: the tensor-core kernel's tiles (warps x row
+  tiles x keys per stage) built into a library of their own from
+  ``csrc/flash_attention.cu`` with ``ptxas -v`` (registers, spills), each
+  held to ``chip_smoke.ATTN_TOL`` against the plain version and timed.
 
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
@@ -65,7 +70,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(5)
     timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths,
               "match_count": match_count_plans, "decide_fused": decide_plans,
-              "queue_window": window_plans, "gain_topr": topr_plans}
+              "queue_window": window_plans, "gain_topr": topr_plans,
+              "flash_dh128": flash_dh128_tiles}
     for name in sys.argv[1:] or list(timers):
         timers[name](torch, cs, _build, dev, gen)
     return 0
@@ -259,6 +265,74 @@ def topr_plans(torch, cs, _build, dev, gen):
                               "chosen": choice == chosen, "bitwise": ok, "ms": ms,
                               "device_us": dus, "plain_ms": plain_ms,
                               "bound_ms": cs.topr_bound(cand)}), flush=True)
+
+
+# (warps, row tiles per warp, keys per stage) of the head-dim-128 tile; the
+# first is the one csrc/flash_attention.cu dispatches.
+FLASH128_TILES = ((4, 1, 64), (4, 1, 32), (8, 1, 32), (8, 1, 64))
+
+
+def flash_dh128_tiles(torch, cs, _build, dev, gen):
+    import ctypes
+    import subprocess
+
+    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+
+    work = ROOT / "build" / "flash_dh128_tiles"
+    work.mkdir(parents=True, exist_ok=True)
+    # the strides as plain integers: a signature naming the source's
+    # internal Strides type would give the entry point internal linkage
+    args = ("const void* q, const void* k, const void* v, void* o, long long qb, long long qh, "
+            "long long qs, long long kb, long long kh, long long ks, long long vb, "
+            "long long vh, long long vs, long long ob, long long oh, long long os, int b, int h, "
+            "int hkv, int sq, int skv, float scale, int causal, int window, int device, "
+            "void* stream")
+    call = ("q, k, v, o, Strides{qb, qh, qs}, Strides{kb, kh, ks}, Strides{vb, vh, vs}, "
+            "Strides{ob, oh, os}, b, h, hkv, sq, skv, scale, causal, window, device, "
+            "static_cast<cudaStream_t>(stream)")
+    src = ['#include "flash_attention.cu"', f"extern \"C\" int flash128_tile(int i, {args}) {{"]
+    for i, (w, mt, bkv) in enumerate(FLASH128_TILES):
+        src.append(f"  if (i == {i}) return launch_mma<128, {w}, {mt}, {bkv}>({call});")
+    src.append("  return cudaErrorInvalidValue;\n}")
+    (work / "tiles.cu").write_text("\n".join(src) + "\n")
+    lib_path = work / "libtiles.so"
+    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-shared",
+                          "-I", str(_build.CSRC), str(work / "tiles.cu"), "-o", str(lib_path)],
+                         capture_output=True, text=True)
+    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+             if "entry function" in ln or "registers" in ln or "spill" in ln or "error" in ln]
+    print(json.dumps({"kernel": "flash_attention", "build_rc": res.returncode,
+                      "ptxas": ptxas}), flush=True)
+    if res.returncode:
+        return
+
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.flash128_tile.argtypes = [i] + [p] * 4 + [ll] * 12 + [i] * 5 + [f] + [i] * 3 + [p]
+    lib.flash128_tile.restype = i
+    b, s, hq, hkv, dh = cs.SERVE_B, cs.SERVE_S, 40, 10, 128
+    q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=dev).to(torch.bfloat16)
+               .transpose(1, 2) for n in (hq, hkv, hkv))
+    want = fr.attention(q, k, v)
+    nbytes = 2 * b * s * dh * (2 * hq + 2 * hkv)
+    bound = cs.bound(nbytes, 4 * dh * b * hq * s * (s + 1) // 2, cs.PEAK_BF16_OPS_PER_S)
+
+    def run(idx):
+        out = torch.empty((b, s, hq, dh), dtype=q.dtype, device=dev).transpose(1, 2)
+        st = [t.stride(j) for t in (q, k, v, out) for j in (0, 1, 2)]
+        code = lib.flash128_tile(idx, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                 out.data_ptr(), *st, b, hq, hkv, s, s, dh ** -0.5, 1, 0,
+                                 *_build.launch_args(q))
+        _build.check_error("flash128_tile", code)
+        return out
+
+    for idx, tile in enumerate(FLASH128_TILES):
+        ok = cs.close_err(run(idx), want, *cs.ATTN_TOL["bfloat16"])[1]
+        print(json.dumps({"kernel": "flash_attention", "tile": dict(zip(
+            ("warps", "row_tiles", "keys"), tile)), "chosen": idx == 0, "ok": ok,
+            "ms": cs.median_ms(lambda idx=idx: run(idx), runs=5, inner=3),
+            "wrapper_ms": cs.median_ms(lambda: fk.attention(q, k, v), runs=5, inner=3),
+            "bound_ms": bound[0]}), flush=True)
 
 
 if __name__ == "__main__":
