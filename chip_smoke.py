@@ -159,57 +159,56 @@ Phases, each printing one JSON line:
    (``enable_gqa=True``) on the same inputs for the two attention kernels
    (decode: on the valid prefix) and null for ``swiglu`` and the two scans
    (no single PyTorch call computes a chunked linear recurrence).
-   Launches of the attention and SwiGLU kernels sum the llama3.2-1b,
-   phi3-medium-14b and zamba2-7b serving paths and the ``train`` runs, the
-   scans' the rwkv6 / zamba2 serving and training paths, each counted from
-   zero; the four training kernels also carry ``train_fwd_bwd_ms`` /
-   ``train_plain_fwd_bwd_ms`` from ``train_kernels`` (bf16); the two
-   attention rows carry ``dh128`` (head dim 128: ms, device us, SDPA ms,
-   bound and ``phi3_serve``'s launches) and SwiGLU ``widths`` (the three
-   head-dim-128 archs' FFN widths);
+   Launches of the attention, SwiGLU and scan kernels sum the serving
+   paths and the ``train`` runs, each counted from zero, and are split by
+   path in ``launches_by_path``; the four training kernels also carry
+   ``train_fwd_bwd_ms`` / ``train_plain_fwd_bwd_ms`` from
+   ``train_kernels`` (bf16); the three LLM kernels carry ``shapes``, the
+   timed cases of phase 9 by group;
 9. ``llm_kernels`` (with the parity phase, before the main path):
    ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
-   plain versions on the card, in bf16 and float32 (tolerances in the
-   lines), at the serving path's shapes and the llama3.2-1b shapes below
-   (flash also windowed and bidirectional; decode also at length 0, where
-   the output is the mean of V), each timed (CUDA events,
-   ``torch.profiler`` device time) beside its plain version, SDPA where
-   one call computes the same function, and its bound (bytes over 3.35
-   TB/s or operations over 989 TFLOP/s bf16 / 67 TFLOP/s float32);
-   ``other_shapes`` adds decode at llama's own step (B 4, S_max 4128,
-   length 4,097); then at head dim 128 (``llm128_kernels_phase``): flash at
-   phi3-medium-14b's prefill (4 x 4096, 40 / 10 heads; windowed and
-   bidirectional at B 1), decode at the (128, 4 / 7 / 8) pairs of phi3,
-   yi-34b and command-r-35b at a B 4 step over 4,097 cached tokens and at
-   length 0, and (128, 4) at 16 x 32,000 cached; SwiGLU at the three FFN
-   widths (T 16, the streaming route, and 4,096 / 16,384, the wgmma
-   route), each timed beside SDPA and its bound;
-10. ``llm_card_vs_cpu``: llama3.2-1b and the three head-dim-128 archs at
-    full width cut to 2 layers, in bf16 and float32, prefill of 2 x 256
-    tokens and 8 greedy steps (the 128-dim archs 1 x 128 and 4) on the card
-    and on the CPU (plain versions) with the same parameters: logits within
-    the stated tolerance, the share of agreeing greedy tokens;
-11. ``llm_serve``: the full 16-layer llama3.2-1b in bf16 (parameters drawn
-    on the card from seed 0): 4 prompts x 4096 tokens prefilled into a
-    cache of 4128, then 32 greedy decode steps, with each kernel's launch
-    count checked against what the path implies, prefill tokens/s, decode
-    ms per step, and ``torch.profiler`` breakdowns of a prefill and a step;
-12. ``llm_decode_32k``: the decode step at 16 sequences x 32,000 cached
-    tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps timed
-    against the step's bound (KV prefix + weights over 3.35 TB/s);
-12a. ``phi3_serve``: phase 11 for phi3-medium-14b at full width and depth
-    (40 layers, head dim 128, 14.66 B parameters, 29.3 GB in bf16): 40
-    ``flash_attention`` and 80 ``swiglu`` launches per prefill, 40
-    ``decode_attention`` and 80 ``swiglu`` per step, with its
-    ``serving_plan``;
-13. ``serving_plan``: DRS's prefill / decode chip split through the
-    port's launcher (``launch/serve.py``: ``stage_rates`` of the measured
-    rates, ``plan(4.0, chips=24)``) from the B = 4 cell of each arch (the
-    4 x 4096 prefill's prompts / s, the B = 4 decode step's tokens / s),
-    then ``serving_sim``: that plan through the launcher's discrete-event
-    serving simulation (horizon 600 s, warm-up 60 s, host code), its mean
-    and p95 latency beside the model's E[T] (at least one request
-    completed, finite latencies);
+   plain versions on the card at every case of one table
+   (``FLASH_CASES``, ``DECODE_CASES``, ``SWIGLU_CASES``: arch, shape,
+   window; heads and widths from the arch's full config), in bf16 and
+   float32 within ``ATTN_TOL`` / ``SWIGLU_TOL``: llama3.2-1b's serving
+   shapes (the kernel table's row) and other shapes (windowed,
+   bidirectional, length 0, B 1); zamba2-7b's head dim 112 (MHA) and FFN
+   width; the head-dim-128 dense archs (phi3-medium-14b's prefill, the
+   (128, 4 / 7 / 8) decode pairs of phi3, yi-34b and command-r-35b, the
+   three FFN widths); mixtral-8x22b's windowed 2 x 8192 prefill, kimi's
+   (Dh 112, 64 / 8 heads), the (128, 6) and (112, 8) decode pairs and
+   kimi's shared expert and qwen2-vl's FFN.  The timed cases (bf16, CUDA
+   events and ``torch.profiler`` device time) stand beside the plain
+   version, SDPA where one call computes the same function (a windowed
+   case has none: SDPA takes the window only as a dense mask, off its
+   flash backend; that time is kept as ``masked_sdpa_ms``), and the bound
+   (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16);
+10. ``card_vs_cpu``: each ``CARD_VS_CPU`` arch at full width, cut to 1-2
+    layers (kimi also to 32 of its 384 experts), in bf16 and float32: a
+    prefill and greedy steps on the card and, with the same parameters and
+    teacher-forced on the card's tokens, on the CPU (plain versions):
+    logits within the stated tolerance, the share of agreeing greedy
+    tokens; the moe archs' routing (experts and kept pairs of every call
+    and layer) equal in float32, the smallest top-k margin reported;
+11. ``*_serve``: each of ``SERVED_ARCHS`` at full width in bf16
+    (parameters drawn on the card from seed 0; mixtral cut to 13 of its 56
+    layers, kimi to 1 of its 61, ``SERVE_LAYERS``): 4 x 4096 prefilled
+    (mixtral 2 x 8192, so its window bites in prefill and decode;
+    qwen2-vl 256 stub patches + 3,840 tokens), then 32 greedy steps, each
+    kernel's launches exactly :func:`serve_launch_rule`, prefill tokens/s,
+    ms per step, peak memory under 75 GB and ``torch.profiler`` breakdowns
+    of a prefill and a step; the moe archs' dropped share of (token, slot)
+    pairs from a second, untimed run that records the routing;
+12. ``llm_decode_32k``: llama's decode step at 16 sequences x 32,000
+    cached tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps
+    timed against the step's bound (KV prefix + weights over 3.35 TB/s);
+13. ``serving_plan``: for each served arch not cut in depth, DRS's prefill
+    / decode chip split through the port's launcher (``launch/serve.py``:
+    ``stage_rates`` of the measured rates, ``plan(4.0, chips=24)``) from
+    its B = 4 cell (the 4 x 4096 prefill's prompts / s, the B = 4 decode
+    step's tokens / s), then ``serving_sim``: that plan through the
+    launcher's discrete-event serving simulation (horizon 600 s, warm-up
+    60 s, host code), its mean and p95 latency beside the model's E[T];
 14. ``ssm_kernels`` (with the parity phases, before the main path):
     ``rwkv6_scan`` and ``ssd_scan`` against their plain versions at the
     serving shapes (4 x 4096; rwkv6-1.6b's 32 heads of 64, zamba2-7b's 112
@@ -219,30 +218,15 @@ Phases, each printing one JSON line:
     float64 step recurrence, and in the [BH] layout with a short last
     chunk; bf16 ``rwkv6_scan`` also at w = 1e-8 and at the floor with
     chunk 64 (its tensor-core kernel's exact per-pair branch), and checked
-    to run ``rwkv6_mma_kernel`` at the serving shape; flash and decode
-    attention at zamba2's head dim 112 (MHA; flash also windowed and
-    bidirectional, decode also at length 0); SwiGLU at
-    zamba2's FFN width (T 4, 16 and 16,384); each timed beside its plain
-    version and its bound (the scans' bf16 rows: bytes over 3.35 TB/s
-    against the products over 989 TFLOP/s plus the other operations over
-    67 TFLOP/s);
-15. ``ssm_card_vs_cpu``: rwkv6-1.6b and zamba2-7b at full width cut to 2
-    layers (zamba2: one shared-block site), bf16 and float32, as phase 10;
-16. ``rwkv6_serve`` and ``zamba2_serve``: each model at full width in
-    bf16 (rwkv6 cut from 24 to 12 layers; zamba2 from 81 to 18, 3 of its
-    14 shared-block sites), parameters drawn on the card from seed 0: 4 x
-    4096 prefill and 32 greedy decode steps, launches checked exactly
-    (rwkv6: 12 ``rwkv6_scan`` per prefill, no kernel per step;
-    zamba2: 18 ``ssd_scan``, 3 ``flash_attention`` and 6 ``swiglu`` per
-    prefill, 3 ``decode_attention`` and 6 ``swiglu`` per step), tokens/s,
-    ms per step, peak memory and ``torch.profiler`` breakdowns;
-17. ``serving_plan`` and ``serving_sim`` for each of the two from its own
-    measured rates;
-18. ``launch_serve``: ``python -m repro_torch.launch.serve`` (its
-    ``main(argv)``, in this process) for all four archs on their B = 4
+    to run ``rwkv6_mma_kernel`` at the serving shape; each timed beside
+    its plain version and its bound (the scans' bf16 rows: bytes over 3.35
+    TB/s against the products over 989 TFLOP/s plus the other operations
+    over 67 TFLOP/s);
+15. ``launch_serve``: ``python -m repro_torch.launch.serve`` (its
+    ``main(argv)``, in this process) for every planned arch on its B = 4
     rates (``--prefill-rate`` / ``--decode-rate``): the split must equal
     ``serving_plan``'s;
-19. ``train_kernels``: ``FlashAttentionFn`` at llama's training shape (B 2,
+16. ``train_kernels``: ``FlashAttentionFn`` at llama's training shape (B 2,
     Hq 32 / Hkv 8, S 4096, Dh 64), ``SwiGLUFn`` at T 8,192, D 2,048, F
     8,192, ``Rwkv6ScanFn`` at rwkv6's (B 2, H 32, S 4096, Dk = Dv = 64) and
     ``SsdScanFn`` at zamba2's (B 2, H 112, S 4096, Dh = Dst = 64, B and C
@@ -252,27 +236,26 @@ Phases, each printing one JSON line:
     state's and B / C's, summed over the heads, included) within the same
     tolerance of autograd of the plain version; forward + backward ms
     beside the plain version's;
-20. ``train_card_vs_cpu``: llama3.2-1b, rwkv6-1.6b and zamba2-7b at full
+17. ``train_card_vs_cpu``: llama3.2-1b, rwkv6-1.6b and zamba2-7b at full
     width cut to 2 layers (zamba2: one shared-block site; llama to 1),
     float32, B 2 x S 256 (rwkv6 and zamba2: 128): every parameter's
     gradient non-zero on the card, then 3
     ``make_train_step`` steps on the card and on the CPU from the same
     parameters: losses and grad norms within 1e-3 relative;
-21. ``train``: llama3.2-1b (cut to 8 of its 16 layers) and rwkv6-1.6b (at
-    full depth), both at full width (bf16 parameters, float32 moments)
-    through ``TrainLoop`` on ``train_4k``'s
-    sequence with the batch cut 256 -> 2: 8 steps with a checkpoint every 4
-    (launches exactly :func:`train_launch_rule`: one ``flash_attention``
-    and two ``swiglu`` per llama layer, one ``rwkv6_scan`` per rwkv6 layer,
-    per step), then a crash at 4 and a resume to 8, all under
-    ``torch.use_deterministic_algorithms``: losses finite, the resumed
-    run's losses for steps 5-8 and its final parameters bitwise the
-    straight run's; tokens / s, step ms, peak memory, the loader's worker
-    counts; then zamba2-7b at full width cut to 12 layers (two shared-block
-    sites; the full 6.75 B parameters need ~81 GB before activations): 4
-    steps, losses finite, launches exactly the rule (one ``ssd_scan`` per
-    mamba layer, one ``flash_attention`` and two ``swiglu`` per site),
-    peak memory under 75 GB.
+18. ``train``: each arch at full width, cut as ``TRAIN_CUTS`` says (bf16
+    parameters, float32 moments), through ``TrainLoop`` on ``train_4k``'s
+    sequence with the batch cut 256 -> 2 (kimi's to 1), all under
+    ``torch.use_deterministic_algorithms``, launches exactly
+    :func:`train_launch_rule`, peak memory under 75 GB, losses finite:
+    llama3.2-1b (4 of 16 layers), rwkv6-1.6b (whole) and mixtral-8x22b
+    (1 of 56 layers) 8 steps without checkpoints, then a crash at 4 and a
+    resume to 8 whose losses for steps 5-8 and final parameters are
+    bitwise the straight run's; zamba2-7b (24 of 81 layers: the whole
+    model's 6.75 B parameters need ~81 GB before activations),
+    kimi-k2-1t-a32b (1 layer, 32 of 384 experts) and qwen2-vl-2b (whole;
+    256 stub patches from :func:`vlm_stub_inputs` + 3,840 tokens) 4
+    straight steps; tokens / s, step ms, peak memory, the loader's worker
+    counts.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -376,6 +359,7 @@ def profiled(run):
                for e in events):
             break
         emit({"phase": "profiler", "empty_trace": attempt})
+        time.sleep(1.0)  # let the profiler's previous session wind down
     return events, out
 
 
@@ -2185,9 +2169,16 @@ def fleet_live_phase(dev):
 
 
 # --------------------------------------------------------------------------- #
-# Phases 9-13: LLM serving (llama3.2-1b, the dense family)
+# Phases 9-13 and 15: the LLM kernels and serving (the dense, moe and vlm
+# families, and the scan families' serving paths)
 # --------------------------------------------------------------------------- #
 LLM_ARCH = "llama3.2-1b"
+# The head-dim-128 dense archs, the scan archs and the moe / vlm archs.
+DENSE128_ARCHS = ("phi3-medium-14b", "yi-34b", "command-r-35b")
+PHI3_ARCH = DENSE128_ARCHS[0]
+SSM_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
+ZAMBA = SSM_ARCHS[1]
+MIXTRAL, KIMI, QWEN_VL = "mixtral-8x22b", "kimi-k2-1t-a32b", "qwen2-vl-2b"
 # prefill_32k (src/repro/configs/shapes.py:42) cut from 32 x 32768 to 4 x 4096
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 4096, 32
 # decode_32k cut from batch 128 (137 GB of KV) to 16 (17.2 GB)
@@ -2252,328 +2243,230 @@ def device_us_per_call(fn, symbols, calls=5):
     return sum(t for k, t, _c in rows if any(s in k for s in symbols)) or None
 
 
+# The LLM kernels' cases at each arch's own heads and widths (its full
+# config), one row each: flash (group, arch, B, S, window, causal, timed);
+# decode (group, arch, B, S_max, length, window, timed); SwiGLU (group,
+# arch, T, dtypes, timed).  Every case is held to the plain version in
+# float32 and bf16 (SwiGLU: in ``dtypes``); a timed case is also timed in
+# bf16.  Group "main" is the kernel table's row (llama's serving shapes);
+# the others are its sub-rows: "llama" llama's other shapes, "zamba2" head
+# dim 112 (MHA), "dh128" the dense family at head dim 128, "moe_vlm" the
+# moe and vlm archs (mixtral windowed at its 2 x 8192 prefill, so the
+# window cuts every query past 4096).
+STEP = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)  # a B 4 step over 4,097 cached
+EMPTY = (SERVE_B, SERVE_S + SERVE_STEPS, 0)  # length 0: the mean of V, as ref.py
+LONG = (DEC_B, DEC_SMAX, DEC_LEN)
+BOTH, BF16 = ("float32", "bfloat16"), ("bfloat16",)
+FLASH_CASES = (
+    ("main", LLM_ARCH, SERVE_B, SERVE_S, None, True, True),
+    ("llama", LLM_ARCH, 1, FLASH_S, None, True, True),
+    ("llama", LLM_ARCH, 1, FLASH_S, 256, True, False),
+    ("llama", LLM_ARCH, 1, 1000, None, False, False),
+    ("zamba2", ZAMBA, SERVE_B, SERVE_S, None, True, True),
+    ("zamba2", ZAMBA, 1, 1000, 100, True, False),  # a window across key tiles
+    ("zamba2", ZAMBA, 1, 1000, None, False, False),
+    ("dh128", PHI3_ARCH, SERVE_B, SERVE_S, None, True, True),
+    ("dh128", PHI3_ARCH, 1, FLASH_S, 256, True, False),
+    ("dh128", PHI3_ARCH, 1, 1000, None, False, False),
+    ("moe_vlm", MIXTRAL, 2, 8192, 4096, True, True),
+    ("moe_vlm", KIMI, SERVE_B, SERVE_S, None, True, True),
+)
+DECODE_CASES = (
+    ("main", LLM_ARCH, *LONG, None, True),
+    ("llama", LLM_ARCH, *LONG, 1024, False),
+    ("llama", LLM_ARCH, *STEP, None, True),
+    ("llama", LLM_ARCH, *EMPTY, None, False),
+    ("llama", LLM_ARCH, *EMPTY, 64, False),
+    ("zamba2", ZAMBA, *STEP, None, True),
+    ("zamba2", ZAMBA, *EMPTY, None, False),
+    *(("dh128", arch, *cell, None, cell == STEP) for arch in DENSE128_ARCHS
+      for cell in (STEP, EMPTY)),
+    ("dh128", PHI3_ARCH, *LONG, None, True),
+    ("moe_vlm", MIXTRAL, *STEP, 4096, True),
+    ("moe_vlm", MIXTRAL, *EMPTY, 4096, False),
+    ("moe_vlm", QWEN_VL, *STEP, None, False),
+    ("moe_vlm", QWEN_VL, *EMPTY, None, False),
+    ("moe_vlm", KIMI, *STEP, None, True),
+    ("moe_vlm", KIMI, *EMPTY, None, False),
+)
+SWIGLU_CASES = (  # T 16,384: a 4 x 4096 prefill (the wgmma route); T 4-16: a step (streaming)
+    ("main", LLM_ARCH, SERVE_B * SERVE_S, BF16, True),
+    ("llama", LLM_ARCH, 16, BOTH, True),
+    ("llama", LLM_ARCH, 4096, BOTH, True),
+    ("zamba2", ZAMBA, 4, BOTH, True),
+    ("zamba2", ZAMBA, 16, BF16, False),
+    ("zamba2", ZAMBA, SERVE_B * SERVE_S, BF16, True),
+    *(("dh128", arch, t, dtypes, timed) for arch in DENSE128_ARCHS
+      for t, dtypes, timed in ((16, BOTH, False), (4096, BF16, False),
+                               (SERVE_B * SERVE_S, BF16, True))),
+    *(("moe_vlm", arch, t, BOTH, t > SERVE_B) for arch in (KIMI, QWEN_VL)
+      for t in (SERVE_B, SERVE_B * SERVE_S)),
+)
+# Above this size of [B, Hq, S, S] float32 logits the plain attention runs
+# one KV head (and its query heads) at a time: the same function (each
+# group's softmax is its own), whose whole logits at mixtral's 2 x 8192 x
+# 48 heads (25.8 GB, three such blocks live) do not fit beside the rest.
+PLAIN_ATTN_WHOLE_BYTES = 12e9
+
+
+def _plain_attention(q, k, v, **kw):
+    import torch
+
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    b, hq, s, _ = q.shape
+    if 4 * b * hq * s * s <= PLAIN_ATTN_WHOLE_BYTES:
+        return fr.attention(q, k, v, **kw)
+    hkv = k.shape[1]
+    n_rep = hq // hkv
+    return torch.cat([fr.attention(q[:, g * n_rep:(g + 1) * n_rep], k[:, g:g + 1],
+                                   v[:, g:g + 1], **kw) for g in range(hkv)], dim=1)
+
+
 def llm_kernels_phase(dev):
-    """The three LLM kernels against their plain versions on the card, in
-    bf16 and float32, and timed at the serving path's shapes; returns the
-    kernel-table rows."""
+    """``flash_attention``, ``decode_attention`` and ``swiglu`` against
+    their plain versions on the card at every case of ``FLASH_CASES``,
+    ``DECODE_CASES`` and ``SWIGLU_CASES``, each within ``ATTN_TOL`` /
+    ``SWIGLU_TOL``; the timed cases in bf16 (CUDA events, and the device
+    time by ``torch.profiler``) beside the plain version, the PyTorch call
+    that computes the same function (SDPA with ``enable_gqa=True``, decode
+    on the valid prefix; none for SwiGLU, two GEMMs and a gate), that
+    call's (or, without one, the plain version's) device time, and the
+    bound.  SDPA takes a window only as a dense mask, which moves it off
+    its flash backend: a windowed case has no library time, and its masked
+    SDPA time is kept as ``masked_sdpa_ms``, not a like-for-like time.
+    Returns the kernel-table rows: the "main" case's numbers, the largest
+    bf16 error of every case, and each other group's timed cases."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.swiglu import kernel as sk, ref as sr
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(77)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16 = torch.bfloat16
     heavy = dict(runs=5, inner=2)
+    cases = {}  # kernel -> group -> case -> row
 
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    def parity(name, case, got, want, tol_rule):
-        return hold("llm_parity", name, case, got, want, tol_rule)
-
-    rows, extra = {}, {}
-
-    # flash_attention: model layout [B, S, H, Dh], passed as heads-first views.
-    def attn_inputs(b, s, dtype):
-        q = randn((b, s, HQ, DH), dtype).transpose(1, 2)
-        k = randn((b, s, HKV, DH), dtype).transpose(1, 2)
-        v = randn((b, s, HKV, DH), dtype).transpose(1, 2)
-        return q, k, v
-
-    def flash_work(b, s, dtype, window=None):
-        pairs = sum(min(i + 1, window or s) for i in range(s))
-        size = torch.tensor([], dtype=dtype).element_size()
-        nbytes = size * b * s * DH * (2 * HQ + 2 * HKV)
-        return nbytes, 4 * DH * pairs * b * HQ
-
-    err = 0.0
-    for b, s, dtype, window, causal in (
-            (1, FLASH_S, f32, None, True), (1, FLASH_S, f32, 256, True),
-            (1, 1000, f32, None, False), (SERVE_B, SERVE_S, f32, None, True),
-            (1, FLASH_S, bf16, None, True), (1, FLASH_S, bf16, 256, True),
-            (1, 1000, bf16, None, False), (SERVE_B, SERVE_S, bf16, None, True)):
-        q, k, v = attn_inputs(b, s, dtype)
-        case = f"B={b},S={s},H={HQ}/{HKV},Dh={DH},{dtype_name(dtype)}" + (
-            f",window={window}" if window else ",causal" if causal else ",bidirectional")
-        kw = dict(window=window, causal=causal)
-        e = parity("flash_attention", case, fk.attention(q, k, v, **kw),
-                   fr.attention(q, k, v, **kw), ATTN_TOL[dtype_name(dtype)])
-        err = max(err, e) if dtype == bf16 else err
-        if (b, s) == (1, FLASH_S) and window is None:
-            extra[f"flash_B1_S{FLASH_S}_{dtype_name(dtype)}"] = {
-                "ms": median_ms(lambda: fk.attention(q, k, v), runs=10, inner=5),
-                "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), runs=10, inner=5),
-                "bound_ms": bound(*flash_work(b, s, dtype), PEAK_BF16_OPS_PER_S if dtype == bf16
-                                  else PEAK_F32_OPS_PER_S)[0]}
-    # the prefill's shape: B = 4, S = 4096 (q, k, v from the last loop pass)
-    rows["flash_attention"] = dict(
-        source="src/repro_torch/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention/kernel.py:106",
-        shape=f"B={SERVE_B},S={SERVE_S},H={HQ}/{HKV},Dh={DH},bf16,causal", max_abs_err=err,
-        ms=median_ms(lambda: fk.attention(q, k, v), **heavy),
-        plain_ms=median_ms(lambda: fr.attention(q, k, v), runs=3, inner=1),
-        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), **heavy),
-        device_us=device_us_per_call(lambda: fk.attention(q, k, v), LLM_SYMBOLS[
-            "flash_attention"]),
-        bound=bound(*flash_work(SERVE_B, SERVE_S, bf16), PEAK_BF16_OPS_PER_S),
-    )
-    del q, k, v
-    torch.cuda.empty_cache()
-
-    # decode_attention: the decode_32k cache, and the serving cell's.
-    def decode_work(b, n, dtype):
-        size = torch.tensor([], dtype=dtype).element_size()
-        return size * (2 * b * HQ * DH + 2 * b * n * HKV * DH), 4 * DH * n * b * HQ
-
-    err = 0.0
-    serve_cache = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)
-    empty_cache = (SERVE_B, SERVE_S + SERVE_STEPS, 0)  # length 0: the mean of V, as ref.py
-    for (b, s_max, length), dtype, window in (
-            (serve_cache, f32, None), (empty_cache, f32, None), (empty_cache, f32, 64),
-            ((DEC_B, DEC_SMAX, DEC_LEN), f32, 1024), ((DEC_B, DEC_SMAX, DEC_LEN), f32, None),
-            (empty_cache, bf16, None), (empty_cache, bf16, 64), (serve_cache, bf16, None),
-            ((DEC_B, DEC_SMAX, DEC_LEN), bf16, 1024), ((DEC_B, DEC_SMAX, DEC_LEN), bf16, None)):
-        qd = randn((b, HQ, DH), dtype)
-        kc = randn((b, s_max, HKV, DH), dtype)
-        vc = randn((b, s_max, HKV, DH), dtype)
-        n = torch.tensor(length, dtype=torch.int32, device=dev)
-        case = (f"B={b},S_max={s_max},length={length},H={HQ}/{HKV},Dh={DH},{dtype_name(dtype)}"
-                + (f",window={window}" if window else ""))
-        e = parity("decode_attention", case, dk.decode_attention(qd, kc, vc, n, window=window),
-                   dr.decode_attention(qd, kc, vc, n, window=window), ATTN_TOL[dtype_name(dtype)])
-        err = max(err, e) if dtype == bf16 else err
-        if (b, s_max, length) == serve_cache and dtype == bf16:  # llama's own decode step
-            q4 = qd[:, :, None]
-            k_valid = kc[:, :length].transpose(1, 2).contiguous()
-            v_valid = vc[:, :length].transpose(1, 2).contiguous()
-            # A short call: its event time is the host's; device time beside it.
-            def sdpa():
-                return F.scaled_dot_product_attention(q4, k_valid, v_valid, enable_gqa=True)
-
-            extra[f"decode_B{b}_S{s_max}_len{length}_bf16"] = {
-                "ms": median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
-                "library_ms": median_ms(sdpa),
-                "device_us": device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
-                                                LLM_SYMBOLS["decode_attention"]),
-                "library_device_us": profile_breakdown(sdpa, calls=5)[1] * 1e3,
-                "bound_ms": bound(*decode_work(b, length, bf16), PEAK_BF16_OPS_PER_S)[0]}
-            del q4, k_valid, v_valid
-        if dtype == f32 or length != DEC_LEN:
-            del kc, vc
-            torch.cuda.empty_cache()
-    q4 = qd[:, :, None]
-    k_valid = kc[:, :DEC_LEN].transpose(1, 2).contiguous()
-    v_valid = vc[:, :DEC_LEN].transpose(1, 2).contiguous()
-    rows["decode_attention"] = dict(
-        source="src/repro_torch/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention/kernel.py:94",
-        shape=f"B={DEC_B},S_max={DEC_SMAX},length={DEC_LEN},H={HQ}/{HKV},Dh={DH},bf16", max_abs_err=err,
-        ms=median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
-        plain_ms=median_ms(lambda: dr.decode_attention(qd, kc, vc, n), **heavy),
-        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            q4, k_valid, v_valid, enable_gqa=True)),
-        device_us=device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
-                                     LLM_SYMBOLS["decode_attention"]),
-        bound=bound(*decode_work(DEC_B, DEC_LEN, bf16), PEAK_BF16_OPS_PER_S),
-    )
-    del qd, kc, vc, q4, k_valid, v_valid
-    torch.cuda.empty_cache()
-
-    # swiglu: the llama FFN (D = 2048, F = 8192).
-    d, f = D_MODEL, D_FF
-
-    def swiglu_inputs(t, dtype):
-        return (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
-                randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
-
-    def swiglu_work(t, dtype):
-        size = torch.tensor([], dtype=dtype).element_size()
-        return size * (2 * t * d + 3 * d * f), 6 * t * d * f
-
-    err = 0.0
-    for t, dtype in ((16, f32), (4096, f32), (16, bf16), (4096, bf16), (SERVE_B * SERVE_S, bf16)):
-        args = swiglu_inputs(t, dtype)
-        e = parity("swiglu", f"T={t},D={d},F={f},{dtype_name(dtype)}", sk.swiglu(*args),
-                   sr.swiglu(*args), SWIGLU_TOL[dtype_name(dtype)])
-        err = max(err, e) if dtype == bf16 else err
-        if t in (16, 4096):
-            extra[f"swiglu_T{t}_{dtype_name(dtype)}"] = {
-                "ms": median_ms(lambda: sk.swiglu(*args), **heavy),
-                "plain_ms": median_ms(lambda: sr.swiglu(*args), **heavy),
-                "device_us": device_us_per_call(lambda: sk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
-                "plain_device_us": profile_breakdown(lambda: sr.swiglu(*args), calls=5)[1] * 1e3,
-                "bound_ms": bound(*swiglu_work(t, dtype), PEAK_BF16_OPS_PER_S if dtype == bf16
-                                  else PEAK_F32_OPS_PER_S)[0]}
-    t = SERVE_B * SERVE_S
-    rows["swiglu"] = dict(
-        source="src/repro_torch/csrc/swiglu.cu",
-        replaces="src/repro/kernels/swiglu/kernel.py:60",
-        shape=f"T={t},D={d},F={f},bf16", max_abs_err=err,
-        ms=median_ms(lambda: sk.swiglu(*args), **heavy),
-        plain_ms=median_ms(lambda: sr.swiglu(*args), **heavy),
-        library_ms=None,
-        device_us=device_us_per_call(lambda: sk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
-        bound=bound(*swiglu_work(t, bf16), PEAK_BF16_OPS_PER_S),
-    )
-    del args
-    torch.cuda.empty_cache()
-    _build.LAUNCHES.clear()  # parity and timing launches are not the path's
-    emit({"phase": "llm_kernels", "seconds": time.perf_counter() - t_phase,
-          "rows": {k: {kk: (list(vv) if kk == "bound" else vv) for kk, vv in v.items()
-                       if kk not in ("source", "replaces")} for k, v in rows.items()},
-          "other_shapes": extra})
-    return rows
-
-
-# The dense family at head dim 128 (phi3-medium-14b, yi-34b, command-r-35b):
-# phi3's attention (40 / 10 heads) and the three (head dim, GQA ratio) pairs
-# of decode; each arch's FFN width.
-DENSE128_ARCHS = ("phi3-medium-14b", "yi-34b", "command-r-35b")
-PHI3_ARCH = "phi3-medium-14b"
-DH128, PHI3_HQ, PHI3_HKV = 128, 40, 10
-DECODE128 = {"phi3-medium-14b": (40, 10), "yi-34b": (56, 8), "command-r-35b": (64, 8)}
-FFN128 = {"phi3-medium-14b": (5120, 17920), "yi-34b": (7168, 20480),
-          "command-r-35b": (8192, 22528)}
-
-
-def llm128_kernels_phase(dev):
-    """``flash_attention`` and ``decode_attention`` at head dim 128 and
-    ``swiglu`` at the three archs' FFN widths against their plain versions
-    on the card, in bf16 and float32 within ``ATTN_TOL`` / ``SWIGLU_TOL``:
-    flash at phi3's prefill (4 x 4096, 40 / 10 heads; also windowed and
-    bidirectional at B 1); decode at each arch's (128, ratio) pair at a B 4
-    step over 4,097 cached tokens, at length 0, and (128, 4) at 16 x 32,000
-    cached; SwiGLU at T 16 (the streaming route) and 4,096 (the wgmma
-    route in bf16).  The serving shapes are timed (CUDA events,
-    ``torch.profiler`` device time) beside SDPA and the bound.  Returns
-    ``{kernel: {"dh128" or "widths": ...}}`` for the kernel-table rows."""
-    import torch
-    import torch.nn.functional as F
-
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
-    from repro_torch.kernels.swiglu import kernel as sk, ref as sr
-
-    t_phase = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(128)
-    bf16, f32 = torch.bfloat16, torch.float32
-    heavy = dict(runs=5, inner=2)
-    out = {}
-
-    def randn(shape, dtype, scale=1.0):
-        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
-
-    def parity(name, case, got, want, tol_rule):
-        return hold("llm_parity", name, case, got, want, tol_rule)
-
-    hq, hkv, dh = PHI3_HQ, PHI3_HKV, DH128
-    errs = {}
-    for b, s, dtype, window, causal in (
-            (1, FLASH_S, f32, 256, True), (1, 1000, f32, None, False),
-            (SERVE_B, SERVE_S, f32, None, True), (1, FLASH_S, bf16, 256, True),
-            (1, 1000, bf16, None, False), (SERVE_B, SERVE_S, bf16, None, True)):
-        q = randn((b, s, hq, dh), dtype).transpose(1, 2)
-        k, v = (randn((b, s, hkv, dh), dtype).transpose(1, 2) for _ in range(2))
-        case = f"B={b},S={s},H={hq}/{hkv},Dh={dh},{dtype_name(dtype)}" + (
-            f",window={window}" if window else ",causal" if causal else ",bidirectional")
-        kw = dict(window=window, causal=causal)
-        e = parity("flash_attention", case, fk.attention(q, k, v, **kw),
-                   fr.attention(q, k, v, **kw), ATTN_TOL[dtype_name(dtype)])
-        errs[dtype_name(dtype)] = max(errs.get(dtype_name(dtype), 0.0), e)
-        if dtype == f32:
-            del q, k, v
-            torch.cuda.empty_cache()
-    pairs = sum(min(i + 1, SERVE_S) for i in range(SERVE_S))
-    out["flash_attention"] = {"dh128": dict(
-        shape=f"B={SERVE_B},S={SERVE_S},H={hq}/{hkv},Dh={dh},bf16,causal",
-        max_abs_err=errs["bfloat16"], max_abs_err_float32=errs["float32"],
-        ms=median_ms(lambda: fk.attention(q, k, v), **heavy),
-        plain_ms=median_ms(lambda: fr.attention(q, k, v), runs=3, inner=1),
-        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), **heavy),
-        device_us=device_us_per_call(lambda: fk.attention(q, k, v),
-                                     LLM_SYMBOLS["flash_attention"]),
-        bound=bound(2 * SERVE_B * SERVE_S * dh * (2 * hq + 2 * hkv),
-                    4 * dh * pairs * SERVE_B * hq, PEAK_BF16_OPS_PER_S))}
-    del q, k, v
-    torch.cuda.empty_cache()
-
-    def decode_case(arch, b, s_max, length, dtype, timed):
-        hq_, hkv_ = DECODE128[arch]
-        qd = randn((b, hq_, dh), dtype)
-        kc, vc = (randn((b, s_max, hkv_, dh), dtype) for _ in range(2))
-        n = torch.tensor(length, dtype=torch.int32, device=dev)
-        case = (f"{arch},B={b},S_max={s_max},length={length},H={hq_}/{hkv_},Dh={dh},"
-                f"{dtype_name(dtype)}")
-        e = parity("decode_attention", case, dk.decode_attention(qd, kc, vc, n),
-                   dr.decode_attention(qd, kc, vc, n), ATTN_TOL[dtype_name(dtype)])
-        row = {"case": case, "max_abs_err": e}
-        if timed:
-            q4 = qd[:, :, None]
-            kv = [t[:, :length].transpose(1, 2).contiguous() for t in (kc, vc)]
-            size = kc.element_size()
-            row.update(
-                ms=median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
-                plain_ms=median_ms(lambda: dr.decode_attention(qd, kc, vc, n), **heavy),
-                library_ms=median_ms(lambda: F.scaled_dot_product_attention(
-                    q4, *kv, enable_gqa=True)),
-                device_us=device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
-                                             LLM_SYMBOLS["decode_attention"]),
-                bound=bound(size * (2 * b * hq_ * dh + 2 * b * length * hkv_ * dh),
-                            4 * dh * length * b * hq_, PEAK_BF16_OPS_PER_S))
-            del q4, kv
-        del qd, kc, vc
-        torch.cuda.empty_cache()
-        return row
-
-    step = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)
-    decode = {}
-    for arch in DENSE128_ARCHS:
-        for dtype in (f32, bf16):
-            decode_case(arch, SERVE_B, SERVE_S + SERVE_STEPS, 0, dtype, False)
-            row = decode_case(arch, *step, dtype, dtype == bf16)
-            if dtype == bf16:
-                decode[arch] = row
-    decode_case(PHI3_ARCH, DEC_B, DEC_SMAX, DEC_LEN, f32, False)
-    decode[PHI3_ARCH + "_32k"] = decode_case(PHI3_ARCH, DEC_B, DEC_SMAX, DEC_LEN, bf16, True)
-    out["decode_attention"] = {"dh128": decode}
-
-    widths = {}
-    for arch, (d, f) in FFN128.items():
-        def inputs(t, dtype):
-            return (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
-                    randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
-
+    def run_case(kernel, group, arch, case, dtypes, make, timed, work, quick=False):
+        """Hold ``make(dtype)``'s kernel call to its plain call in each of
+        ``dtypes``; when ``timed``, time the bf16 calls (``make`` returns
+        {"run", "plain", "library" (or None), "other" ({key: call})})."""
         row = {}
-        for t, dtype in ((16, f32), (16, bf16), (4096, bf16)):
-            args = inputs(t, dtype)
-            row[f"max_abs_err_T{t}_{dtype_name(dtype)}"] = parity(
-                "swiglu", f"{arch},T={t},D={d},F={f},{dtype_name(dtype)}", sk.swiglu(*args),
-                sr.swiglu(*args), SWIGLU_TOL[dtype_name(dtype)])
-        t = SERVE_B * SERVE_S
-        args = inputs(t, bf16)
-        row.update(shape=f"T={t},D={d},F={f},bf16",
-                   ms=median_ms(lambda: sk.swiglu(*args), **heavy),
-                   plain_ms=median_ms(lambda: sr.swiglu(*args), **heavy),
-                   device_us=device_us_per_call(lambda: sk.swiglu(*args),
-                                                LLM_SYMBOLS["swiglu"]),
-                   bound=bound(2 * (2 * t * d + 3 * d * f), 6 * t * d * f,
-                               PEAK_BF16_OPS_PER_S))
-        widths[arch] = row
-        del args
-        torch.cuda.empty_cache()
-    out["swiglu"] = {"widths": widths}
+        for name in dtypes:
+            dtype = getattr(torch, name)
+            calls = make(dtype)
+            tol = SWIGLU_TOL[name] if kernel == "swiglu" else ATTN_TOL[name]
+            err = hold("llm_parity", kernel, f"{arch},{case},{name}", calls["run"](),
+                       calls["plain"](), tol)
+            row["max_abs_err" if dtype == bf16 else f"max_abs_err_{name}"] = err
+            if timed and dtype == bf16:
+                kw = {} if quick else heavy
+                run, library = calls["run"], calls["library"]
+                row.update(
+                    ms=median_ms(run, **kw), plain_ms=median_ms(calls["plain"], runs=3, inner=1),
+                    library_ms=None if library is None else median_ms(library, **kw),
+                    device_us=device_us_per_call(run, LLM_SYMBOLS[kernel]),
+                    **{"library_device_us" if library else "plain_device_us":
+                       profile_breakdown(library or calls["plain"], calls=5)[1] * 1e3},
+                    **{key: median_ms(fn, **kw) for key, fn in calls["other"].items()},
+                    bound=bound(*work, PEAK_BF16_OPS_PER_S))
+            del calls
+            torch.cuda.empty_cache()
+        row["timed"] = timed
+        cases.setdefault(kernel, {}).setdefault(group, {})[f"{arch},{case}"] = row
+
+    for group, arch, b, s, window, causal, timed in FLASH_CASES:
+        cfg = get_config(arch, "full")
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        kw = dict(window=window, causal=causal)
+
+        def make(dtype):
+            q = randn((b, s, hq, dh), dtype).transpose(1, 2)  # the model's [B, S, H, Dh]
+            k, v = (randn((b, s, hkv, dh), dtype).transpose(1, 2) for _ in range(2))
+            calls = {"run": lambda: fk.attention(q, k, v, **kw),
+                     "plain": lambda: _plain_attention(q, k, v, **kw), "other": {}}
+            if window is None:
+                calls["library"] = lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True)
+            else:
+                calls["library"] = None
+                i = torch.arange(s, device=dev)
+                mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+                calls["other"]["masked_sdpa_ms"] = lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            return calls
+
+        pairs = sum(min(i + 1, window or s) for i in range(s)) if causal else s * s
+        shape = f"B={b},S={s},H={hq}/{hkv},Dh={dh}" + (
+            f",window={window}" if window else ",causal" if causal else ",bidirectional")
+        run_case("flash_attention", group, arch, shape, BOTH, make, timed,
+                 (2 * b * s * dh * (2 * hq + 2 * hkv), 4 * dh * pairs * b * hq))
+
+    for group, arch, b, s_max, length, window, timed in DECODE_CASES:
+        cfg = get_config(arch, "full")
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        lo = max(0, length - window) if window else 0  # the keys a query sees
+
+        def make(dtype):
+            qd = randn((b, hq, dh), dtype)
+            kc, vc = (randn((b, s_max, hkv, dh), dtype) for _ in range(2))
+            n = torch.tensor(length, dtype=torch.int32, device=dev)
+            calls = {"run": lambda: dk.decode_attention(qd, kc, vc, n, window=window),
+                     "plain": lambda: dr.decode_attention(qd, kc, vc, n, window=window),
+                     "library": None, "other": {}}
+            if timed and length:  # SDPA on the valid prefix, laid out heads-first
+                q4 = qd[:, :, None]
+                kv = [t[:, lo:length].transpose(1, 2).contiguous() for t in (kc, vc)]
+                calls["library"] = lambda: F.scaled_dot_product_attention(q4, *kv,
+                                                                          enable_gqa=True)
+            return calls
+
+        shape = f"B={b},S_max={s_max},length={length},H={hq}/{hkv},Dh={dh}" + (
+            f",window={window}" if window else "")
+        run_case("decode_attention", group, arch, shape, BOTH, make, timed,
+                 (2 * (2 * b * hq * dh + 2 * b * (length - lo) * hkv * dh),
+                  4 * dh * (length - lo) * b * hq), quick=True)
+
+    for group, arch, t, dtypes, timed in SWIGLU_CASES:
+        cfg = get_config(arch, "full")
+        d, f = cfg.d_model, cfg.d_ff  # kimi: its shared expert's width
+
+        def make(dtype):
+            args = (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
+                    randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
+            return {"run": lambda: sk.swiglu(*args), "plain": lambda: sr.swiglu(*args),
+                    "library": None, "other": {}}
+
+        run_case("swiglu", group, arch, f"T={t},D={d},F={f}", dtypes, make, timed,
+                 (2 * (2 * t * d + 3 * d * f), 6 * t * d * f))
     _build.LAUNCHES.clear()  # parity and timing launches are not the path's
-    emit({"phase": "llm_kernels", "head_dim": 128, "seconds": time.perf_counter() - t_phase,
-          "rows": out})
-    return out
+    emit({"phase": "llm_kernels", "seconds": time.perf_counter() - t_phase, "cases": cases})
+
+    rows = {}
+    for kernel, source, line in (("flash_attention", "flash_attention.cu", "flash_attention:106"),
+                                 ("decode_attention", "decode_attention.cu",
+                                  "decode_attention:94"),
+                                 ("swiglu", "swiglu.cu", "swiglu:60")):
+        groups = dict(cases[kernel])
+        err = max(r["max_abs_err"] for g in groups.values() for r in g.values())
+        (shape, main), = groups.pop("main").items()
+        path, at = line.split(":")
+        rows[kernel] = dict(
+            source=f"src/repro_torch/csrc/{source}",
+            replaces=f"src/repro/kernels/{path}/kernel.py:{at}", shape=shape,
+            **{k: v for k, v in main.items() if k not in ("max_abs_err", "timed")},
+            max_abs_err=err,
+            shapes={g: {c: {k: v for k, v in r.items() if k != "timed"}
+                        for c, r in rs.items() if r["timed"]} for g, rs in groups.items()})
+    return rows
 
 
 def _cpu_copy(params):
@@ -2581,15 +2474,23 @@ def _cpu_copy(params):
             for k, v in params.items()}
 
 
-def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2):
+def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2, n_patches=0):
     """``cfg`` with parameters drawn on the card from seed 1: a greedy run
     on the card (the kernels) against the CPU's plain versions
     teacher-forced on the card's tokens.  Logits within ``tol * (1 +
     |cpu|)`` (1e-3 in float32, ``bf16_tol`` in bf16), greedy tokens
-    agreeing on all (float32) or >= 75 % (bf16)."""
+    agreeing on all (float32) or >= 75 % (bf16).  ``n_patches``: the vlm
+    prompt's stub patch embeddings ahead of its ``s`` tokens (qwen2-vl's
+    grid layout of M-RoPE ids).  The moe family's routing (each token's
+    experts and kept pairs, every call and layer) must be equal card vs CPU
+    in float32, the smallest top-k margin is recorded, and a token routed
+    otherwise fails the phase with its margin; in bf16 the tokens routed
+    otherwise are counted and their rows' logits left out of the
+    comparison (a token within a rounding of another expert takes it)."""
     import torch
 
     from repro_torch.models import serve
+    from repro_torch.models.common import mrope_positions
     from repro_torch.models.transformer import init_params
 
     cpu = torch.device("cpu")
@@ -2599,67 +2500,133 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2):
     t_phase = time.perf_counter()
     params = init_params(cfg, seed=1, device=dev)
     params_cpu = _cpu_copy(params)
-    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator().manual_seed(3))
-    cache = serve.init_cache(cfg, b, s + steps, device=dev)
-    lg, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
+    gen = torch.Generator().manual_seed(3)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=gen)}
+    if n_patches:
+        prompt["patch_embeds"] = torch.randn(b, n_patches, cfg.d_model, generator=gen).to(dtype)
+        prompt["positions_3d"] = mrope_positions(b, n_patches, s)
+    moe = cfg.family == "moe"
+    routes = {"card": [], "cpu": []}
+
+    def routing(side):
+        if not moe:
+            return None
+        routes[side].append([])
+        return routes[side][-1]
+
+    s_max = n_patches + s + steps
+    cache = serve.init_cache(cfg, b, s_max, device=dev)
+    lg, cache = serve.prefill(params, cfg, {k: v.to(dev) for k, v in prompt.items()}, cache,
+                              device=dev, routing=routing("card"))
     card, fed = [lg.float().cpu()], []
     for _ in range(steps):
         tok = lg.argmax(-1)
         fed.append(tok.cpu())
-        lg, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+        lg, cache = serve.decode_step(params, cfg, tok, cache, device=dev,
+                                      routing=routing("card"))
         card.append(lg.float().cpu())
     t_cpu = time.perf_counter()
-    cache_c = serve.init_cache(cfg, b, s + steps, device=cpu)
-    lg, cache_c = serve.prefill(params_cpu, cfg, {"tokens": tokens}, cache_c, device=cpu)
+    cache_c = serve.init_cache(cfg, b, s_max, device=cpu)
+    lg, cache_c = serve.prefill(params_cpu, cfg, prompt, cache_c, device=cpu,
+                                routing=routing("cpu"))
     host = [lg.float()]
     for tok in fed:
-        lg, cache_c = serve.decode_step(params_cpu, cfg, tok, cache_c, device=cpu)
+        lg, cache_c = serve.decode_step(params_cpu, cfg, tok, cache_c, device=cpu,
+                                        routing=routing("cpu"))
         host.append(lg.float())
     cpu_s = time.perf_counter() - t_cpu
-    errs = [close_err(a, c, tol) for a, c in zip(card, host)]
+    rows = [torch.ones(b, dtype=torch.bool) for _ in card]  # the logits rows compared
+    route = None
+    if moe:
+        differ, margin = [], math.inf
+        for c, (rc, rh) in enumerate(zip(routes["card"], routes["cpu"])):
+            for layer, (x, y) in enumerate(zip(rc, rh)):
+                same = ((x["experts"].cpu() == y["experts"]).all(1)
+                        & (x["kept"].cpu() == y["kept"]).all(1))
+                m = x["margin"].cpu()
+                margin = min(margin, float(m.min()))
+                n = m.shape[0] // b  # tokens per sequence in this call
+                for t in torch.nonzero(~same).flatten().tolist():
+                    differ.append({"call": c, "layer": layer, "token": t, "margin": float(m[t])})
+                    seq, pos = divmod(t, n)
+                    if pos == n - 1:  # the token whose logits the call compares
+                        rows[c][seq] = False
+        pairs = sum(int(x["kept"].numel()) for rc in routes["card"] for x in rc)
+        dropped = sum(int((~x["kept"]).sum()) for rc in routes["card"] for x in rc)
+        route = {"tokens_routed_otherwise": differ[:20], "n_routed_otherwise": len(differ),
+                 "min_topk_margin": margin, "dropped_share": dropped / pairs,
+                 "logit_rows_left_out": sum(int((~r).sum()) for r in rows)}
+    errs = [close_err(a[r], c[r], tol) for a, c, r in zip(card, host, rows) if bool(r.any())]
+    check(bool(errs), f"{phase} {cfg.arch}: every logits row routed otherwise")
     agree = sum(int((a.argmax(-1) == c.argmax(-1)).sum()) for a, c in zip(card, host))
     share = agree / (b * (steps + 1))
     ok = all(e[1] for e in errs)
     name = dtype_name(dtype)
     emit({"phase": phase, "arch": cfg.arch, "dtype": name, "layers": cfg.n_layers,
-          "prompts": b, "prompt_tokens": s, "greedy_steps": steps,
+          "experts": cfg.n_experts or None, "prompts": b, "prompt_tokens": s,
+          "patches": n_patches, "greedy_steps": steps,
           "max_abs_logit_err": max(e[0] for e in errs), "tol": tol,
           "logits_within_tol": ok, "greedy_agree_share": share,
-          "logit_abs_max": float(max(c.abs().max() for c in host)),
+          "logit_abs_max": float(max(c.abs().max() for c in host)), "routing": route,
           "cache_length": [int(cache["length"]), int(cache_c["length"])],
           "cpu_seconds": cpu_s, "seconds": time.perf_counter() - t_phase})
     check(ok, f"{phase} {cfg.arch} {name}: logits differ beyond {tol}")
     check(share >= min_agree, f"{phase} {cfg.arch} {name}: greedy tokens agree on {share:.3f}")
-    check(int(cache["length"]) == int(cache_c["length"]) == s + steps,
+    check(int(cache["length"]) == int(cache_c["length"]) == s_max,
           f"{phase} {cfg.arch}: cache length")
+    if moe and dtype == torch.float32:
+        check(not route["n_routed_otherwise"],
+              f"{phase} {cfg.arch}: {route['n_routed_otherwise']} tokens routed otherwise on "
+              f"the card than on the CPU, margins {route['tokens_routed_otherwise']}")
     del params, params_cpu, cache, cache_c
     torch.cuda.empty_cache()
 
 
-def llm_card_vs_cpu_phase(dev):
-    """llama3.2-1b and the three head-dim-128 archs at full width, 2
-    layers, in bf16 and float32; the 128-dim archs on 1 x 128 prompt tokens
-    and 4 greedy steps (command-r's 256,000 x 8,192 embedding alone is 8.4
-    GB in float32 on the host, whose plain versions run the CPU half).  Their bf16 logit
-    tolerance is llama's 5e-2 times sqrt(d_model / 2048): the two sides
-    round their hidden states to bf16 at different places (the kernels keep
-    attention's and the FFN's intermediates in float32, the plain versions
-    round them), and the logit's share of that noise grows as the root of
-    the width of the products it sums (0.079 / 0.094 / 0.100 at d_model
-    5,120 / 7,168 / 8,192)."""
+# card_vs_cpu cases: (arch, its cut, prompts, prompt tokens, greedy steps),
+# each in bf16 and float32.  The head-dim-128 archs take 1 x 128 prompt
+# tokens and 4 steps (command-r's 256,000 x 8,192 embedding alone is 8.4 GB
+# in float32 on the host, whose plain versions run the CPU half); mixtral
+# one layer (2.5 B parameters, 10 GB in float32 on the host); kimi one
+# layer with 32 of its 384 experts (top-8 and the shared expert kept: one
+# full layer is 68 GB in float32 on the host); qwen2-vl with its 256 stub
+# patches ahead of the tokens; zamba2's two layers hold one shared-block
+# site.
+CARD_VS_CPU = (
+    (LLM_ARCH, dict(n_layers=2), 2, 256, 8),
+    *((arch, dict(n_layers=2), 1, 128, 4) for arch in DENSE128_ARCHS),
+    *((arch, dict(n_layers=2), 2, 256, 8) for arch in SSM_ARCHS),
+    (QWEN_VL, dict(n_layers=2), 2, 128, 4),
+    (MIXTRAL, dict(n_layers=1), 2, 128, 4),
+    (KIMI, dict(n_layers=1, n_experts=32), 2, 128, 4),
+)
+
+
+def card_vs_cpu_phase(dev):
+    """Each ``CARD_VS_CPU`` case at full width through :func:`card_vs_cpu`.
+    The decoders' bf16 logit tolerance is llama's 5e-2 times sqrt(d_model /
+    2048) past llama's width: the two sides round their hidden states to
+    bf16 at different places (the kernels keep attention's and the FFN's
+    intermediates in float32, the plain versions round them), and the
+    logit's share of that noise grows as the root of the width of the
+    products it sums (0.079 / 0.094 / 0.100 at d_model 5,120 / 7,168 /
+    8,192); the scan archs' is 5e-2."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.qwen2_vl_2b import N_PATCHES
+    from repro_torch.models.transformer import DECODER_FAMILIES
 
-    for arch in (LLM_ARCH, *DENSE128_ARCHS):
+    for arch, cut, b, s, steps in CARD_VS_CPU:
         cfg = get_config(arch, "full")
-        shape = {} if arch == LLM_ARCH else {
-            "b": 1, "s": 128, "steps": 4, "bf16_tol": 5e-2 * math.sqrt(cfg.d_model / D_MODEL)}
+        decoder = cfg.family in DECODER_FAMILIES
+        tol = 5e-2 * math.sqrt(max(cfg.d_model, D_MODEL) / D_MODEL) if decoder else 5e-2
         for dtype in (torch.bfloat16, torch.float32):
-            card_vs_cpu(dev, dataclasses.replace(cfg, n_layers=2, dtype=dtype),
-                        "llm_card_vs_cpu", **shape)
+            card_vs_cpu(dev, dataclasses.replace(cfg, dtype=dtype, **cut),
+                        "llm_card_vs_cpu" if decoder else "ssm_card_vs_cpu", b=b, s=s,
+                        steps=steps, bf16_tol=tol,
+                        n_patches=N_PATCHES if cfg.family == "vlm" else 0)
 
 
 def profile_breakdown(fn, calls=1):
@@ -2698,78 +2665,164 @@ def breakdown_json(wall_ms, device_ms, rows):
                     for k, t, c in rows[:10]]}
 
 
-def llm_serve_phase(dev, arch=LLM_ARCH):
-    """A full dense model in bf16 (llama3.2-1b; phi3-medium-14b, 40 layers
-    at head dim 128, as ``phi3_serve``): prefill 4 x 4096, 32 greedy decode
-    steps, launch counts checked; returns (launches, prompts/s, the B = 4
-    step's tokens/s, params, cfg)."""
+# Serving cells: prefill_32k (src/repro/configs/shapes.py:42) cut from 32 x
+# 32768 to 4 x 4096 (SERVE_B x SERVE_S), and for mixtral to 2 x 8192, so
+# its 4,096-token window cuts every query past 4096.  Depth cuts: mixtral
+# at the most layers whose serving peak stays under 75 GB (5.0 GB of bf16
+# weights a layer; `tools/train_peak.py mixtral-8x22b 12 13 --serve --batch
+# 2 --seq 8192`: 66.95 / 72.02 GB), kimi at 1 of its 61 layers with all
+# 384 experts (34.1 GB a layer, 4.7 GB of embeddings; 50.11 GB).  An arch
+# cut in depth is planned under no name; the others serve whole.
+SERVE_CELL = {MIXTRAL: (2, 8192)}
+SERVE_LAYERS = {MIXTRAL: 13, KIMI: 1}
+SERVED_ARCHS = (LLM_ARCH, PHI3_ARCH, *SSM_ARCHS, MIXTRAL, KIMI, QWEN_VL)
+
+
+def serve_launch_rule(cfg):
+    """(prefill, one step) kernel launches of ``cfg``'s serving path: per
+    prefill one ``flash_attention`` per decoder layer (dense, moe, vlm) or
+    zamba2 shared-block site, one ``rwkv6_scan`` per rwkv6 layer, one
+    ``ssd_scan`` per mamba layer; per step one ``decode_attention`` per
+    decoder layer or site (the scans' steps run the plain recurrence); and
+    per call two ``swiglu`` per layer or site that runs a SwiGLU on every
+    token (all but the moe layers without a shared expert: the routed
+    experts run no kernel)."""
+    from repro_torch.kernels import LLM_KERNELS, SSM_KERNELS
+    from repro_torch.models.transformer import shared_sites
+
+    zero = dict.fromkeys(LLM_KERNELS + SSM_KERNELS, 0)
+    if cfg.family == "ssm":
+        return {**zero, "rwkv6_scan": cfg.n_layers}, dict(zero)
+    if cfg.family == "hybrid":
+        g = len(shared_sites(cfg))
+        return ({**zero, "ssd_scan": cfg.n_layers, "flash_attention": g, "swiglu": 2 * g},
+                {**zero, "decode_attention": g, "swiglu": 2 * g})
+    ffn = 2 * cfg.n_layers if (cfg.n_experts == 0 or cfg.n_shared_experts > 0) else 0
+    return ({**zero, "flash_attention": cfg.n_layers, "swiglu": ffn},
+            {**zero, "decode_attention": cfg.n_layers, "swiglu": ffn})
+
+
+def serve_phase(dev, arch):
+    """``arch`` at full width in bf16 (parameters drawn on the card from
+    seed 0; cut in depth to ``SERVE_LAYERS`` where it says so): its
+    prefill cell of ``SERVE_CELL`` (default 4 x 4096; qwen2-vl's prompts
+    are 256 stub patches ahead of 3,840 tokens) and 32 greedy steps, each
+    kernel's launches exactly :func:`serve_launch_rule`, timed without
+    diagnostics: prefill tokens / s, ms per step, peak memory (under
+    ``TRAIN_PEAK_GB``) and ``torch.profiler`` breakdowns of a prefill and
+    a step.  The moe archs' dropped share of (token, slot) pairs comes from
+    a second, untimed prefill and 32 steps that record the routing.
+    Returns (launches, prompts / s, step tokens / s, params, cfg)."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, LLM_KERNELS
+    from repro_torch.configs.qwen2_vl_2b import N_PATCHES
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.models import serve
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.common import mrope_positions
+    from repro_torch.models.transformer import init_params, shared_sites
+    from repro_torch.tree import flatten_with_paths
 
     t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(arch, "full")
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, n_layers=SERVE_LAYERS.get(arch, full.n_layers))
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_phase
+    b, s = SERVE_CELL.get(arch, (SERVE_B, SERVE_S))
+    patches = N_PATCHES if cfg.family == "vlm" else 0
     gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=gen, device=dev)
-    # Warm-up outside the counted run (cuBLAS handles, first launches).
-    warm = serve.init_cache(cfg, 1, 160, device=dev)
-    lg, warm = serve.prefill(params, cfg, {"tokens": tokens[:1, :128]}, warm, device=dev)
+    prompt = {"tokens": torch.randint(0, cfg.vocab, (b, s - patches), generator=gen, device=dev)}
+    if patches:
+        prompt["patch_embeds"] = torch.randn(b, patches, cfg.d_model, generator=gen,
+                                             device=dev).to(cfg.dtype)
+        prompt["positions_3d"] = mrope_positions(b, patches, s - patches, device=dev)
+    warm = serve.init_cache(cfg, 1, 160, device=dev)  # cuBLAS handles, first launches
+    lg, warm = serve.prefill(params, cfg, {"tokens": prompt["tokens"][:1, :128]}, warm,
+                             device=dev)
     serve.decode_step(params, cfg, lg.argmax(-1), warm, device=dev)
     del warm
-    cache = serve.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS, device=dev)
+    cache = serve.init_cache(cfg, b, s + SERVE_STEPS, device=dev)
+    want_pre, want_step = serve_launch_rule(cfg)
+    want_steps = {k: n * SERVE_STEPS for k, n in want_step.items()}
     torch.cuda.synchronize()
 
     LAUNCHES.clear()
     t0 = time.perf_counter()
-    logits, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
+    logits, cache = serve.prefill(params, cfg, prompt, cache, device=dev)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    pre_launches = {k: LAUNCHES[k] for k in want_pre}
     prefill_finite = bool(torch.isfinite(logits).all())
-    cache_4096 = dict(cache)
+    cache_prefill = dict(cache)  # length S (the steps below update the tensors in place)
     tok = logits.argmax(-1)
+    LAUNCHES.clear()
     t0 = time.perf_counter()
     for _ in range(SERVE_STEPS):
         logits, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
-    launches = {k: LAUNCHES[k] for k in LLM_KERNELS}
-    n_layers = cfg.n_layers
-    want = {"flash_attention": n_layers, "decode_attention": n_layers * SERVE_STEPS,
-            "swiglu": 2 * n_layers * (1 + SERVE_STEPS)}
+    step_launches = {k: LAUNCHES[k] for k in want_steps}
     length = int(cache["length"])
     decode_finite = bool(torch.isfinite(logits).all())
+    state_gb = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
 
+    moe = cfg.family == "moe"
+    dropped = {}
+    if moe:  # the routing, recorded off the clock: moe_layer sorts its logits once more
+        pre_routes, step_routes = [], []
+        lg, c = serve.prefill(params, cfg, prompt, cache_prefill, device=dev,
+                              routing=pre_routes)
+        for _ in range(SERVE_STEPS):
+            lg, c = serve.decode_step(params, cfg, lg.argmax(-1), c, device=dev,
+                                      routing=step_routes)
+        for key, routes in (("prefill", pre_routes), ("decode", step_routes)):
+            pairs = sum(int(r["kept"].numel()) for r in routes)
+            dropped[key] = sum(int((~r["kept"]).sum()) for r in routes) / pairs
+        del lg, c, pre_routes, step_routes
     pre = breakdown_json(*profile_breakdown(
-        lambda: serve.prefill(params, cfg, {"tokens": tokens}, cache_4096, device=dev)))
+        lambda: serve.prefill(params, cfg, prompt, cache_prefill, device=dev)))
     step = breakdown_json(*profile_breakdown(
-        lambda: serve.decode_step(params, cfg, tok, cache_4096, device=dev), calls=5))
-    phase = "llm_serve" if arch == LLM_ARCH else arch.split("-")[0] + "_serve"
-    emit({"phase": phase, "arch": cfg.arch, "layers": n_layers, "dtype": "bfloat16",
-          "params": cfg.params_count(), "prompts": SERVE_B, "prompt_tokens": SERVE_S,
-          "decode_steps": SERVE_STEPS, "launches": launches, "launches_expected": want,
-          "cache_length": length, "init_seconds": init_s, "prefill_seconds": prefill_s,
-          "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
-          "prefill_prompts_per_s": SERVE_B / prefill_s,
+        lambda: serve.decode_step(params, cfg, tok, cache_prefill, device=dev), calls=5))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    phase = ({"moe": "moe_serve", "vlm": "vlm_serve"}.get(cfg.family)
+             or ("llm_serve" if arch == LLM_ARCH else arch.split("-")[0] + "_serve"))
+    emit({"phase": phase, "arch": arch, "layers": cfg.n_layers, "layers_full": full.n_layers,
+          "sites": len(shared_sites(cfg)) if cfg.family == "hybrid" else None,
+          "experts": cfg.n_experts or None, "dtype": "bfloat16", "params": cfg.params_count(),
+          "weights_gb": 2 * sum(t.numel() for _k, t in flatten_with_paths(params)) / 1e9,
+          "prompts": b, "prompt_tokens": s, "patches": patches, "decode_steps": SERVE_STEPS,
+          "capacity_prefill": (max(1, int(cfg.capacity_factor * b * s * cfg.top_k
+                                          / cfg.n_experts)) if moe else None),
+          "capacity_step": (max(1, int(cfg.capacity_factor * b * cfg.top_k / cfg.n_experts))
+                            if moe else None),
+          "dropped_share_prefill": dropped.get("prefill"),
+          "dropped_share_decode": dropped.get("decode"),
+          "launches_prefill": pre_launches, "launches_prefill_expected": want_pre,
+          "launches_decode": step_launches, "launches_decode_expected": want_steps,
+          "cache_length": length, "cache_gb": state_gb, "init_seconds": init_s,
+          "prefill_seconds": prefill_s, "prefill_tokens_per_s": b * s / prefill_s,
+          "prefill_prompts_per_s": b / prefill_s,
           "decode_ms_per_step": decode_s * 1e3 / SERVE_STEPS,
-          "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
-          "prefill_profile": pre, "decode_step_profile": step,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "decode_tokens_per_s": b * SERVE_STEPS / decode_s,
+          "prefill_profile": pre, "decode_step_profile": step, "peak_memory_gb": peak_gb,
           "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
           "seconds": time.perf_counter() - t_phase})
-    check(prefill_finite and decode_finite, f"{phase}: non-finite logits")
-    check(length == SERVE_S + SERVE_STEPS, f"{phase}: cache length {length}")
-    check(launches == want, f"{phase}: launches {launches}, expected {want}")
-    del cache, cache_4096, tokens
+    check(prefill_finite and decode_finite, f"{phase} {arch}: non-finite logits")
+    check(length == s + SERVE_STEPS, f"{phase} {arch}: cache length {length}")
+    check(pre_launches == want_pre,
+          f"{phase} {arch} prefill: launches {pre_launches}, expected {want_pre}")
+    check(step_launches == want_steps,
+          f"{phase} {arch} decode: launches {step_launches}, expected {want_steps}")
+    check(peak_gb < TRAIN_PEAK_GB, f"{phase} {arch}: peak memory {peak_gb:.2f} GB")
+    del cache, cache_prefill, prompt
     torch.cuda.empty_cache()
-    return launches, SERVE_B / prefill_s, SERVE_B * SERVE_STEPS / decode_s, params, cfg
+    launches = {k: pre_launches[k] + step_launches[k] for k in want_pre}
+    return launches, b / prefill_s, b * SERVE_STEPS / decode_s, params, cfg
 
 
 def llm_decode_32k_phase(dev, params, cfg):
@@ -2777,7 +2830,7 @@ def llm_decode_32k_phase(dev, params, cfg):
     (launches, tokens/s)."""
     import torch
 
-    from repro_torch.kernels import LAUNCHES, LLM_KERNELS
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.models import serve
 
     t_phase = time.perf_counter()
@@ -2801,9 +2854,8 @@ def llm_decode_32k_phase(dev, params, cfg):
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / DEC_STEPS
-    launches = {k: LAUNCHES[k] for k in LLM_KERNELS}
-    want = {"flash_attention": 0, "decode_attention": cfg.n_layers * DEC_STEPS,
-            "swiglu": 2 * cfg.n_layers * DEC_STEPS}
+    want = {k: n * DEC_STEPS for k, n in serve_launch_rule(cfg)[1].items()}
+    launches = {k: LAUNCHES[k] for k in want}
     finite = bool(torch.isfinite(logits).all())
     length = int(step_cache["length"])
     prof = breakdown_json(*profile_breakdown(
@@ -2904,14 +2956,11 @@ def launch_serve_phase(plans):
     emit({"phase": "launch_serve", "archs": out, "seconds": time.perf_counter() - t0})
 
 # --------------------------------------------------------------------------- #
-# Phases 14-17: the ssm and hybrid families (rwkv6-1.6b, zamba2-7b)
+# Phase 14: the scans of the ssm and hybrid families (rwkv6-1.6b, zamba2-7b)
 # --------------------------------------------------------------------------- #
-SSM_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
 # rwkv6-1.6b: 32 WKV heads of 64, chunk 32; zamba2-7b: 112 SSD heads of 64,
-# state 64, chunk 64, and a shared block of 32 MHA heads of 112 and a SwiGLU
-# FFN of width 14336 at d_model 3584.
-RWKV_H, RWKV_D, SSD_H, SSD_D, ZAMBA_HQ, ZAMBA_DH = 32, 64, 112, 64, 32, 112
-ZAMBA_D, ZAMBA_F = 3584, 14336
+# state 64, chunk 64.
+RWKV_H, RWKV_D, SSD_H, SSD_D = 32, 64, 112, 64
 # The scans against their plain versions: both compute in float32 (the
 # kernel with fmaf, its own summation order and exp of a difference where
 # the plain version subtracts in another order), so float32 is held to
@@ -2972,18 +3021,14 @@ def ssm_kernels_phase(dev):
     serving shapes (B = 4, S = 4096) in bf16 and float32 with seeded decays
     spread over the models' clamp ranges and a non-zero initial state, at
     the clamp floors against a float64 step recurrence, in the [BH] layout
-    with a short last chunk; flash and decode attention at zamba2's head dim
-    112 (MHA) and SwiGLU at its FFN width (D 3584, F 14336); each timed.
-    Returns the two scans' kernel-table rows."""
+    with a short last chunk; each timed.  (The attention and SwiGLU kernels
+    at zamba2's widths are ``llm_kernels``' "zamba2" cases.)  Returns the
+    two scans' kernel-table rows."""
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
     from repro_torch.kernels.rwkv6_scan import kernel as rk, ref as rr
     from repro_torch.kernels.ssd_scan import kernel as sk, ref as sr
-    from repro_torch.kernels.swiglu import kernel as gk, ref as gr
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(91)
@@ -3146,81 +3191,6 @@ def ssm_kernels_phase(dev):
     del args, x, a, bm, cm, s0
     torch.cuda.empty_cache()
 
-    # Attention at zamba2's shared block: 32 heads of 112, MHA.
-    def flash_work(dtype):
-        size = torch.tensor([], dtype=dtype).element_size()
-        pairs = s * (s + 1) // 2
-        return size * b * s * ZAMBA_DH * 4 * ZAMBA_HQ, 4 * ZAMBA_DH * pairs * b * ZAMBA_HQ
-
-    for dtype in (f32, bf16):
-        q, k, v = (randn((b, s, ZAMBA_HQ, ZAMBA_DH), dtype).transpose(1, 2) for _ in range(3))
-        case = f"B={b},S={s},H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},{dtype_name(dtype)},causal"
-        hold("ssm_parity", "flash_attention", case, fk.attention(q, k, v),
-             fr.attention(q, k, v), ATTN_TOL[dtype_name(dtype)])
-        peak = PEAK_BF16_OPS_PER_S if dtype == bf16 else PEAK_F32_OPS_PER_S
-        extra[f"flash_Dh112_{dtype_name(dtype)}"] = {
-            "ms": median_ms(lambda: fk.attention(q, k, v), **heavy),
-            "plain_ms": median_ms(lambda: fr.attention(q, k, v), runs=3, inner=1),
-            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), **heavy),
-            "device_us": device_us_per_call(lambda: fk.attention(q, k, v),
-                                            LLM_SYMBOLS["flash_attention"], calls=2),
-            "bound_ms": bound(*flash_work(dtype), peak)[0]}
-        del q, k, v
-        torch.cuda.empty_cache()
-        # a window across key tiles and bidirectional, off the 64-row tiles
-        q, k, v = (randn((1, 1000, ZAMBA_HQ, ZAMBA_DH), dtype).transpose(1, 2) for _ in range(3))
-        for kw, name in ((dict(window=100), "window=100"), (dict(causal=False), "bidirectional")):
-            case = f"B=1,S=1000,H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},{dtype_name(dtype)},{name}"
-            hold("ssm_parity", "flash_attention", case, fk.attention(q, k, v, **kw),
-                 fr.attention(q, k, v, **kw), ATTN_TOL[dtype_name(dtype)])
-        del q, k, v
-    s_max, length = s + SERVE_STEPS, s + 1
-    for dtype in (f32, bf16):
-        qd = randn((b, ZAMBA_HQ, ZAMBA_DH), dtype)
-        kc, vc = (randn((b, s_max, ZAMBA_HQ, ZAMBA_DH), dtype) for _ in range(2))
-        for ln in (0, length):  # length 0: the mean of V, as ref.py
-            n = torch.tensor(ln, dtype=torch.int32, device=dev)
-            case = (f"B={b},S_max={s_max},length={ln},H={ZAMBA_HQ}/{ZAMBA_HQ},Dh={ZAMBA_DH},"
-                    f"{dtype_name(dtype)}")
-            hold("ssm_parity", "decode_attention", case, dk.decode_attention(qd, kc, vc, n),
-                 dr.decode_attention(qd, kc, vc, n), ATTN_TOL[dtype_name(dtype)])
-        size = torch.tensor([], dtype=dtype).element_size()
-        q4 = qd[:, :, None]
-        k_valid = kc[:, :length].transpose(1, 2).contiguous()
-        v_valid = vc[:, :length].transpose(1, 2).contiguous()
-        extra[f"decode_Dh112_{dtype_name(dtype)}"] = {
-            "ms": median_ms(lambda: dk.decode_attention(qd, kc, vc, n)),
-            "plain_ms": median_ms(lambda: dr.decode_attention(qd, kc, vc, n), **heavy),
-            "library_ms": median_ms(lambda: F.scaled_dot_product_attention(
-                q4, k_valid, v_valid)),
-            "device_us": device_us_per_call(lambda: dk.decode_attention(qd, kc, vc, n),
-                                            LLM_SYMBOLS["decode_attention"]),
-            "bound_ms": bound(size * (2 * b * ZAMBA_HQ * ZAMBA_DH
-                                      + 2 * b * length * ZAMBA_HQ * ZAMBA_DH),
-                              4 * ZAMBA_DH * length * b * ZAMBA_HQ)[0]}
-        del qd, kc, vc, q4, k_valid, v_valid
-        torch.cuda.empty_cache()
-    # swiglu at zamba2's shared FFN (D = 3584, F = 14336): the prefill's
-    # T = 4 x 4096, the decode step's T = 4 (and 16), and T = 4 in float32.
-    d, f = ZAMBA_D, ZAMBA_F
-    for t, dtype in ((4, f32), (4, bf16), (16, bf16), (b * s, bf16)):
-        args = (randn((t, d), dtype), randn((d, f), dtype, d ** -0.5),
-                randn((d, f), dtype, d ** -0.5), randn((f, d), dtype, f ** -0.5))
-        case = f"T={t},D={d},F={f},{dtype_name(dtype)}"
-        err = hold("ssm_parity", "swiglu", case, gk.swiglu(*args), gr.swiglu(*args),
-                   SWIGLU_TOL[dtype_name(dtype)])
-        size = torch.tensor([], dtype=dtype).element_size()
-        extra[f"swiglu_zamba2_T{t}_{dtype_name(dtype)}"] = {
-            "max_abs_err": err,
-            "ms": median_ms(lambda: gk.swiglu(*args), **heavy),
-            "plain_ms": median_ms(lambda: gr.swiglu(*args), **heavy),
-            "device_us": device_us_per_call(lambda: gk.swiglu(*args), LLM_SYMBOLS["swiglu"]),
-            "plain_device_us": profile_breakdown(lambda: gr.swiglu(*args), calls=5)[1] * 1e3,
-            "bound_ms": bound(size * (2 * t * d + 3 * d * f), 6 * t * d * f,
-                              PEAK_BF16_OPS_PER_S if dtype == bf16 else PEAK_F32_OPS_PER_S)[0]}
-        del args
-        torch.cuda.empty_cache()
     _build.LAUNCHES.clear()  # parity and timing launches are not the path's
     emit({"phase": "ssm_kernels", "seconds": time.perf_counter() - t_phase,
           "rows": {k: {kk: (list(vv) if kk == "bound" else vv) for kk, vv in v.items()
@@ -3229,122 +3199,36 @@ def ssm_kernels_phase(dev):
     return rows
 
 
-def ssm_card_vs_cpu_phase(dev):
-    """rwkv6-1.6b and zamba2-7b at full width cut to 2 layers (zamba2: two
-    mamba layers and one shared-block site), bf16 and float32."""
-    import dataclasses
-
-    import torch
-
-    from repro_torch.configs import get_config
-
-    for arch in SSM_ARCHS:
-        for dtype in (torch.bfloat16, torch.float32):
-            cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2, dtype=dtype)
-            card_vs_cpu(dev, cfg, "ssm_card_vs_cpu")
-
-
-def ssm_serve_phase(dev, arch):
-    """The full model in bf16 (parameters drawn on the card from seed 0): 4
-    prompts x 4096 tokens prefilled, then 32 greedy decode steps, each
-    kernel's launches checked against what the path implies; returns
-    (launches, prompts/s, decode tokens/s)."""
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import LAUNCHES, LLM_KERNELS, SSM_KERNELS
-    from repro_torch.models import serve
-    from repro_torch.models.transformer import init_params, shared_sites
-
-    t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    cfg = get_config(arch, "full")
-    params = init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t_phase
-    names = LLM_KERNELS + SSM_KERNELS
-    zero = dict.fromkeys(names, 0)
-    if cfg.family == "ssm":
-        want_pre, want_step = {**zero, "rwkv6_scan": cfg.n_layers}, dict(zero)
-    else:
-        g = len(shared_sites(cfg))
-        want_pre = {**zero, "ssd_scan": cfg.n_layers, "flash_attention": g, "swiglu": 2 * g}
-        want_step = {**zero, "decode_attention": g, "swiglu": 2 * g}
-    gen = torch.Generator(device=dev).manual_seed(0)
-    tokens = torch.randint(0, cfg.vocab, (SERVE_B, SERVE_S), generator=gen, device=dev)
-    warm = serve.init_cache(cfg, 1, 160, device=dev)  # cuBLAS handles, first launches
-    lg, warm = serve.prefill(params, cfg, {"tokens": tokens[:1, :128]}, warm, device=dev)
-    serve.decode_step(params, cfg, lg.argmax(-1), warm, device=dev)
-    del warm
-    cache = serve.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS, device=dev)
-    torch.cuda.synchronize()
-
-    LAUNCHES.clear()
-    t0 = time.perf_counter()
-    logits, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache, device=dev)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    pre_launches = {k: LAUNCHES[k] for k in names}
-    prefill_finite = bool(torch.isfinite(logits).all())
-    cache_4096 = dict(cache)  # length 4096 (the steps below update the tensors in place)
-    tok = logits.argmax(-1)
-    LAUNCHES.clear()
-    t0 = time.perf_counter()
-    for _ in range(SERVE_STEPS):
-        logits, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
-        tok = logits.argmax(-1)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t0
-    step_launches = {k: LAUNCHES[k] for k in names}
-    want_steps = {k: n * SERVE_STEPS for k, n in want_step.items()}
-    length = int(cache["length"])
-    decode_finite = bool(torch.isfinite(logits).all())
-    state_gb = sum(v.numel() * v.element_size() for v in cache.values()) / 1e9
-    pre = breakdown_json(*profile_breakdown(
-        lambda: serve.prefill(params, cfg, {"tokens": tokens}, cache_4096, device=dev)))
-    step = breakdown_json(*profile_breakdown(
-        lambda: serve.decode_step(params, cfg, tok, cache_4096, device=dev), calls=5))
-    emit({"phase": arch.split("-")[0] + "_serve", "arch": arch, "layers": cfg.n_layers,
-          "dtype": "bfloat16", "params": cfg.params_count(), "prompts": SERVE_B,
-          "prompt_tokens": SERVE_S, "decode_steps": SERVE_STEPS,
-          "launches_prefill": pre_launches, "launches_prefill_expected": want_pre,
-          "launches_decode": step_launches, "launches_decode_expected": want_steps,
-          "cache_length": length, "cache_gb": state_gb, "init_seconds": init_s,
-          "prefill_seconds": prefill_s, "prefill_tokens_per_s": SERVE_B * SERVE_S / prefill_s,
-          "prefill_prompts_per_s": SERVE_B / prefill_s,
-          "decode_ms_per_step": decode_s * 1e3 / SERVE_STEPS,
-          "decode_tokens_per_s": SERVE_B * SERVE_STEPS / decode_s,
-          "prefill_profile": pre, "decode_step_profile": step,
-          "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
-          "seconds": time.perf_counter() - t_phase})
-    check(prefill_finite and decode_finite, f"{arch} serve: non-finite logits")
-    check(length == SERVE_S + SERVE_STEPS, f"{arch} serve: cache length {length}")
-    check(pre_launches == want_pre, f"{arch} prefill: launches {pre_launches}, expected {want_pre}")
-    check(step_launches == want_steps,
-          f"{arch} decode: launches {step_launches}, expected {want_steps}")
-    del params, cache, cache_4096, tokens
-    torch.cuda.empty_cache()
-    launches = {k: pre_launches[k] + step_launches[k] for k in names}
-    return launches, SERVE_B / prefill_s, SERVE_B * SERVE_STEPS / decode_s
-
-
 # --------------------------------------------------------------------------- #
-# Phases 19-21: training (llama3.2-1b, the dense family)
+# Phases 16-18: training
 # --------------------------------------------------------------------------- #
 # train_4k (src/repro/configs/shapes.py:40) cut from batch 256 to 2 to fit
 # one card: params, grads and moments ~15 GB, float32 logits and their grad
 # ~8.4 GB, the plain attention backward's [2, 32, 4096, 4096] float32 score
 # block ~4.3 GB (a few live at once) per layer.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 2, 4096, 8, 4
-# Depth cuts of ``train``: llama at 8 of its 16 layers (a time cut: with
-# its crash-and-resume, the phase's slowest loops are llama's and rwkv6's);
-# zamba2-7b at ZAMBA_TRAIN_LAYERS of its 81 (a memory cut: the whole
-# model's 6.75 B parameters, gradients and moments alone are ~81 GB), 4
-# straight steps, no resume (its checkpoints would copy ~10 bytes per
-# parameter four times over).  Every run's peak stays under TRAIN_PEAK_GB.
-ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS, TRAIN_PEAK_GB = 24, 4, 75.0
-TRAIN_LAYERS = {LLM_ARCH: 8, "zamba2-7b": ZAMBA_TRAIN_LAYERS}
+# Cuts of ``train``: llama at 4 of its 16 layers (a time cut: the moe and
+# vlm runs add ~180 s to the script); rwkv6-1.6b whole; zamba2-7b at
+# ZAMBA_TRAIN_LAYERS (24) of its 81, the most one card holds (the whole
+# model's 6.75 B parameters, gradients and moments alone are ~81 GB;
+# tools/train_peak.py zamba2-7b 18 24 30 peaks 61.35 / 74.37 GB / out of
+# memory), 4 straight steps, no resume (its checkpoints would copy ~10
+# bytes per parameter four times over); mixtral-8x22b at
+# MIXTRAL_TRAIN_LAYERS of its 56 (a memory cut: a layer's parameters,
+# gradients and moments are ~30 GB; tools/train_peak.py: 1 layer peaks at
+# 61.68 GB, 2 run out of memory), with llama's crash-and-resume;
+# kimi-k2-1t-a32b at 1 of its 61 layers with 32 of its 384 experts (one
+# full layer's parameters, gradients and moments are ~233 GB) and its
+# batch cut to 1 (at 2 the 64-head plain attention backward's [2, 64,
+# 4096, 4096] float32 blocks take it past 80 GB), 4 straight steps;
+# qwen2-vl-2b whole, 4 straight steps, its sequence 256 stub patches +
+# 3,840 tokens.  Every run's peak stays under TRAIN_PEAK_GB.
+ZAMBA_TRAIN_LAYERS, TRAIN_SHORT_STEPS, TRAIN_PEAK_GB = 24, 4, 75.0
+MIXTRAL_TRAIN_LAYERS = 1
+TRAIN_CUTS = {LLM_ARCH: dict(n_layers=4), ZAMBA: dict(n_layers=ZAMBA_TRAIN_LAYERS),
+              MIXTRAL: dict(n_layers=MIXTRAL_TRAIN_LAYERS),
+              KIMI: dict(n_layers=1, n_experts=32)}
+TRAIN_BATCH = {KIMI: 1}
 # SwiGLUFn at two llama sequences of train_4k's length.
 TRAIN_T = TRAIN_B * TRAIN_S
 # train_card_vs_cpu: full width, 2 layers, float32, B 2 x S 256 (the scan
@@ -3653,34 +3537,46 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
 
 
 def train_launch_rule(cfg, steps):
-    """Kernel launches of ``steps`` training steps, forward only (the
-    backward runs the plain versions): per step one ``flash_attention`` and
-    two ``swiglu`` per dense layer or zamba2 shared-block site, one
-    ``rwkv6_scan`` per rwkv6 layer, one ``ssd_scan`` per mamba layer."""
-    from repro_torch.kernels import LLM_KERNELS, SSM_KERNELS
-    from repro_torch.models.transformer import shared_sites
+    """Kernel launches of ``steps`` training steps: each step's forward
+    launches what a prefill does (:func:`serve_launch_rule`); the backward
+    runs the plain versions."""
+    return {k: n * steps for k, n in serve_launch_rule(cfg)[0].items()}
 
-    per = dict.fromkeys(LLM_KERNELS + SSM_KERNELS, 0)
-    if cfg.family == "dense":
-        per.update(flash_attention=cfg.n_layers, swiglu=2 * cfg.n_layers)
-    elif cfg.family == "ssm":
-        per.update(rwkv6_scan=cfg.n_layers)
-    else:
-        sites = len(shared_sites(cfg))
-        per.update(ssd_scan=cfg.n_layers, flash_attention=sites, swiglu=2 * sites)
-    return {k: n * steps for k, n in per.items()}
+
+def vlm_stub_inputs(cfg, seed):
+    """``TrainLoop``'s ``batch_inputs`` for the vlm family, whose loader
+    yields tokens only: ``N_PATCHES`` stub patch embeddings (standard
+    normal in ``cfg.dtype``, drawn on the batch's device from ``seed`` and
+    the stream position, so a resumed run sees the same) ahead of the text,
+    and their M-RoPE ids (qwen2-vl's grid layout)."""
+    import torch
+
+    from repro_torch.configs.qwen2_vl_2b import N_PATCHES
+    from repro_torch.models.common import mrope_positions
+
+    def inputs(position, batch):
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        gen = torch.Generator(device=tokens.device).manual_seed(seed * 1_000_003 + position)
+        patches = torch.randn((b, N_PATCHES, cfg.d_model), generator=gen, device=tokens.device)
+        return {"patch_embeds": patches.to(cfg.dtype),
+                "positions_3d": mrope_positions(b, N_PATCHES, s, device=tokens.device)}
+
+    return inputs
 
 
 def train_phase(dev, arch=LLM_ARCH, steps=TRAIN_STEPS, resume=True):
-    """``arch`` at full width (llama3.2-1b: d 2048, vocab 128,256, cut to 8
-    of its 16 layers; rwkv6-1.6b at full depth, 24 layers, d 2048, vocab
-    65,536; zamba2-7b: d 3584, cut to ``ZAMBA_TRAIN_LAYERS`` of its 81
-    layers -- ``TRAIN_LAYERS``; bf16 parameters, float32 moments) through
-    ``TrainLoop``: ``train_4k``'s sequence of 4096 with its batch cut from
-    256 to 2, ``steps`` steps with a checkpoint every ``TRAIN_CKPT``
-    (launches counted exactly, :func:`train_launch_rule`), then, with
-    ``resume``, a second loop that crashes at step ``TRAIN_CKPT`` and a
-    third that resumes to ``steps``.  The loops run under
+    """``arch`` at full width, cut as ``TRAIN_CUTS`` says (bf16 parameters,
+    float32 moments), through ``TrainLoop``: ``train_4k``'s sequence of
+    4096 (the vlm family's 256 stub patches from :func:`vlm_stub_inputs`
+    and 3,840 tokens) with its batch cut from 256 to 2 (kimi's to 1,
+    ``TRAIN_BATCH``), ``steps`` steps without
+    checkpoints (``ckpt_every=0``; launches counted exactly,
+    :func:`train_launch_rule`), then, with ``resume``, a second loop that
+    checkpoints every ``TRAIN_CKPT`` and crashes at step ``TRAIN_CKPT`` and a
+    third that resumes from that checkpoint to ``steps`` without writing
+    one, so the disk holds one checkpoint (mixtral's is 29 GB; the card's
+    machine takes a 45 GiB high-water mark of writes).  The loops run under
     ``torch.use_deterministic_algorithms`` (an op with a nondeterministic
     CUDA implementation, such as the accumulating backward of the
     embedding gather, takes its deterministic one or raises), so a resume
@@ -3694,14 +3590,18 @@ def train_phase(dev, arch=LLM_ARCH, steps=TRAIN_STEPS, resume=True):
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.qwen2_vl_2b import N_PATCHES
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.training.optimizer import AdamWConfig
 
     t_phase = time.perf_counter()
     full = get_config(arch, "full")
-    cfg = dataclasses.replace(full, n_layers=TRAIN_LAYERS.get(arch, full.n_layers))
+    cfg = dataclasses.replace(full, **TRAIN_CUTS.get(arch, {}))
     opt = AdamWConfig(lr=3e-4, warmup_steps=2, decay_steps=steps)
-    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_B, seq_len=TRAIN_S, seed=0)
+    # the vlm sequence: the stub patches (vlm_stub_inputs), then the text
+    seq = TRAIN_S - (N_PATCHES if cfg.family == "vlm" else 0)
+    data = DataConfig(vocab=cfg.vocab, batch=TRAIN_BATCH.get(arch, TRAIN_B), seq_len=seq,
+                      seed=0)
     with _deterministic():
         out = _train_loops(dev, cfg, opt, data, steps, resume)
     return _train_report(cfg, steps, *out, time.perf_counter() - t_phase)
@@ -3711,7 +3611,6 @@ def _train_loops(dev, cfg, opt, data, steps, resume):
     """``train_phase``'s loops: the straight run (launches, times, peak
     memory) and, with ``resume``, the crash at ``TRAIN_CKPT`` and the
     resume (else those three are None)."""
-    import shutil
     import tempfile
 
     import torch
@@ -3723,13 +3622,15 @@ def _train_loops(dev, cfg, opt, data, steps, resume):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         work = pathlib.Path(tmp)
 
-        def loop(name):
-            return TrainLoop(cfg, opt, LoopConfig(total_steps=steps, ckpt_every=TRAIN_CKPT,
+        def loop(name, every):
+            return TrainLoop(cfg, opt, LoopConfig(total_steps=steps, ckpt_every=every,
                                                   log_every=1),
-                             ckpt_dir=work / name, data_cfg=data, device=dev)
+                             ckpt_dir=work / name, data_cfg=data, device=dev,
+                             batch_inputs=(vlm_stub_inputs(cfg, data.seed)
+                                           if cfg.family == "vlm" else None))
 
         torch.cuda.reset_peak_memory_stats()
-        straight = loop("straight")
+        straight = loop("straight", 0)  # the reference run writes no checkpoint
         LAUNCHES.clear()
         t0 = time.perf_counter()
         state_a = straight.run()
@@ -3742,18 +3643,17 @@ def _train_loops(dev, cfg, opt, data, steps, resume):
         params_a = ({k: t.cpu() for k, t in flatten_with_paths(state_a.params)} if resume
                     else None)
         del state_a
-        shutil.rmtree(work / "straight")
         torch.cuda.empty_cache()
         first = second = None
         crashed, resumed_s, diff, differ = False, None, 0.0, []
         if resume:
-            first = loop("resumed")
+            first = loop("resumed", TRAIN_CKPT)
             t0 = time.perf_counter()
             try:
                 first.run(crash_at=TRAIN_CKPT)
             except RuntimeError:
                 crashed = True
-            second = loop("resumed")
+            second = loop("resumed", 0)  # restores TRAIN_CKPT, writes nothing
             state_b = second.run()
             resumed_s = time.perf_counter() - t0
             params_b = {k: t.cpu() for k, t in flatten_with_paths(state_b.params)}
@@ -3770,6 +3670,7 @@ def _train_report(cfg, steps, straight, first, second, crashed, launches, want, 
                   workers, straight_s, resumed_s, diff, differ, seconds):
     """Emit ``train_phase``'s record, make its checks, return its launches."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.qwen2_vl_2b import N_PATCHES
     from repro_torch.models.transformer import shared_sites
 
     full = get_config(cfg.arch)
@@ -3781,16 +3682,21 @@ def _train_report(cfg, steps, straight, first, second, crashed, launches, want, 
     steady = statistics.median(steps_ms[1:])
     sites = len(shared_sites(cfg)) if cfg.family == "hybrid" else None
     emit({"phase": "train", "arch": cfg.arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab, "sites": sites, "params": cfg.params_count(),
+          "vocab": cfg.vocab, "sites": sites, "experts": cfg.n_experts or None,
+          "params": cfg.params_count(),
           "params_full_depth": full.params_count(), "param_dtype": "bfloat16",
           "moment_dtype": "float32",
-          "cut": f"train_4k batch 256 -> {TRAIN_B} (sequence {TRAIN_S} kept)" + (
+          "cut": f"train_4k batch 256 -> {straight.data_cfg.batch} (sequence {TRAIN_S} kept" + (
+              f": {N_PATCHES} stub patches + {TRAIN_S - N_PATCHES} tokens)"
+              if cfg.family == "vlm" else ")") + (
               f"; depth {full.n_layers} -> {cfg.n_layers} layers"
-              if full.n_layers != cfg.n_layers else ""),
+              if full.n_layers != cfg.n_layers else "") + (
+              f"; experts {full.n_experts} -> {cfg.n_experts}"
+              if full.n_experts != cfg.n_experts else ""),
           "steps": steps, "ckpt_every": TRAIN_CKPT, "losses": losses,
           "resumed_losses": resumed, "grad_norms": norms,
           "step_ms": steps_ms, "step_ms_median_after_first": steady,
-          "tokens_per_s": TRAIN_B * TRAIN_S / (steady / 1e3),
+          "tokens_per_s": straight.data_cfg.batch * TRAIN_S / (steady / 1e3),
           "peak_memory_gb": peak_gb, "peak_limit_gb": TRAIN_PEAK_GB, "loader_workers": workers,
           "straight_run_s": straight_s, "crash_and_resume_s": resumed_s,
           "deterministic_algorithms": True,
@@ -3849,12 +3755,10 @@ def main() -> int:
 
     rows = kernel_phase(dev)
     rows.update(llm_kernels_phase(dev))
-    for k, extra in llm128_kernels_phase(dev).items():
-        rows[k].update(extra)
     rows.update(ssm_kernels_phase(dev))
     if quick:
         emit({"phase": "kernels_only", "rows": {k: {kk: vv for kk, vv in v.items()
-                                                      if kk != "bound"}
+                                                      if kk not in ("bound", "shapes")}
                                                   for k, v in rows.items()}})
         return 0
     launches = main_path_phase(dev)
@@ -3869,37 +3773,34 @@ def main() -> int:
     for phase in (soak_phase, fleet_plan_phase, fleet_live_phase, fleet_mesh_phase):
         for k, n in phase(dev).items():
             launches[k] += n
-    llm_card_vs_cpu_phase(dev)
-    serve_launches, prompts_per_s, tokens_per_s, params, cfg = llm_serve_phase(dev)
-    dec_launches, _tokens_per_s_32k = llm_decode_32k_phase(dev, params, cfg)
-    launches.update({k: serve_launches[k] + dec_launches[k] for k in serve_launches})
-    plans = {LLM_ARCH: serving_plan_phase(prompts_per_s, tokens_per_s)}
-    del params
-    torch.cuda.empty_cache()
-    # phi3-medium-14b at full width and depth: the dense path at head dim 128
-    dense128, prompts_per_s, tokens_per_s, params, _cfg = llm_serve_phase(dev, PHI3_ARCH)
-    del params
-    torch.cuda.empty_cache()
-    dh128_launches = dict(dense128)
-    for k, n in dense128.items():
-        launches[k] += n
-    plans[PHI3_ARCH] = serving_plan_phase(prompts_per_s, tokens_per_s, PHI3_ARCH)
-    ssm_card_vs_cpu_phase(dev)
-    for arch in SSM_ARCHS:
-        ssm_launches, prompts_per_s, tokens_per_s = ssm_serve_phase(dev, arch)
-        for k, n in ssm_launches.items():
+    by_path = {}  # kernel -> path -> launches, for the LLM and scan kernels
+
+    def count(path, counts):
+        for k, n in counts.items():
             launches[k] = launches.get(k, 0) + n
-        plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
+            if n:
+                by_path.setdefault(k, {})[path] = n
+
+    card_vs_cpu_phase(dev)
+    plans = {}
+    for arch in SERVED_ARCHS:
+        served, prompts_per_s, tokens_per_s, params, cfg = serve_phase(dev, arch)
+        count(f"{arch} serve", served)
+        if arch == LLM_ARCH:
+            count("llm_decode_32k", llm_decode_32k_phase(dev, params, cfg)[0])
+        del params
+        torch.cuda.empty_cache()
+        if arch not in SERVE_LAYERS:  # an arch cut in depth is planned under no name
+            plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
     launch_serve_phase(plans)
     train_rows = train_kernels_phase(dev)
     for arch in (LLM_ARCH, *SSM_ARCHS):
         train_card_vs_cpu_phase(dev, arch)
-    for arch, steps, resume in ((LLM_ARCH, TRAIN_STEPS, True), ("rwkv6-1.6b", TRAIN_STEPS, True),
-                                ("zamba2-7b", ZAMBA_TRAIN_STEPS, False)):
-        for k, n in train_phase(dev, arch, steps, resume).items():
-            launches[k] = launches.get(k, 0) + n
-    for k in ("flash_attention", "decode_attention"):
-        rows[k]["dh128"]["launches"] = dh128_launches[k]
+    for arch, steps, resume in ((LLM_ARCH, TRAIN_STEPS, True), (SSM_ARCHS[0], TRAIN_STEPS, True),
+                                (ZAMBA, TRAIN_SHORT_STEPS, False),
+                                (MIXTRAL, TRAIN_STEPS, True), (KIMI, TRAIN_SHORT_STEPS, False),
+                                (QWEN_VL, TRAIN_SHORT_STEPS, False)):
+        count(f"{arch} train", train_phase(dev, arch, steps, resume))
 
     kernels = []
     for k, row in rows.items():
@@ -3910,7 +3811,8 @@ def main() -> int:
             "launches": launches[k], "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": row.get("library_ms"), **train_rows.get(k, {}),
-            **{key: row[key] for key in ("dh128", "widths") if key in row},
+            **({"launches_by_path": by_path[k]} if k in by_path else {}),
+            **({"shapes": row["shapes"]} if "shapes" in row else {}),
         })
     print(card, flush=True)
     emit({"kernels": kernels})

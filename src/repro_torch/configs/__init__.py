@@ -4,10 +4,11 @@
 .ModelConfig`: preset ``"full"`` is the published configuration, ``"smoke"``
 a reduced one of the same family for CPU tests.  Ported: the dense
 family's ``llama3.2-1b`` (head dim 64) and ``phi3-medium-14b``, ``yi-34b``
-and ``command-r-35b`` (head dim 128), the ssm family's ``rwkv6-1.6b`` and
-the hybrid family's ``zamba2-7b``; every other architecture in
-:data:`ARCHS` raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+and ``command-r-35b`` (head dim 128), the moe family's ``mixtral-8x22b``
+(head dim 128) and ``kimi-k2-1t-a32b`` (head dim 112), the vlm family's
+``qwen2-vl-2b`` (head dim 128), the ssm family's ``rwkv6-1.6b`` and the
+hybrid family's ``zamba2-7b``; ``whisper-medium`` raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -31,13 +32,11 @@ ARCHS = [
 
 _MODULES = {"llama3.2-1b": "llama3_2_1b", "phi3-medium-14b": "phi3_medium_14b",
             "yi-34b": "yi_34b", "command-r-35b": "command_r_35b", "rwkv6-1.6b": "rwkv6_1_6b",
-            "zamba2-7b": "zamba2_7b"}
+            "zamba2-7b": "zamba2_7b", "mixtral-8x22b": "mixtral_8x22b",
+            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "qwen2-vl-2b": "qwen2_vl_2b"}
 
 # Where each unported architecture waits (ROADMAP Queue 1 item 5).
 _WAITS = {
-    "qwen2-vl-2b": "vlm family: M-RoPE and patch embeddings",
-    "mixtral-8x22b": "moe family: moe_layer and expert parallelism",
-    "kimi-k2-1t-a32b": "moe family: moe_layer and expert parallelism",
     "whisper-medium": "audio family: encoder-decoder attention",
 }
 
@@ -59,8 +58,10 @@ def get_config(arch: str, preset: str = "full"):
 def for_kernels(cfg):
     """``cfg`` as the card's attention kernels can run it: a head dim they
     are built for is kept; a smaller one (the smoke configs' 16) is widened
-    to 64, with ``d_model = n_heads x 64`` and ``d_ff`` scaled alike, so a
-    smoke run on the card keeps the config's depth, heads and vocab."""
+    to 64, with ``d_model = n_heads x 64`` and ``d_ff``, the experts'
+    ``moe_d_ff`` and the M-RoPE bands (``mrope_sections``, which sum to half
+    the head dim) scaled alike, so a smoke run on the card keeps the
+    config's depth, heads, experts and vocab."""
     import dataclasses
 
     from ..kernels.flash_attention.kernel import HEAD_DIMS
@@ -69,4 +70,5 @@ def for_kernels(cfg):
         return cfg
     scale = min(HEAD_DIMS) // cfg.head_dim_
     return dataclasses.replace(cfg, head_dim=0, d_model=cfg.n_heads * min(HEAD_DIMS),
-                               d_ff=cfg.d_ff * scale)
+                               d_ff=cfg.d_ff * scale, moe_d_ff=cfg.moe_d_ff * scale,
+                               mrope_sections=tuple(n * scale for n in cfg.mrope_sections))

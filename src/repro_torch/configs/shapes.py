@@ -21,6 +21,7 @@ from dataclasses import dataclass
 import torch
 
 from . import get_config
+from .qwen2_vl_2b import N_PATCHES
 
 __all__ = ["SHAPES", "ShapeSpec", "input_specs", "cell_is_supported", "skip_reason"]
 
@@ -66,16 +67,24 @@ def _meta(shape, dtype) -> torch.Tensor:
 def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
     """Every model input of the cell as a meta tensor: the train step's
     batch (``train``), the prompt batch (``prefill``) or the one-token batch
-    (``decode``; the cache comes from ``models.serve.init_cache``).  Raises
-    ``NotImplementedError`` for an architecture the port does not run (the
-    vlm and audio families' extra inputs come with those families, ROADMAP
-    Queue 1 item 5)."""
-    get_config(arch, "full")  # raises for an architecture the port does not run
+    (``decode``; the cache comes from ``models.serve.init_cache``).  The vlm
+    family's sequence holds ``N_PATCHES`` patch embeddings ahead of the
+    text, with their M-RoPE position ids.  Raises ``NotImplementedError``
+    for an architecture the port does not run (the audio family's frames
+    come with that family, ROADMAP Queue 1 item 5)."""
+    cfg = get_config(arch, "full")  # raises for an architecture the port does not run
     spec = SHAPES[shape]
     b, s = spec.global_batch, spec.seq_len
     i32 = torch.int32
+    if spec.kind == "decode":
+        return {"tokens": _meta((b,), i32)}
+    if cfg.family == "vlm":
+        batch = {"tokens": _meta((b, s - N_PATCHES), i32)}
+        if spec.kind == "train":
+            batch["labels"] = _meta((b, s - N_PATCHES), i32)
+        batch["patch_embeds"] = _meta((b, N_PATCHES, cfg.d_model), cfg.dtype)
+        batch["positions_3d"] = _meta((3, b, s), i32)
+        return batch
     if spec.kind == "train":
         return {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
-    if spec.kind == "prefill":
-        return {"tokens": _meta((b, s), i32)}
-    return {"tokens": _meta((b,), i32)}
+    return {"tokens": _meta((b, s), i32)}

@@ -370,27 +370,35 @@ cudaError_t run(const Args* a, int device, cudaStream_t s, int* blocks_per_sm) {
 
 // Instantiated for the (head dim, query heads per KV head) pairs of the
 // ported configs: llama3.2-1b (64, 32 / 8 = 4), zamba2-7b's shared
-// attention (112, MHA: 1), phi3-medium-14b (128, 40 / 10 = 4), yi-34b
-// (128, 56 / 8 = 7) and command-r-35b (128, 64 / 8 = 8); and the smoke
-// configs of the last three at the kernels' head dim of 64
-// (`configs.for_kernels` widens their head dims and keeps their ratios of
-// 2, 7 and 8).  Other shapes are added when a config needs them.  `a ==
-// nullptr` asks for the split kernel's blocks per SM instead of launching.
+// attention (112, MHA: 1), kimi-k2-1t-a32b (112, 64 / 8 = 8),
+// phi3-medium-14b (128, 40 / 10 = 4), mixtral-8x22b (128, 48 / 8 = 6),
+// qwen2-vl-2b (128, 12 / 2 = 6), yi-34b (128, 56 / 8 = 7) and
+// command-r-35b (128, 64 / 8 = 8); and the smoke configs at the kernels'
+// head dim of 64 (`configs.for_kernels` widens their head dims and keeps
+// their ratios of 2, 3, 7 and 8).  (112, 8) holds q and the accumulator as
+// 8 x kVec registers a thread, as (128, 8) does.  Other shapes are added
+// when a config needs them.  `a == nullptr` asks for the split kernel's
+// blocks per SM instead of launching.
 template <typename T>
 cudaError_t dispatch(int dh, int n_rep, const Args* a, int device, cudaStream_t s,
                      int* blocks_per_sm) {
   if (dh == 64) {
     switch (n_rep) {
       case 2: return run<T, 64, 2>(a, device, s, blocks_per_sm);
+      case 3: return run<T, 64, 3>(a, device, s, blocks_per_sm);
       case 4: return run<T, 64, 4>(a, device, s, blocks_per_sm);
       case 7: return run<T, 64, 7>(a, device, s, blocks_per_sm);
       case 8: return run<T, 64, 8>(a, device, s, blocks_per_sm);
     }
-  } else if (dh == 112 && n_rep == 1) {
-    return run<T, 112, 1>(a, device, s, blocks_per_sm);
+  } else if (dh == 112) {
+    switch (n_rep) {
+      case 1: return run<T, 112, 1>(a, device, s, blocks_per_sm);
+      case 8: return run<T, 112, 8>(a, device, s, blocks_per_sm);
+    }
   } else if (dh == 128) {
     switch (n_rep) {
       case 4: return run<T, 128, 4>(a, device, s, blocks_per_sm);
+      case 6: return run<T, 128, 6>(a, device, s, blocks_per_sm);
       case 7: return run<T, 128, 7>(a, device, s, blocks_per_sm);
       case 8: return run<T, 128, 8>(a, device, s, blocks_per_sm);
     }

@@ -1,16 +1,21 @@
 """Training launcher of the port: a model of the dense (llama3.2-1b,
-phi3-medium-14b, yi-34b, command-r-35b), ssm (rwkv6-1.6b) or hybrid
-(zamba2-7b) family through the checkpointed
-:class:`~repro_torch.training.loop.TrainLoop` (async checkpoints,
+phi3-medium-14b, yi-34b, command-r-35b), moe (mixtral-8x22b,
+kimi-k2-1t-a32b), ssm (rwkv6-1.6b) or hybrid (zamba2-7b) family through
+the checkpointed :class:`~repro_torch.training.loop.TrainLoop` (async
+checkpoints,
 straggler log, crash and resume) on the card, or on the CPU with
 ``--device cpu``.  ``--preset full`` trains the published width and
 depth and needs the card; on the card ``--preset smoke`` runs at the
-attention kernels' head dim (``configs.for_kernels``).
+attention kernels' head dim (``configs.for_kernels``).  The vlm family
+(qwen2-vl-2b) also reads image inputs, which the token stream does not
+hold: the launcher refuses it (``TrainLoop(batch_inputs=...)`` trains it).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --preset smoke --steps 200 --ckpt build/train_ckpt --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
       --steps 20 --ckpt build/train_rwkv6 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \
+      --steps 20 --ckpt build/train_mixtral --device cpu
 """
 
 from __future__ import annotations
@@ -44,6 +49,9 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch, args.preset)
     if args.device != "cpu":
         cfg = for_kernels(cfg)
+    if cfg.family == "vlm":
+        raise SystemExit(f"{args.arch}: the token stream holds no image inputs; train it "
+                         "through TrainLoop(batch_inputs=...)")
     loop = TrainLoop(
         cfg,
         AdamWConfig(lr=args.lr, warmup_steps=10, decay_steps=args.steps),

@@ -1,4 +1,4 @@
-"""Model layer of the port: the dense, ssm and hybrid families (see
+"""Model layer of the port: the dense, moe, vlm, ssm and hybrid families (see
 ``transformer.py``), their serving path (``serve``) and the training loss.
 The reference's logical-axis rules (``axis_rules``, ``logical_to_spec``)
 wait for the dry-run (ROADMAP Queue 1 item 6)."""

@@ -1,4 +1,5 @@
-"""GQA attention for the dense family: prefill / training attention and
+"""GQA attention for the decoder families (dense, moe, vlm) and zamba2's
+shared block: prefill / training attention and
 KV-cache decode (the port of ``repro/models/attention.py``).
 
 Both go through the Hopper kernels -- ``attention_train`` through

@@ -3,19 +3,21 @@
 
 There is no sharding on one device, so the logical-axis rules and
 ``shard()`` are not ported; ``ParamStore``'s distributions live in
-:func:`repro_torch.models.transformer.init_params`.  Norms and RoPE compute
-in float32 inside and cast back to the input's dtype, as the reference
-does.
+:func:`repro_torch.models.transformer.init_params`.  Norms, RoPE and
+Qwen2-VL's multimodal RoPE (:func:`apply_mrope`) compute in float32 inside
+and cast back to the input's dtype, as the reference does.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "rms_norm", "rope_frequencies", "apply_rope", "cross_entropy_loss"]
+__all__ = ["ModelConfig", "rms_norm", "rope_frequencies", "apply_rope", "apply_mrope",
+           "mrope_positions", "cross_entropy_loss"]
 
 
 @dataclass(frozen=True)
@@ -130,6 +132,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE (arXiv:2409.12191 §3.1): x [B, S, H, Dh],
+    positions_3d [3, B, S] the (t, h, w) position ids.  The half head dim is
+    cut into ``sections`` frequency bands, in that order; each band rotates
+    by its own position stream."""
+    dh = x.shape[-1]
+    if sum(sections) != dh // 2:
+        raise ValueError(f"apply_mrope: sections {tuple(sections)} do not sum to {dh // 2}")
+    inv = rope_frequencies(dh, theta, device=x.device)
+    sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                     torch.tensor(sections, device=x.device))  # [Dh/2]
+    pos = positions_3d.to(torch.float32)[sec_id]  # [Dh/2, B, S]
+    angles = pos.permute(1, 2, 0) * inv  # [B, S, Dh/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def mrope_positions(b: int, n_patches: int, s_text: int, *, device=None) -> torch.Tensor:
+    """Qwen2-VL's (t, h, w) position ids [3, B, P + S] (int64) of one image
+    of ``n_patches`` patches on a square grid (t 0, h the row, w the
+    column) ahead of ``s_text`` text tokens, whose three ids continue from
+    the largest patch id plus one."""
+    side = math.isqrt(n_patches)
+    if side * side != n_patches:
+        raise ValueError(f"mrope_positions: {n_patches} patches are not a square grid")
+    i = torch.arange(n_patches, device=device)
+    patch = torch.stack([torch.zeros_like(i), i // side, i % side])
+    text = torch.arange(s_text, device=device).expand(3, s_text) + (side if n_patches else 0)
+    return torch.cat([patch, text], dim=1)[:, None].expand(3, b, n_patches + s_text)
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -1,10 +1,12 @@
 """Serving paths: cache init, prefill and single-token decode for the
-dense, ssm and hybrid families (the port of ``repro/models/serve.py``).
+dense, moe, vlm, ssm and hybrid families (the port of
+``repro/models/serve.py``).
 
 Caches are the reference's dicts, with ``length`` a 0-dim int32 tensor on
 the device:
 
-  dense   ``k`` / ``v`` [L, B, S_max, Hkv, Dh];
+  dense, moe, vlm  ``k`` / ``v`` [L, B, S_max, Hkv, Dh] (vlm: the patches
+          fill the first positions);
   ssm     ``wkv`` [L, B, H, Dk, Dv] float32 and the token shifts
           ``tm_shift`` / ``cm_shift`` [L, B, D];
   hybrid  ``ssm`` [L, B, H, Dst, 64] float32 and the shared block's
@@ -14,9 +16,13 @@ Unlike the reference's pure functions, :func:`prefill` and
 :func:`decode_step` write into the cache tensors in place (a decode step
 would otherwise copy the whole cache) and return a new dict with the new
 ``length``.  The decode write position and the attention kernel's length
-both come from that device tensor, so a step makes no host sync.  The moe,
-vlm and audio families raise ``NotImplementedError`` (ROADMAP Queue 1 item
-5).
+both come from that device tensor, so a step makes no host sync.  The MoE
+layers' aux losses are discarded, as the reference discards them; their
+capacity counts the tokens of each call, so a B = 4 decode step has one
+slot per expert (mixtral-8x22b, kimi-k2-1t-a32b) and drops are part of the
+semantics.  The vlm decode rotates with all three M-RoPE streams at
+``length``, as the reference does.  The audio family raises
+``NotImplementedError`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -25,14 +31,17 @@ import torch
 
 from ..device import resolve_device
 from .attention import attention_decode, init_kv_cache
-from .common import ModelConfig, apply_rope, rms_norm
+from .common import ModelConfig, rms_norm
 from .transformer import (
-    _attn_block,
+    DECODER_FAMILIES,
     _ffn_block,
     _mamba2_mixer,
+    _qkv,
     _rwkv_layers,
     _zamba_layers,
     attention_window,
+    decoder_layers,
+    embed_inputs,
     layer_params,
     lm_head,
     require_ported,
@@ -49,7 +58,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device=None) -> Cach
     ``device`` (default: the CUDA device)."""
     require_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family == "dense":
+    if cfg.family in DECODER_FAMILIES:
         return init_kv_cache(cfg, batch, s_max, device=dev)._asdict()
     L, d, dt = cfg.n_layers, cfg.d_model, cfg.dtype
     length = torch.zeros((), dtype=torch.int32, device=dev)
@@ -73,26 +82,24 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device=None) -> Cach
 
 
 @torch.no_grad()
-def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device=None
-            ) -> tuple[torch.Tensor, Cache]:
-    """Process the prompts ``batch["tokens"]`` [B, S]; fill the cache's
-    first S positions (in place); return the last position's logits [B, V]
-    and the cache at length S.  Runs on ``device`` (default: the CUDA
-    device), where the parameters and the cache must be."""
+def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device=None,
+            routing: list | None = None) -> tuple[torch.Tensor, Cache]:
+    """Process the prompts ``batch["tokens"]`` [B, S] (vlm: after the
+    patches ``batch["patch_embeds"]`` [B, P, D], rotated by
+    ``batch["positions_3d"]`` [3, B, P + S] when given); fill the cache's
+    first S (P + S) positions (in place); return the last position's logits
+    [B, V] and the cache at that length.  Runs on ``device`` (default: the
+    CUDA device), where the parameters and the cache must be.  ``routing``
+    (a list) receives each MoE layer's routing (``models/ffn.py``)."""
     require_ported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
-    b, s = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(s, device=dev)[None].expand(b, s)
-    if cfg.family == "dense":
-        window = attention_window(cfg)
-        for i in range(cfg.n_layers):
-            lp = layer_params(params, i)
-            x, (k, v) = _attn_block(lp, x, cfg, positions, window=window)
-            x = _ffn_block(lp, x, cfg)
-            cache["k"][i, :, :s] = k.to(cfg.dtype)
-            cache["v"][i, :, :s] = v.to(cfg.dtype)
+    x, positions = embed_inputs(params, cfg, batch, tokens)
+    s = x.shape[1]
+    if cfg.family in DECODER_FAMILIES:
+        p3 = batch.get("positions_3d")
+        p3 = None if p3 is None else torch.as_tensor(p3, device=dev)
+        x, _aux = decoder_layers(params, x, cfg, positions, p3, routing=routing, cache=cache)
     elif cfg.family == "ssm":
         # the reference's prefill starts from zero shifts and states
         for key in ("wkv", "tm_shift", "cm_shift"):
@@ -105,11 +112,11 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device
 
 
 @torch.no_grad()
-def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=None
-                ) -> tuple[torch.Tensor, Cache]:
+def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=None,
+                routing: list | None = None) -> tuple[torch.Tensor, Cache]:
     """tokens [B] -> (logits [B, V], the cache one token longer).  The new
     keys and values go to position ``cache["length"]`` of every layer, in
-    place."""
+    place.  ``routing``: as :func:`prefill`'s."""
     require_ported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev)
@@ -122,13 +129,14 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=
         return lm_head(params, cfg, x)[:, 0], {**cache, "length": new_length}
     positions = length.reshape(1, 1).expand(b, 1)
     slot = length.reshape(1).to(torch.int64)
-    if cfg.family == "dense":
+    if cfg.family in DECODER_FAMILIES:
         window = attention_window(cfg)
+        p3 = length.reshape(1, 1, 1).expand(3, b, 1) if cfg.m_rope else None
         for i in range(cfg.n_layers):
             lp = layer_params(params, i)
             x = _attn_decode(lp, x, cfg, positions, slot, new_length, cache["k"][i],
-                             cache["v"][i], window)
-            x = _ffn_block(lp, x, cfg)
+                             cache["v"][i], window, p3)
+            x = _ffn_block(lp, x, cfg, routing=routing)[0]
     else:
         sp = layer_params(params, 0, "shared_attn")
         for g, (lo, hi) in enumerate(shared_sites(cfg)):
@@ -140,23 +148,18 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=
                 cache["ssm"][i] = st
             x = _attn_decode(sp, x, cfg, positions, slot, new_length, cache["k"][g],
                              cache["v"][g], None)
-            x = _ffn_block(sp, x, cfg)
+            x = _ffn_block(sp, x, cfg)[0]
     return lm_head(params, cfg, x)[:, 0], {**cache, "length": new_length}
 
 
 def _attn_decode(lp: dict, x, cfg: ModelConfig, positions, slot, new_length, k_row, v_row,
-                 window):
+                 window, positions_3d=None):
     """One token's pre-norm attention with a residual: its key and value go
     to position ``slot`` of the layer's (or site's) cache rows, in place,
     then it attends over the first ``new_length`` positions."""
     b = x.shape[0]
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     h2 = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h2 @ lp["wq"]).reshape(b, 1, hq, dh)
-    k = (h2 @ lp["wk"]).reshape(b, 1, hkv, dh)
-    v = (h2 @ lp["wv"]).reshape(b, 1, hkv, dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(lp, h2, cfg, positions, positions_3d)
     k_row.index_copy_(1, slot, k.to(cfg.dtype))
     v_row.index_copy_(1, slot, v.to(cfg.dtype))
     o = attention_decode(q, k_row, v_row, new_length, window=window)

@@ -1,7 +1,14 @@
-"""Model assembly -- the port of ``repro/models/transformer.py`` for three
+"""Model assembly -- the port of ``repro/models/transformer.py`` for five
 families:
 
   dense   llama-style (GQA, RoPE, SwiGLU, RMSNorm, no biases);
+  moe     mixtral-8x22b (8 experts, top-2, a sliding window) and kimi-k2
+          (384 experts, top-8, one shared expert): the dense attention with
+          a capacity-based top-k MoE FFN (``models/ffn.py``), whose
+          load-balancing loss ``forward`` returns as ``aux``;
+  vlm     qwen2-vl-2b's backbone: qkv biases, M-RoPE over (t, h, w)
+          position streams, and the patch embeddings (a stub input) as a
+          prefix of the sequence;
   ssm     rwkv6 (Finch time-mix with the WKV scan + channel-mix; no
           attention);
   hybrid  zamba2 (Mamba2 SSD layers, with one shared attention + SwiGLU
@@ -9,12 +16,14 @@ families:
 
 Parameters are a plain dict with the reference's names and its stacked
 ``[L, ...]`` layer layout (zamba2's shared block under ``shared_attn``,
-stacked ``[1, ...]``), so a reference pytree carries over one to one
+stacked ``[1, ...]``; kimi's shared expert under ``layers.shared``), so a
+reference pytree carries over one to one
 (:func:`repro_torch.convert.model_params_from_reference`).  The layers run
 in a Python loop (no ``lax.scan``); attention, the FFN and the two scans
 go through the Hopper kernels, and in training through their autograd
-Functions (kernel forward, plain backward).  All three families serve and
-train; the moe, vlm and audio families raise ``NotImplementedError``
+Functions (kernel forward, plain backward); the routed experts' products
+are ``torch.bmm``, as the reference leaves them to XLA.  Every family but
+audio serves and trains; the audio family raises ``NotImplementedError``
 (ROADMAP Queue 1 item 5).
 """
 
@@ -29,15 +38,18 @@ from ..device import resolve_device
 from ..kernels.rwkv6_scan import ops as rwkv6_ops
 from ..kernels.ssd_scan import ops as ssd_ops
 from .attention import attention_train
-from .common import ModelConfig, apply_rope, cross_entropy_loss, rms_norm
-from .ffn import swiglu
+from .common import ModelConfig, apply_mrope, apply_rope, cross_entropy_loss, rms_norm
+from .ffn import ep_shard, moe_layer, moe_layer_ep, swiglu
 from .ssm import rwkv6_step, ssd_step
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "layer_params",
-           "require_ported", "PORTED_FAMILIES"]
+           "require_ported", "ep_shard_params", "PORTED_FAMILIES", "DECODER_FAMILIES"]
 
 #: The families the port runs.
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+
+#: The families whose layers are the attention + FFN decoder stack.
+DECODER_FAMILIES = ("dense", "moe", "vlm")
 
 _RWKV_W_MIN = 0.05  # decay floor (the reference's)
 _SSD_LOGA_MIN = -6.0
@@ -47,7 +59,7 @@ def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port runs the dense, "
-            "ssm and hybrid families (ROADMAP Queue 1 item 5)")
+            "moe, vlm, ssm and hybrid families (ROADMAP Queue 1 item 5)")
 
 
 def _normal(shape, scale=None):
@@ -69,27 +81,39 @@ def _uniform(shape, scale):
     return (shape, "uniform", scale)
 
 
-def _init_attn(cfg: ModelConfig, L: int) -> dict:
+def _init_attn(cfg: ModelConfig, L: int, bias: bool = False) -> dict:
     d = cfg.d_model
-    return {
+    out = {
         "attn_norm": _ones((L, d)),
         "wq": _normal((L, d, cfg.q_dim)),
         "wk": _normal((L, d, cfg.kv_dim)),
         "wv": _normal((L, d, cfg.kv_dim)),
         "wo": _normal((L, cfg.q_dim, d)),
     }
+    if bias:  # qwen2-vl's qkv biases
+        out.update(bq=_zeros((L, cfg.q_dim)), bk=_zeros((L, cfg.kv_dim)),
+                   bv=_zeros((L, cfg.kv_dim)))
+    return out
 
 
 def _init_decoder_stack(cfg: ModelConfig, L: int) -> dict:
-    """Attention plus the dense SwiGLU FFN, stacked over ``L`` layers."""
+    """Attention (with qkv biases under M-RoPE) plus the FFN, stacked over
+    ``L`` layers: the dense SwiGLU, or the router, the experts and kimi's
+    shared expert."""
     d = cfg.d_model
-    return {
-        **_init_attn(cfg, L),
-        "ffn_norm": _ones((L, d)),
-        "wi_gate": _normal((L, d, cfg.d_ff)),
-        "wi_up": _normal((L, d, cfg.d_ff)),
-        "wo_ffn": _normal((L, cfg.d_ff, d)),
-    }
+    out = {**_init_attn(cfg, L, bias=cfg.m_rope), "ffn_norm": _ones((L, d))}
+    if cfg.n_experts > 0:
+        e, f = cfg.n_experts, cfg.expert_ff
+        out.update(router=_normal((L, d, e)), moe_wi_gate=_normal((L, e, d, f)),
+                   moe_wi_up=_normal((L, e, d, f)), moe_wo=_normal((L, e, f, d)))
+        if cfg.n_shared_experts > 0:
+            fs = f * cfg.n_shared_experts
+            out["shared"] = {"wi_gate": _normal((L, d, fs)), "wi_up": _normal((L, d, fs)),
+                             "wo": _normal((L, fs, d))}
+        return out
+    out.update(wi_gate=_normal((L, d, cfg.d_ff)), wi_up=_normal((L, d, cfg.d_ff)),
+               wo_ffn=_normal((L, cfg.d_ff, d)))
+    return out
 
 
 def _init_rwkv_stack(cfg: ModelConfig, L: int) -> dict:
@@ -148,7 +172,7 @@ def param_shapes(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         out["lm_head"] = _normal((d, v))
     out["final_norm"] = _ones((d,))
-    if cfg.family == "dense":
+    if cfg.family in DECODER_FAMILIES:
         out["layers"] = _init_decoder_stack(cfg, cfg.n_layers)
     elif cfg.family == "ssm":
         out["layers"] = _init_rwkv_stack(cfg, cfg.n_layers)
@@ -157,15 +181,29 @@ def param_shapes(cfg: ModelConfig) -> dict:
     return out
 
 
+#: The most elements :func:`init_params` draws at once (1 GB of float32).
+DRAW_CHUNK = 1 << 28
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     """Random parameters with the reference's distributions (normal times
     1 / sqrt(fan_in), the embedding times 0.02, uniform, zeros and ones
     where the reference has them), drawn on ``device`` (default: the CUDA
     device) from a generator seeded with ``seed``, so a full-width model
-    never passes through the host.  The numbers differ from the
-    reference's ``jax.random`` draws."""
+    never passes through the host.  A leaf of more than ``DRAW_CHUNK``
+    elements is drawn ``DRAW_CHUNK`` elements at a time (whole rows of its
+    last axis), so its float32 draw never needs more than 1 GB beside the
+    leaf (an expert stack of kimi-k2 is 5.6 B elements).  The numbers
+    differ from the reference's ``jax.random`` draws."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, init, scale):
+        if init == "uniform":
+            x = torch.rand(shape, generator=gen, dtype=torch.float32, device=dev)
+            return x.mul_(2 * scale).sub_(scale).to(cfg.dtype)
+        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
+        return x.mul_(scale).to(cfg.dtype)
 
     def make(spec):
         if isinstance(spec, dict):
@@ -174,39 +212,106 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
         if init in ("ones", "zeros"):
             return (torch.ones if init == "ones" else torch.zeros)(shape, dtype=cfg.dtype,
                                                                    device=dev)
-        if init == "uniform":
-            x = torch.rand(shape, generator=gen, dtype=torch.float32, device=dev)
-            return x.mul_(2 * scale).sub_(scale).to(cfg.dtype)
-        x = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
-        return x.mul_(scale).to(cfg.dtype)
+        if math.prod(shape) <= DRAW_CHUNK:
+            return draw(shape, init, scale)
+        out = torch.empty(shape, dtype=cfg.dtype, device=dev)
+        rows = out.view(-1, shape[-1])
+        step = max(1, DRAW_CHUNK // shape[-1])
+        for i in range(0, rows.shape[0], step):
+            part = rows[i:i + step]
+            part.copy_(draw(tuple(part.shape), init, scale))
+        return out
 
     return make(param_shapes(cfg))
 
 
 def layer_params(params: dict, i: int, key: str = "layers") -> dict:
     """Layer ``i``'s slice of the stacked ``[L, ...]`` parameters under
-    ``key``."""
-    return {k: w[i] for k, w in params[key].items()}
+    ``key`` (nested dicts, such as kimi's ``shared`` expert, sliced alike)."""
+
+    def cut(tree):
+        return {k: cut(w) if isinstance(w, dict) else w[i] for k, w in tree.items()}
+
+    return cut(params[key])
 
 
-def _attn_block(lp: dict, x, cfg: ModelConfig, positions, *, window: int | None):
+def _qkv(lp: dict, h, cfg: ModelConfig, positions, positions_3d):
+    """The projections of the normed ``h`` [B, S, D] (plus the qkv biases
+    where the layer has them) as [B, S, H, Dh] heads, q and k rotated: by
+    M-RoPE over ``positions_3d`` [3, B, S] when the config has it and they
+    are given, else by RoPE over ``positions`` [B, S]."""
+    b, s, _ = h.shape
+    q, k, v = h @ lp["wq"], h @ lp["wk"], h @ lp["wv"]
+    if "bq" in lp:
+        q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim_)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim_)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim_)
+    if cfg.m_rope and positions_3d is not None:
+        q = apply_mrope(q, positions_3d, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, positions_3d, cfg.rope_theta, cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _moe_params(lp: dict) -> dict:
+    """A layer's (or the stacked layers') MoE leaves under the names of
+    ``models/ffn.py``."""
+    moe = {"router": lp["router"], "wi_gate": lp["moe_wi_gate"], "wi_up": lp["moe_wi_up"],
+           "wo": lp["moe_wo"]}
+    if "shared" in lp:
+        moe["shared"] = lp["shared"]
+    return moe
+
+
+def ep_shard_params(params: dict, cfg: ModelConfig, ep_index: int, n_ep: int,
+                    tp_index: int = 0, n_tp: int = 1) -> dict:
+    """``params`` with every MoE layer's experts (and, over ``n_tp``, their
+    and the shared expert's ``d_ff``) cut to a rank's
+    :func:`~repro_torch.models.ffn.ep_shard`: what an expert-parallel rank
+    holds for :func:`forward` with ``ep=``."""
+    lay = params["layers"]
+    cut = ep_shard(_moe_params(lay), cfg, ep_index, n_ep, tp_index, n_tp)
+    new = {**lay, "moe_wi_gate": cut["wi_gate"], "moe_wi_up": cut["wi_up"],
+           "moe_wo": cut["wo"]}
+    if "shared" in cut:
+        new["shared"] = cut["shared"]
+    return {**params, "layers": new}
+
+
+def _attn_block(lp: dict, x, cfg: ModelConfig, positions, *, window: int | None,
+                positions_3d=None):
     """Pre-norm attention with a residual; returns (x, (k, v)) with k after
     RoPE, as the cache stores it."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim_)
-    k = (h @ lp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim_)
-    v = (h @ lp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim_)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(lp, h, cfg, positions, positions_3d)
     o = attention_train(q, k, v, causal=True, window=window)
     return x + o.reshape(b, s, cfg.q_dim) @ lp["wo"], (k, v)
 
 
-def _ffn_block(lp: dict, x, cfg: ModelConfig):
+def _ffn_block(lp: dict, x, cfg: ModelConfig, ep=None, routing=None):
+    """Pre-norm FFN with a residual -> (x, aux): the dense SwiGLU (aux 0),
+    or the MoE layer and its load-balancing loss -- expert-parallel over
+    ``ep`` (:class:`~repro_torch.models.ffn.EPGroups`) when the config asks
+    for it (``moe_impl == "shard_map_ep"``) and groups are given, the layer's
+    MoE parameters then being the rank's :func:`~repro_torch.models.ffn
+    .ep_shard`.  ``routing`` (a list) receives each MoE call's routing."""
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    o = swiglu({"wi_gate": lp["wi_gate"], "wi_up": lp["wi_up"], "wo": lp["wo_ffn"]}, h)
-    return x + o
+    if cfg.n_experts == 0:
+        o = swiglu({"wi_gate": lp["wi_gate"], "wi_up": lp["wi_up"], "wo": lp["wo_ffn"]}, h)
+        return x + o, torch.zeros((), dtype=torch.float32, device=x.device)
+    moe = _moe_params(lp)
+    if cfg.moe_impl == "shard_map_ep" and ep is not None:
+        o, aux = moe_layer_ep(moe, h, cfg, ep)
+    else:
+        rec = {} if routing is not None else None
+        o, aux = moe_layer(moe, h, cfg, rec)
+        if routing is not None:
+            routing.append(rec)
+    return x + o, aux
 
 
 def attention_window(cfg: ModelConfig) -> int | None:
@@ -342,7 +447,7 @@ def _shared_attn_apply(params: dict, x, cfg: ModelConfig, positions):
     """The shared attention + SwiGLU block (zamba2); returns (x, (k, v))."""
     sp = layer_params(params, 0, "shared_attn")
     x, kv = _attn_block(sp, x, cfg, positions, window=None)
-    return _ffn_block(sp, x, cfg), kv
+    return _ffn_block(sp, x, cfg)[0], kv
 
 
 def _zamba_layers(params: dict, x, cfg: ModelConfig, positions, cache: dict | None = None):
@@ -366,35 +471,73 @@ def _zamba_layers(params: dict, x, cfg: ModelConfig, positions, cache: dict | No
     return x
 
 
-def forward(params: dict, cfg: ModelConfig, batch: dict):
+def embed_inputs(params: dict, cfg: ModelConfig, batch: dict, tokens):
+    """The decoder's input sequence [B, P + S, D]: the vlm family's
+    ``batch["patch_embeds"]`` [B, P, D] (when given) ahead of the tokens'
+    embeddings; and its positions [B, P + S] (0, 1, ...)."""
+    x = params["embed"][tokens].to(cfg.dtype)
+    if cfg.family == "vlm" and "patch_embeds" in batch:
+        patches = torch.as_tensor(batch["patch_embeds"], device=x.device).to(cfg.dtype)
+        x = torch.cat([patches, x], dim=1)
+    b, s = x.shape[:2]
+    return x, torch.arange(s, device=x.device)[None].expand(b, s)
+
+
+def decoder_layers(params: dict, x, cfg: ModelConfig, positions, positions_3d=None, *,
+                   ep=None, routing=None, cache: dict | None = None):
+    """The attention + FFN stack of the dense, moe and vlm families -> (x,
+    the layers' summed aux).  With a cache (``k`` / ``v`` [L, B, S_max,
+    Hkv, Dh]) each layer's keys and values go to its first positions."""
+    window = attention_window(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    s = x.shape[1]
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        x, (k, v) = _attn_block(lp, x, cfg, positions, window=window,
+                                positions_3d=positions_3d)
+        x, a = _ffn_block(lp, x, cfg, ep, routing)
+        aux = aux + a
+        if cache is not None:
+            cache["k"][i, :, :s] = k.to(cfg.dtype)
+            cache["v"][i, :, :s] = v.to(cfg.dtype)
+    return x, aux
+
+
+def forward(params: dict, cfg: ModelConfig, batch: dict, *, ep=None, routing=None):
     """Training / eval forward: (logits [B, S, V], aux_loss []).  ``batch``
-    holds ``"tokens"`` [B, S] on the parameters' device."""
+    holds ``"tokens"`` [B, S] on the parameters' device; the vlm family
+    also ``"patch_embeds"`` [B, P, D] and ``"positions_3d"`` [3, B, P + S]
+    (the patches run ahead of the tokens and are stripped after the last
+    layer).  ``aux_loss`` sums the MoE layers' load-balancing losses (0 for
+    the other families).  ``ep``: the MoE layers' expert-parallel groups
+    (the parameters' MoE leaves then the rank's shard); ``routing``: a list
+    that receives each MoE layer's routing."""
     require_ported(cfg)
     tokens = batch["tokens"]
-    b, s = tokens.shape
-    x = params["embed"][tokens].to(cfg.dtype)
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    if cfg.family == "dense":
-        window = attention_window(cfg)
-        for i in range(cfg.n_layers):
-            lp = layer_params(params, i)
-            x, _kv = _attn_block(lp, x, cfg, positions, window=window)
-            x = _ffn_block(lp, x, cfg)
+    s = tokens.shape[1]
+    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    if cfg.family in DECODER_FAMILIES:
+        x, positions = embed_inputs(params, cfg, batch, tokens)
+        x, aux = decoder_layers(params, x, cfg, positions, batch.get("positions_3d"), ep=ep,
+                                routing=routing)
+        x = x[:, x.shape[1] - s:]
     elif cfg.family == "ssm":
-        x = _rwkv_layers(params, x, cfg)
+        x, aux = _rwkv_layers(params, params["embed"][tokens].to(cfg.dtype), cfg), zero
     else:
-        x = _zamba_layers(params, x, cfg, positions)
+        x, positions = embed_inputs(params, cfg, batch, tokens)
+        x, aux = _zamba_layers(params, x, cfg, positions), zero
     logits = lm_head(params, cfg, x)
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux
 
 
-def loss_fn(params: dict, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01):
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, aux_weight: float = 0.01, *,
+            ep=None):
     """(total, {"loss", "aux_loss", "total"}): the cross entropy of
     :func:`forward`'s logits against ``batch["labels"]`` (masked by
     ``batch["mask"]`` when present) plus ``aux_weight`` times the aux loss."""
-    logits, aux = forward(params, cfg, batch)
+    logits, aux = forward(params, cfg, batch, ep=ep)
     loss = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux, "total": total}

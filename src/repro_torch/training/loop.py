@@ -10,9 +10,11 @@
   gap).  (The reference saves its source's step, which the loader's
   generate thread has already advanced past the prefetched batches, so its
   resumed run skips them; ROADMAP Queue 3.);
-* async checkpoints every ``ckpt_every`` steps (``save_async`` copies every
-  leaf to host memory before it returns, so the in-place update of the
-  next step cannot reach the checkpoint);
+* async checkpoints every ``ckpt_every`` steps and at the last
+  (``save_async`` copies every leaf to host memory before it returns, so
+  the in-place update of the next step cannot reach the checkpoint);
+  ``ckpt_every=0`` writes none (the reference divides by it), for a run
+  that only measures;
 * a step watchdog: a step longer than ``step_timeout_factor`` x the median
   records a :class:`StragglerEvent`;
 * :class:`ElasticController` restarts from the latest checkpoint after a
@@ -21,7 +23,11 @@
 The input pipeline is a :class:`~repro_torch.data.pipeline.PipelinedLoader`
 with fixed workers, as the reference's loop builds it (its docstring says a
 DRS scheduler rescales the workers; its code does not, ROADMAP Queue 1
-item 8).  Tensors live on ``device`` (default: the CUDA device).
+item 8).  The stream holds tokens only: a model that reads more (the vlm
+family's ``patch_embeds`` and ``positions_3d``) takes them from
+``batch_inputs(position, batch)``, called with the batch's stream position
+so that a resumed run sees the same; the loop refuses a vlm model without
+it.  Tensors live on ``device`` (default: the CUDA device).
 """
 
 from __future__ import annotations
@@ -71,9 +77,14 @@ class TrainLoop:
         ckpt_dir: str | Path,
         data_cfg: DataConfig | None = None,
         on_metrics: Callable[[int, dict], None] | None = None,
+        batch_inputs: Callable[[int, dict], dict] | None = None,
         device=None,
     ):
         require_trained(cfg)
+        if cfg.family == "vlm" and batch_inputs is None:
+            raise ValueError(
+                f"{cfg.arch}: the vlm family reads patch_embeds and positions_3d, which the "
+                "token stream does not hold; pass batch_inputs(position, batch)")
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.loop_cfg = loop_cfg
@@ -83,6 +94,7 @@ class TrainLoop:
             vocab=cfg.vocab, batch=2, seq_len=16, seed=loop_cfg.seed
         )
         self.on_metrics = on_metrics
+        self.batch_inputs = batch_inputs
         self.step_times: list[float] = []
         self.straggler_events: list[StragglerEvent] = []
         self.metrics_history: list[dict] = []
@@ -119,6 +131,8 @@ class TrainLoop:
                 t0 = time.perf_counter()
                 batch = {k: torch.as_tensor(v, device=self.device).long()
                          for k, v in next(loader).items()}
+                if self.batch_inputs is not None:
+                    batch.update(self.batch_inputs(data_start + step - start, batch))
                 state, metrics = step_fn(state, batch)
                 self._sync()
                 dt = time.perf_counter() - t0
@@ -132,7 +146,7 @@ class TrainLoop:
                 if self.on_metrics and (step % lc.log_every == 0):
                     self.on_metrics(step, m)
                 done = step + 1
-                if done % lc.ckpt_every == 0 or done == steps:
+                if lc.ckpt_every and (done % lc.ckpt_every == 0 or done == steps):
                     self.store.save_async(
                         done, state,
                         extra={"data": {"step": data_start + done - start,

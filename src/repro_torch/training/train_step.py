@@ -8,8 +8,11 @@ the plain versions backward (``kernels/flash_attention/grad.py``,
 ``kernels/ssd_scan/grad.py``).  ``compress_grads`` passes the gradients
 through int8 quantisation (``distributed/compress.py``) before the update,
 as the reference does ahead of its cross-replica reduction.  The dense,
-ssm and hybrid families train; the moe, vlm and audio families wait for
-their ports (ROADMAP Queue 1 item 5).
+moe, vlm, ssm and hybrid families train (the moe family's routed experts
+through autograd of ``torch.bmm`` and the dispatch's gathers, its loss
+with the load-balancing term; the vlm batch also carries
+``"patch_embeds"`` and ``"positions_3d"``); the audio family waits for its
+port (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ __all__ = ["TrainState", "TRAINED_FAMILIES", "require_trained", "init_train_stat
            "make_train_step"]
 
 #: The families whose every kernel on the forward has an autograd Function.
-TRAINED_FAMILIES = ("dense", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 class TrainState(NamedTuple):
@@ -41,7 +44,7 @@ def require_trained(cfg: ModelConfig) -> None:
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
             f"training the {cfg.family} family ({cfg.arch}) waits for its port (ROADMAP Queue 1 "
-            "item 5); the port trains the dense, ssm and hybrid families")
+            "item 5); the port trains the dense, moe, vlm, ssm and hybrid families")
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0, *,
@@ -58,7 +61,8 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0, *,
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, aux_weight: float = 0.01,
                     compress_grads: bool = False):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` holds
-    ``"tokens"`` and ``"labels"`` [B, S] on the parameters' device.  The
+    ``"tokens"`` and ``"labels"`` [B, S] on the parameters' device (vlm:
+    also ``"patch_embeds"`` and ``"positions_3d"``).  The
     parameters and moments are updated in place."""
     require_trained(cfg)
 

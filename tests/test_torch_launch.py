@@ -138,7 +138,8 @@ _DT = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16, jnp.float32: torch.
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "zamba2-7b", "phi3-medium-14b",
-                                  "yi-34b", "command-r-35b"])
+                                  "yi-34b", "command-r-35b", "mixtral-8x22b",
+                                  "kimi-k2-1t-a32b", "qwen2-vl-2b"])
 @pytest.mark.parametrize("shape", sorted(jshapes.SHAPES))
 def test_input_specs_are_meta_tensors_of_the_reference_shapes(arch, shape):
     got = shapes.input_specs(arch, shape)
@@ -152,4 +153,4 @@ def test_input_specs_are_meta_tensors_of_the_reference_shapes(arch, shape):
 
 def test_input_specs_of_an_unported_arch_name_its_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        shapes.input_specs("mixtral-8x22b", "train_4k")
+        shapes.input_specs("whisper-medium", "train_4k")

@@ -131,10 +131,12 @@ def test_cuda_flash_head_dim_128_matches_plain(cuda_device, dtype, b, sq, skv, w
 
 
 # Every instantiated (head dim, query heads per KV head) pair: the three
-# 128-dim archs' and their smoke configs' at the kernels' head dim 64
-# (ratios 2, 7, 8), each from length 0 to S_max.
+# dense 128-dim archs', mixtral's and qwen2-vl's (128, 6), kimi's (112, 8),
+# and the smoke configs' at the kernels' head dim 64 (ratios 2, 3, 7, 8),
+# each from length 0 to S_max.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,n_rep", [(128, 4), (128, 7), (128, 8), (64, 2), (64, 7), (64, 8)])
+@pytest.mark.parametrize("dh,n_rep", [(128, 4), (128, 6), (128, 7), (128, 8), (112, 8),
+                                      (64, 2), (64, 3), (64, 7), (64, 8)])
 @pytest.mark.parametrize("length,window", [(0, None), (257, None), (1024, 100)])
 def test_cuda_decode_gqa_pairs_match_plain(cuda_device, dtype, dh, n_rep, length, window):
     gen = torch.Generator().manual_seed(5)
@@ -148,7 +150,7 @@ def test_cuda_decode_gqa_pairs_match_plain(cuda_device, dtype, dh, n_rep, length
 
 
 def test_cuda_decode_refuses_a_pair_it_is_not_built_for(cuda_device):
-    q = torch.randn(1, 6, 128, device=cuda_device)
+    q = torch.randn(1, 5, 128, device=cuda_device)
     kv = torch.randn(1, 16, 1, 128, device=cuda_device)
     with pytest.raises(ValueError, match="supported"):
         tdk.decode_attention(q, kv, kv, torch.tensor(4, dtype=torch.int32, device=cuda_device))
@@ -158,8 +160,9 @@ def test_cuda_decode_refuses_a_pair_it_is_not_built_for(cuda_device):
 # weight-streaming path (1, 4, 15, 16 rows), the tiled path just past it
 # (17), off the 128-row tiles (129, 200) and several row tiles (4,100).
 SWIGLU_WIDTHS = [(256, 520), (2048, 8192), (3584, 14336)]
-# phi3-medium-14b's, yi-34b's and command-r-35b's FFN widths.
-SWIGLU_WIDTHS_128 = [(5120, 17920), (7168, 20480), (8192, 22528)]
+# phi3-medium-14b's, yi-34b's and command-r-35b's FFN widths; kimi-k2's
+# shared expert and qwen2-vl-2b's FFN.
+SWIGLU_WIDTHS_128 = [(5120, 17920), (7168, 20480), (8192, 22528), (7168, 2048), (1536, 8960)]
 
 
 def _swiglu_inputs(dev, dtype, t, d, f, seed=2):
@@ -200,9 +203,64 @@ def test_cuda_swiglu_is_deterministic(cuda_device, dtype, t, d, f):
 @pytest.mark.parametrize("t", [4, 16, 17, 300])
 @pytest.mark.parametrize("d,f", SWIGLU_WIDTHS_128)
 def test_cuda_swiglu_at_the_head_dim_128_archs_widths(cuda_device, dtype, tol, t, d, f):
-    """The streaming route (T <= 16) and the tiled route at the three FFN
-    widths."""
+    """The streaming route (T <= 16) and the tiled route at the three dense
+    FFN widths, kimi-k2's shared expert and qwen2-vl-2b's FFN."""
     args = _swiglu_inputs(cuda_device, dtype, t, d, f)
     got, want = tgk.swiglu(*args).float(), tgr.swiglu(*args).float()
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, want, rtol=tol, atol=tol * float(want.abs().max()))
+
+
+def test_cuda_moe_dispatch_is_deterministic_and_matches_the_cpu(cuda_device):
+    """``moe_layer`` (8 experts, top-2, capacity 1.25 so pairs drop; no
+    shared expert: that is the ``swiglu`` kernel, held above) under
+    ``torch.use_deterministic_algorithms``: forward and
+    backward on the card run (no op of the dispatch lacks a deterministic
+    CUDA form), twice give the same bits, and equal the CPU's routing and
+    kept pairs exactly and its output and gradients within 1e-5 of their
+    largest |value| (float32; the routing products are float32 on both)."""
+    import os
+
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.models.ffn import moe_layer
+
+    cfg = ModelConfig(arch="moe-test", family="moe", n_layers=1, d_model=64, n_heads=4,
+                      n_kv_heads=2, d_ff=96, vocab=64, n_experts=8, top_k=2,
+                      capacity_factor=1.25, dtype=torch.float32)
+    gen = torch.Generator().manual_seed(7)
+    d, e, f = 64, 8, 96
+    cpu = {"router": torch.randn(d, e, generator=gen) * 0.3,
+           "wi_gate": torch.randn(e, d, f, generator=gen) * 0.1,
+           "wi_up": torch.randn(e, d, f, generator=gen) * 0.1,
+           "wo": torch.randn(e, f, d, generator=gen) * 0.1}
+    x = torch.randn(4, 64, d, generator=gen) + 0.3
+
+    def run(dev):
+        leaves = []
+
+        def put(t):
+            t = t.to(dev).requires_grad_()
+            leaves.append(t)
+            return t
+
+        params = {k: put(v) for k, v in cpu.items()}
+        xx = put(x)
+        routing = {}
+        out, aux = moe_layer(params, xx, cfg, routing)
+        grads = torch.autograd.grad((out ** 2).mean() + 0.01 * aux, leaves)
+        return out.detach(), routing, [g.cpu() for g in grads]
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    try:
+        a, ra, ga = run(cuda_device)
+        b, _rb, gb = run(cuda_device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(a, b) and all(torch.equal(p, q) for p, q in zip(ga, gb))
+    c, rc, gc = run("cpu")
+    assert torch.equal(ra["experts"].cpu(), rc["experts"])
+    assert torch.equal(ra["kept"].cpu(), rc["kept"]) and not bool(rc["kept"].all())
+    torch.testing.assert_close(a.cpu(), c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
+    for p, q in zip(ga, gc):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5 * float(q.abs().max()))

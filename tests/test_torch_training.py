@@ -479,6 +479,25 @@ def test_resume_replays_the_consumed_stream_bit_for_bit(tmp_path, smoke_cfg):
         assert torch.equal(x, y), k
 
 
+def test_loop_without_checkpoints_writes_none_and_trains_alike(tmp_path, smoke_cfg):
+    """``ckpt_every=0``: no checkpoint is written, and the run's losses and
+    final parameters are bitwise those of a checkpointed run (the saves
+    copy, they never touch the state)."""
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, decay_steps=6)
+
+    def loop(d, every):
+        return TrainLoop(smoke_cfg, opt, LoopConfig(total_steps=6, ckpt_every=every),
+                         ckpt_dir=tmp_path / d, device="cpu")
+
+    plain, saved = loop("a", 0), loop("b", 3)
+    state_a, state_b = plain.run(), saved.run()
+    assert plain.store.latest_step() is None and saved.store.latest_step() == 6
+    assert [m["loss"] for m in plain.metrics_history] == [
+        m["loss"] for m in saved.metrics_history]
+    for (k, x), (_k, y) in zip(_leaves(state_a.params), _leaves(state_b.params)):
+        assert torch.equal(x, y), k
+
+
 def test_pipelined_loader_keeps_a_batch_it_cannot_queue():
     """A consumer that stalls past the stages' put timeouts (queues of one
     batch, 1.2 s against 0.2 s): the loader still delivers the source's

@@ -133,14 +133,16 @@ def ssd_plans(torch, cs, _build, dev, gen):
 
 
 def swiglu_depths(torch, cs, _build, dev, gen):
+    from repro_torch.configs import get_config
     from repro_torch.kernels.swiglu import kernel as gk, ref as gr
 
     chosen = dict(gk.STREAM_WAVES)
+    zamba = get_config(cs.ZAMBA, "full")
+    zd, zf = zamba.d_model, zamba.d_ff
     for t, dm, f, dtype in ((4, cs.D_MODEL, cs.D_FF, torch.bfloat16),
                             (16, cs.D_MODEL, cs.D_FF, torch.bfloat16),
-                            (4, cs.ZAMBA_D, cs.ZAMBA_F, torch.bfloat16),
-                            (16, cs.ZAMBA_D, cs.ZAMBA_F, torch.bfloat16),
-                            (4, cs.ZAMBA_D, cs.ZAMBA_F, torch.float32)):
+                            (4, zd, zf, torch.bfloat16), (16, zd, zf, torch.bfloat16),
+                            (4, zd, zf, torch.float32)):
         w = [(torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
              for shape, scale in (((t, dm), 1.0), ((dm, f), dm ** -0.5), ((dm, f), dm ** -0.5),
                                   ((f, dm), f ** -0.5))]
