@@ -177,7 +177,10 @@ Phases, each printing one JSON line:
    (128, 4 / 7 / 8) decode pairs of phi3, yi-34b and command-r-35b, the
    three FFN widths); mixtral-8x22b's windowed 2 x 8192 prefill, kimi's
    (Dh 112, 64 / 8 heads), the (128, 6) and (112, 8) decode pairs and
-   kimi's shared expert and qwen2-vl's FFN.  The timed cases (bf16, CUDA
+   kimi's shared expert and qwen2-vl's FFN; whisper-medium's (16 heads of
+   64, MHA) bidirectional encoder over 16 x 1,500 frames, cross attention
+   of 224 queries over them and the (64, 1) decode over the 1,500 cross
+   rows and a 448-row self cache.  The timed cases (bf16, CUDA
    events and ``torch.profiler`` device time) stand beside the plain
    version, SDPA where one call computes the same function (a windowed
    case has none: SDPA takes the window only as a dense mask, off its
@@ -190,11 +193,14 @@ Phases, each printing one JSON line:
     logits within the stated tolerance, the share of agreeing greedy
     tokens; the moe archs' routing (experts and kept pairs of every call
     and layer) equal in float32, the smallest top-k margin reported;
+    whisper at 2 + 2 layers with 1,500 stub frames per prompt;
 11. ``*_serve``: each of ``SERVED_ARCHS`` at full width in bf16
     (parameters drawn on the card from seed 0; mixtral cut to 13 of its 56
     layers, kimi to 1 of its 61, ``SERVE_LAYERS``): 4 x 4096 prefilled
     (mixtral 2 x 8192, so its window bites in prefill and decode;
-    qwen2-vl 256 stub patches + 3,840 tokens), then 32 greedy steps, each
+    qwen2-vl 256 stub patches + 3,840 tokens; whisper 16 segments of 1,500
+    stub frames and a 224-token prompt in a 448-row cache), then 32 greedy
+    steps, each
     kernel's launches exactly :func:`serve_launch_rule`, prefill tokens/s,
     ms per step, peak memory under 75 GB and ``torch.profiler`` breakdowns
     of a prefill and a step; the moe archs' dropped share of (token, slot)
@@ -236,9 +242,10 @@ Phases, each printing one JSON line:
     state's and B / C's, summed over the heads, included) within the same
     tolerance of autograd of the plain version; forward + backward ms
     beside the plain version's;
-17. ``train_card_vs_cpu``: llama3.2-1b, rwkv6-1.6b and zamba2-7b at full
-    width cut to 2 layers (zamba2: one shared-block site; llama to 1),
-    float32, B 2 x S 256 (rwkv6 and zamba2: 128): every parameter's
+17. ``train_card_vs_cpu``: llama3.2-1b, rwkv6-1.6b, zamba2-7b and
+    whisper-medium at full width cut to 2 layers (zamba2: one shared-block
+    site; whisper 2 + 2 with 1,500 stub frames), float32, B 2 x S 256
+    (rwkv6 and zamba2: 128): every parameter's
     gradient non-zero on the card, then 3
     ``make_train_step`` steps on the card and on the CPU from the same
     parameters: losses and grad norms within 1e-3 relative;
@@ -247,15 +254,16 @@ Phases, each printing one JSON line:
     sequence with the batch cut 256 -> 2 (kimi's to 1), all under
     ``torch.use_deterministic_algorithms``, launches exactly
     :func:`train_launch_rule`, peak memory under 75 GB, losses finite:
-    llama3.2-1b (4 of 16 layers), rwkv6-1.6b (whole) and mixtral-8x22b
-    (1 of 56 layers) 8 steps without checkpoints, then a crash at 4 and a
-    resume to 8 whose losses for steps 5-8 and final parameters are
-    bitwise the straight run's; zamba2-7b (24 of 81 layers: the whole
-    model's 6.75 B parameters need ~81 GB before activations),
-    kimi-k2-1t-a32b (1 layer, 32 of 384 experts) and qwen2-vl-2b (whole;
-    256 stub patches from :func:`vlm_stub_inputs` + 3,840 tokens) 4
-    straight steps; tokens / s, step ms, peak memory, the loader's worker
-    counts.
+    llama3.2-1b (4 of 16 layers) and mixtral-8x22b (1 of 56 layers) 8
+    steps without checkpoints, then a crash at 4 and a resume to 8 whose
+    losses for steps 5-8 and final parameters are bitwise the straight
+    run's; rwkv6-1.6b (whole), zamba2-7b (24 of 81
+    layers: the whole model's 6.75 B parameters need ~81 GB before
+    activations), kimi-k2-1t-a32b (1 layer, 32 of 384 experts),
+    qwen2-vl-2b (whole; 256 stub patches from :func:`vlm_stub_inputs` +
+    3,840 tokens) and whisper-medium (whole; 1,500 stub frames from
+    :func:`audio_stub_inputs` + 4,096 decoder tokens) 4 straight steps;
+    tokens / s, step ms, peak memory, the loader's worker counts.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -2179,6 +2187,11 @@ PHI3_ARCH = DENSE128_ARCHS[0]
 SSM_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
 ZAMBA = SSM_ARCHS[1]
 MIXTRAL, KIMI, QWEN_VL = "mixtral-8x22b", "kimi-k2-1t-a32b", "qwen2-vl-2b"
+WHISPER = "whisper-medium"
+# whisper-serve-16x1500: 16 segments of 30 s (1,500 frames each), a
+# 224-token prompt (n_text_ctx // 2, the previous-text conditioning) in a
+# cache of n_text_ctx = 448 rows.
+WHISPER_B, WHISPER_PROMPT, WHISPER_SMAX = 16, 224, 448
 # prefill_32k (src/repro/configs/shapes.py:42) cut from 32 x 32768 to 4 x 4096
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 4096, 32
 # decode_32k cut from batch 128 (137 GB of KV) to 16 (17.2 GB)
@@ -2244,7 +2257,8 @@ def device_us_per_call(fn, symbols, calls=5):
 
 
 # The LLM kernels' cases at each arch's own heads and widths (its full
-# config), one row each: flash (group, arch, B, S, window, causal, timed);
+# config), one row each: flash (group, arch, B, S or (Sq, Skv), window,
+# causal, timed);
 # decode (group, arch, B, S_max, length, window, timed); SwiGLU (group,
 # arch, T, dtypes, timed).  Every case is held to the plain version in
 # float32 and bf16 (SwiGLU: in ``dtypes``); a timed case is also timed in
@@ -2252,7 +2266,8 @@ def device_us_per_call(fn, symbols, calls=5):
 # the others are its sub-rows: "llama" llama's other shapes, "zamba2" head
 # dim 112 (MHA), "dh128" the dense family at head dim 128, "moe_vlm" the
 # moe and vlm archs (mixtral windowed at its 2 x 8192 prefill, so the
-# window cuts every query past 4096).
+# window cuts every query past 4096), "audio" whisper's encoder, cross and
+# decoder attention and its (64, 1) decode over the cross and self caches.
 STEP = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)  # a B 4 step over 4,097 cached
 EMPTY = (SERVE_B, SERVE_S + SERVE_STEPS, 0)  # length 0: the mean of V, as ref.py
 LONG = (DEC_B, DEC_SMAX, DEC_LEN)
@@ -2270,6 +2285,9 @@ FLASH_CASES = (
     ("dh128", PHI3_ARCH, 1, 1000, None, False, False),
     ("moe_vlm", MIXTRAL, 2, 8192, 4096, True, True),
     ("moe_vlm", KIMI, SERVE_B, SERVE_S, None, True, True),
+    ("audio", WHISPER, WHISPER_B, 1500, None, False, True),
+    ("audio", WHISPER, WHISPER_B, (WHISPER_PROMPT, 1500), None, False, True),
+    ("audio", WHISPER, WHISPER_B, WHISPER_PROMPT, None, True, False),
 )
 DECODE_CASES = (
     ("main", LLM_ARCH, *LONG, None, True),
@@ -2288,6 +2306,9 @@ DECODE_CASES = (
     ("moe_vlm", QWEN_VL, *EMPTY, None, False),
     ("moe_vlm", KIMI, *STEP, None, True),
     ("moe_vlm", KIMI, *EMPTY, None, False),
+    ("audio", WHISPER, WHISPER_B, 1500, 1500, None, True),  # cross: every row
+    ("audio", WHISPER, WHISPER_B, WHISPER_SMAX, WHISPER_PROMPT + 1, None, True),  # self, a step
+    ("audio", WHISPER, WHISPER_B, WHISPER_SMAX, 0, None, False),
 )
 SWIGLU_CASES = (  # T 16,384: a 4 x 4096 prefill (the wgmma route); T 4-16: a step (streaming)
     ("main", LLM_ARCH, SERVE_B * SERVE_S, BF16, True),
@@ -2387,10 +2408,11 @@ def llm_kernels_phase(dev):
         cfg = get_config(arch, "full")
         hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
         kw = dict(window=window, causal=causal)
+        sq, skv = s if isinstance(s, tuple) else (s, s)
 
         def make(dtype):
-            q = randn((b, s, hq, dh), dtype).transpose(1, 2)  # the model's [B, S, H, Dh]
-            k, v = (randn((b, s, hkv, dh), dtype).transpose(1, 2) for _ in range(2))
+            q = randn((b, sq, hq, dh), dtype).transpose(1, 2)  # the model's [B, S, H, Dh]
+            k, v = (randn((b, skv, hkv, dh), dtype).transpose(1, 2) for _ in range(2))
             calls = {"run": lambda: fk.attention(q, k, v, **kw),
                      "plain": lambda: _plain_attention(q, k, v, **kw), "other": {}}
             if window is None:
@@ -2398,17 +2420,19 @@ def llm_kernels_phase(dev):
                     q, k, v, is_causal=causal, enable_gqa=True)
             else:
                 calls["library"] = None
-                i = torch.arange(s, device=dev)
+                i = torch.arange(sq, device=dev)
                 mask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
                 calls["other"]["masked_sdpa_ms"] = lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=mask, enable_gqa=True)
             return calls
 
-        pairs = sum(min(i + 1, window or s) for i in range(s)) if causal else s * s
-        shape = f"B={b},S={s},H={hq}/{hkv},Dh={dh}" + (
+        pairs = (sum(min(i + 1 + skv - sq, window or skv) for i in range(sq)) if causal
+                 else sq * skv)
+        shape = (f"B={b},S={s}" if sq == skv else f"B={b},Sq={sq},Skv={skv}") + (
+            f",H={hq}/{hkv},Dh={dh}") + (
             f",window={window}" if window else ",causal" if causal else ",bidirectional")
         run_case("flash_attention", group, arch, shape, BOTH, make, timed,
-                 (2 * b * s * dh * (2 * hq + 2 * hkv), 4 * dh * pairs * b * hq))
+                 (2 * b * dh * (2 * sq * hq + 2 * skv * hkv), 4 * dh * pairs * b * hq))
 
     for group, arch, b, s_max, length, window, timed in DECODE_CASES:
         cfg = get_config(arch, "full")
@@ -2481,7 +2505,8 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2, n_patches=0
     |cpu|)`` (1e-3 in float32, ``bf16_tol`` in bf16), greedy tokens
     agreeing on all (float32) or >= 75 % (bf16).  ``n_patches``: the vlm
     prompt's stub patch embeddings ahead of its ``s`` tokens (qwen2-vl's
-    grid layout of M-RoPE ids).  The moe family's routing (each token's
+    grid layout of M-RoPE ids); the audio family's prompts carry
+    ``enc_seq`` stub frames each.  The moe family's routing (each token's
     experts and kept pairs, every call and layer) must be equal card vs CPU
     in float32, the smallest top-k margin is recorded, and a token routed
     otherwise fails the phase with its margin; in bf16 the tokens routed
@@ -2505,6 +2530,8 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2, n_patches=0
     if n_patches:
         prompt["patch_embeds"] = torch.randn(b, n_patches, cfg.d_model, generator=gen).to(dtype)
         prompt["positions_3d"] = mrope_positions(b, n_patches, s)
+    if cfg.family == "audio":
+        prompt["frames"] = torch.randn(b, cfg.enc_seq, cfg.d_model, generator=gen).to(dtype)
     moe = cfg.family == "moe"
     routes = {"card": [], "cpu": []}
 
@@ -2564,7 +2591,8 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2, n_patches=0
     name = dtype_name(dtype)
     emit({"phase": phase, "arch": cfg.arch, "dtype": name, "layers": cfg.n_layers,
           "experts": cfg.n_experts or None, "prompts": b, "prompt_tokens": s,
-          "patches": n_patches, "greedy_steps": steps,
+          "patches": n_patches, "frames": prompt["frames"].shape[1] if "frames" in prompt else 0,
+          "greedy_steps": steps,
           "max_abs_logit_err": max(e[0] for e in errs), "tol": tol,
           "logits_within_tol": ok, "greedy_agree_share": share,
           "logit_abs_max": float(max(c.abs().max() for c in host)), "routing": route,
@@ -2590,7 +2618,7 @@ def card_vs_cpu(dev, cfg, phase, b=2, s=256, steps=8, bf16_tol=5e-2, n_patches=0
 # layer with 32 of its 384 experts (top-8 and the shared expert kept: one
 # full layer is 68 GB in float32 on the host); qwen2-vl with its 256 stub
 # patches ahead of the tokens; zamba2's two layers hold one shared-block
-# site.
+# site; whisper 2 + 2 layers, 1,500 stub frames and 224 tokens per prompt.
 CARD_VS_CPU = (
     (LLM_ARCH, dict(n_layers=2), 2, 256, 8),
     *((arch, dict(n_layers=2), 1, 128, 4) for arch in DENSE128_ARCHS),
@@ -2598,6 +2626,7 @@ CARD_VS_CPU = (
     (QWEN_VL, dict(n_layers=2), 2, 128, 4),
     (MIXTRAL, dict(n_layers=1), 2, 128, 4),
     (KIMI, dict(n_layers=1, n_experts=32), 2, 128, 4),
+    (WHISPER, dict(n_layers=2, enc_layers=2), 2, WHISPER_PROMPT, 8),
 )
 
 
@@ -2609,7 +2638,7 @@ def card_vs_cpu_phase(dev):
     intermediates in float32, the plain versions round them), and the
     logit's share of that noise grows as the root of the width of the
     products it sums (0.079 / 0.094 / 0.100 at d_model 5,120 / 7,168 /
-    8,192); the scan archs' is 5e-2."""
+    8,192); the scan archs' and whisper's (d_model 1,024) is 5e-2."""
     import dataclasses
 
     import torch
@@ -2622,9 +2651,10 @@ def card_vs_cpu_phase(dev):
         cfg = get_config(arch, "full")
         decoder = cfg.family in DECODER_FAMILIES
         tol = 5e-2 * math.sqrt(max(cfg.d_model, D_MODEL) / D_MODEL) if decoder else 5e-2
+        scan = cfg.family in ("ssm", "hybrid")
         for dtype in (torch.bfloat16, torch.float32):
             card_vs_cpu(dev, dataclasses.replace(cfg, dtype=dtype, **cut),
-                        "llm_card_vs_cpu" if decoder else "ssm_card_vs_cpu", b=b, s=s,
+                        "ssm_card_vs_cpu" if scan else "llm_card_vs_cpu", b=b, s=s,
                         steps=steps, bf16_tol=tol,
                         n_patches=N_PATCHES if cfg.family == "vlm" else 0)
 
@@ -2672,10 +2702,13 @@ def breakdown_json(wall_ms, device_ms, rows):
 # weights a layer; `tools/train_peak.py mixtral-8x22b 12 13 --serve --batch
 # 2 --seq 8192`: 66.95 / 72.02 GB), kimi at 1 of its 61 layers with all
 # 384 experts (34.1 GB a layer, 4.7 GB of embeddings; 50.11 GB).  An arch
-# cut in depth is planned under no name; the others serve whole.
-SERVE_CELL = {MIXTRAL: (2, 8192)}
+# cut in depth is planned under no name; the others serve whole.  whisper's
+# cell is a batch of transcription windows (WHISPER_B x 1,500 frames, a
+# WHISPER_PROMPT-token prompt) in a cache of WHISPER_SMAX rows.
+SERVE_CELL = {MIXTRAL: (2, 8192), WHISPER: (WHISPER_B, WHISPER_PROMPT)}
+SERVE_SMAX = {WHISPER: WHISPER_SMAX}
 SERVE_LAYERS = {MIXTRAL: 13, KIMI: 1}
-SERVED_ARCHS = (LLM_ARCH, PHI3_ARCH, *SSM_ARCHS, MIXTRAL, KIMI, QWEN_VL)
+SERVED_ARCHS = (LLM_ARCH, PHI3_ARCH, *SSM_ARCHS, MIXTRAL, KIMI, QWEN_VL, WHISPER)
 
 
 def serve_launch_rule(cfg):
@@ -2686,11 +2719,17 @@ def serve_launch_rule(cfg):
     decoder layer or site (the scans' steps run the plain recurrence); and
     per call two ``swiglu`` per layer or site that runs a SwiGLU on every
     token (all but the moe layers without a shared expert: the routed
-    experts run no kernel)."""
+    experts run no kernel).  whisper: per prefill one ``flash_attention``
+    per encoder layer and two (self, cross) per decoder layer, per step
+    two ``decode_attention`` per decoder layer; its GELU MLP runs no
+    kernel."""
     from repro_torch.kernels import LLM_KERNELS, SSM_KERNELS
     from repro_torch.models.transformer import shared_sites
 
     zero = dict.fromkeys(LLM_KERNELS + SSM_KERNELS, 0)
+    if cfg.family == "audio":
+        return ({**zero, "flash_attention": cfg.enc_layers + 2 * cfg.n_layers},
+                {**zero, "decode_attention": 2 * cfg.n_layers})
     if cfg.family == "ssm":
         return {**zero, "rwkv6_scan": cfg.n_layers}, dict(zero)
     if cfg.family == "hybrid":
@@ -2710,8 +2749,10 @@ def serve_phase(dev, arch):
     kernel's launches exactly :func:`serve_launch_rule`, timed without
     diagnostics: prefill tokens / s, ms per step, peak memory (under
     ``TRAIN_PEAK_GB``) and ``torch.profiler`` breakdowns of a prefill and
-    a step.  The moe archs' dropped share of (token, slot) pairs comes from
-    a second, untimed prefill and 32 steps that record the routing.
+    a step.  whisper's prompts carry ``enc_seq`` stub frames each (seeded
+    standard normal in bf16) and its cache holds ``SERVE_SMAX`` rows.  The
+    moe archs' dropped share of (token, slot) pairs comes from a second,
+    untimed prefill and 32 steps that record the routing.
     Returns (launches, prompts / s, step tokens / s, params, cfg)."""
     import dataclasses
 
@@ -2740,12 +2781,16 @@ def serve_phase(dev, arch):
         prompt["patch_embeds"] = torch.randn(b, patches, cfg.d_model, generator=gen,
                                              device=dev).to(cfg.dtype)
         prompt["positions_3d"] = mrope_positions(b, patches, s - patches, device=dev)
+    if cfg.family == "audio":
+        prompt["frames"] = torch.randn(b, cfg.enc_seq, cfg.d_model, generator=gen,
+                                       device=dev).to(cfg.dtype)
     warm = serve.init_cache(cfg, 1, 160, device=dev)  # cuBLAS handles, first launches
-    lg, warm = serve.prefill(params, cfg, {"tokens": prompt["tokens"][:1, :128]}, warm,
-                             device=dev)
+    first = {"tokens": prompt["tokens"][:1, :128],
+             **({"frames": prompt["frames"][:1]} if "frames" in prompt else {})}
+    lg, warm = serve.prefill(params, cfg, first, warm, device=dev)
     serve.decode_step(params, cfg, lg.argmax(-1), warm, device=dev)
     del warm
-    cache = serve.init_cache(cfg, b, s + SERVE_STEPS, device=dev)
+    cache = serve.init_cache(cfg, b, SERVE_SMAX.get(arch, s + SERVE_STEPS), device=dev)
     want_pre, want_step = serve_launch_rule(cfg)
     want_steps = {k: n * SERVE_STEPS for k, n in want_step.items()}
     torch.cuda.synchronize()
@@ -2789,13 +2834,15 @@ def serve_phase(dev, arch):
     step = breakdown_json(*profile_breakdown(
         lambda: serve.decode_step(params, cfg, tok, cache_prefill, device=dev), calls=5))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    phase = ({"moe": "moe_serve", "vlm": "vlm_serve"}.get(cfg.family)
+    phase = ({"moe": "moe_serve", "vlm": "vlm_serve", "audio": "audio_serve"}.get(cfg.family)
              or ("llm_serve" if arch == LLM_ARCH else arch.split("-")[0] + "_serve"))
     emit({"phase": phase, "arch": arch, "layers": cfg.n_layers, "layers_full": full.n_layers,
           "sites": len(shared_sites(cfg)) if cfg.family == "hybrid" else None,
           "experts": cfg.n_experts or None, "dtype": "bfloat16", "params": cfg.params_count(),
           "weights_gb": 2 * sum(t.numel() for _k, t in flatten_with_paths(params)) / 1e9,
-          "prompts": b, "prompt_tokens": s, "patches": patches, "decode_steps": SERVE_STEPS,
+          "prompts": b, "prompt_tokens": s, "patches": patches,
+          "frames": cfg.enc_seq if cfg.family == "audio" else 0,
+          "cache_rows": SERVE_SMAX.get(arch, s + SERVE_STEPS), "decode_steps": SERVE_STEPS,
           "capacity_prefill": (max(1, int(cfg.capacity_factor * b * s * cfg.top_k
                                           / cfg.n_experts)) if moe else None),
           "capacity_step": (max(1, int(cfg.capacity_factor * b * cfg.top_k / cfg.n_experts))
@@ -2884,8 +2931,9 @@ def llm_decode_32k_phase(dev, params, cfg):
 
 def serving_plan_phase(prompts_per_s, tokens_per_s, arch=LLM_ARCH):
     """DRS's chip split of the serving pipeline from the card's own rates of
-    the B = 4 cell (a 4 x 4096 prefill's prompts / s, the B = 4 decode
-    step's tokens / s), through the port's launcher (``launch/serve.py``:
+    the arch's serving cell (default B = 4: a 4 x 4096 prefill's prompts /
+    s, the B = 4 decode step's tokens / s; whisper B = 16), through the
+    port's launcher (``launch/serve.py``:
     ``stage_rates``, ``plan`` at its defaults of 4 requests / s, 24 chips
     and 64 tokens, then ``serving_sim``); returns the rates and the split."""
     from repro_torch.launch import serve as launcher
@@ -2893,8 +2941,9 @@ def serving_plan_phase(prompts_per_s, tokens_per_s, arch=LLM_ARCH):
     rates, src = launcher.stage_rates(arch, prefill_rate=prompts_per_s,
                                       decode_rate=tokens_per_s)
     model, alloc, split = launcher.plan(rates, 4.0, chips=24, mean_tokens=64.0)
+    b, s = SERVE_CELL.get(arch, (SERVE_B, SERVE_S))
     emit({"phase": "serving_plan", "arch": arch, "rates_from": src,
-          "cell": f"B = {SERVE_B}: {SERVE_B} x {SERVE_S} prefill, B = {SERVE_B} decode step",
+          "cell": f"B = {b}: {b} x {s} prefill, B = {b} decode step",
           "rates": {"prefill_prompts_per_s_per_chip": prompts_per_s,
                     "decode_tokens_per_s_per_chip": tokens_per_s},
           "lam0": 4.0, "k_max": 24, "mean_output_tokens": 64, "split": split,
@@ -3229,6 +3278,14 @@ TRAIN_CUTS = {LLM_ARCH: dict(n_layers=4), ZAMBA: dict(n_layers=ZAMBA_TRAIN_LAYER
               MIXTRAL: dict(n_layers=MIXTRAL_TRAIN_LAYERS),
               KIMI: dict(n_layers=1, n_experts=32)}
 TRAIN_BATCH = {KIMI: 1}
+# ``train``'s runs: (arch, steps, crash-and-resume).  rwkv6-1.6b runs 4
+# straight steps (a time cut: its resume took 34 s and its steps ~1.9 s
+# each; llama and mixtral hold the resume on the card, and the CPU tests
+# rwkv6's).
+TRAIN_RUNS = ((LLM_ARCH, TRAIN_STEPS, True), (SSM_ARCHS[0], TRAIN_SHORT_STEPS, False),
+              (ZAMBA, TRAIN_SHORT_STEPS, False), (MIXTRAL, TRAIN_STEPS, True),
+              (KIMI, TRAIN_SHORT_STEPS, False), (QWEN_VL, TRAIN_SHORT_STEPS, False),
+              (WHISPER, TRAIN_SHORT_STEPS, False))
 # SwiGLUFn at two llama sequences of train_4k's length.
 TRAIN_T = TRAIN_B * TRAIN_S
 # train_card_vs_cpu: full width, 2 layers, float32, B 2 x S 256 (the scan
@@ -3450,8 +3507,10 @@ def _train_scan_kernels(dev, gen, dtype):
 
 
 def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
-    """``arch`` (llama3.2-1b, rwkv6-1.6b, zamba2-7b) at full width cut to 2
-    layers (zamba2: two mamba layers and one shared-block site), float32,
+    """``arch`` (llama3.2-1b, rwkv6-1.6b, zamba2-7b, whisper-medium) at full
+    width cut to 2 layers (zamba2: two mamba layers and one shared-block
+    site; whisper 2 + 2, each batch with ``enc_seq`` stub frames from
+    :func:`stub_inputs`, drawn on the card and copied to the CPU), float32,
     B 2 x S 256 (the scan archs S 128):
     the gradients of one batch on the card (every parameter's non-zero;
     repeated bitwise under deterministic algorithms, and the leaves that a
@@ -3472,11 +3531,18 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
 
     t_phase = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2, dtype=torch.float32)
+    if cfg.enc_dec:
+        cfg = dataclasses.replace(cfg, enc_layers=2)
     opt = AdamWConfig(lr=1e-3, warmup_steps=1, decay_steps=10)
-    seq = TRAIN_CPU_S if cfg.family == "dense" else TRAIN_SCAN_CPU_S
+    seq = TRAIN_SCAN_CPU_S if cfg.family in ("ssm", "hybrid") else TRAIN_CPU_S
     data = DataConfig(vocab=cfg.vocab, batch=TRAIN_CPU_B, seq_len=seq, seed=2)
     params = init_params(cfg, seed=2, device=dev)
-    if "w_lora_b" in params["layers"]:
+    inputs = stub_inputs(cfg, data.seed)
+    # the stub inputs of each step, drawn on the card once: both runs read them
+    source = SyntheticTokens(data)
+    extras = [inputs(i, {k: torch.as_tensor(v, device=dev) for k, v in next(source).items()})
+              if inputs else {} for i in range(TRAIN_CPU_STEPS)]
+    if "w_lora_b" in params.get("layers", {}):
         # rwkv6 starts its decay LoRA's second factor at zero, which zeroes
         # the first factor's gradient; drawn here so every leaf has one.
         lora_b = params["layers"]["w_lora_b"]
@@ -3484,6 +3550,7 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
                                  .manual_seed(3), device=dev) * lora_b.shape[1] ** -0.5)
     batch0 = {k: torch.as_tensor(v, device=dev).long()
               for k, v in next(SyntheticTokens(data)).items()}
+    batch0.update(extras[0])
 
     def gradients():
         tree = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -3510,8 +3577,9 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
         source = SyntheticTokens(data)
         hist = []
         t0 = time.perf_counter()
-        for _ in range(TRAIN_CPU_STEPS):
+        for i in range(TRAIN_CPU_STEPS):
             batch = {k: torch.as_tensor(v, device=device).long() for k, v in next(source).items()}
+            batch.update({k: v.to(device) for k, v in extras[i].items()})
             state, m = step(state, batch)
             hist.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
         return hist, time.perf_counter() - t0
@@ -3521,6 +3589,7 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
     del params
     torch.cuda.empty_cache()
     host, cpu_s = run(torch.device("cpu"), params_cpu)
+    del extras
     rel = max(abs(a[key] - b[key]) / abs(b[key]) for a, b in zip(card, host)
               for key in ("loss", "grad_norm"))
     emit({"phase": "train_card_vs_cpu", "arch": cfg.arch, "dtype": "float32",
@@ -3565,11 +3634,39 @@ def vlm_stub_inputs(cfg, seed):
     return inputs
 
 
+def audio_stub_inputs(cfg, seed):
+    """``TrainLoop``'s ``batch_inputs`` for the audio family, whose loader
+    yields tokens only: ``enc_seq`` stub frame embeddings per sequence (the
+    mel / conv front end is a stub input in the reference too; standard
+    normal in ``cfg.dtype``, drawn on the batch's device from ``seed`` and
+    the stream position, so a resumed run sees the same)."""
+    import torch
+
+    def inputs(position, batch):
+        tokens = batch["tokens"]
+        gen = torch.Generator(device=tokens.device).manual_seed(seed * 1_000_003 + position)
+        frames = torch.randn((tokens.shape[0], cfg.enc_seq, cfg.d_model), generator=gen,
+                             device=tokens.device)
+        return {"frames": frames.to(cfg.dtype)}
+
+    return inputs
+
+
+def stub_inputs(cfg, seed):
+    """The ``batch_inputs`` that ``cfg``'s family needs beside the token
+    stream (vlm: :func:`vlm_stub_inputs`, audio: :func:`audio_stub_inputs`),
+    else None."""
+    make = {"vlm": vlm_stub_inputs, "audio": audio_stub_inputs}.get(cfg.family)
+    return make(cfg, seed) if make else None
+
+
 def train_phase(dev, arch=LLM_ARCH, steps=TRAIN_STEPS, resume=True):
     """``arch`` at full width, cut as ``TRAIN_CUTS`` says (bf16 parameters,
     float32 moments), through ``TrainLoop``: ``train_4k``'s sequence of
     4096 (the vlm family's 256 stub patches from :func:`vlm_stub_inputs`
-    and 3,840 tokens) with its batch cut from 256 to 2 (kimi's to 1,
+    and 3,840 tokens; the audio family's 4,096 decoder tokens beside
+    ``enc_seq`` stub frames from :func:`audio_stub_inputs`) with its batch
+    cut from 256 to 2 (kimi's to 1,
     ``TRAIN_BATCH``), ``steps`` steps without
     checkpoints (``ckpt_every=0``; launches counted exactly,
     :func:`train_launch_rule`), then, with ``resume``, a second loop that
@@ -3626,8 +3723,7 @@ def _train_loops(dev, cfg, opt, data, steps, resume):
             return TrainLoop(cfg, opt, LoopConfig(total_steps=steps, ckpt_every=every,
                                                   log_every=1),
                              ckpt_dir=work / name, data_cfg=data, device=dev,
-                             batch_inputs=(vlm_stub_inputs(cfg, data.seed)
-                                           if cfg.family == "vlm" else None))
+                             batch_inputs=stub_inputs(cfg, data.seed))
 
         torch.cuda.reset_peak_memory_stats()
         straight = loop("straight", 0)  # the reference run writes no checkpoint
@@ -3688,7 +3784,8 @@ def _train_report(cfg, steps, straight, first, second, crashed, launches, want, 
           "moment_dtype": "float32",
           "cut": f"train_4k batch 256 -> {straight.data_cfg.batch} (sequence {TRAIN_S} kept" + (
               f": {N_PATCHES} stub patches + {TRAIN_S - N_PATCHES} tokens)"
-              if cfg.family == "vlm" else ")") + (
+              if cfg.family == "vlm" else
+              f" beside {cfg.enc_seq} stub frames)" if cfg.family == "audio" else ")") + (
               f"; depth {full.n_layers} -> {cfg.n_layers} layers"
               if full.n_layers != cfg.n_layers else "") + (
               f"; experts {full.n_experts} -> {cfg.n_experts}"
@@ -3794,12 +3891,9 @@ def main() -> int:
             plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
     launch_serve_phase(plans)
     train_rows = train_kernels_phase(dev)
-    for arch in (LLM_ARCH, *SSM_ARCHS):
+    for arch in (LLM_ARCH, *SSM_ARCHS, WHISPER):
         train_card_vs_cpu_phase(dev, arch)
-    for arch, steps, resume in ((LLM_ARCH, TRAIN_STEPS, True), (SSM_ARCHS[0], TRAIN_STEPS, True),
-                                (ZAMBA, TRAIN_SHORT_STEPS, False),
-                                (MIXTRAL, TRAIN_STEPS, True), (KIMI, TRAIN_SHORT_STEPS, False),
-                                (QWEN_VL, TRAIN_SHORT_STEPS, False)):
+    for arch, steps, resume in TRAIN_RUNS:
         count(f"{arch} train", train_phase(dev, arch, steps, resume))
 
     kernels = []

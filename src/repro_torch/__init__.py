@@ -6,9 +6,11 @@ apply over B scenarios x N operators; fused, or window at a time with the
 float64 twin decide and negotiated machine leases), the discrete-event
 simulator behind ``DRSSession.bind(graph, "des")`` and the serving
 simulation on it, the live DRS session with the VLD application, and LLM
-serving for the dense (llama3.2-1b), ssm (rwkv6-1.6b) and hybrid
-(zamba2-7b) families, with every TPU kernel on those paths rewritten as
-CUDA C++ for Hopper (``csrc/``).  It imports neither JAX nor ``repro``.
+serving and training for the dense (llama3.2-1b, phi3-medium-14b, yi-34b,
+command-r-35b), moe (mixtral-8x22b, kimi-k2-1t-a32b), vlm (qwen2-vl-2b),
+ssm (rwkv6-1.6b), hybrid (zamba2-7b) and audio (whisper-medium) families,
+with every TPU kernel on those paths rewritten as CUDA C++ for Hopper
+(``csrc/``).  It imports neither JAX nor ``repro``.
 
 Entry points -- :class:`~repro_torch.api.session.ScenarioRunner`,
 :func:`~repro_torch.streaming.scenarios.control_trace`,

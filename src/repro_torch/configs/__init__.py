@@ -6,9 +6,9 @@ a reduced one of the same family for CPU tests.  Ported: the dense
 family's ``llama3.2-1b`` (head dim 64) and ``phi3-medium-14b``, ``yi-34b``
 and ``command-r-35b`` (head dim 128), the moe family's ``mixtral-8x22b``
 (head dim 128) and ``kimi-k2-1t-a32b`` (head dim 112), the vlm family's
-``qwen2-vl-2b`` (head dim 128), the ssm family's ``rwkv6-1.6b`` and the
-hybrid family's ``zamba2-7b``; ``whisper-medium`` raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+``qwen2-vl-2b`` (head dim 128), the ssm family's ``rwkv6-1.6b``, the
+hybrid family's ``zamba2-7b`` and the audio family's ``whisper-medium``
+(an encoder-decoder, head dim 64): every architecture of the reference.
 """
 
 from __future__ import annotations
@@ -33,20 +33,13 @@ ARCHS = [
 _MODULES = {"llama3.2-1b": "llama3_2_1b", "phi3-medium-14b": "phi3_medium_14b",
             "yi-34b": "yi_34b", "command-r-35b": "command_r_35b", "rwkv6-1.6b": "rwkv6_1_6b",
             "zamba2-7b": "zamba2_7b", "mixtral-8x22b": "mixtral_8x22b",
-            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "qwen2-vl-2b": "qwen2_vl_2b"}
-
-# Where each unported architecture waits (ROADMAP Queue 1 item 5).
-_WAITS = {
-    "whisper-medium": "audio family: encoder-decoder attention",
-}
+            "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "qwen2-vl-2b": "qwen2_vl_2b",
+            "whisper-medium": "whisper_medium"}
 
 
 def get_config(arch: str, preset: str = "full"):
     if arch not in ARCHS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"{arch} is not ported yet ({_WAITS[arch]}; ROADMAP Queue 1 item 5)")
     mod = importlib.import_module(f".{_MODULES[arch]}", __package__)
     if preset == "full":
         return mod.full()

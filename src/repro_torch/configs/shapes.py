@@ -69,10 +69,10 @@ def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
     batch (``train``), the prompt batch (``prefill``) or the one-token batch
     (``decode``; the cache comes from ``models.serve.init_cache``).  The vlm
     family's sequence holds ``N_PATCHES`` patch embeddings ahead of the
-    text, with their M-RoPE position ids.  Raises ``NotImplementedError``
-    for an architecture the port does not run (the audio family's frames
-    come with that family, ROADMAP Queue 1 item 5)."""
-    cfg = get_config(arch, "full")  # raises for an architecture the port does not run
+    text, with their M-RoPE position ids; the audio family's train and
+    prefill batches add ``frames`` [B, enc_seq, D], the encoder's stub
+    input, the tokens being the decoder's."""
+    cfg = get_config(arch, "full")
     spec = SHAPES[shape]
     b, s = spec.global_batch, spec.seq_len
     i32 = torch.int32
@@ -85,6 +85,9 @@ def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
         batch["patch_embeds"] = _meta((b, N_PATCHES, cfg.d_model), cfg.dtype)
         batch["positions_3d"] = _meta((3, b, s), i32)
         return batch
+    batch = {"tokens": _meta((b, s), i32)}
     if spec.kind == "train":
-        return {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32)}
-    return {"tokens": _meta((b, s), i32)}
+        batch["labels"] = _meta((b, s), i32)
+    if cfg.family == "audio":
+        batch["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), cfg.dtype)
+    return batch

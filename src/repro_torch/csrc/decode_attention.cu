@@ -369,7 +369,8 @@ cudaError_t run(const Args* a, int device, cudaStream_t s, int* blocks_per_sm) {
 }
 
 // Instantiated for the (head dim, query heads per KV head) pairs of the
-// ported configs: llama3.2-1b (64, 32 / 8 = 4), zamba2-7b's shared
+// ported configs: llama3.2-1b (64, 32 / 8 = 4), whisper-medium's self and
+// cross attention (64, MHA: 1) and its smoke config, zamba2-7b's shared
 // attention (112, MHA: 1), kimi-k2-1t-a32b (112, 64 / 8 = 8),
 // phi3-medium-14b (128, 40 / 10 = 4), mixtral-8x22b (128, 48 / 8 = 6),
 // qwen2-vl-2b (128, 12 / 2 = 6), yi-34b (128, 56 / 8 = 7) and
@@ -384,6 +385,7 @@ cudaError_t dispatch(int dh, int n_rep, const Args* a, int device, cudaStream_t 
                      int* blocks_per_sm) {
   if (dh == 64) {
     switch (n_rep) {
+      case 1: return run<T, 64, 1>(a, device, s, blocks_per_sm);
       case 2: return run<T, 64, 2>(a, device, s, blocks_per_sm);
       case 3: return run<T, 64, 3>(a, device, s, blocks_per_sm);
       case 4: return run<T, 64, 4>(a, device, s, blocks_per_sm);

@@ -3,7 +3,8 @@ the Hopper counterpart of ``repro/kernels/decode_attention/kernel.py``'s
 ``decode_attention_pallas``.  Any S_max; GQA with the cache read in place
 (never repeated); ``length`` stays on the device, so a decode step needs
 no host sync.  Instantiated for llama3.2-1b's attention (head dim 64, four
-query heads per KV head), zamba2-7b's shared MHA block (head dim 112, one
+query heads per KV head), whisper-medium's self and cross attention (head
+dim 64, MHA: one), zamba2-7b's shared MHA block (head dim 112, one
 query head per KV head), phi3-medium-14b, yi-34b and command-r-35b (head
 dim 128; 4, 7 and 8 query heads per KV head), mixtral-8x22b and
 qwen2-vl-2b (head dim 128, 6), kimi-k2-1t-a32b (head dim 112, 8), and the
@@ -31,8 +32,8 @@ __all__ = ["decode_attention", "SHAPES", "split_plan", "valid_range", "split_ran
            "rows_per_step"]
 
 #: (head dim, query heads per KV head) pairs the kernel is instantiated for.
-SHAPES = ((64, 2), (64, 3), (64, 4), (64, 7), (64, 8), (112, 1), (112, 8), (128, 4), (128, 6),
-          (128, 7), (128, 8))
+SHAPES = ((64, 1), (64, 2), (64, 3), (64, 4), (64, 7), (64, 8), (112, 1), (112, 8), (128, 4),
+          (128, 6), (128, 7), (128, 8))
 
 #: Fewest cache rows worth a split of their own.
 MIN_SPLIT_ROWS = 256

@@ -7,8 +7,9 @@ straggler log, crash and resume) on the card, or on the CPU with
 ``--device cpu``.  ``--preset full`` trains the published width and
 depth and needs the card; on the card ``--preset smoke`` runs at the
 attention kernels' head dim (``configs.for_kernels``).  The vlm family
-(qwen2-vl-2b) also reads image inputs, which the token stream does not
-hold: the launcher refuses it (``TrainLoop(batch_inputs=...)`` trains it).
+(qwen2-vl-2b) also reads image inputs and the audio family
+(whisper-medium) audio frames, which the token stream does not hold: the
+launcher refuses them (``TrainLoop(batch_inputs=...)`` trains them).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \
       --preset smoke --steps 200 --ckpt build/train_ckpt --device cpu
@@ -49,8 +50,9 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch, args.preset)
     if args.device != "cpu":
         cfg = for_kernels(cfg)
-    if cfg.family == "vlm":
-        raise SystemExit(f"{args.arch}: the token stream holds no image inputs; train it "
+    stub = {"vlm": "image inputs", "audio": "audio frames"}.get(cfg.family)
+    if stub:
+        raise SystemExit(f"{args.arch}: the token stream holds no {stub}; train it "
                          "through TrainLoop(batch_inputs=...)")
     loop = TrainLoop(
         cfg,

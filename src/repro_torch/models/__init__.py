@@ -1,5 +1,6 @@
-"""Model layer of the port: the dense, moe, vlm, ssm and hybrid families (see
-``transformer.py``), their serving path (``serve``) and the training loss.
+"""Model layer of the port: the dense, moe, vlm, ssm, hybrid and audio
+families (see ``transformer.py``), their serving path (``serve``) and the
+training loss.
 The reference's logical-axis rules (``axis_rules``, ``logical_to_spec``)
 wait for the dry-run (ROADMAP Queue 1 item 6)."""
 

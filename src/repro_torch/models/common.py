@@ -2,8 +2,10 @@
 ``repro/models/common.py``).
 
 There is no sharding on one device, so the logical-axis rules and
-``shard()`` are not ported; ``ParamStore``'s distributions live in
-:func:`repro_torch.models.transformer.init_params`.  Norms, RoPE and
+``shard()`` are not ported (they wait for the dry-run); ``ParamStore``'s
+distributions live in :func:`repro_torch.models.transformer.init_params`.
+Norms (:func:`rms_norm`, and :func:`layer_norm`, which no ported model
+calls: the reference's whisper normalises with ``rms_norm``), RoPE and
 Qwen2-VL's multimodal RoPE (:func:`apply_mrope`) compute in float32 inside
 and cast back to the input's dtype, as the reference does.
 """
@@ -16,8 +18,8 @@ from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "rms_norm", "rope_frequencies", "apply_rope", "apply_mrope",
-           "mrope_positions", "cross_entropy_loss"]
+__all__ = ["ModelConfig", "rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
+           "apply_mrope", "mrope_positions", "cross_entropy_loss"]
 
 
 @dataclass(frozen=True)
@@ -114,6 +116,20 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.
     var = torch.mean(x * x, dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * weight.to(torch.float32)).to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm over the last axis in float32 (the biased variance), times
+    ``weight`` plus ``bias`` when given, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, correction=0)
+    x = (x - mu) * torch.rsqrt(var + eps) * weight.to(torch.float32)
+    if bias is not None:
+        x = x + bias.to(torch.float32)
+    return x.to(dt)
 
 
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:

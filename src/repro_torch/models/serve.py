@@ -1,5 +1,5 @@
 """Serving paths: cache init, prefill and single-token decode for the
-dense, moe, vlm, ssm and hybrid families (the port of
+dense, moe, vlm, ssm, hybrid and audio families (the port of
 ``repro/models/serve.py``).
 
 Caches are the reference's dicts, with ``length`` a 0-dim int32 tensor on
@@ -10,7 +10,10 @@ the device:
   ssm     ``wkv`` [L, B, H, Dk, Dv] float32 and the token shifts
           ``tm_shift`` / ``cm_shift`` [L, B, D];
   hybrid  ``ssm`` [L, B, H, Dst, 64] float32 and the shared block's
-          ``k`` / ``v`` [G, B, S_max, Hkv, Dh], one row per site.
+          ``k`` / ``v`` [G, B, S_max, Hkv, Dh], one row per site;
+  audio   the decoder's self ``k`` / ``v`` [L, B, S_max, Hkv, Dh] and the
+          cross ``xk`` / ``xv`` [L, B, S_enc, Hkv, Dh] that the prefill
+          computes once from the encoder's output.
 
 Unlike the reference's pure functions, :func:`prefill` and
 :func:`decode_step` write into the cache tensors in place (a decode step
@@ -21,8 +24,13 @@ layers' aux losses are discarded, as the reference discards them; their
 capacity counts the tokens of each call, so a B = 4 decode step has one
 slot per expert (mixtral-8x22b, kimi-k2-1t-a32b) and drops are part of the
 semantics.  The vlm decode rotates with all three M-RoPE streams at
-``length``, as the reference does.  The audio family raises
-``NotImplementedError`` (ROADMAP Queue 1 item 5).
+``length``, as the reference does.  Whisper's prefill runs the encoder
+over ``batch["frames"]`` and sizes the cross cache to the frames' count
+(the reference replaces ``xk`` / ``xv`` with the prefill's), while its
+decode step attends over ``cfg.enc_seq`` cross rows, as the reference's
+``attention_decode(q, xk, xv, enc_seq)`` does: with fewer frames every
+row counts, with more the rows past ``enc_seq`` are left out of decode
+but not of the prefill.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from .common import ModelConfig, rms_norm
 from .transformer import (
     DECODER_FAMILIES,
     _ffn_block,
+    _gelu_mlp,
+    _heads,
     _mamba2_mixer,
     _qkv,
     _rwkv_layers,
@@ -46,6 +56,9 @@ from .transformer import (
     lm_head,
     require_ported,
     shared_sites,
+    whisper_decoder,
+    whisper_encoder,
+    whisper_layer,
 )
 
 __all__ = ["init_cache", "prefill", "decode_step"]
@@ -58,9 +71,14 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, *, device=None) -> Cach
     ``device`` (default: the CUDA device)."""
     require_ported(cfg)
     dev = resolve_device(device)
-    if cfg.family in DECODER_FAMILIES:
-        return init_kv_cache(cfg, batch, s_max, device=dev)._asdict()
     L, d, dt = cfg.n_layers, cfg.d_model, cfg.dtype
+    if cfg.family in DECODER_FAMILIES or cfg.family == "audio":
+        cache = init_kv_cache(cfg, batch, s_max, device=dev)._asdict()
+        if cfg.family == "audio":  # the cross keys and values, a row per frame
+            cross = (L, batch, cfg.enc_seq, cfg.n_kv_heads, cfg.head_dim_)
+            cache.update(xk=torch.zeros(cross, dtype=dt, device=dev),
+                         xv=torch.zeros(cross, dtype=dt, device=dev))
+        return cache
     length = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.family == "ssm":
         hd = d // cfg.n_heads
@@ -86,11 +104,15 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device
             routing: list | None = None) -> tuple[torch.Tensor, Cache]:
     """Process the prompts ``batch["tokens"]`` [B, S] (vlm: after the
     patches ``batch["patch_embeds"]`` [B, P, D], rotated by
-    ``batch["positions_3d"]`` [3, B, P + S] when given); fill the cache's
-    first S (P + S) positions (in place); return the last position's logits
-    [B, V] and the cache at that length.  Runs on ``device`` (default: the
-    CUDA device), where the parameters and the cache must be.  ``routing``
-    (a list) receives each MoE layer's routing (``models/ffn.py``)."""
+    ``batch["positions_3d"]`` [3, B, P + S] when given; audio: with the
+    encoder over ``batch["frames"]`` [B, S_enc, D], whose cross keys and
+    values fill ``xk`` / ``xv`` -- in place when the cache holds S_enc
+    rows, else in new tensors of S_enc rows, as the reference sizes them);
+    fill the cache's first S (P + S) positions (in place); return the last
+    position's logits [B, V] and the cache at that length.  Runs on
+    ``device`` (default: the CUDA device), where the parameters and the
+    cache must be.  ``routing`` (a list) receives each MoE layer's routing
+    (``models/ffn.py``)."""
     require_ported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
@@ -105,8 +127,16 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device
         for key in ("wkv", "tm_shift", "cm_shift"):
             cache[key].zero_()
         x = _rwkv_layers(params, x, cfg, cache)
-    else:
+    elif cfg.family == "hybrid":
         x = _zamba_layers(params, x, cfg, positions, cache)
+    else:
+        frames = torch.as_tensor(batch["frames"], device=dev).to(cfg.dtype)
+        enc = whisper_encoder(params, frames, cfg)
+        cross = (*cache["xk"].shape[:2], enc.shape[1], *cache["xk"].shape[3:])
+        if tuple(cache["xk"].shape) != cross:
+            cache = {**cache, "xk": cache["xk"].new_empty(cross),
+                     "xv": cache["xv"].new_empty(cross)}
+        x = whisper_decoder(params, x, enc, cfg, positions, cache)
     length = torch.full((), s, dtype=torch.int32, device=dev)
     return lm_head(params, cfg, x[:, -1:])[:, 0], {**cache, "length": length}
 
@@ -116,7 +146,9 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=
                 routing: list | None = None) -> tuple[torch.Tensor, Cache]:
     """tokens [B] -> (logits [B, V], the cache one token longer).  The new
     keys and values go to position ``cache["length"]`` of every layer, in
-    place.  ``routing``: as :func:`prefill`'s."""
+    place; whisper's cross attention reads the first ``cfg.enc_seq`` rows
+    of ``xk`` / ``xv`` (a length made on the device once per step).
+    ``routing``: as :func:`prefill`'s."""
     require_ported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev)
@@ -137,6 +169,16 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=
             x = _attn_decode(lp, x, cfg, positions, slot, new_length, cache["k"][i],
                              cache["v"][i], window, p3)
             x = _ffn_block(lp, x, cfg, routing=routing)[0]
+    elif cfg.family == "audio":
+        enc_len = torch.full((), cfg.enc_seq, dtype=torch.int32, device=dev)
+        for i in range(cfg.n_layers):
+            lp = whisper_layer(params, i, "dec")
+            x = _attn_decode(lp, x, cfg, positions, slot, new_length, cache["k"][i],
+                             cache["v"][i], None)
+            q = _heads(rms_norm(x, lp["xattn_norm"], cfg.norm_eps) @ lp["xq"], cfg.n_heads, cfg)
+            o = attention_decode(q, cache["xk"][i], cache["xv"][i], enc_len)
+            x = x + o.reshape(b, 1, cfg.q_dim) @ lp["xo"]
+            x = _gelu_mlp(lp, x, cfg)
     else:
         sp = layer_params(params, 0, "shared_attn")
         for g, (lo, hi) in enumerate(shared_sites(cfg)):

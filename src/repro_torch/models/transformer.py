@@ -1,4 +1,4 @@
-"""Model assembly -- the port of ``repro/models/transformer.py`` for five
+"""Model assembly -- the port of ``repro/models/transformer.py`` for all six
 families:
 
   dense   llama-style (GQA, RoPE, SwiGLU, RMSNorm, no biases);
@@ -12,19 +12,25 @@ families:
   ssm     rwkv6 (Finch time-mix with the WKV scan + channel-mix; no
           attention);
   hybrid  zamba2 (Mamba2 SSD layers, with one shared attention + SwiGLU
-          block applied after every ``hybrid_attn_every`` of them).
+          block applied after every ``hybrid_attn_every`` of them);
+  audio   whisper-medium, an encoder-decoder: the encoder adds sinusoids
+          to the frame embeddings (a stub input for the mel / conv front
+          end) and runs bidirectional attention; each decoder layer runs
+          causal self attention with RoPE, cross attention over the
+          encoder's output and a two-matrix MLP with tanh-approximated GELU
+          (JAX's default), every norm an RMS norm, as the reference has it.
 
 Parameters are a plain dict with the reference's names and its stacked
 ``[L, ...]`` layer layout (zamba2's shared block under ``shared_attn``,
-stacked ``[1, ...]``; kimi's shared expert under ``layers.shared``), so a
+stacked ``[1, ...]``; kimi's shared expert under ``layers.shared``;
+whisper's encoder under ``enc`` and its decoder under ``dec``), so a
 reference pytree carries over one to one
 (:func:`repro_torch.convert.model_params_from_reference`).  The layers run
 in a Python loop (no ``lax.scan``); attention, the FFN and the two scans
 go through the Hopper kernels, and in training through their autograd
 Functions (kernel forward, plain backward); the routed experts' products
-are ``torch.bmm``, as the reference leaves them to XLA.  Every family but
-audio serves and trains; the audio family raises ``NotImplementedError``
-(ROADMAP Queue 1 item 5).
+are ``torch.bmm`` and whisper's projections and MLP ``@``, as the
+reference leaves them to XLA.  Every family serves and trains.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "layer_params",
            "require_ported", "ep_shard_params", "PORTED_FAMILIES", "DECODER_FAMILIES"]
 
 #: The families the port runs.
-PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 #: The families whose layers are the attention + FFN decoder stack.
 DECODER_FAMILIES = ("dense", "moe", "vlm")
@@ -58,8 +64,8 @@ _SSD_LOGA_MIN = -6.0
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.arch}) is not ported yet; the port runs the dense, "
-            "moe, vlm, ssm and hybrid families (ROADMAP Queue 1 item 5)")
+            f"family {cfg.family!r} ({cfg.arch}) is not one the port runs; it runs the "
+            "dense, moe, vlm, ssm, hybrid and audio families")
 
 
 def _normal(shape, scale=None):
@@ -163,6 +169,27 @@ def _init_zamba_stack(cfg: ModelConfig, L: int) -> tuple[dict, dict]:
     return layers, _init_decoder_stack(cfg, 1)
 
 
+#: Whisper's per-layer leaves (the reference's ``_whisper_views``).
+WHISPER_ENC_KEYS = ("attn_norm", "wq", "wk", "wv", "wo", "ffn_norm", "wi", "wo_ffn")
+WHISPER_DEC_KEYS = WHISPER_ENC_KEYS + ("xattn_norm", "xq", "xk", "xv", "xo")
+
+
+def _init_whisper(cfg: ModelConfig) -> tuple[dict, dict]:
+    """(the encoder, the decoder): a scale on the sinusoids, the attention,
+    the GELU MLP and a final norm stacked over the encoder's layers; the
+    self attention, the cross attention and the MLP over the decoder's.  No
+    biases and no learned position table, as the reference has it."""
+    d, f = cfg.d_model, cfg.d_ff
+    le, ld = cfg.enc_layers or cfg.n_layers, cfg.n_layers
+    enc = {"pos_scale": _ones((1,)), **_init_attn(cfg, le), "ffn_norm": _ones((le, d)),
+           "wi": _normal((le, d, f)), "wo_ffn": _normal((le, f, d)), "final_norm": _ones((d,))}
+    dec = {**_init_attn(cfg, ld), "xattn_norm": _ones((ld, d)),
+           "xq": _normal((ld, d, cfg.q_dim)), "xk": _normal((ld, d, cfg.kv_dim)),
+           "xv": _normal((ld, d, cfg.kv_dim)), "xo": _normal((ld, cfg.q_dim, d)),
+           "ffn_norm": _ones((ld, d)), "wi": _normal((ld, d, f)), "wo_ffn": _normal((ld, f, d))}
+    return enc, dec
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """Every parameter's ``(shape, init, scale)`` in the reference's
     ``ParamStore`` order, from the config alone (nothing is allocated)."""
@@ -176,8 +203,10 @@ def param_shapes(cfg: ModelConfig) -> dict:
         out["layers"] = _init_decoder_stack(cfg, cfg.n_layers)
     elif cfg.family == "ssm":
         out["layers"] = _init_rwkv_stack(cfg, cfg.n_layers)
-    else:
+    elif cfg.family == "hybrid":
         out["layers"], out["shared_attn"] = _init_zamba_stack(cfg, cfg.n_layers)
+    else:
+        out["enc"], out["dec"] = _init_whisper(cfg)
     return out
 
 
@@ -471,6 +500,83 @@ def _zamba_layers(params: dict, x, cfg: ModelConfig, positions, cache: dict | No
     return x
 
 
+# -------------------------------------------------------------- whisper -- #
+def whisper_layer(params: dict, i: int, side: str) -> dict:
+    """Layer ``i`` of whisper's ``side`` (``"enc"`` or ``"dec"``): its
+    per-layer leaves, without the encoder's ``pos_scale`` and
+    ``final_norm``."""
+    keys = WHISPER_ENC_KEYS if side == "enc" else WHISPER_DEC_KEYS
+    return {k: params[side][k][i] for k in keys}
+
+
+def _sinusoidal(s: int, d: int, device=None) -> torch.Tensor:
+    """[S, D] float32: ``sin`` of position / 10000^(2i / D) in the first
+    half, ``cos`` in the second (concatenated, not interleaved)."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
+def _heads(t, n: int, cfg: ModelConfig):
+    """[B, S, n * Dh] -> [B, S, n, Dh]."""
+    return t.reshape(t.shape[0], t.shape[1], n, cfg.head_dim_)
+
+
+def _gelu_mlp(lp: dict, x, cfg: ModelConfig):
+    """Pre-norm two-matrix MLP with a residual; GELU in float32 with the
+    tanh approximation (``jax.nn.gelu``'s default)."""
+    f = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    f = F.gelu((f @ lp["wi"]).to(torch.float32), approximate="tanh").to(x.dtype)
+    return x + f @ lp["wo_ffn"]
+
+
+def whisper_encoder(params: dict, frames, cfg: ModelConfig):
+    """frames [B, S_enc, D] (the stub front end's embeddings, in
+    ``cfg.dtype``) -> the encoder's output [B, S_enc, D]: the sinusoids
+    times ``pos_scale`` (float32, cast to the frames' dtype after the
+    product), bidirectional attention and the GELU MLP per layer, the final
+    norm."""
+    b, s, d = frames.shape
+    enc = params["enc"]
+    x = frames + (_sinusoidal(s, d, frames.device) * enc["pos_scale"]).to(frames.dtype)
+    for i in range(cfg.enc_layers or cfg.n_layers):
+        lp = whisper_layer(params, i, "enc")
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q = _heads(h @ lp["wq"], cfg.n_heads, cfg)
+        k, v = (_heads(h @ lp[w], cfg.n_kv_heads, cfg) for w in ("wk", "wv"))
+        o = attention_train(q, k, v, causal=False)
+        x = x + o.reshape(b, s, cfg.q_dim) @ lp["wo"]
+        x = _gelu_mlp(lp, x, cfg)
+    return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def whisper_decoder(params: dict, x, enc_out, cfg: ModelConfig, positions,
+                    cache: dict | None = None):
+    """The decoder stack over ``x`` [B, S, D]: causal self attention with
+    RoPE, cross attention of its queries over ``enc_out`` [B, S_enc, D]'s
+    keys and values (bidirectional), the GELU MLP.  With a cache (``k`` /
+    ``v`` [L, B, S_max, Hkv, Dh], ``xk`` / ``xv`` [L, B, S_enc, Hkv, Dh])
+    each layer's self keys and values go to its first S positions and its
+    cross keys and values fill ``xk`` / ``xv``, in place."""
+    b, s, _ = x.shape
+    for i in range(cfg.n_layers):
+        lp = whisper_layer(params, i, "dec")
+        x, (k, v) = _attn_block(lp, x, cfg, positions, window=None)
+        h = rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
+        q = _heads(h @ lp["xq"], cfg.n_heads, cfg)
+        xk, xv = (_heads(enc_out @ lp[w], cfg.n_kv_heads, cfg) for w in ("xk", "xv"))
+        o = attention_train(q, xk, xv, causal=False)
+        x = x + o.reshape(b, s, cfg.q_dim) @ lp["xo"]
+        x = _gelu_mlp(lp, x, cfg)
+        if cache is not None:
+            cache["k"][i, :, :s] = k.to(cfg.dtype)
+            cache["v"][i, :, :s] = v.to(cfg.dtype)
+            cache["xk"][i] = xk.to(cfg.dtype)
+            cache["xv"][i] = xv.to(cfg.dtype)
+    return x
+
+
 def embed_inputs(params: dict, cfg: ModelConfig, batch: dict, tokens):
     """The decoder's input sequence [B, P + S, D]: the vlm family's
     ``batch["patch_embeds"]`` [B, P, D] (when given) ahead of the tokens'
@@ -508,10 +614,12 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, ep=None, routing=Non
     holds ``"tokens"`` [B, S] on the parameters' device; the vlm family
     also ``"patch_embeds"`` [B, P, D] and ``"positions_3d"`` [3, B, P + S]
     (the patches run ahead of the tokens and are stripped after the last
-    layer).  ``aux_loss`` sums the MoE layers' load-balancing losses (0 for
-    the other families).  ``ep``: the MoE layers' expert-parallel groups
-    (the parameters' MoE leaves then the rank's shard); ``routing``: a list
-    that receives each MoE layer's routing."""
+    layer); the audio family ``"frames"`` [B, S_enc, D], the encoder's
+    input, the tokens being the decoder's.  ``aux_loss`` sums the MoE
+    layers' load-balancing losses (0 for the other families).  ``ep``: the
+    MoE layers' expert-parallel groups (the parameters' MoE leaves then the
+    rank's shard); ``routing``: a list that receives each MoE layer's
+    routing."""
     require_ported(cfg)
     tokens = batch["tokens"]
     s = tokens.shape[1]
@@ -523,9 +631,14 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, ep=None, routing=Non
         x = x[:, x.shape[1] - s:]
     elif cfg.family == "ssm":
         x, aux = _rwkv_layers(params, params["embed"][tokens].to(cfg.dtype), cfg), zero
-    else:
+    elif cfg.family == "hybrid":
         x, positions = embed_inputs(params, cfg, batch, tokens)
         x, aux = _zamba_layers(params, x, cfg, positions), zero
+    else:
+        x, positions = embed_inputs(params, cfg, batch, tokens)
+        frames = torch.as_tensor(batch["frames"], device=x.device).to(cfg.dtype)
+        enc = whisper_encoder(params, frames, cfg)
+        x, aux = whisper_decoder(params, x, enc, cfg, positions), zero
     logits = lm_head(params, cfg, x)
     if cfg.logit_softcap > 0:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap

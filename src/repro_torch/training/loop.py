@@ -24,10 +24,10 @@ The input pipeline is a :class:`~repro_torch.data.pipeline.PipelinedLoader`
 with fixed workers, as the reference's loop builds it (its docstring says a
 DRS scheduler rescales the workers; its code does not, ROADMAP Queue 1
 item 8).  The stream holds tokens only: a model that reads more (the vlm
-family's ``patch_embeds`` and ``positions_3d``) takes them from
-``batch_inputs(position, batch)``, called with the batch's stream position
-so that a resumed run sees the same; the loop refuses a vlm model without
-it.  Tensors live on ``device`` (default: the CUDA device).
+family's ``patch_embeds`` and ``positions_3d``, the audio family's
+``frames``) takes them from ``batch_inputs(position, batch)``, called with
+the batch's stream position so that a resumed run sees the same; the loop
+refuses a vlm or audio model without it.  Tensors live on ``device`` (default: the CUDA device).
 """
 
 from __future__ import annotations
@@ -81,10 +81,11 @@ class TrainLoop:
         device=None,
     ):
         require_trained(cfg)
-        if cfg.family == "vlm" and batch_inputs is None:
+        reads = {"vlm": "patch_embeds and positions_3d", "audio": "frames"}.get(cfg.family)
+        if reads and batch_inputs is None:
             raise ValueError(
-                f"{cfg.arch}: the vlm family reads patch_embeds and positions_3d, which the "
-                "token stream does not hold; pass batch_inputs(position, batch)")
+                f"{cfg.arch}: the {cfg.family} family reads {reads}, which the token stream "
+                "does not hold; pass batch_inputs(position, batch)")
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.loop_cfg = loop_cfg

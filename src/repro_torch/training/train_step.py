@@ -7,12 +7,15 @@ the plain versions backward (``kernels/flash_attention/grad.py``,
 ``kernels/swiglu/grad.py``, ``kernels/rwkv6_scan/grad.py``,
 ``kernels/ssd_scan/grad.py``).  ``compress_grads`` passes the gradients
 through int8 quantisation (``distributed/compress.py``) before the update,
-as the reference does ahead of its cross-replica reduction.  The dense,
-moe, vlm, ssm and hybrid families train (the moe family's routed experts
-through autograd of ``torch.bmm`` and the dispatch's gathers, its loss
-with the load-balancing term; the vlm batch also carries
-``"patch_embeds"`` and ``"positions_3d"``); the audio family waits for its
-port (ROADMAP Queue 1 item 5).
+as the reference does ahead of its cross-replica reduction.  Every
+family trains: dense, moe (the routed experts through autograd of
+``torch.bmm`` and the dispatch's gathers, the loss with the load-balancing
+term), vlm (the batch also carries ``"patch_embeds"`` and
+``"positions_3d"``), ssm, hybrid and audio (the batch also carries
+``"frames"``; the encoder's, the decoder's self and its cross attention
+all run through ``FlashAttentionFn``).  The reference's
+``jax.checkpoint`` on the layer bodies changes no value and has no
+counterpart here.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ __all__ = ["TrainState", "TRAINED_FAMILIES", "require_trained", "init_train_stat
            "make_train_step"]
 
 #: The families whose every kernel on the forward has an autograd Function.
-TRAINED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+TRAINED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 class TrainState(NamedTuple):
@@ -43,8 +46,8 @@ class TrainState(NamedTuple):
 def require_trained(cfg: ModelConfig) -> None:
     if cfg.family not in TRAINED_FAMILIES:
         raise NotImplementedError(
-            f"training the {cfg.family} family ({cfg.arch}) waits for its port (ROADMAP Queue 1 "
-            "item 5); the port trains the dense, moe, vlm, ssm and hybrid families")
+            f"the port does not train the {cfg.family} family ({cfg.arch}); it trains the "
+            "dense, moe, vlm, ssm, hybrid and audio families")
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0, *,
@@ -62,7 +65,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, aux_weight: float
                     compress_grads: bool = False):
     """``train_step(state, batch) -> (state, metrics)``; ``batch`` holds
     ``"tokens"`` and ``"labels"`` [B, S] on the parameters' device (vlm:
-    also ``"patch_embeds"`` and ``"positions_3d"``).  The
+    also ``"patch_embeds"`` and ``"positions_3d"``; audio: ``"frames"``).  The
     parameters and moments are updated in place."""
     require_trained(cfg)
 

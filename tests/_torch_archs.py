@@ -1,7 +1,8 @@
 """Helpers of the port's whole-model tests against the JAX package on the
-CPU (``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py``): the smoke
-configs of both packages in one dtype, the JAX parameters carried across,
-seeded batches (the vlm family's with patches), and the comparison rule of
+CPU (``tests/test_torch_moe.py``, ``tests/test_torch_vlm.py``,
+``tests/test_torch_whisper.py``): the smoke configs of both packages in one
+dtype, the JAX parameters carried across, seeded batches (the vlm family's
+with patches, the audio family's with frames), and the comparison rule of
 ``tests/test_torch_dense_archs.py``.
 """
 
@@ -45,10 +46,13 @@ def grid_positions(b: int, n_patches: int, s: int) -> np.ndarray:
     return mrope_positions(b, n_patches, s).numpy().astype(np.int32)
 
 
-def batch(cfg, b: int, s: int, seed: int, *, labels: bool = False, positions=None) -> dict:
+def batch(cfg, b: int, s: int, seed: int, *, labels: bool = False, positions=None,
+          frames: int | None = None) -> dict:
     """Seeded numpy inputs: ``tokens`` [B, S] (and ``labels``); for the vlm
     family ``patch_embeds`` [B, P, D] and ``positions_3d`` ([3, B, P + S];
-    default :func:`grid_positions` on a 2 x 2 grid)."""
+    default :func:`grid_positions` on a 2 x 2 grid); for the audio family
+    ``frames`` [B, S_enc, D] (standard normal; S_enc ``frames``, default
+    the config's ``enc_seq``)."""
     rng = np.random.default_rng(seed)
     out = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
     if labels:
@@ -58,16 +62,23 @@ def batch(cfg, b: int, s: int, seed: int, *, labels: bool = False, positions=Non
             np.float32)
         out["positions_3d"] = (grid_positions(b, SMOKE_PATCHES, s) if positions is None
                                else positions)
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal((b, frames or cfg.enc_seq, cfg.d_model)).astype(
+            np.float32)
     return out
 
 
+#: The batch's float inputs, given in the model's dtype.
+EMBEDDINGS = ("patch_embeds", "frames")
+
+
 def to_jax(batch: dict, cfg) -> dict:
-    return {k: jnp.asarray(v, cfg.dtype) if k == "patch_embeds" else jnp.asarray(v)
+    return {k: jnp.asarray(v, cfg.dtype) if k in EMBEDDINGS else jnp.asarray(v)
             for k, v in batch.items()}
 
 
 def to_torch(batch: dict, cfg) -> dict:
-    return {k: torch.from_numpy(v).to(cfg.dtype) if k == "patch_embeds"
+    return {k: torch.from_numpy(v).to(cfg.dtype) if k in EMBEDDINGS
             else torch.from_numpy(v).long() for k, v in batch.items()}
 
 
@@ -132,6 +143,20 @@ def stub_patches(cfg, seed: int, n_patches: int):
         patches = torch.randn((b, n_patches, cfg.d_model), generator=gen)
         return {"patch_embeds": patches.to(tokens.device, cfg.dtype),
                 "positions_3d": mrope_positions(b, n_patches, s, device=tokens.device)}
+
+    return inputs
+
+
+def stub_frames(cfg, seed: int):
+    """``TrainLoop``'s ``batch_inputs`` of an audio model: ``enc_seq`` stub
+    frame embeddings [B, S_enc, D] (standard normal in ``cfg.dtype``, drawn
+    from ``seed`` and the batch's stream position)."""
+
+    def inputs(position: int, batch: dict) -> dict:
+        tokens = batch["tokens"]
+        gen = torch.Generator().manual_seed(seed * 1_000_003 + position)
+        frames = torch.randn((tokens.shape[0], cfg.enc_seq, cfg.d_model), generator=gen)
+        return {"frames": frames.to(tokens.device, cfg.dtype)}
 
     return inputs
 

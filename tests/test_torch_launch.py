@@ -41,6 +41,7 @@ FLAGS = [
     ["--horizon", "300", "--t-max", "2.0"],
     ["--horizon", "240", "--rate", "6.0", "--chips", "30", "--mean-tokens", "32"],
     ["--arch", "zamba2-7b", "--horizon", "200", "--rate", "2.0", "--chips", "16"],
+    ["--arch", "whisper-medium", "--horizon", "200", "--rate", "3.0", "--chips", "20"],
 ]
 
 
@@ -139,7 +140,7 @@ _DT = {jnp.int32: torch.int32, jnp.bfloat16: torch.bfloat16, jnp.float32: torch.
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "zamba2-7b", "phi3-medium-14b",
                                   "yi-34b", "command-r-35b", "mixtral-8x22b",
-                                  "kimi-k2-1t-a32b", "qwen2-vl-2b"])
+                                  "kimi-k2-1t-a32b", "qwen2-vl-2b", "whisper-medium"])
 @pytest.mark.parametrize("shape", sorted(jshapes.SHAPES))
 def test_input_specs_are_meta_tensors_of_the_reference_shapes(arch, shape):
     got = shapes.input_specs(arch, shape)
@@ -152,5 +153,13 @@ def test_input_specs_are_meta_tensors_of_the_reference_shapes(arch, shape):
 
 
 def test_input_specs_of_an_unported_arch_name_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        shapes.input_specs("whisper-medium", "train_4k")
+    """whisper's train and prefill batches carry the encoder's stub frames
+    [B, enc_seq, D] in bf16, as the reference's do; its decode batch does
+    not (the cross keys and values are in the cache)."""
+    for shape in ("train_4k", "prefill_32k"):
+        got = shapes.input_specs("whisper-medium", shape)
+        want = jshapes.input_specs("whisper-medium", shape)
+        b = shapes.SHAPES[shape].global_batch
+        assert tuple(got["frames"].shape) == tuple(want["frames"].shape) == (b, 1500, 1024)
+        assert got["frames"].dtype == torch.bfloat16 and got["frames"].device.type == "meta"
+    assert set(shapes.input_specs("whisper-medium", "decode_32k")) == {"tokens"}

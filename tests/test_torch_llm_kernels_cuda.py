@@ -132,11 +132,11 @@ def test_cuda_flash_head_dim_128_matches_plain(cuda_device, dtype, b, sq, skv, w
 
 # Every instantiated (head dim, query heads per KV head) pair: the three
 # dense 128-dim archs', mixtral's and qwen2-vl's (128, 6), kimi's (112, 8),
-# and the smoke configs' at the kernels' head dim 64 (ratios 2, 3, 7, 8),
-# each from length 0 to S_max.
+# whisper's (64, 1) and the smoke configs' at the kernels' head dim 64
+# (ratios 2, 3, 7, 8), each from length 0 to S_max.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,n_rep", [(128, 4), (128, 6), (128, 7), (128, 8), (112, 8),
-                                      (64, 2), (64, 3), (64, 7), (64, 8)])
+                                      (64, 1), (64, 2), (64, 3), (64, 7), (64, 8)])
 @pytest.mark.parametrize("length,window", [(0, None), (257, None), (1024, 100)])
 def test_cuda_decode_gqa_pairs_match_plain(cuda_device, dtype, dh, n_rep, length, window):
     gen = torch.Generator().manual_seed(5)
@@ -147,6 +147,39 @@ def test_cuda_decode_gqa_pairs_match_plain(cuda_device, dtype, dh, n_rep, length
     n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
     got = tdk.decode_attention(q, k, v, n, window=window)
     _assert_attention_close(got, tdr.decode_attention(q, k, v, n, window=window))
+
+
+# whisper-medium's attention (16 heads of 64, MHA) at its serving shapes:
+# the encoder's bidirectional 1,500 frames (off the 64 / 128-row tiles) and
+# the cross attention of a 224-token prompt over them.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv", [(2, 1500, 1500), (2, 224, 1500), (3, 1, 1500)])
+def test_cuda_flash_at_whisper_shapes_matches_plain(cuda_device, dtype, b, sq, skv):
+    gen = torch.Generator().manual_seed(9)
+    q = torch.randn(b, sq, 16, 64, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+    k, v = (torch.randn(b, skv, 16, 64, generator=gen).to(cuda_device, dtype).transpose(1, 2)
+            for _ in range(2))
+    got = tfk.attention(q, k, v, causal=False)
+    want = tfr.attention(q, k, v, causal=False)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    _assert_attention_close(got, want)
+
+
+# whisper-medium's decode, (64, 1) at B 16: the cross cache of 1,500 rows
+# read whole, the self cache of 448 (n_text_ctx) at a step over 225 rows and
+# empty, and a cross length past the rows (the reference's enc_seq over
+# fewer frames: every row counts).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s_max,length", [(1500, 1500), (448, 225), (448, 0), (24, 32)])
+def test_cuda_decode_at_whisper_shapes_matches_plain(cuda_device, dtype, s_max, length):
+    gen = torch.Generator().manual_seed(10)
+    b, h = 16, 16
+    q = torch.randn(b, h, 64, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, s_max, h, 64, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, s_max, h, 64, generator=gen).to(cuda_device, dtype)
+    n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    got = tdk.decode_attention(q, k, v, n)
+    _assert_attention_close(got, tdr.decode_attention(q, k, v, n))
 
 
 def test_cuda_decode_refuses_a_pair_it_is_not_built_for(cuda_device):
@@ -264,3 +297,47 @@ def test_cuda_moe_dispatch_is_deterministic_and_matches_the_cpu(cuda_device):
     torch.testing.assert_close(a.cpu(), c, rtol=1e-5, atol=1e-5 * float(c.abs().max()))
     for p, q in zip(ga, gc):
         torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-5 * float(q.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3), (torch.bfloat16, 5e-2)])
+def test_cuda_whisper_serve_matches_the_cpu(cuda_device, dtype, tol):
+    """whisper's smoke model at the kernels' head dim (``for_kernels``:
+    d_model 256, 4 heads of 64) on the card -- the encoder's and the cross
+    attention's bidirectional flash, the (64, 1) decode over the self and
+    the cross cache, launched as the serving rule counts them -- against
+    the CPU's plain versions teacher-forced on the card's tokens, 24
+    frames of ``enc_seq`` 32: logits within ``tol * (1 + |cpu|)``."""
+    import dataclasses
+
+    from repro_torch.configs import for_kernels, get_config
+    from repro_torch.models import serve
+    from repro_torch.models.transformer import init_params
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(for_kernels(get_config("whisper-medium", "smoke")), dtype=dtype)
+    params = init_params(cfg, seed=1, device=cuda_device)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    gen = torch.Generator().manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 40), generator=gen),
+             "frames": torch.randn(2, 24, cfg.d_model, generator=gen).to(dtype)}
+    LAUNCHES.clear()
+    cache = serve.init_cache(cfg, 2, 48, device=cuda_device)
+    lg, cache = serve.prefill(params, cfg, {k: v.to(cuda_device) for k, v in batch.items()},
+                              cache, device=cuda_device)
+    card, fed = [lg.float().cpu()], []
+    for _ in range(4):
+        tok = lg.argmax(-1)
+        fed.append(tok.cpu())
+        lg, cache = serve.decode_step(params, cfg, tok, cache, device=cuda_device)
+        card.append(lg.float().cpu())
+    assert LAUNCHES["flash_attention"] == cfg.enc_layers + 2 * cfg.n_layers
+    assert LAUNCHES["decode_attention"] == 2 * cfg.n_layers * 4
+    ccache = serve.init_cache(cfg, 2, 48, device="cpu")
+    lg, ccache = serve.prefill(cpu_params, cfg, batch, ccache, device="cpu")
+    host = [lg.float()]
+    for tok in fed:
+        lg, ccache = serve.decode_step(cpu_params, cfg, tok, ccache, device="cpu")
+        host.append(lg.float())
+    for a, c in zip(card, host):
+        assert torch.isfinite(a).all()
+        assert bool(((a - c).abs() <= tol * (1 + c.abs())).all()), float((a - c).abs().max())
