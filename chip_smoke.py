@@ -228,10 +228,22 @@ Phases, each printing one JSON line:
     its plain version and its bound (the scans' bf16 rows: bytes over 3.35
     TB/s against the products over 989 TFLOP/s plus the other operations
     over 67 TFLOP/s);
+14a. ``dryrun``: the port's dry-run (``repro_torch.launch.dryrun``, host
+    code on meta tensors, H100 constants): the ``prefill_32k`` and
+    ``decode_32k`` records of llama3.2-1b, rwkv6-1.6b, zamba2-7b,
+    phi3-medium-14b, qwen2-vl-2b and whisper-medium on pod16x16 written
+    under ``build/dryrun``, each with its dominant term and bound; then
+    llama's 4 x 4096 prefill and B = 4 step and phi3's 4 x 4096 prefill
+    costed on a one-device mesh at the cells ``*_serve`` ran: the roofline
+    bound must not exceed the device ms the card took (profiled in this
+    run), and the predicted peak (arguments + temporaries) must be within a
+    factor 1.5 of ``max_memory_allocated`` over that call, both ratios
+    printed;
 15. ``launch_serve``: ``python -m repro_torch.launch.serve`` (its
     ``main(argv)``, in this process) for every planned arch on its B = 4
     rates (``--prefill-rate`` / ``--decode-rate``): the split must equal
-    ``serving_plan``'s;
+    ``serving_plan``'s; then the six archs of ``dryrun`` with no rates:
+    each must plan from ``"dry-run roofline"``;
 16. ``train_kernels``: ``FlashAttentionFn`` at llama's training shape (B 2,
     Hq 32 / Hkv 8, S 4096, Dh 64), ``SwiGLUFn`` at T 8,192, D 2,048, F
     8,192, ``Rwkv6ScanFn`` at rwkv6's (B 2, H 32, S 4096, Dk = Dv = 64) and
@@ -348,12 +360,15 @@ def median_ms(fn, *, runs=25, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def profiled(run):
+def profiled(run, expect=()):
     """``(key_averages(), result)`` of one ``run()`` under torch.profiler,
     synchronised.  The card's profiler now and then hands back a trace
-    without a single device event; such a session is run again, up to
-    PROFILE_ATTEMPTS in all, so ``run`` must be repeatable.  Which kernels a
-    trace shows is still for the caller to check."""
+    without a single device event, or without the events of a kernel that
+    ran; such a session is run again, up to PROFILE_ATTEMPTS in all (a
+    second longer apart each time), so ``run`` must be repeatable.
+    ``expect``: groups of kernel names (a name or a tuple of alternatives),
+    each of which the trace must show a device event of before it stands.
+    Which kernels a trace shows is still for the caller to check."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -363,11 +378,14 @@ def profiled(run):
             out = run()
             torch.cuda.synchronize()
         events = prof.key_averages()
-        if any(e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-               for e in events):
+        keys = [e.key for e in events
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        missing = [g for g in expect
+                   if not any(s in k for k in keys for s in ((g,) if isinstance(g, str) else g))]
+        if keys and not missing:
             break
-        emit({"phase": "profiler", "empty_trace": attempt})
-        time.sleep(1.0)  # let the profiler's previous session wind down
+        emit({"phase": "profiler", "empty_trace": attempt, "missing": missing})
+        time.sleep(attempt)  # let the profiler's previous session wind down
     return events, out
 
 
@@ -739,7 +757,7 @@ def device_us_per_launch(fns, calls=20):
             for _ in range(calls):
                 fn()
 
-    events = [e for e in profiled(run)[0] if e.device_type == DeviceType.CUDA]
+    events = [e for e in profiled(run, expect=list(fns))[0] if e.device_type == DeviceType.CUDA]
     out = {}
     for symbol in fns:
         hits = [(e.self_device_time_total, e.count) for e in events if symbol in e.key]
@@ -2252,7 +2270,7 @@ def hold(phase, name, case, got, want, tol_rule):
 def device_us_per_call(fn, symbols, calls=5):
     """Device time per call of ``fn`` (torch.profiler), summed over the
     kernels whose names contain one of ``symbols``; None if none ran."""
-    _wall_ms, _device_ms, rows = profile_breakdown(fn, calls)
+    _wall_ms, _device_ms, rows = profile_breakdown(fn, calls, expect=(tuple(symbols),))
     return sum(t for k, t, _c in rows if any(s in k for s in symbols)) or None
 
 
@@ -2362,7 +2380,7 @@ def llm_kernels_phase(dev):
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, cost as kcost
     from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.swiglu import kernel as sk, ref as sr
@@ -2426,13 +2444,11 @@ def llm_kernels_phase(dev):
                     q, k, v, attn_mask=mask, enable_gqa=True)
             return calls
 
-        pairs = (sum(min(i + 1 + skv - sq, window or skv) for i in range(sq)) if causal
-                 else sq * skv)
         shape = (f"B={b},S={s}" if sq == skv else f"B={b},Sq={sq},Skv={skv}") + (
             f",H={hq}/{hkv},Dh={dh}") + (
             f",window={window}" if window else ",causal" if causal else ",bidirectional")
         run_case("flash_attention", group, arch, shape, BOTH, make, timed,
-                 (2 * b * dh * (2 * sq * hq + 2 * skv * hkv), 4 * dh * pairs * b * hq))
+                 kcost.flash_work(b, hq, hkv, sq, skv, dh, causal=causal, window=window))
 
     for group, arch, b, s_max, length, window, timed in DECODE_CASES:
         cfg = get_config(arch, "full")
@@ -2456,8 +2472,7 @@ def llm_kernels_phase(dev):
         shape = f"B={b},S_max={s_max},length={length},H={hq}/{hkv},Dh={dh}" + (
             f",window={window}" if window else "")
         run_case("decode_attention", group, arch, shape, BOTH, make, timed,
-                 (2 * (2 * b * hq * dh + 2 * b * (length - lo) * hkv * dh),
-                  4 * dh * (length - lo) * b * hq), quick=True)
+                 kcost.decode_work(b, hq, hkv, dh, length - lo), quick=True)
 
     for group, arch, t, dtypes, timed in SWIGLU_CASES:
         cfg = get_config(arch, "full")
@@ -2470,7 +2485,7 @@ def llm_kernels_phase(dev):
                     "library": None, "other": {}}
 
         run_case("swiglu", group, arch, f"T={t},D={d},F={f}", dtypes, make, timed,
-                 (2 * (2 * t * d + 3 * d * f), 6 * t * d * f))
+                 kcost.swiglu_work(t, d, f))
     _build.LAUNCHES.clear()  # parity and timing launches are not the path's
     emit({"phase": "llm_kernels", "seconds": time.perf_counter() - t_phase, "cases": cases})
 
@@ -2659,9 +2674,10 @@ def card_vs_cpu_phase(dev):
                         n_patches=N_PATCHES if cfg.family == "vlm" else 0)
 
 
-def profile_breakdown(fn, calls=1):
+def profile_breakdown(fn, calls=1, expect=()):
     """(unprofiled wall ms, device kernel ms, rows) per call of ``fn``;
-    rows: (kernel name, device us, launches) by device time."""
+    rows: (kernel name, device us, launches) by device time; ``expect`` as
+    :func:`profiled`'s."""
     import torch
     from torch.autograd import DeviceType
 
@@ -2678,7 +2694,7 @@ def profile_breakdown(fn, calls=1):
             fn()
 
     rows = [(e.key, e.self_device_time_total / calls, e.count / calls)
-            for e in profiled(run)[0]
+            for e in profiled(run, expect)[0]
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     return wall_ms, sum(r[1] for r in rows) / 1e3, rows
@@ -2753,7 +2769,10 @@ def serve_phase(dev, arch):
     standard normal in bf16) and its cache holds ``SERVE_SMAX`` rows.  The
     moe archs' dropped share of (token, slot) pairs comes from a second,
     untimed prefill and 32 steps that record the routing.
-    Returns (launches, prompts / s, step tokens / s, params, cfg)."""
+    The prefill's and the steps' own peaks (``max_memory_allocated`` after
+    a reset just before each) and device ms per call (the profiles) go to
+    the ``dryrun`` phase.  Returns (launches, prompts / s, step tokens / s,
+    params, cfg, those measurements)."""
     import dataclasses
 
     import torch
@@ -2795,11 +2814,15 @@ def serve_phase(dev, arch):
     want_steps = {k: n * SERVE_STEPS for k, n in want_step.items()}
     torch.cuda.synchronize()
 
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()  # each call's own peak, for the dry-run's
     LAUNCHES.clear()
     t0 = time.perf_counter()
     logits, cache = serve.prefill(params, cfg, prompt, cache, device=dev)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     pre_launches = {k: LAUNCHES[k] for k in want_pre}
     prefill_finite = bool(torch.isfinite(logits).all())
     cache_prefill = dict(cache)  # length S (the steps below update the tensors in place)
@@ -2811,6 +2834,7 @@ def serve_phase(dev, arch):
         tok = logits.argmax(-1)
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
+    step_peak = torch.cuda.max_memory_allocated()
     step_launches = {k: LAUNCHES[k] for k in want_steps}
     length = int(cache["length"])
     decode_finite = bool(torch.isfinite(logits).all())
@@ -2830,10 +2854,12 @@ def serve_phase(dev, arch):
             dropped[key] = sum(int((~r["kept"]).sum()) for r in routes) / pairs
         del lg, c, pre_routes, step_routes
     pre = breakdown_json(*profile_breakdown(
-        lambda: serve.prefill(params, cfg, prompt, cache_prefill, device=dev)))
+        lambda: serve.prefill(params, cfg, prompt, cache_prefill, device=dev),
+        expect=[LLM_SYMBOLS[k] for k, n in want_pre.items() if n]))
     step = breakdown_json(*profile_breakdown(
-        lambda: serve.decode_step(params, cfg, tok, cache_prefill, device=dev), calls=5))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        lambda: serve.decode_step(params, cfg, tok, cache_prefill, device=dev), calls=5,
+        expect=[LLM_SYMBOLS[k] for k, n in want_step.items() if n]))
+    peak_gb = max(peak_before, prefill_peak, step_peak, torch.cuda.max_memory_allocated()) / 1e9
     phase = ({"moe": "moe_serve", "vlm": "vlm_serve", "audio": "audio_serve"}.get(cfg.family)
              or ("llm_serve" if arch == LLM_ARCH else arch.split("-")[0] + "_serve"))
     emit({"phase": phase, "arch": arch, "layers": cfg.n_layers, "layers_full": full.n_layers,
@@ -2857,6 +2883,7 @@ def serve_phase(dev, arch):
           "decode_ms_per_step": decode_s * 1e3 / SERVE_STEPS,
           "decode_tokens_per_s": b * SERVE_STEPS / decode_s,
           "prefill_profile": pre, "decode_step_profile": step, "peak_memory_gb": peak_gb,
+          "prefill_peak_gb": prefill_peak / 1e9, "decode_peak_gb": step_peak / 1e9,
           "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
           "seconds": time.perf_counter() - t_phase})
     check(prefill_finite and decode_finite, f"{phase} {arch}: non-finite logits")
@@ -2869,7 +2896,10 @@ def serve_phase(dev, arch):
     del cache, cache_prefill, prompt
     torch.cuda.empty_cache()
     launches = {k: pre_launches[k] + step_launches[k] for k in want_pre}
-    return launches, b / prefill_s, b * SERVE_STEPS / decode_s, params, cfg
+    measured = {"b": b, "s": s, "cache_rows": SERVE_SMAX.get(arch, s + SERVE_STEPS),
+                "prefill_device_ms": pre["device_ms"], "step_device_ms": step["device_ms"],
+                "prefill_peak_bytes": prefill_peak, "step_peak_bytes": step_peak}
+    return launches, b / prefill_s, b * SERVE_STEPS / decode_s, params, cfg, measured
 
 
 def llm_decode_32k_phase(dev, params, cfg):
@@ -2974,11 +3004,86 @@ def serving_sim_phase(model, split, arch):
           f"p95 {rep.p95_latency}")
 
 
+# The dry-run (launch/dryrun.py): the serving records of the six planned
+# archs on pod16x16, and the card's own serving shapes costed on a
+# one-device mesh and held to what the card did in this run.
+DRYRUN_ARCHS = (LLM_ARCH, *SSM_ARCHS, PHI3_ARCH, QWEN_VL, WHISPER)
+DRYRUN_HELD = ((LLM_ARCH, "prefill"), (LLM_ARCH, "step"), (PHI3_ARCH, "prefill"))
+DRYRUN_PEAK_FACTOR = 1.5  # the predicted peak against max_memory_allocated, either way
+# The roofline plans' pool: a record's prefill serves 32k-token prompts, so
+# zamba2's and phi3's 4 requests / s need ~50 chips (24 serve the card's
+# 4,096-token cells).
+DRYRUN_CHIPS = 64
+
+
+def dryrun_phase(measured):
+    """``python -m repro_torch.launch.dryrun``'s ``run_cell`` (host code on
+    meta tensors) for ``prefill_32k`` and ``decode_32k`` of
+    :data:`DRYRUN_ARCHS` on pod16x16, each record saved under
+    ``build/dryrun`` with its dominant term and bound printed; then each
+    shape of :data:`DRYRUN_HELD` -- the serving cell ``serve_phase`` ran
+    (``measured``: batch, prompt, cache rows; a step reads its whole cache)
+    -- costed on a one-device mesh: its roofline bound must not exceed the
+    device ms the card took for it (a bound above it would mean the model
+    overcounts), and its predicted peak (arguments + temporaries) must be
+    within :data:`DRYRUN_PEAK_FACTOR` of ``max_memory_allocated`` over that
+    call."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW, LogicalMesh
+
+    t0 = time.perf_counter()
+    records = {}
+    for arch, shape in ((a, s) for a in DRYRUN_ARCHS for s in ("prefill_32k", "decode_32k")):
+        rec = dryrun.run_cell(arch, shape)
+        check(rec["status"] == "ok", f"dryrun {arch} {shape}: {rec.get('error')}")
+        path = str(dryrun.save_record(rec).relative_to(ROOT))
+        r = rec["roofline"]
+        records[f"{arch} {shape}"] = {
+            "dominant": r["dominant"], "bound_s": max(r["compute_s"], r["memory_s"],
+                                                      r["collective_s"]),
+            "compute_s": r["compute_s"], "memory_s": r["memory_s"],
+            "collective_s": r["collective_s"], "trace_s": rec["trace_s"],
+            "temp_gb": rec["memory_analysis"]["temp_size_in_bytes"] / 1e9, "record": path}
+    records_s = time.perf_counter() - t0
+    one = LogicalMesh((1, 1, 1), ("pod", "data", "model"))
+    held = {}
+    for arch, what in DRYRUN_HELD:
+        m = measured[arch]
+        kind = "prefill" if what == "prefill" else "decode"
+        mem, cost = dryrun.step_cost(get_config(arch, "full"), kind, m["b"], m["s"], one,
+                                     shd.rules_for(kind, arch=arch), cache_rows=m["cache_rows"])
+        compute_ms = cost.flops / HW.PEAK_FLOPS_BF16 * 1e3
+        memory_ms = cost.traffic_bytes / HW.HBM_BW * 1e3
+        bound_ms = max(compute_ms, memory_ms)
+        device_ms = m[f"{what}_device_ms"]
+        peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        card_peak = m[f"{what}_peak_bytes"]
+        held[f"{arch} {what}"] = {
+            "batch": m["b"], "prompt": m["s"], "cache_rows": m["cache_rows"],
+            "flops": cost.flops, "traffic_bytes": cost.traffic_bytes, "compute_ms": compute_ms,
+            "memory_ms": memory_ms, "bound_ms": bound_ms, "device_ms": device_ms,
+            "bound_over_device": bound_ms / device_ms, "predicted_peak_gb": peak / 1e9,
+            "card_peak_gb": card_peak / 1e9, "peak_over_card": peak / card_peak}
+        check(bound_ms <= device_ms,
+              f"dryrun {arch} {what}: bound {bound_ms:.3f} ms above the card's {device_ms:.3f}")
+        check(1 / DRYRUN_PEAK_FACTOR <= peak / card_peak <= DRYRUN_PEAK_FACTOR,
+              f"dryrun {arch} {what}: predicted peak {peak / 1e9:.3f} GB against the card's "
+              f"{card_peak / 1e9:.3f} GB")
+    emit({"phase": "dryrun", "mesh": "pod16x16", "hw": HW.NAME, "records": records,
+          "records_seconds": records_s, "held_to_the_card": held,
+          "card": smi("name,power.limit"), "seconds": time.perf_counter() - t0})
+
+
 def launch_serve_phase(plans):
     """``python -m repro_torch.launch.serve`` as a user runs it, in this
     process (``main(argv)``), for each arch on its B = 4 rates measured
     above (``--prefill-rate`` / ``--decode-rate``, ``--horizon 600``): the
-    split must be the one ``serving_plan`` printed, every request finite."""
+    split must be the one ``serving_plan`` printed, every request finite;
+    then once per :data:`DRYRUN_ARCHS` arch with no rates (``--chips
+    64 --horizon 120``): the rates must come from the ``dryrun`` phase's records
+    (``"dry-run roofline"``), every request finite."""
     import contextlib
     import io
 
@@ -3002,7 +3107,23 @@ def launch_serve_phase(plans):
               f"serving_plan had {plan['split']}")
         check(rep.completed > 0 and math.isfinite(rep.mean_latency),
               f"launch_serve {arch}: {rep.completed} completed")
-    emit({"phase": "launch_serve", "archs": out, "seconds": time.perf_counter() - t0})
+    roofline = {}
+    for arch in DRYRUN_ARCHS:
+        argv = ["--arch", arch, "--chips", str(DRYRUN_CHIPS), "--horizon", "120"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = launcher.main(argv)
+        rep, rates = res["report"], res["rates"]
+        roofline[arch] = {"argv": argv, "source": res["source"], "split": res["split"],
+                          "prefill_per_chip": rates.prefill_per_chip,
+                          "decode_per_chip": rates.decode_per_chip,
+                          "expected_sojourn_s": res["alloc"].expected_sojourn,
+                          "mean_latency_s": rep.mean_latency, "completed": rep.completed}
+        check(res["source"] == "dry-run roofline",
+              f"launch_serve {arch}: rates from {res['source']}, not the dry-run records")
+        check(rep.completed > 0 and math.isfinite(rep.mean_latency),
+              f"launch_serve {arch} (dry-run rates): {rep.completed} completed")
+    emit({"phase": "launch_serve", "archs": out, "dryrun_plans": roofline,
+          "seconds": time.perf_counter() - t0})
 
 # --------------------------------------------------------------------------- #
 # Phase 14: the scans of the ssm and hybrid families (rwkv6-1.6b, zamba2-7b)
@@ -3017,39 +3138,6 @@ RWKV_H, RWKV_D, SSD_H, SSD_D = 32, 64, 112, 64
 # 4096 steps and outputs that cancel carry their row's rounding -- and bf16,
 # rounded once from those values, to two ulps of the row's largest value.
 SCAN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (1e-4, "row1")}
-
-
-def scan_work(kind, b, h, s, dk, dv, chunk, size, shared_bc=False):
-    """(bytes, operations, product operations) of one scan call: every
-    input read once and every output written once, and the operations of
-    the chunked form over the causal pairs (a multiply-add counts 2, any
-    other op or exp 1), of which the matrix products (cross, weights @ v,
-    state update; ssd's C . B) can run on the tensor cores.  zamba2's B and
-    C are shared by the heads: they are read, and their C . B products
-    formed, once per batch row."""
-    ops = shared_ops = mma = 0
-    for c0 in range(0, s, chunk):
-        c = min(chunk, s - c0)
-        tri = c * (c + 1) // 2  # pairs j <= i
-        if kind == "rwkv6":  # cross, pair weights (j < i), bonus, att @ v, decays, state
-            mma += 2 * c * dk * dv + 2 * tri * dv + 2 * c * dk * dv
-            ops += (2 * c * dk * dv + 5 * (tri - c) * dk + 3 * c * dk + 2 * tri * dv
-                    + 4 * c * dk + 2 * c * dk * dv + 3 * dk * dv)
-        else:  # C . B; its decay weights, cross, att @ x, decays, state
-            shared_ops += 2 * tri * dk
-            mma += 2 * c * dk * dv + 2 * tri * dv + 2 * c * dk * dv
-            ops += (3 * tri + 2 * c * dk * dv + 2 * tri * dv + 4 * c * dk
-                    + 2 * c * dk * dv + 2 * dk * dv)
-    shared_ops *= b * (1 if shared_bc else h)
-    ops = b * h * ops + shared_ops
-    mma = b * h * mma + shared_ops
-    state = 2 * b * h * dk * dv * 4  # s0 in, S_T out (float32)
-    if kind == "rwkv6":  # r, k, v, out in the working dtype; lw float32; u
-        nbytes = b * h * s * ((2 * dk + 2 * dv) * size + 4 * dk) + h * dk * 4 + state
-    else:  # x, y in the working dtype; a float32; B, C
-        bc = 2 * b * (1 if shared_bc else h) * s * dk * size
-        nbytes = b * h * s * (2 * dv * size + 4) + bc + state
-    return nbytes, ops, mma
 
 
 def scan_bound(work, tensor_cores):
@@ -3076,6 +3164,7 @@ def ssm_kernels_phase(dev):
     import torch
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.cost import scan_work
     from repro_torch.kernels.rwkv6_scan import kernel as rk, ref as rr
     from repro_torch.kernels.ssd_scan import kernel as sk, ref as sr
 
@@ -3130,7 +3219,8 @@ def ssm_kernels_phase(dev):
                 "bound_ms": scan_bound(scan_work("rwkv6", b, RWKV_H, s, RWKV_D, RWKV_D, 32, 4),
                                        False)[0]}
     # The serving shape runs the tensor-core kernel, not the CUDA-core one.
-    ran = [k for k, _t, _c in profile_breakdown(lambda: rk.rwkv6_scan(*args, chunk=32))[2]]
+    ran = [k for k, _t, _c in profile_breakdown(lambda: rk.rwkv6_scan(*args, chunk=32),
+                                                expect=(LLM_SYMBOLS["rwkv6_scan"],))[2]]
     check(any("rwkv6_mma_kernel" in k for k in ran)
           and not any("rwkv6_scan_kernel" in k for k in ran),
           f"rwkv6_scan bf16 at the serving shape ran {ran}, not rwkv6_mma_kernel")
@@ -3879,9 +3969,9 @@ def main() -> int:
                 by_path.setdefault(k, {})[path] = n
 
     card_vs_cpu_phase(dev)
-    plans = {}
+    plans, measured = {}, {}
     for arch in SERVED_ARCHS:
-        served, prompts_per_s, tokens_per_s, params, cfg = serve_phase(dev, arch)
+        served, prompts_per_s, tokens_per_s, params, cfg, measured[arch] = serve_phase(dev, arch)
         count(f"{arch} serve", served)
         if arch == LLM_ARCH:
             count("llm_decode_32k", llm_decode_32k_phase(dev, params, cfg)[0])
@@ -3889,6 +3979,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         if arch not in SERVE_LAYERS:  # an arch cut in depth is planned under no name
             plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
+    dryrun_phase(measured)
     launch_serve_phase(plans)
     train_rows = train_kernels_phase(dev)
     for arch in (LLM_ARCH, *SSM_ARCHS, WHISPER):

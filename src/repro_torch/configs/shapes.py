@@ -23,7 +23,8 @@ import torch
 from . import get_config
 from .qwen2_vl_2b import N_PATCHES
 
-__all__ = ["SHAPES", "ShapeSpec", "input_specs", "cell_is_supported", "skip_reason"]
+__all__ = ["SHAPES", "ShapeSpec", "input_specs", "cell_inputs", "cell_is_supported",
+           "skip_reason"]
 
 
 @dataclass(frozen=True)
@@ -72,21 +73,25 @@ def input_specs(arch: str, shape: str) -> dict[str, torch.Tensor]:
     text, with their M-RoPE position ids; the audio family's train and
     prefill batches add ``frames`` [B, enc_seq, D], the encoder's stub
     input, the tokens being the decoder's."""
-    cfg = get_config(arch, "full")
     spec = SHAPES[shape]
-    b, s = spec.global_batch, spec.seq_len
+    return cell_inputs(get_config(arch, "full"), spec.kind, spec.global_batch, spec.seq_len)
+
+
+def cell_inputs(cfg, kind: str, b: int, s: int) -> dict[str, torch.Tensor]:
+    """:func:`input_specs` for any config, kind (train, prefill, decode),
+    batch ``b`` and sequence length ``s``."""
     i32 = torch.int32
-    if spec.kind == "decode":
+    if kind == "decode":
         return {"tokens": _meta((b,), i32)}
     if cfg.family == "vlm":
         batch = {"tokens": _meta((b, s - N_PATCHES), i32)}
-        if spec.kind == "train":
+        if kind == "train":
             batch["labels"] = _meta((b, s - N_PATCHES), i32)
         batch["patch_embeds"] = _meta((b, N_PATCHES, cfg.d_model), cfg.dtype)
         batch["positions_3d"] = _meta((3, b, s), i32)
         return batch
     batch = {"tokens": _meta((b, s), i32)}
-    if spec.kind == "train":
+    if kind == "train":
         batch["labels"] = _meta((b, s), i32)
     if cfg.family == "audio":
         batch["frames"] = _meta((b, cfg.enc_seq, cfg.d_model), cfg.dtype)

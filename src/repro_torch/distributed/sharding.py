@@ -13,10 +13,26 @@
   gives the rule).
 * :func:`bucket_ladder` is the sparse decide's static ladder of compacted
   widths (per shard under a mesh).
+* The model families' rule tables (``TRAIN_RULES``, ``PREFILL_RULES``,
+  ``DECODE_RULES``, ``ARCH_RULE_OVERRIDES``) map logical axes to the
+  axes of a ``("pod", "data", "model")`` mesh: batch over (pod, data);
+  tensor parallelism over heads / d_ff / vocab on "model"; FSDP of the
+  parameters' d_model over "data" in training; experts over "data" where
+  they divide; the decode cache's sequence over "model".
+  :func:`safe_spec` drops an assignment whose dim the mesh axes do not
+  divide (whisper's vocabulary of 51,865 stays whole) and a mesh axis an
+  earlier dim took; :func:`tree_specs`, :func:`batch_spec` and
+  :func:`cache_specs` give every leaf's spec and :func:`shard_bytes` a
+  device's bytes of it.  A spec is a tuple of entries (``None``, an axis
+  name or a tuple of names), as the reference's ``PartitionSpec`` holds
+  them; the meshes are shapes only (``launch/mesh.py:LogicalMesh``).  The
+  dry-run (``launch/dryrun.py``) is their user: the port's model runs
+  unsharded on one card.
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
@@ -24,7 +40,10 @@ import torch
 
 from ..device import resolve_device
 
-__all__ = ["FleetMesh", "bucket_ladder", "fleet_backend", "fleet_mesh", "mesh_axis"]
+__all__ = ["FleetMesh", "bucket_ladder", "fleet_backend", "fleet_mesh", "mesh_axis",
+           "TRAIN_RULES", "PREFILL_RULES", "DECODE_RULES", "ARCH_RULE_OVERRIDES", "rules_for",
+           "prune_rules", "spec_axes", "safe_spec", "tree_specs", "batch_spec", "cache_axes",
+           "cache_specs", "shard_bytes"]
 
 
 @dataclass(frozen=True)
@@ -151,3 +170,191 @@ def bucket_ladder(b: int, *, fractions: tuple[int, ...] = (16, 4, 1)) -> tuple[i
     widths = {max(1, -(-b // f)) for f in fractions}
     widths.add(b)
     return tuple(sorted(w for w in widths if w <= b))
+
+
+# --------------------------------------------------------------------------- #
+# Rule-based layouts of the model families (the dry-run's per-device shards)
+# --------------------------------------------------------------------------- #
+TRAIN_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq_sp": "model",  # sequence-parallel residual stream between blocks
+    "heads": "model",
+    "kv_heads": "model",
+    "d_ff": "model",
+    "vocab": "model",
+    "experts": "data",  # expert parallelism where the count divides; else FSDP
+    "d_model": "data",  # FSDP axis of the parameters (activations: batch takes "data")
+    "layers": None,
+    "kv_seq": None,
+    "enc_seq": None,
+}
+
+PREFILL_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq_sp": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "d_ff": "model",
+    "vocab": "model",
+    "experts": "data",
+    "d_model": None,  # no FSDP at serve time: weights replicated over data
+    "layers": None,
+    "kv_seq": None,
+    "enc_seq": None,
+}
+
+DECODE_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq_sp": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "d_ff": "model",
+    "vocab": "model",
+    "experts": "data",
+    "d_model": None,
+    "layers": None,
+    "kv_seq": "model",  # sequence-sharded KV cache (flash-decoding)
+    "enc_seq": None,
+}
+
+#: Per-arch corrections, merged between the base table and the caller's
+#: overrides.  mixtral-8x22b's 8 experts do not divide a 16-wide data axis,
+#: so its experts are FSDP'd over d_model at serve time.
+ARCH_RULE_OVERRIDES: dict[tuple[str, str], dict[str, Any]] = {
+    ("mixtral-8x22b", "prefill"): {"d_model": "data"},
+    ("mixtral-8x22b", "decode"): {"d_model": "data"},
+}
+
+
+def rules_for(mode: str, overrides: dict[str, Any] | None = None, *,
+              arch: str | None = None) -> dict[str, Any]:
+    """The rule table of ``mode`` (train, prefill or decode), with the
+    arch's corrections and then ``overrides`` merged in."""
+    base = {"train": TRAIN_RULES, "prefill": PREFILL_RULES, "decode": DECODE_RULES}[mode]
+    out = dict(base)
+    if arch is not None:
+        out.update(ARCH_RULE_OVERRIDES.get((arch, mode), {}))
+    if overrides:
+        out.update(overrides)
+    return out
+
+
+def prune_rules(rules: dict[str, Any], mesh) -> dict[str, Any]:
+    """Drop mesh axes the mesh lacks (e.g. "pod" on one pod)."""
+    names = set(mesh.axis_names)
+    out: dict[str, Any] = {}
+    for k, v in rules.items():
+        if v is None:
+            out[k] = None
+            continue
+        kept = tuple(p for p in ((v,) if isinstance(v, str) else tuple(v)) if p in names)
+        out[k] = None if not kept else (kept[0] if len(kept) == 1 else kept)
+    return out
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes of one spec entry (``None``, a name or a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def safe_spec(shape: tuple[int, ...], axes: tuple, rules: dict[str, Any], mesh) -> tuple:
+    """The spec of a tensor of ``shape`` with logical ``axes``: each dim
+    takes the longest prefix of its rule's mesh axes whose product divides
+    it (the divisibility guard), leaving out axes an earlier dim took (the
+    axis-reuse guard); a dim with none is replicated (``None``).  Reads
+    only ``mesh.shape`` and ``mesh.axis_names``."""
+    used: set[str] = set()
+    spec: list[Any] = []
+    for dim, ax in zip(shape, axes):
+        m = rules.get(ax) if ax is not None else None
+        if m is None:
+            spec.append(None)
+            continue
+        parts = [p for p in spec_axes(m) if p not in used]
+        chosen: list[str] = []
+        n = 1
+        for p in parts:
+            if dim % (n * mesh.shape[p]) == 0:
+                chosen.append(p)
+                n *= mesh.shape[p]
+        if not chosen:
+            spec.append(None)
+            continue
+        used.update(chosen)
+        spec.append(chosen[0] if len(chosen) == 1 else tuple(chosen))
+    return tuple(spec)
+
+
+def _is_axes(t) -> bool:
+    return isinstance(t, tuple) and all(isinstance(e, (str, type(None))) for e in t)
+
+
+def tree_specs(shapes_tree: Any, axes_tree: Any, mesh, rules: dict[str, Any]) -> Any:
+    """The spec of every leaf of a params-like tree (nested dicts, lists or
+    tuples of tensors or shapes; the reference's ``tree_shardings``)
+    against its matching tree of logical-axis tuples."""
+    if _is_axes(axes_tree):
+        shape = getattr(shapes_tree, "shape", shapes_tree)
+        return safe_spec(tuple(shape), axes_tree, rules, mesh)
+    if isinstance(axes_tree, dict):
+        return {k: tree_specs(shapes_tree[k], a, mesh, rules) for k, a in axes_tree.items()}
+    return type(axes_tree)(tree_specs(s, a, mesh, rules) for s, a in zip(shapes_tree, axes_tree))
+
+
+_BATCH_AXES: dict[str, tuple] = {
+    "tokens": ("batch", None),
+    "labels": ("batch", None),
+    "mask": ("batch", None),
+    "patch_embeds": ("batch", None, None),
+    "positions_3d": (None, "batch", None),
+    "frames": ("batch", "enc_seq", None),
+}
+
+
+def batch_spec(name: str, shape: tuple[int, ...], rules: dict[str, Any], mesh) -> tuple:
+    """The spec of a named model input (a decode step's ``tokens`` [B] on
+    the batch axes; an unknown input replicated)."""
+    if name == "tokens" and len(shape) == 1:
+        return safe_spec(shape, ("batch",), rules, mesh)
+    axes = _BATCH_AXES.get(name)
+    if axes is None or len(axes) != len(shape):
+        return ()
+    return safe_spec(shape, axes, rules, mesh)
+
+
+def cache_axes(family: str) -> dict[str, tuple]:
+    """The logical axes of each leaf of ``models.serve.init_cache``'s
+    cache for ``family``."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    if family in ("dense", "moe", "vlm"):
+        return {"k": kv, "v": kv, "length": ()}
+    if family == "ssm":
+        return {"wkv": ("layers", "batch", "heads", None, None),
+                "tm_shift": ("layers", "batch", "d_model"),
+                "cm_shift": ("layers", "batch", "d_model"), "length": ()}
+    if family == "hybrid":
+        return {"ssm": ("layers", "batch", "heads", None, None), "k": kv, "v": kv,
+                "length": ()}
+    if family == "audio":
+        cross = ("layers", "batch", "enc_seq", "kv_heads", None)
+        return {"k": kv, "v": kv, "xk": cross, "xv": cross, "length": ()}
+    raise ValueError(family)
+
+
+def cache_specs(cache_shapes: dict, family: str, mesh, rules: dict) -> dict:
+    """The spec of every cache leaf (the reference's ``cache_shardings``)."""
+    ax = cache_axes(family)
+    return {k: safe_spec(tuple(v.shape), ax[k], rules, mesh) for k, v in cache_shapes.items()}
+
+
+def shard_bytes(shape, dtype, spec: tuple, mesh) -> int:
+    """Bytes of one device's shard of a ``shape`` tensor of ``dtype`` laid
+    out by ``spec`` (every sharded dim divides evenly: :func:`safe_spec`
+    guarantees it)."""
+    n = math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+    for entry in spec:
+        for p in spec_axes(entry):
+            n //= mesh.shape[p]
+    return n

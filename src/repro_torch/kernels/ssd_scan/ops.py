@@ -1,11 +1,17 @@
 """Dispatch: the CUDA kernel for CUDA tensors (through
 :class:`~.grad.SsdScanFn` when an input requires grad), the plain version
-for CPU tensors (which autograd differentiates directly)."""
+for CPU tensors (which autograd differentiates directly), and for meta
+tensors empty outputs with the kernel's work charged to the active cost
+trace (:func:`~repro_torch.kernels.cost.meta_kernel`; B and C read once
+per batch row when they are views expanded over the heads)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from .. import cost
 from . import kernel as _kernel, ref as _ref
 from .grad import SsdScanFn
 
@@ -20,4 +26,13 @@ def ssd_scan(x, a, b, c, s0=None, *, chunk: int = 64):
                                            for t in (x, a, b, c, s0)):
             return SsdScanFn.apply(x, a, b, c, s0, chunk)
         return _kernel.ssd_scan(x, a, b, c, s0, chunk=chunk)
+    if x.is_meta:
+        *lead, s, dh = x.shape
+        dst = b.shape[-1]
+        dims = dict(kind="ssd", b=x.shape[0], h=math.prod(lead[1:]), s=s,
+                    dk=dst, dv=dh, chunk=chunk, size=x.element_size(),
+                    shared_bc=b.ndim == 4 and b.stride(1) == 0)
+        return cost.meta_kernel("ssd_scan", (x, a, b, c, s0),
+                                [((*lead, s, dh), x.dtype), ((*lead, dst, dh), torch.float32)],
+                                dims)
     return _ref.ssd_scan(x, a, b, c, s0, chunk=chunk)

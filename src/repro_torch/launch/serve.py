@@ -2,8 +2,9 @@
 
 Takes stage service rates from the card (``--prefill-rate`` prompts / s
 and ``--decode-rate`` tokens / s per chip, as measured by a prefill and a
-decode step), else from the dry-run's roofline records when present, else
-the reference's defaults; plans the chip split (Program (4), or (6) with
+decode step), else from the port's dry-run records (``build/dryrun``,
+written by ``python -m repro_torch.launch.dryrun`` on the H100's roofline)
+when present, else the reference's defaults; plans the chip split (Program (4), or (6) with
 ``--t-max``) and runs the discrete-event serving simulation under it,
 printing latency beside the queueing model's prediction.  Host code: no
 card is needed.
@@ -24,23 +25,26 @@ from ..serving.router import ServingSimulation
 
 __all__ = ["RESULTS", "DEFAULT_RATES", "stage_rates", "plan", "simulate", "main"]
 
-RESULTS = Path(__file__).resolve().parents[3] / "benchmarks" / "results" / "dryrun"
+#: The port's dry-run records (``python -m repro_torch.launch.dryrun``).
+RESULTS = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 #: The reference launcher's rates when it finds no dry-run record.
 DEFAULT_RATES = StageRates(prefill_per_chip=0.5, decode_per_chip=40.0)
 
 
 def stage_rates(arch: str, *, prefill_rate: float | None = None,
                 decode_rate: float | None = None,
-                results_dir=RESULTS) -> tuple[StageRates, str]:
+                results_dir=None) -> tuple[StageRates, str]:
     """(rates, where they came from): the card's measured rates when given
-    (both or neither), else the dry-run records, else :data:`DEFAULT_RATES`."""
+    (both or neither), else the dry-run records in ``results_dir`` (default
+    :data:`RESULTS`), else :data:`DEFAULT_RATES`."""
     if (prefill_rate is None) != (decode_rate is None):
         raise ValueError("give both --prefill-rate and --decode-rate, or neither")
     if prefill_rate is not None:
         return StageRates(prefill_per_chip=prefill_rate, decode_per_chip=decode_rate), \
             "measured on the card"
     try:
-        return rates_from_dryrun(arch, results_dir), "dry-run roofline"
+        return rates_from_dryrun(arch, RESULTS if results_dir is None else results_dir), \
+            "dry-run roofline"
     except (FileNotFoundError, KeyError):
         return DEFAULT_RATES, "defaults (no dry-run records found)"
 

@@ -1,9 +1,16 @@
 """Model substrate: config, norms and rotary embeddings (the port of
 ``repro/models/common.py``).
 
-There is no sharding on one device, so the logical-axis rules and
-``shard()`` are not ported (they wait for the dry-run); ``ParamStore``'s
-distributions live in :func:`repro_torch.models.transformer.init_params`.
+The logical-axis rules (:func:`axis_rules`, :func:`current_rules`,
+:func:`current_mesh`, :func:`logical_to_spec`) are the reference's: a
+spec is a tuple of mesh-axis entries (``None``, an axis name or a tuple of
+names), as its ``PartitionSpec`` holds them.  The dry-run
+(``launch/dryrun.py``) reads them to size each device's shards.  The
+reference's ``shard()`` (a sharding constraint on an array) has no
+counterpart: the port's model runs unsharded on one card, so a constraint
+would have nothing to act on.  ``ParamStore``'s distributions live in
+:func:`repro_torch.models.transformer.init_params`, its logical axes in
+:func:`repro_torch.models.transformer.param_axes`.
 Norms (:func:`rms_norm`, and :func:`layer_norm`, which no ported model
 calls: the reference's whisper normalises with ``rms_norm``), RoPE and
 Qwen2-VL's multimodal RoPE (:func:`apply_mrope`) compute in float32 inside
@@ -12,13 +19,16 @@ and cast back to the input's dtype, as the reference does.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
-__all__ = ["ModelConfig", "rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
+__all__ = ["ModelConfig", "axis_rules", "current_rules", "current_mesh", "logical_to_spec",
+           "rms_norm", "layer_norm", "rope_frequencies", "apply_rope",
            "apply_mrope", "mrope_positions", "cross_entropy_loss"]
 
 
@@ -109,6 +119,69 @@ class ModelConfig:
             n += self.enc_layers * (attn + 2 * d * self.d_ff + attn)
         return n
 
+    def active_params_count(self) -> int:
+        """Active parameters per token (the reference's formula): the MoE
+        families count only the ``top_k`` routed and the shared experts."""
+        if self.n_experts == 0:
+            return self.params_count()
+        d = self.d_model
+        attn = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+        active_moe = (self.top_k + self.n_shared_experts) * 3 * d * self.expert_ff
+        per_layer = attn + active_moe + d * self.n_experts
+        return self.n_layers * per_layer + self.vocab * d * 2
+
+
+# --------------------------------------------------------------------------- #
+# Logical axis rules (context)
+# --------------------------------------------------------------------------- #
+_RULES: contextvars.ContextVar = contextvars.ContextVar("axis_rules", default=None)
+_MESH: contextvars.ContextVar = contextvars.ContextVar("model_mesh", default=None)
+
+
+@contextlib.contextmanager
+def axis_rules(rules: dict[str, Any], mesh: Any = None):
+    """Activate logical -> mesh axis rules, e.g. ``{"batch": ("pod",
+    "data"), "heads": "model"}`` (values a name, a tuple of names or
+    ``None``), and the mesh they map onto."""
+    tok = _RULES.set(tuple(rules.items()))
+    tok_m = _MESH.set(mesh)
+    try:
+        yield
+    finally:
+        _RULES.reset(tok)
+        _MESH.reset(tok_m)
+
+
+def current_rules() -> dict[str, Any]:
+    r = _RULES.get()
+    return dict(r) if r else {}
+
+
+def current_mesh():
+    return _MESH.get()
+
+
+def logical_to_spec(axes: tuple, rules: dict[str, Any] | None = None) -> tuple:
+    """The spec of logical ``axes`` under ``rules`` (default: the active
+    ones): each entry the mesh axes its rule names, ``None`` for no rule.
+    A mesh axis serves one tensor dim only: a later dim whose axes are all
+    taken gets ``None``, one with some free keeps those."""
+    rules = current_rules() if rules is None else rules
+    used: set[str] = set()
+    spec = []
+    for ax in axes:
+        m = rules.get(ax) if ax is not None else None
+        if m is None:
+            spec.append(None)
+            continue
+        free = tuple(p for p in ((m,) if isinstance(m, str) else tuple(m)) if p not in used)
+        if not free:
+            spec.append(None)
+            continue
+        used.update(free)
+        spec.append(free[0] if len(free) == 1 else free)
+    return tuple(spec)
+
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
@@ -161,7 +234,8 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
         raise ValueError(f"apply_mrope: sections {tuple(sections)} do not sum to {dh // 2}")
     inv = rope_frequencies(dh, theta, device=x.device)
     sec_id = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                     torch.tensor(sections, device=x.device))  # [Dh/2]
+                                     torch.tensor(sections, device=x.device),
+                                     output_size=dh // 2)  # [Dh/2]
     pos = positions_3d.to(torch.float32)[sec_id]  # [Dh/2, B, S]
     angles = pos.permute(1, 2, 0) * inv  # [B, S, Dh/2]
     cos = torch.cos(angles)[:, :, None, :]

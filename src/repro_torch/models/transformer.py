@@ -48,7 +48,7 @@ from .common import ModelConfig, apply_mrope, apply_rope, cross_entropy_loss, rm
 from .ffn import ep_shard, moe_layer, moe_layer_ep, swiglu
 from .ssm import rwkv6_step, ssd_step
 
-__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "layer_params",
+__all__ = ["init_params", "param_shapes", "param_axes", "forward", "loss_fn", "layer_params",
            "require_ported", "ep_shard_params", "PORTED_FAMILIES", "DECODER_FAMILIES"]
 
 #: The families the port runs.
@@ -68,38 +68,49 @@ def require_ported(cfg: ModelConfig) -> None:
             "dense, moe, vlm, ssm, hybrid and audio families")
 
 
-def _normal(shape, scale=None):
+def _normal(shape, axes, scale=None):
     """``ParamStore.param``'s default init: normal times 1 / sqrt(fan_in)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-    return (shape, "normal", scale if scale is not None else 1.0 / math.sqrt(fan_in))
+    return (shape, "normal", scale if scale is not None else 1.0 / math.sqrt(fan_in), axes)
 
 
-def _ones(shape):
-    return (shape, "ones", None)
+def _ones(shape, axes):
+    return (shape, "ones", None, axes)
 
 
-def _zeros(shape):
-    return (shape, "zeros", None)
+def _zeros(shape, axes):
+    return (shape, "zeros", None, axes)
 
 
-def _uniform(shape, scale):
+def _uniform(shape, axes, scale):
     """``ParamStore``'s ``"uniform"`` init: U(-scale, scale)."""
-    return (shape, "uniform", scale)
+    return (shape, "uniform", scale, axes)
+
+
+_LD = ("layers", "d_model")
 
 
 def _init_attn(cfg: ModelConfig, L: int, bias: bool = False) -> dict:
     d = cfg.d_model
     out = {
-        "attn_norm": _ones((L, d)),
-        "wq": _normal((L, d, cfg.q_dim)),
-        "wk": _normal((L, d, cfg.kv_dim)),
-        "wv": _normal((L, d, cfg.kv_dim)),
-        "wo": _normal((L, cfg.q_dim, d)),
+        "attn_norm": _ones((L, d), _LD),
+        "wq": _normal((L, d, cfg.q_dim), ("layers", "d_model", "heads")),
+        "wk": _normal((L, d, cfg.kv_dim), ("layers", "d_model", "kv_heads")),
+        "wv": _normal((L, d, cfg.kv_dim), ("layers", "d_model", "kv_heads")),
+        "wo": _normal((L, cfg.q_dim, d), ("layers", "heads", "d_model")),
     }
     if bias:  # qwen2-vl's qkv biases
-        out.update(bq=_zeros((L, cfg.q_dim)), bk=_zeros((L, cfg.kv_dim)),
-                   bv=_zeros((L, cfg.kv_dim)))
+        out.update(bq=_zeros((L, cfg.q_dim), ("layers", "heads")),
+                   bk=_zeros((L, cfg.kv_dim), ("layers", "kv_heads")),
+                   bv=_zeros((L, cfg.kv_dim), ("layers", "kv_heads")))
     return out
+
+
+def _mlp(d: int, f: int, L: int) -> dict:
+    """A SwiGLU's three matrices stacked over ``L`` layers."""
+    up = ("layers", "d_model", "d_ff")
+    return {"wi_gate": _normal((L, d, f), up), "wi_up": _normal((L, d, f), up),
+            "wo": _normal((L, f, d), ("layers", "d_ff", "d_model"))}
 
 
 def _init_decoder_stack(cfg: ModelConfig, L: int) -> dict:
@@ -107,18 +118,18 @@ def _init_decoder_stack(cfg: ModelConfig, L: int) -> dict:
     ``L`` layers: the dense SwiGLU, or the router, the experts and kimi's
     shared expert."""
     d = cfg.d_model
-    out = {**_init_attn(cfg, L, bias=cfg.m_rope), "ffn_norm": _ones((L, d))}
+    out = {**_init_attn(cfg, L, bias=cfg.m_rope), "ffn_norm": _ones((L, d), _LD)}
     if cfg.n_experts > 0:
         e, f = cfg.n_experts, cfg.expert_ff
-        out.update(router=_normal((L, d, e)), moe_wi_gate=_normal((L, e, d, f)),
-                   moe_wi_up=_normal((L, e, d, f)), moe_wo=_normal((L, e, f, d)))
+        up = ("layers", "experts", "d_model", "d_ff")
+        out.update(router=_normal((L, d, e), ("layers", "d_model", "experts")),
+                   moe_wi_gate=_normal((L, e, d, f), up), moe_wi_up=_normal((L, e, d, f), up),
+                   moe_wo=_normal((L, e, f, d), ("layers", "experts", "d_ff", "d_model")))
         if cfg.n_shared_experts > 0:
-            fs = f * cfg.n_shared_experts
-            out["shared"] = {"wi_gate": _normal((L, d, fs)), "wi_up": _normal((L, d, fs)),
-                             "wo": _normal((L, fs, d))}
+            out["shared"] = _mlp(d, f * cfg.n_shared_experts, L)
         return out
-    out.update(wi_gate=_normal((L, d, cfg.d_ff)), wi_up=_normal((L, d, cfg.d_ff)),
-               wo_ffn=_normal((L, cfg.d_ff, d)))
+    mlp = _mlp(d, cfg.d_ff, L)
+    out.update(wi_gate=mlp["wi_gate"], wi_up=mlp["wi_up"], wo_ffn=mlp["wo"])
     return out
 
 
@@ -127,24 +138,25 @@ def _init_rwkv_stack(cfg: ModelConfig, L: int) -> dict:
     LoRA decay and the bonus) and channel-mix, stacked over ``L`` layers."""
     d, f = cfg.d_model, cfg.d_ff
     lora = max(32, d // 32)
-    out = {"tm_norm": _ones((L, d))}
+    dh = ("layers", "d_model", "heads")
+    out = {"tm_norm": _ones((L, d), _LD)}
     for nm in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
-        out[nm] = _uniform((L, d), 0.5)
+        out[nm] = _uniform((L, d), _LD, 0.5)
     for nm in ("wr", "wk", "wv", "wg"):
-        out[nm] = _normal((L, d, d))
+        out[nm] = _normal((L, d, d), dh)
     out.update({
-        "w_base": _zeros((L, d)),
-        "w_lora_a": _normal((L, d, lora)),
-        "w_lora_b": _zeros((L, lora, d)),
-        "bonus_u": _uniform((L, d), 0.3),
-        "ln_x": _ones((L, d)),
-        "wo": _normal((L, d, d)),
-        "cm_norm": _ones((L, d)),
-        "cm_mu_k": _uniform((L, d), 0.5),
-        "cm_mu_r": _uniform((L, d), 0.5),
-        "cm_wk": _normal((L, d, f)),
-        "cm_wv": _normal((L, f, d)),
-        "cm_wr": _normal((L, d, d)),
+        "w_base": _zeros((L, d), _LD),
+        "w_lora_a": _normal((L, d, lora), ("layers", "d_model", None)),
+        "w_lora_b": _zeros((L, lora, d), ("layers", None, "d_model")),
+        "bonus_u": _uniform((L, d), _LD, 0.3),
+        "ln_x": _ones((L, d), _LD),
+        "wo": _normal((L, d, d), ("layers", "heads", "d_model")),
+        "cm_norm": _ones((L, d), _LD),
+        "cm_mu_k": _uniform((L, d), _LD, 0.5),
+        "cm_mu_r": _uniform((L, d), _LD, 0.5),
+        "cm_wk": _normal((L, d, f), ("layers", "d_model", "d_ff")),
+        "cm_wv": _normal((L, f, d), ("layers", "d_ff", "d_model")),
+        "cm_wr": _normal((L, d, d), dh),
     })
     return out
 
@@ -157,14 +169,14 @@ def _init_zamba_stack(cfg: ModelConfig, L: int) -> tuple[dict, dict]:
     n_h = d_inner // 64  # mamba2 head dim 64
     dst = cfg.ssm_state
     layers = {
-        "norm": _ones((L, d)),
-        "in_proj": _normal((L, d, 2 * d_inner)),
-        "bc_proj": _normal((L, d, 2 * dst)),
-        "dt_proj": _normal((L, d, n_h)),
-        "dt_bias": _zeros((L, n_h)),
-        "a_log": _uniform((L, n_h), 1.0),
-        "d_skip": _ones((L, n_h)),
-        "out_proj": _normal((L, d_inner, d)),
+        "norm": _ones((L, d), _LD),
+        "in_proj": _normal((L, d, 2 * d_inner), ("layers", "d_model", "heads")),
+        "bc_proj": _normal((L, d, 2 * dst), ("layers", "d_model", None)),
+        "dt_proj": _normal((L, d, n_h), ("layers", "d_model", None)),
+        "dt_bias": _zeros((L, n_h), ("layers", None)),
+        "a_log": _uniform((L, n_h), ("layers", None), 1.0),
+        "d_skip": _ones((L, n_h), ("layers", None)),
+        "out_proj": _normal((L, d_inner, d), ("layers", "heads", "d_model")),
     }
     return layers, _init_decoder_stack(cfg, 1)
 
@@ -181,24 +193,29 @@ def _init_whisper(cfg: ModelConfig) -> tuple[dict, dict]:
     biases and no learned position table, as the reference has it."""
     d, f = cfg.d_model, cfg.d_ff
     le, ld = cfg.enc_layers or cfg.n_layers, cfg.n_layers
-    enc = {"pos_scale": _ones((1,)), **_init_attn(cfg, le), "ffn_norm": _ones((le, d)),
-           "wi": _normal((le, d, f)), "wo_ffn": _normal((le, f, d)), "final_norm": _ones((d,))}
-    dec = {**_init_attn(cfg, ld), "xattn_norm": _ones((ld, d)),
-           "xq": _normal((ld, d, cfg.q_dim)), "xk": _normal((ld, d, cfg.kv_dim)),
-           "xv": _normal((ld, d, cfg.kv_dim)), "xo": _normal((ld, cfg.q_dim, d)),
-           "ffn_norm": _ones((ld, d)), "wi": _normal((ld, d, f)), "wo_ffn": _normal((ld, f, d))}
+    up, down = ("layers", "d_model", "d_ff"), ("layers", "d_ff", "d_model")
+    enc = {"pos_scale": _ones((1,), (None,)), **_init_attn(cfg, le),
+           "ffn_norm": _ones((le, d), _LD), "wi": _normal((le, d, f), up),
+           "wo_ffn": _normal((le, f, d), down), "final_norm": _ones((d,), ("d_model",))}
+    dec = {**_init_attn(cfg, ld), "xattn_norm": _ones((ld, d), _LD),
+           "xq": _normal((ld, d, cfg.q_dim), ("layers", "d_model", "heads")),
+           "xk": _normal((ld, d, cfg.kv_dim), ("layers", "d_model", "kv_heads")),
+           "xv": _normal((ld, d, cfg.kv_dim), ("layers", "d_model", "kv_heads")),
+           "xo": _normal((ld, cfg.q_dim, d), ("layers", "heads", "d_model")),
+           "ffn_norm": _ones((ld, d), _LD), "wi": _normal((ld, d, f), up),
+           "wo_ffn": _normal((ld, f, d), down)}
     return enc, dec
 
 
-def param_shapes(cfg: ModelConfig) -> dict:
-    """Every parameter's ``(shape, init, scale)`` in the reference's
-    ``ParamStore`` order, from the config alone (nothing is allocated)."""
+def _param_specs(cfg: ModelConfig) -> dict:
+    """Every parameter's ``(shape, init, scale, logical axes)`` in the
+    reference's ``ParamStore`` order."""
     require_ported(cfg)
     d, v = cfg.d_model, cfg.vocab
-    out = {"embed": _normal((v, d), 0.02)}
+    out = {"embed": _normal((v, d), ("vocab", "d_model"), 0.02)}
     if not cfg.tie_embeddings:
-        out["lm_head"] = _normal((d, v))
-    out["final_norm"] = _ones((d,))
+        out["lm_head"] = _normal((d, v), ("d_model", "vocab"))
+    out["final_norm"] = _ones((d,), ("d_model",))
     if cfg.family in DECODER_FAMILIES:
         out["layers"] = _init_decoder_stack(cfg, cfg.n_layers)
     elif cfg.family == "ssm":
@@ -208,6 +225,23 @@ def param_shapes(cfg: ModelConfig) -> dict:
     else:
         out["enc"], out["dec"] = _init_whisper(cfg)
     return out
+
+
+def _spec_map(fn, tree):
+    return {k: _spec_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """Every parameter's ``(shape, init, scale)`` in the reference's
+    ``ParamStore`` order, from the config alone (nothing is allocated)."""
+    return _spec_map(lambda spec: spec[:3], _param_specs(cfg))
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """Every parameter's logical axes (the reference's ``init_params``'
+    second tree): :func:`param_shapes`' tree with one axis name (or
+    ``None``) per dim of each leaf, from the config alone."""
+    return _spec_map(lambda spec: spec[3], _param_specs(cfg))
 
 
 #: The most elements :func:`init_params` draws at once (1 GB of float32).
@@ -237,7 +271,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
     def make(spec):
         if isinstance(spec, dict):
             return {k: make(s) for k, s in spec.items()}
-        shape, init, scale = spec
+        shape, init, scale, _axes = spec
         if init in ("ones", "zeros"):
             return (torch.ones if init == "ones" else torch.zeros)(shape, dtype=cfg.dtype,
                                                                    device=dev)
@@ -251,7 +285,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device=None) -> dict:
             part.copy_(draw(tuple(part.shape), init, scale))
         return out
 
-    return make(param_shapes(cfg))
+    return make(_param_specs(cfg))
 
 
 def layer_params(params: dict, i: int, key: str = "layers") -> dict:

@@ -11,7 +11,8 @@ equations give lambda_decode = lambda_0 * E[output_len].  DRS Program
 Service rates are per-chip priors: measured on the card (prompts / s of a
 prefill, tokens / s of a decode step; ``launch/serve.py --prefill-rate /
 --decode-rate``), or read by :func:`rates_from_dryrun` from the dry-run's
-roofline records, whose port waits (ROADMAP Queue 1 item 6).
+roofline records (``launch/dryrun.py``, on the H100's rates; the reference's
+records read alike).
 """
 
 from __future__ import annotations

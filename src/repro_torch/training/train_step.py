@@ -54,8 +54,8 @@ def init_train_state(cfg: ModelConfig, opt_cfg: AdamWConfig, seed: int = 0, *,
                      device=None) -> TrainState:
     """Seeded parameters (:func:`~repro_torch.models.transformer.init_params`
     on ``device``, default the CUDA device), zero moments, step 0.  The
-    reference also returns the logical axes, which wait for the dry-run
-    (ROADMAP Queue 1 item 6)."""
+    reference also returns the logical axes: here
+    :func:`~repro_torch.models.transformer.param_axes` gives them."""
     params = init_params(cfg, seed, device=device)
     opt = adamw_init(params, opt_cfg)
     return TrainState(params, opt, torch.zeros((), dtype=torch.int32, device=opt.step.device))

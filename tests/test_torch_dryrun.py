@@ -1,0 +1,454 @@
+"""The port's dry-run (``launch/dryrun.py``, ``launch/trace_cost.py``)
+against the JAX package's.
+
+* One subprocess runs the reference's ``repro.launch.dryrun.run_cell`` on
+  six cells cut in depth (its XLA flags stay in that process); the port's
+  records of the same cells have the reference's argument and output bytes
+  and ``model_flops`` exactly.
+* Dot FLOPs per device: within 5 % of the reference's on the decode cells
+  (mixtral's less the keys outside its 4,096-token window, which the
+  reference attends to masked and the port's kernel does not read); on the
+  prefill cells within 5 % of the reference's less the non-causal half of
+  its ``attn_impl="naive"`` score and PV products (the port's flash kernel
+  visits the causal pairs); the train cell's ratio pinned between 0.30 and
+  0.40 -- the reference rematerialises every layer (a fourth forward) and
+  its partitioner lays the attention out with the batch whole on every
+  device (``f32[256,2,4096,4096]`` score dots per device: heads over
+  "model" only), so it does 16 times a 256-way split's attention work --
+  and the port's train FLOPs equal three forwards of its own count.
+* Collectives on hand-computed cases: a tensor-parallel block, an FSDP and
+  a data-parallel parameter, an expert-parallel MoE layer (prefill and
+  train), a sequence-sharded decode attention.
+* The kernels' work counts (``kernels/cost.py``) equal what ``chip_smoke.py``
+  computed inline before they moved, on its case tables; the meta faces
+  give the plain versions' shapes and dtypes and, under autograd, the
+  inputs' gradients.
+* A port record reads alike through both packages' ``rates_from_dryrun``;
+  ``main(["--all", ...])`` writes an ``ok`` or ``skipped`` record for every
+  one of the 40 single-pod cells (cut to 2 layers), none in ``error``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import math
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro.serving.pipeline import rates_from_dryrun as j_rates_from_dryrun
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs.shapes import SHAPES, cell_is_supported
+from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import cost
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.decode_attention import ref as decode_ref
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.flash_attention import ref as flash_ref
+from repro_torch.kernels.rwkv6_scan import ops as rwkv6_ops
+from repro_torch.kernels.rwkv6_scan import ref as rwkv6_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.kernels.swiglu import ops as swiglu_ops
+from repro_torch.kernels.swiglu import ref as swiglu_ref
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import HW, LogicalMesh
+from repro_torch.launch.trace_cost import CostTrace
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.transformer import param_shapes
+from repro_torch.serving.pipeline import rates_from_dryrun
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+CELLS = [
+    ("llama3.2-1b", "decode_32k", {"n_layers": 2}),
+    ("llama3.2-1b", "prefill_32k", {"n_layers": 2}),
+    ("llama3.2-1b", "train_4k", {"n_layers": 2}),
+    ("mixtral-8x22b", "decode_32k", {"n_layers": 1}),
+    ("whisper-medium", "prefill_32k", {"n_layers": 2, "enc_layers": 2}),
+    ("zamba2-7b", "prefill_32k", {"n_layers": 2}),
+]
+IDS = [f"{a}-{s}" for a, s, _o in CELLS]
+
+_REF_SCRIPT = """
+import json, sys
+from repro.launch.dryrun import run_cell
+cells = json.loads(sys.argv[1])
+out = []
+for arch, shape, over in cells:
+    rec = run_cell(arch, shape, cfg_overrides=over)
+    rec.pop("traceback", None)
+    out.append(rec)
+json.dump(out, open(sys.argv[2], "w"), default=str)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref_records(tmp_path_factory):
+    """The reference's records of ``CELLS``, from one subprocess (its
+    dry-run sets ``XLA_FLAGS`` at import)."""
+    out = tmp_path_factory.mktemp("ref_dryrun") / "cells.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", _REF_SCRIPT, json.dumps(CELLS), str(out)],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    recs = json.loads(out.read_text())
+    assert all(r["status"] == "ok" for r in recs), [r.get("error") for r in recs]
+    return {(r["arch"], r["shape"]): r for r in recs}
+
+
+@pytest.fixture(scope="module")
+def port_records():
+    return {(a, s): dryrun.run_cell(a, s, cfg_overrides=o) for a, s, o in CELLS}
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_argument_and_output_bytes_and_model_flops_equal_the_references(
+        cell, ref_records, port_records):
+    arch, shape, _over = cell
+    got, want = port_records[(arch, shape)], ref_records[(arch, shape)]
+    assert got["status"] == "ok", got.get("error")
+    for key in ("argument_size_in_bytes", "output_size_in_bytes"):
+        assert got["memory_analysis"][key] == want["memory_analysis"][key], key
+    assert got["roofline"]["model_flops"] == want["roofline"]["model_flops"]
+    assert got["chips"] == want["chips"] == 256 and got["mesh"] == want["mesh"]
+    assert got["hw"]["peak_flops_bf16"] == 989e12 and got["hw"]["link_bw"] == HW.NET_BW
+
+
+def _ref_attention_the_port_skips(arch, shape, over):
+    """Per-device dot FLOPs of the reference's attention that the port's
+    kernels do not do: the non-causal pairs of each causal self-attention
+    layer at prefill (batch and heads over 256 devices), the keys outside
+    the window at decode (batch over "data", the cache's sequence over
+    "model", every head)."""
+    cfg = dataclasses.replace(get_config(arch, "full"), **over)
+    spec = SHAPES[shape]
+    b, s, dh, hq = spec.global_batch, spec.seq_len, cfg.head_dim_, cfg.n_heads
+    if spec.kind == "decode":
+        if cfg.attention != "swa":
+            return 0.0
+        return cfg.n_layers * 4 * dh * (s - cfg.swa_window) / 16 * (b / 16) * hq
+    causal_layers = (-(-cfg.n_layers // cfg.hybrid_attn_every) if cfg.family == "hybrid"
+                     else cfg.n_layers)
+    skipped = s * s - cost.attention_pairs(s, s, True, None)
+    return causal_layers * 4 * dh * skipped * b * hq / 256
+
+
+def _dense_forward_flops(cfg, b, s):
+    """Global dot FLOPs of one forward of a dense (tied-embedding) model."""
+    d = cfg.d_model
+    per_layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * cfg.d_ff
+    mm = 2 * (cfg.n_layers * per_layer + d * cfg.vocab) * b * s
+    attn = cfg.n_layers * 4 * cfg.head_dim_ * cost.attention_pairs(s, s, True, None) * b * \
+        cfg.n_heads
+    return mm + attn
+
+
+@pytest.mark.parametrize("cell", CELLS, ids=IDS)
+def test_dot_flops_per_device_agree_with_the_references(cell, ref_records, port_records):
+    arch, shape, over = cell
+    got = port_records[(arch, shape)]["roofline"]["flops_per_device"]
+    want = ref_records[(arch, shape)]["roofline"]["flops_per_device"]
+    ratio = got / want
+    print(f"\n{arch} {shape}: port / reference dot FLOPs per device {ratio:.4f}")
+    if SHAPES[shape].kind == "train":
+        assert 0.30 <= ratio <= 0.40, ratio
+        cfg = dataclasses.replace(get_config(arch, "full"), **over)
+        spec = SHAPES[shape]
+        three = 3 * _dense_forward_flops(cfg, spec.global_batch, spec.seq_len) / 256
+        assert got == pytest.approx(three, rel=1e-3)
+        return
+    adjusted = want - _ref_attention_the_port_skips(arch, shape, over)
+    assert got / adjusted == pytest.approx(1.0, abs=0.05), (ratio, got / adjusted)
+
+
+def test_collective_and_traffic_ratios_to_the_reference(ref_records, port_records):
+    """Printed (``pytest -s``) for the record; the two count collectives
+    and traffic with different models, so nothing is asserted past both
+    being there."""
+    for arch, shape, _o in CELLS:
+        got, want = port_records[(arch, shape)], ref_records[(arch, shape)]
+        g, w = got["roofline"], want["roofline"]
+        kinds = sorted(set(g["collectives"]["bytes_by_kind"]) | set(
+            w["collectives"]["bytes_by_kind"]))
+        parts = []
+        for k in kinds:
+            gb = g["collectives"]["bytes_by_kind"].get(k, 0.0)
+            wb = w["collectives"]["bytes_by_kind"].get(k, 0.0)
+            parts.append(f"{k} {gb:.4g}/{wb:.4g}")
+        print(f"\n{arch} {shape}: traffic {g['bytes_per_device']:.4g} / "
+              f"{w['bytes_per_device']:.4g} = {g['bytes_per_device'] / w['bytes_per_device']:.4f}; "
+              f"collectives {g['collective_bytes_per_device']:.4g} / "
+              f"{w['collective_bytes_per_device']:.4g}; " + ", ".join(parts))
+        assert g["bytes_per_device"] > 0 and g["collective_bytes_per_device"] > 0
+
+
+# --------------------------------------------------------------------------- #
+# Collectives on hand-computed cases
+# --------------------------------------------------------------------------- #
+TINY = ModelConfig(arch="tiny", family="dense", n_layers=1, d_model=64, n_heads=8,
+                   n_kv_heads=4, d_ff=128, vocab=256, head_dim=8, dtype=torch.bfloat16,
+                   tie_embeddings=True)
+TINY_MOE = dataclasses.replace(TINY, arch="tiny-moe", family="moe", n_experts=8, top_k=2,
+                               moe_d_ff=32)
+
+
+def _cost(cfg, kind, b, s, shape):
+    mesh = LogicalMesh(shape, ("data", "model"))
+    return dryrun.step_cost(cfg, kind, b, s, mesh, shd.rules_for(kind))[1]
+
+
+def test_tensor_parallel_block_all_reduces_its_two_contractions():
+    """Prefill, B 4 x S 16 on (data 2, model 4): ``wo`` contracts the heads
+    and the SwiGLU's down projection ``d_ff``, both on "model": two
+    all-reduces of the [B / 2, S, D] bf16 output."""
+    c = _cost(TINY, "prefill", 4, 16, (2, 4))
+    one = 2 * 16 * 64 * 2
+    assert c.bytes_by_kind == {"all-reduce": 2 * one}
+    assert c.count_by_kind == {"all-reduce": 2}
+
+
+def test_fsdp_and_data_parallel_parameters():
+    """A [3, 8, 16] parameter with d_model on "data" (4) and d_ff on
+    "model" (2): gathered over "data" before its forward and its backward
+    use, its gradient reduce-scattered, once per layer; a [8] parameter on
+    no batch axis: its gradient all-reduced."""
+    mesh = LogicalMesh((4, 2), ("data", "model"))
+    trace = CostTrace(mesh, shd.prune_rules(shd.rules_for("train"), mesh))
+    trace.register(torch.empty(3, 8, 16, dtype=torch.bfloat16, device="meta"),
+                   (None, "data", "model"), "param", "layers.w", ("layers", "d_model", "d_ff"))
+    trace.register(torch.empty(8, dtype=torch.bfloat16, device="meta"), (None,), "param",
+                   "scale", (None,))
+    trace.parameter_collectives(train=True)
+    assert trace.cost.bytes_by_kind == {"all-gather": 2 * 3 * 8 * 16 * 2 / 2,
+                                        "reduce-scatter": 3 * 8 * 16 * 2 / 8,
+                                        "all-reduce": 8 * 2}
+    assert trace.cost.count_by_kind == {"all-gather": 6, "reduce-scatter": 3, "all-reduce": 1}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_expert_parallel_layer_costs_two_all_to_alls_each_way(kind):
+    """8 experts over "data" (4), B 4 x S 16: the dispatch buffer [E, C, D]
+    (C = int(1.25 * 64 * 2 / 8) = 20) is 20,480 bf16 bytes, a device's
+    quarter 5,120; two all-to-alls per MoE layer, two more in the
+    backward."""
+    c = _cost(TINY_MOE, kind, 4, 16, (4, 2))
+    n = 2 if kind == "prefill" else 4
+    assert c.count_by_kind["all-to-all"] == n
+    assert c.bytes_by_kind["all-to-all"] == n * 8 * 20 * 64 * 2 / 4
+
+
+def test_sequence_sharded_decode_attention_combines_its_partials():
+    """Decode, B 4 over a 32-row cache on (data 2, model 4): the cache's
+    sequence takes "model" (its 4 KV heads stay whole), so each device
+    attends 8 rows for its 2 sequences and all 8 heads and the partial
+    softmax combines over "model": [2, 8, 8] bf16 plus two [2, 8] float32;
+    beside it the two tensor-parallel all-reduces of [2, 64] bf16."""
+    c = _cost(TINY, "decode", 4, 32, (2, 4))
+    combine = 2 * 8 * (8 * 2 + 2 * 4)
+    assert c.bytes_by_kind == {"all-reduce": combine + 2 * (2 * 64 * 2)}
+    assert c.count_by_kind == {"all-reduce": 3}
+    assert c.kernel_calls == {"decode_attention": 1, "swiglu": 1}
+
+
+def test_one_device_mesh_has_no_collectives_and_the_cards_bound():
+    """On a one-device mesh nothing is collective, and llama's 4 x 4096
+    prefill costs its three forward products plus the causal attention."""
+    mesh = LogicalMesh((1, 1, 1), ("pod", "data", "model"))
+    cfg = get_config("llama3.2-1b", "full")
+    mem, c = dryrun.step_cost(cfg, "prefill", 4, 4096, mesh, shd.rules_for("prefill"))
+    assert c.bytes_by_kind == {}
+    d = cfg.d_model
+    per_layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * cfg.d_ff
+    attn = 4 * cfg.head_dim_ * cost.attention_pairs(4096, 4096, True, None) * 4 * cfg.n_heads
+    want = cfg.n_layers * (2 * per_layer * 4 * 4096 + attn) + 2 * d * cfg.vocab * 4
+    assert c.flops == pytest.approx(want, rel=1e-9)
+    weights = sum(2 * math.prod(shape) for shape in _leaf_shapes(param_shapes(cfg)))
+    assert mem["argument_size_in_bytes"] == weights + \
+        2 * cfg.n_layers * 4 * 4096 * cfg.kv_dim * 2 + 4 * 4096 * 4
+
+
+def _leaf_shapes(tree):
+    for v in tree.values():
+        yield from (_leaf_shapes(v) if isinstance(v, dict) else [v[0]])
+
+
+# --------------------------------------------------------------------------- #
+# The kernels' work and meta faces
+# --------------------------------------------------------------------------- #
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _old_scan_work(kind, b, h, s, dk, dv, chunk, size, shared_bc=False):
+    """``chip_smoke.py``'s inline count before it moved (one chunk at a
+    time)."""
+    ops = shared_ops = mma = 0
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        tri = c * (c + 1) // 2
+        if kind == "rwkv6":
+            mma += 2 * c * dk * dv + 2 * tri * dv + 2 * c * dk * dv
+            ops += (2 * c * dk * dv + 5 * (tri - c) * dk + 3 * c * dk + 2 * tri * dv
+                    + 4 * c * dk + 2 * c * dk * dv + 3 * dk * dv)
+        else:
+            shared_ops += 2 * tri * dk
+            mma += 2 * c * dk * dv + 2 * tri * dv + 2 * c * dk * dv
+            ops += (3 * tri + 2 * c * dk * dv + 2 * tri * dv + 4 * c * dk
+                    + 2 * c * dk * dv + 2 * dk * dv)
+    shared_ops *= b * (1 if shared_bc else h)
+    ops = b * h * ops + shared_ops
+    mma = b * h * mma + shared_ops
+    state = 2 * b * h * dk * dv * 4
+    if kind == "rwkv6":
+        nbytes = b * h * s * ((2 * dk + 2 * dv) * size + 4 * dk) + h * dk * 4 + state
+    else:
+        bc = 2 * b * (1 if shared_bc else h) * s * dk * size
+        nbytes = b * h * s * (2 * dv * size + 4) + bc + state
+    return nbytes, ops, mma
+
+
+def test_kernel_work_equals_the_counts_chip_smoke_made_inline():
+    cs = _chip_smoke()
+    for _g, arch, b, s, window, causal, _t in cs.FLASH_CASES:
+        cfg = get_config(arch, "full")
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        sq, skv = s if isinstance(s, tuple) else (s, s)
+        pairs = (sum(min(i + 1 + skv - sq, window or skv) for i in range(sq)) if causal
+                 else sq * skv)
+        old = (2 * b * dh * (2 * sq * hq + 2 * skv * hkv), 4 * dh * pairs * b * hq)
+        assert cost.flash_work(b, hq, hkv, sq, skv, dh, causal=causal, window=window) == old
+    for _g, arch, b, _smax, length, window, _t in cs.DECODE_CASES:
+        cfg = get_config(arch, "full")
+        hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        lo = max(0, length - window) if window else 0
+        old = (2 * (2 * b * hq * dh + 2 * b * (length - lo) * hkv * dh),
+               4 * dh * (length - lo) * b * hq)
+        assert cost.decode_work(b, hq, hkv, dh, length - lo) == old
+    for _g, arch, t, _dt, _timed in cs.SWIGLU_CASES:
+        cfg = get_config(arch, "full")
+        d, f = cfg.d_model, cfg.d_ff
+        assert cost.swiglu_work(t, d, f) == (2 * (2 * t * d + 3 * d * f), 6 * t * d * f)
+    for args in [("rwkv6", 4, 32, 4096, 64, 64, 32, 2), ("rwkv6", 1, 32, 1000, 64, 64, 32, 4),
+                 ("rwkv6", 2, 3, 5, 16, 8, 32, 2), ("ssd", 4, 112, 4096, 64, 64, 64, 2, True),
+                 ("ssd", 1, 112, 1000, 64, 64, 64, 4, True), ("ssd", 2, 4, 130, 16, 8, 64, 4)]:
+        assert cost.scan_work(*args) == _old_scan_work(*args), args
+
+
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (1, 1, True, None), (7, 7, True, None), (7, 7, True, 3), (5, 9, True, None),
+    (5, 9, True, 2), (9, 9, False, None), (100, 100, True, 100), (64, 200, True, 17)])
+def test_attention_pairs_closed_form_equals_the_sum(sq, skv, causal, window):
+    want = (sum(min(i + 1 + skv - sq, window or skv) for i in range(sq)) if causal
+            else sq * skv)
+    assert cost.attention_pairs(sq, skv, causal, window) == want
+
+
+def _meta(*shape, dtype=torch.bfloat16, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta").requires_grad_(grad)
+
+
+def _cpu_like(t, gen):
+    return torch.randn(t.shape, generator=gen).to(t.dtype)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_meta_faces_give_the_plain_versions_shapes_and_gradients(grad):
+    gen = torch.Generator().manual_seed(0)
+    cases = [
+        (lambda q, k, v: flash_ops.attention(q, k, v, window=4), flash_ref.attention,
+         (_meta(2, 4, 6, 8, grad=grad), _meta(2, 2, 6, 8, grad=grad), _meta(2, 2, 6, 8, grad=grad)),
+         {}),
+        (lambda x, wg, wu, wo: swiglu_ops.swiglu(x, wg, wu, wo), swiglu_ref.swiglu,
+         (_meta(5, 16, grad=grad), _meta(16, 32, grad=grad), _meta(16, 32, grad=grad),
+          _meta(32, 16, grad=grad)), {}),
+    ]
+    for face, plain, args, _kw in cases:
+        got = face(*args)
+        want = plain(*(_cpu_like(a, gen) for a in args))
+        assert got.device.type == "meta" and got.shape == want.shape and got.dtype == want.dtype
+        if grad:
+            grads = torch.autograd.grad(got.float().sum(), args)
+            assert [g.shape for g in grads] == [a.shape for a in args]
+    q, kc, vc = _meta(3, 4, 8), _meta(3, 10, 2, 8), _meta(3, 10, 2, 8)
+    n = torch.empty((), dtype=torch.int32, device="meta")
+    got = decode_ops.decode_attention(q, kc, vc, n)
+    want = decode_ref.decode_attention(*(_cpu_like(t, gen) for t in (q, kc, vc)),
+                                       torch.tensor(7, dtype=torch.int32))
+    assert got.shape == want.shape and got.dtype == want.dtype
+    r, k, v, lw = (_meta(2, 3, 9, 4, grad=grad) for _ in range(4))
+    u = _meta(3, 4, grad=grad)
+    outs = rwkv6_ops.rwkv6_scan(r, k, v, lw, u, None, chunk=4)
+    want = rwkv6_ref.rwkv6_scan(*(_cpu_like(t, gen) for t in (r, k, v)),
+                                -torch.rand(2, 3, 9, 4, generator=gen), _cpu_like(u, gen), None,
+                                chunk=4)
+    assert [(o.shape, o.dtype) for o in outs] == [(w.shape, w.dtype) for w in want]
+    x, a = _meta(2, 3, 9, 8, grad=grad), _meta(2, 3, 9, dtype=torch.float32, grad=grad)
+    bm = _meta(2, 1, 9, 4, grad=grad).expand(2, 3, 9, 4)
+    outs = ssd_ops.ssd_scan(x, a, bm, bm, None, chunk=4)
+    want = ssd_ref.ssd_scan(_cpu_like(x, gen), -torch.rand(2, 3, 9, generator=gen),
+                            *(_cpu_like(bm, gen) for _ in range(2)), None, chunk=4)
+    assert [(o.shape, o.dtype) for o in outs] == [(w.shape, w.dtype) for w in want]
+    if grad:
+        gx, ga = torch.autograd.grad(outs[0].float().sum() + outs[1].sum(), (x, a))
+        assert gx.shape == x.shape and ga.shape == a.shape
+
+
+def test_meta_kernels_charge_the_active_trace_only():
+    mesh = LogicalMesh((1, 1), ("data", "model"))
+    trace = CostTrace(mesh, shd.rules_for("prefill"))
+    x, w = _meta(5, 16), _meta(16, 32)
+    with trace:
+        swiglu_ops.swiglu(x, w, w, _meta(32, 16))
+    swiglu_ops.swiglu(x, w, w, _meta(32, 16))  # no trace: nothing charged anywhere
+    assert trace.cost.kernel_calls == {"swiglu": 1}
+    assert trace.cost.flops == cost.swiglu_work(5, 16, 32)[1]
+    assert trace.cost.traffic_by_kind["swiglu"] == cost.swiglu_work(5, 16, 32)[0]
+
+
+# --------------------------------------------------------------------------- #
+# Records and the command line
+# --------------------------------------------------------------------------- #
+def test_a_port_record_reads_alike_in_both_packages(tmp_path):
+    for shape in ("prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell("zamba2-7b", shape, cfg_overrides={"n_layers": 2})
+        assert rec["status"] == "ok"
+        path = dryrun.save_record(rec, tmp_path)
+        assert path.name == f"zamba2-7b--{shape}--pod16x16.json"
+        assert set(json.loads(path.read_text())["roofline"]) >= {
+            "compute_s", "memory_s", "collective_s", "dominant", "flops_per_device"}
+    got = rates_from_dryrun("zamba2-7b", tmp_path)
+    want = j_rates_from_dryrun("zamba2-7b", tmp_path)
+    assert (got.prefill_per_chip, got.decode_per_chip) == (want.prefill_per_chip,
+                                                           want.decode_per_chip)
+    assert got.prefill_per_chip > 0 and got.decode_per_chip > 0
+
+
+def test_main_all_writes_every_single_pod_cell(tmp_path, capsys, monkeypatch):
+    """Every arch x shape on pod16x16, cut to 2 layers (``--set
+    n_layers=2``; whisper's encoder keeps its 24): 40 records, each ``ok``
+    or ``skipped`` as ``cell_is_supported`` says, none in ``error``; a
+    second run reads them back as cached."""
+    monkeypatch.setattr(dryrun, "RESULTS_DIR", tmp_path)
+    recs = dryrun.main(["--all", "--set", "n_layers=2"])
+    assert len(recs) == len(ARCHS) * len(SHAPES) == 40
+    files = sorted(tmp_path.glob("*--pod16x16.json"))
+    assert len(files) == 40
+    for rec in recs:
+        want = "ok" if cell_is_supported(rec["arch"], rec["shape"]) else "skipped"
+        assert rec["status"] == want, (rec["arch"], rec["shape"], rec.get("error"))
+        if want == "ok":
+            r = rec["roofline"]
+            assert r["dominant"] in ("compute", "memory", "collective")
+            assert min(r["compute_s"], r["memory_s"]) > 0
+    dryrun.main(["--all", "--set", "n_layers=2"])
+    assert capsys.readouterr().out.count("[cached]") >= 40

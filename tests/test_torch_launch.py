@@ -5,10 +5,14 @@
   the DES report): the reference's default-rate fallback, Program (6)
   sizing and other rates, chips and token counts; on measured rates its
   ``plan`` / ``simulate`` give the reference's split and report.
+  The port's ``RESULTS`` points at an empty ``tmp_path`` there, as the
+  reference finds no records in its own directory.
 * ``rates_from_dryrun`` on a record written by the test into ``tmp_path``
   (the reference's ``{arch}--{shape}--{mesh}.json`` format), equal to the
   reference's; a missing or failed record raises as the reference does,
-  and the launcher then falls back to the defaults.
+  and the launcher then falls back to the defaults.  The port's own
+  dry-run records (``launch/dryrun.py``) plan the launcher's split as
+  ``"dry-run roofline"``.
 * ``configs/shapes.py``: ``SHAPES``, ``cell_is_supported`` and
   ``skip_reason`` equal the reference's; ``input_specs`` gives meta tensors
   of the reference's shapes and dtypes for the ported architectures.
@@ -62,7 +66,8 @@ def _ref_main(argv):
 
 
 @pytest.mark.parametrize("argv", FLAGS, ids=[" ".join(f) for f in FLAGS])
-def test_launcher_prints_what_the_reference_launcher_prints(argv):
+def test_launcher_prints_what_the_reference_launcher_prints(argv, tmp_path, monkeypatch):
+    monkeypatch.setattr(launch, "RESULTS", tmp_path)  # no records, as the reference finds none
     got = _stdout(lambda: launch.main(argv))
     want = _stdout(lambda: _ref_main(argv))
     assert got == want
@@ -121,6 +126,25 @@ def test_rates_from_dryrun_refuses_missing_and_failed_records(tmp_path):
         j_rates_from_dryrun("llama3.2-1b", tmp_path)
     rates, src = launch.stage_rates("llama3.2-1b", results_dir=tmp_path)
     assert rates == launch.DEFAULT_RATES and src.startswith("defaults")
+
+
+def test_launcher_plans_from_the_ports_dry_run_records(tmp_path, monkeypatch):
+    """Records of ``launch/dryrun.py`` (cut to 2 layers to keep the trace
+    short) in the launcher's ``RESULTS``: ``stage_rates`` reports
+    ``"dry-run roofline"`` with the rates ``rates_from_dryrun`` reads, and
+    ``main`` plans and simulates a split from them."""
+    from repro_torch.launch import dryrun
+
+    for shape in ("prefill_32k", "decode_32k"):
+        rec = dryrun.run_cell("llama3.2-1b", shape, cfg_overrides={"n_layers": 2})
+        assert rec["status"] == "ok"
+        dryrun.save_record(rec, tmp_path)
+    monkeypatch.setattr(launch, "RESULTS", tmp_path)
+    rates, src = launch.stage_rates("llama3.2-1b")
+    assert src == "dry-run roofline" and rates == rates_from_dryrun("llama3.2-1b", tmp_path)
+    res = launch.main(["--horizon", "120"])
+    assert res["source"] == "dry-run roofline" and res["split"]["prefill"] >= 1
+    assert res["report"].completed > 0
 
 
 def test_shapes_equal_the_references():

@@ -8,9 +8,9 @@
 * ``little_wait`` bitwise the reference's; ``tick_batch(raise_errors=)``
   raises where the reference does; ``mpc_plan(topr=, alloc=)`` hooks
   equal the reference's.
-* Hygiene: the four packages export the reference's ``__all__`` names (less
-  ``repro.models``' ``axis_rules`` / ``logical_to_spec``, which wait for the
-  dry-run), each name resolves, and importing them all loads no JAX.
+* Hygiene: the four packages export the reference's ``__all__`` names,
+  each name resolves, and importing them all (and the launchers, the
+  dry-run included) loads no JAX.
 """
 
 from __future__ import annotations
@@ -364,7 +364,6 @@ def test_mpc_plan_hooks_equal_the_reference_bitwise(hook):
 # --------------------------------------------------------------------------- #
 # Hygiene: the exported names
 # --------------------------------------------------------------------------- #
-WAITING = {"axis_rules", "logical_to_spec"}  # repro.models: the dry-run's (Queue 1 item 6)
 PACKAGES = {"core": (jcore, tcore), "streaming": (jstreaming, tstreaming),
             "models": (jmodels, tmodels), "serving": (jserving, tserving)}
 
@@ -372,7 +371,7 @@ PACKAGES = {"core": (jcore, tcore), "streaming": (jstreaming, tstreaming),
 @pytest.mark.parametrize("pkg", sorted(PACKAGES))
 def test_package_exports_the_references_names(pkg):
     ref, mine = PACKAGES[pkg]
-    assert sorted(mine.__all__) == sorted(set(ref.__all__) - WAITING)
+    assert sorted(mine.__all__) == sorted(ref.__all__)
     assert len(mine.__all__) == len(set(mine.__all__))
     for name in mine.__all__:
         assert getattr(mine, name) is not None, name
@@ -387,6 +386,7 @@ def test_every_exported_name_imports_without_jax():
         "    for name in mod.__all__:\n"
         "        getattr(mod, name)\n"
         "import repro_torch.launch.serve, repro_torch.launch.train, repro_torch.configs.shapes\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.trace_cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
