@@ -258,7 +258,8 @@ Phases, each printing one JSON line:
     whisper-medium at full width cut to 2 layers (zamba2: one shared-block
     site; whisper 2 + 2 with 1,500 stub frames), float32, B 2 x S 256
     (rwkv6 and zamba2: 128): every parameter's
-    gradient non-zero on the card, then 3
+    gradient non-zero on the card and, under deterministic algorithms,
+    bitwise equal with and without the layers rematerialised, then 3
     ``make_train_step`` steps on the card and on the CPU from the same
     parameters: losses and grad norms within 1e-3 relative;
 18. ``train``: each arch at full width, cut as ``TRAIN_CUTS`` says (bf16
@@ -269,13 +270,16 @@ Phases, each printing one JSON line:
     llama3.2-1b (4 of 16 layers) and mixtral-8x22b (1 of 56 layers) 8
     steps without checkpoints, then a crash at 4 and a resume to 8 whose
     losses for steps 5-8 and final parameters are bitwise the straight
-    run's; rwkv6-1.6b (whole), zamba2-7b (24 of 81
+    run's; rwkv6-1.6b (whole), zamba2-7b (34 of 81
     layers: the whole model's 6.75 B parameters need ~81 GB before
     activations), kimi-k2-1t-a32b (1 layer, 32 of 384 experts),
     qwen2-vl-2b (whole; 256 stub patches from :func:`vlm_stub_inputs` +
     3,840 tokens) and whisper-medium (whole; 1,500 stub frames from
     :func:`audio_stub_inputs` + 4,096 decoder tokens) 4 straight steps;
-    tokens / s, step ms, peak memory, the loader's worker counts.
+    tokens / s, step ms, peak memory, the loader's worker counts; every
+    layer body rematerialised, as the port trains;
+19. ``dryrun_train``: the dry-run's peak of llama's 4-layer train step
+    on one device within 1.5x of ``train``'s ``max_memory_allocated``.
 
 The last line is ``{"ok": true, "device": {...}}``.  Any failed check
 exits non-zero before it; so does a host without a CUDA device, or a
@@ -3076,6 +3080,40 @@ def dryrun_phase(measured):
           "card": smi("name,power.limit"), "seconds": time.perf_counter() - t0})
 
 
+def dryrun_train_phase(card_peak):
+    """:func:`dryrun_phase`'s held train shape, once ``train`` has run it:
+    the dry-run's ``step_cost`` of llama3.2-1b cut as ``TRAIN_CUTS`` says,
+    a ``TRAIN_B`` x ``TRAIN_S`` batch, float32 moments, on a one-device
+    mesh (every layer rematerialised, as the port trains); its predicted
+    peak (arguments + temporaries) must be within
+    :data:`DRYRUN_PEAK_FACTOR` of ``card_peak``, the ``train`` run's
+    ``max_memory_allocated``.  Its roofline bound is reported beside."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import HW, LogicalMesh
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(LLM_ARCH, "full"), **TRAIN_CUTS[LLM_ARCH])
+    one = LogicalMesh((1, 1, 1), ("pod", "data", "model"))
+    mem, cost = dryrun.step_cost(cfg, "train", TRAIN_B, TRAIN_S, one,
+                                 shd.rules_for("train", arch=LLM_ARCH))
+    peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    emit({"phase": "dryrun_train", "arch": LLM_ARCH, "layers": cfg.n_layers, "batch": TRAIN_B,
+          "seq_len": TRAIN_S, "flops": cost.flops, "traffic_bytes": cost.traffic_bytes,
+          "kernel_calls": dict(cost.kernel_calls),
+          "bound_ms": max(cost.flops / HW.PEAK_FLOPS_BF16, cost.traffic_bytes / HW.HBM_BW) * 1e3,
+          "argument_gb": mem["argument_size_in_bytes"] / 1e9,
+          "temp_gb": mem["temp_size_in_bytes"] / 1e9, "predicted_peak_gb": peak / 1e9,
+          "card_peak_gb": card_peak / 1e9, "peak_over_card": peak / card_peak,
+          "card": smi("name,power.limit"), "seconds": time.perf_counter() - t0})
+    check(1 / DRYRUN_PEAK_FACTOR <= peak / card_peak <= DRYRUN_PEAK_FACTOR,
+          f"dryrun train {LLM_ARCH}: predicted peak {peak / 1e9:.3f} GB against the card's "
+          f"{card_peak / 1e9:.3f} GB")
+
+
 def launch_serve_phase(plans):
     """``python -m repro_torch.launch.serve`` as a user runs it, in this
     process (``main(argv)``), for each arch on its B = 4 rates measured
@@ -3346,23 +3384,28 @@ def ssm_kernels_phase(dev):
 # ~8.4 GB, the plain attention backward's [2, 32, 4096, 4096] float32 score
 # block ~4.3 GB (a few live at once) per layer.
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_CKPT = 2, 4096, 8, 4
-# Cuts of ``train``: llama at 4 of its 16 layers (a time cut: the moe and
-# vlm runs add ~180 s to the script); rwkv6-1.6b whole; zamba2-7b at
-# ZAMBA_TRAIN_LAYERS (24) of its 81, the most one card holds (the whole
-# model's 6.75 B parameters, gradients and moments alone are ~81 GB;
-# tools/train_peak.py zamba2-7b 18 24 30 peaks 61.35 / 74.37 GB / out of
-# memory), 4 straight steps, no resume (its checkpoints would copy ~10
-# bytes per parameter four times over); mixtral-8x22b at
-# MIXTRAL_TRAIN_LAYERS of its 56 (a memory cut: a layer's parameters,
-# gradients and moments are ~30 GB; tools/train_peak.py: 1 layer peaks at
-# 61.68 GB, 2 run out of memory), with llama's crash-and-resume;
-# kimi-k2-1t-a32b at 1 of its 61 layers with 32 of its 384 experts (one
-# full layer's parameters, gradients and moments are ~233 GB) and its
-# batch cut to 1 (at 2 the 64-head plain attention backward's [2, 64,
-# 4096, 4096] float32 blocks take it past 80 GB), 4 straight steps;
-# qwen2-vl-2b whole, 4 straight steps, its sequence 256 stub patches +
-# 3,840 tokens.  Every run's peak stays under TRAIN_PEAK_GB.
-ZAMBA_TRAIN_LAYERS, TRAIN_SHORT_STEPS, TRAIN_PEAK_GB = 24, 4, 75.0
+# Cuts of ``train`` (every layer rematerialised, as the port trains):
+# llama at 4 of its 16 layers (a time cut: the moe and vlm runs add ~180 s
+# to the script); rwkv6-1.6b whole; zamba2-7b at ZAMBA_TRAIN_LAYERS of
+# its 81, the most one card holds (the whole model's 6.75 B parameters,
+# gradients and moments alone are ~81 GB; tools/train_peak.py zamba2-7b
+# 24 33 34 35 36 peaks 52.08 / 69.30 / 71.21 / 73.12 / 75.04 GB, 42 runs
+# out of memory: past the activations, what bounds it is AdamW's float32
+# temporaries on the stacked in_proj leaf, [L, 3584, 14336]; 35 layers,
+# alone under 75 GB, run out of memory in this script after its earlier
+# phases, 11.5 GiB of the card reserved but unallocated), 4 straight
+# steps, no resume (its checkpoints would copy ~10 bytes per parameter
+# four times over); mixtral-8x22b at MIXTRAL_TRAIN_LAYERS of its 56 (a
+# memory cut: a layer's parameters, gradients and moments are ~30 GB;
+# tools/train_peak.py: 1 layer peaks at 61.78 GB, 2 run out of memory),
+# with llama's crash-and-resume; kimi-k2-1t-a32b at 1 of its 61 layers
+# with 32 of its 384 experts (one full layer's parameters, gradients and
+# moments are ~233 GB) and its batch cut to 1 (at 2 the 64-head plain
+# attention backward's [2, 64, 4096, 4096] float32 blocks take it past 80
+# GB), 4 straight steps; qwen2-vl-2b whole, 4 straight steps, its
+# sequence 256 stub patches + 3,840 tokens.  Every run's peak stays under
+# TRAIN_PEAK_GB.
+ZAMBA_TRAIN_LAYERS, TRAIN_SHORT_STEPS, TRAIN_PEAK_GB = 34, 4, 75.0
 MIXTRAL_TRAIN_LAYERS = 1
 TRAIN_CUTS = {LLM_ARCH: dict(n_layers=4), ZAMBA: dict(n_layers=ZAMBA_TRAIN_LAYERS),
               MIXTRAL: dict(n_layers=MIXTRAL_TRAIN_LAYERS),
@@ -3604,7 +3647,9 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
     B 2 x S 256 (the scan archs S 128):
     the gradients of one batch on the card (every parameter's non-zero;
     repeated bitwise under deterministic algorithms, and the leaves that a
-    default second backward does not repeat bitwise reported), then
+    default second backward does not repeat bitwise reported; under
+    deterministic algorithms bitwise those of the same backward with each
+    layer's checkpoint replaced by a direct call), then
     ``TRAIN_CPU_STEPS`` ``make_train_step`` steps on the card and on the
     CPU (plain versions) from the same parameters and stream: losses and
     grad norms within ``TRAIN_CPU_TOL`` relative."""
@@ -3614,6 +3659,7 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models import transformer as tr
     from repro_torch.models.transformer import init_params, loss_fn
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     from repro_torch.training.train_step import TrainState, make_train_step
@@ -3658,6 +3704,13 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
         first = gradients()
         repeat["deterministic"] = [k for k, g in gradients().items()
                                    if not torch.equal(g, first[k])]
+        # the same backward with each layer's checkpoint replaced by a direct
+        # call: rematerialising must not change a bit
+        real, tr.checkpoint = tr.checkpoint, lambda fn, *args, **_kw: fn(*args)
+        try:
+            remat_differs = [k for k, g in gradients().items() if not torch.equal(g, first[k])]
+        finally:
+            tr.checkpoint = real
     del grads, first
 
     def run(device, params):
@@ -3686,20 +3739,29 @@ def train_card_vs_cpu_phase(dev, arch=LLM_ARCH):
           "layers": cfg.n_layers,
           "batch": TRAIN_CPU_B, "seq_len": seq, "steps": TRAIN_CPU_STEPS,
           "card": card, "cpu": host, "max_rel_diff": rel, "tol": TRAIN_CPU_TOL,
-          "zero_gradient_params": zero, "grads_not_repeatable": repeat, "card_seconds": card_s, "cpu_seconds": cpu_s,
+          "zero_gradient_params": zero, "grads_not_repeatable": repeat,
+          "remat_grads_differing": remat_differs, "card_seconds": card_s, "cpu_seconds": cpu_s,
           "seconds": time.perf_counter() - t_phase})
     check(not zero, f"train_card_vs_cpu {arch}: parameters with an all-zero gradient: {zero}")
     check(not repeat["deterministic"], f"train_card_vs_cpu {arch}: gradients not repeatable "
           f"under deterministic algorithms: {repeat['deterministic']}")
+    check(not remat_differs, f"train_card_vs_cpu {arch}: gradients with the layers "
+          f"rematerialised differ from those without in {remat_differs}")
     check(rel <= TRAIN_CPU_TOL and all(math.isfinite(h["loss"]) for h in card),
           f"train_card_vs_cpu {arch}: card vs CPU relative difference {rel}")
 
 
 def train_launch_rule(cfg, steps):
     """Kernel launches of ``steps`` training steps: each step's forward
-    launches what a prefill does (:func:`serve_launch_rule`); the backward
+    launches what a prefill does (:func:`serve_launch_rule`), and the
+    backward reruns every rematerialised layer's body before it
+    differentiates it, so each layer's kernels launch twice a step -- all
+    but zamba2's shared block, which runs outside any checkpoint (its
+    ``flash_attention`` and ``swiglu`` launch once); the backward itself
     runs the plain versions."""
-    return {k: n * steps for k, n in serve_launch_rule(cfg)[0].items()}
+    forward = serve_launch_rule(cfg)[0]
+    recompute = ({"ssd_scan": forward["ssd_scan"]} if cfg.family == "hybrid" else forward)
+    return {k: (n + recompute.get(k, 0)) * steps for k, n in forward.items()}
 
 
 def vlm_stub_inputs(cfg, seed):
@@ -3773,7 +3835,8 @@ def train_phase(dev, arch=LLM_ARCH, steps=TRAIN_STEPS, resume=True):
     (the reference's test allows 2e-2, which a resume from the wrong state
     would also meet at this learning rate).  Reported: tokens / s, step
     ms, peak memory, checkpoint times, the loader's worker counts.
-    Returns the straight run's launches."""
+    Returns the straight run's launches and its ``max_memory_allocated``
+    (bytes)."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -3906,7 +3969,7 @@ def _train_report(cfg, steps, straight, first, second, crashed, launches, want, 
               f"{name}: resumed losses {resumed} are not the straight run's {losses}")
         check(not differ, f"{name}: resumed parameters differ from the straight run's in "
                           f"{differ} (max abs diff {diff})")
-    return launches
+    return launches, peak_gb * 1e9
 
 
 def main() -> int:
@@ -3984,8 +4047,11 @@ def main() -> int:
     train_rows = train_kernels_phase(dev)
     for arch in (LLM_ARCH, *SSM_ARCHS, WHISPER):
         train_card_vs_cpu_phase(dev, arch)
+    train_peaks = {}
     for arch, steps, resume in TRAIN_RUNS:
-        count(f"{arch} train", train_phase(dev, arch, steps, resume))
+        launched, train_peaks[arch] = train_phase(dev, arch, steps, resume)
+        count(f"{arch} train", launched)
+    dryrun_train_phase(train_peaks[LLM_ARCH])
 
     kernels = []
     for k, row in rows.items():

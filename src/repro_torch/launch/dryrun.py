@@ -9,7 +9,10 @@ For each cell it
      tables (``distributed/sharding.py``);
   2. runs the port's own ``prefill``, ``decode_step`` or train step on them
      inside :class:`~repro_torch.launch.trace_cost.CostTrace`, which costs
-     every operation per device (the kernels through their meta faces);
+     every operation per device (the kernels through their meta faces; a
+     train step's layers rematerialised as the port trains them, so the
+     trace sees their forward twice and their activations only while a
+     layer's backward runs);
   3. writes a record in the reference's format -- ``status``, ``chips``,
      ``memory_analysis``, ``roofline`` (``launch/hlo_analysis.py``, on the
      H100's rates) and ``hlo_model`` -- plus ``hw``, the card and the link
@@ -54,12 +57,22 @@ from .hlo_analysis import CollectiveStats, model_flops_for, roofline_terms
 from .mesh import HW, make_production_mesh, mesh_name
 from .trace_cost import CostTrace
 
-__all__ = ["RESULTS_DIR", "step_cost", "run_cell", "save_record", "main"]
+__all__ = ["RESULTS_DIR", "STEP_LAYOUT", "step_cost", "run_cell", "save_record", "main"]
 
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 #: Bytes XLA counts per output buffer for the tuple that holds them.
 TUPLE_ENTRY_BYTES = 8
+
+#: Cache leaves the step lays out otherwise than its arguments, by family:
+#: the logical axes the trace gives them (their argument bytes keep the
+#: declared spec).  XLA's partitioner carries rwkv6's token shifts split
+#: over the tensor-parallel axis along ``d_model``, as the WKV heads are,
+#: and gathers each shifted mix whole before its projection (the
+#: reference's rwkv6 prefill and decode records: six ``all-gather``s of
+#: [B, S, D] per layer).
+STEP_LAYOUT = {"ssm": {"tm_shift": ("layers", "batch", "heads"),
+                       "cm_shift": ("layers", "batch", "heads")}}
 
 
 def _items(tree, prefix=""):
@@ -104,7 +117,7 @@ def step_cost(cfg: ModelConfig, kind: str, global_batch: int, seq_len: int, mesh
     trace = CostTrace(mesh, rules)
     arg_bytes = 0
 
-    def register(tree, specs, kind_, logical=None, prefix="", counted=None):
+    def register(tree, specs, kind_, logical=None, prefix="", counted=None, layout=None):
         nonlocal arg_bytes
         for key, t in tree.items():
             spec = specs[key] if specs is not None else ()
@@ -112,7 +125,9 @@ def step_cost(cfg: ModelConfig, kind: str, global_batch: int, seq_len: int, mesh
             if isinstance(t, dict):
                 register(t, spec, kind_, lg, f"{prefix}{key}.")
                 continue
-            trace.register(t, spec, kind_, prefix + key, lg)
+            in_step = (shd.safe_spec(tuple(t.shape), layout[key], rules, mesh)
+                       if layout and key in layout else spec)
+            trace.register(t, in_step, kind_, prefix + key, lg)
             if counted is None or key in counted:
                 arg_bytes += shd.shard_bytes(t.shape, t.dtype, spec, mesh)
 
@@ -143,7 +158,8 @@ def step_cost(cfg: ModelConfig, kind: str, global_batch: int, seq_len: int, mesh
         # recomputes every other cache leaf (states, shifts, cross k / v,
         # the length): only k / v are its inputs, as in the reference.
         register(cache, shd.cache_specs(cache, cfg.family, mesh, rules), "cache",
-                 counted=("k", "v") if kind == "prefill" else None)
+                 counted=("k", "v") if kind == "prefill" else None,
+                 layout=STEP_LAYOUT.get(cfg.family))
         inputs = list(cache.values())
         with trace, torch.no_grad():
             if kind == "prefill":

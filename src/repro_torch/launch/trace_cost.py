@@ -34,6 +34,16 @@ What it records, per device:
     axis (tensor parallelism: ``wo`` over heads, a SwiGLU's down
     projection over ``d_ff``) is an all-reduce of its per-device output
     over that axis, in the forward and again in the backward;
+  - a product whose activation is split along its contracted dim over a
+    non-batch axis that the parameter's rows do not carry gathers the
+    activation whole over that axis first (an all-gather of it) when the
+    parameter's columns are split over the same axis, and otherwise
+    slices the rows to match, which makes it a contraction over that axis
+    (the all-reduce above): rwkv6's shifted mixes, whose token-shift
+    carries the step lays out split along ``d_model``
+    (``launch/dryrun.py:STEP_LAYOUT``), as XLA's partitioner does in the
+    reference's records (the r / k / v / g and channel-mix projections
+    gathered, the decay LoRA's first factor reduced);
   - FSDP (a parameter's non-expert dim on a batch axis: ``d_model`` on
     "data" in training, mixtral's experts at serve time) is an all-gather
     of the parameter before its forward use and again before its backward
@@ -334,8 +344,17 @@ class CostTrace(TorchDispatchMode):
             k_ax = self.axes_of(spec[-2]) - self.batch_axes
             n_ax = self.axes_of(spec[-1]) - self.batch_axes
             e_ax = self.axes_of(spec[0]) if b.ndim == 3 else frozenset()
-            compute = ia.axes | e_ax | k_ax | n_ax
-            out_axes = (ia.axes - k_ax) | e_ax | n_ax
+            # the activation split along the contracted dim where the weight's
+            # rows are whole: gathered first for a weight whose columns take the
+            # same axis, else the rows sliced to match (and the output reduced)
+            split = ia.axes - self.batch_axes - k_ax - e_ax
+            gather, k_ax = split & n_ax, k_ax | (split - n_ax)
+            if gather:
+                c.add_collective("all-gather", _nbytes(a) / self.ways(ia.axes - gather))
+            a_axes = ia.axes - gather
+            compute = a_axes | e_ax | k_ax | n_ax
+            out_axes = (a_axes - k_ax) | e_ax | n_ax
+            a_bytes = _nbytes(a) / self.ways(a_axes)
             b_bytes = _nbytes(b) / self.ways(e_ax | k_ax | n_ax)
             if k_ax:
                 c.add_collective("all-reduce", _nbytes(out) / self.ways(out_axes))
@@ -345,10 +364,10 @@ class CostTrace(TorchDispatchMode):
                 c.add_collective("all-to-all", 2 * _nbytes(buf) / self.ways(e_ax), count=2)
         else:
             compute = out_axes = ia.axes | ib.axes
-            b_bytes = self._per_device(b)
+            a_bytes, b_bytes = self._per_device(a), self._per_device(b)
         c.flops += flops / self.ways(compute)
         c.dot_count += 1
-        c.add_traffic("dot", self._per_device(a) + b_bytes + _nbytes(out) / self.ways(out_axes))
+        c.add_traffic("dot", a_bytes + b_bytes + _nbytes(out) / self.ways(out_axes))
         return out_axes
 
     def kernel(self, name: str, dims: dict, inputs: tuple, out_specs: list, backward: bool):

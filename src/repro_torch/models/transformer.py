@@ -31,6 +31,16 @@ go through the Hopper kernels, and in training through their autograd
 Functions (kernel forward, plain backward); the routed experts' products
 are ``torch.bmm`` and whisper's projections and MLP ``@``, as the
 reference leaves them to XLA.  Every family serves and trains.
+
+Training rematerialises the layer bodies the reference wraps in
+``jax.checkpoint(body, prevent_cse=False)`` -- the decoder's attention + FFN
+layer, rwkv6's time-mix + channel-mix, zamba2's norm + mamba2 mixer, and
+whisper's encoder and decoder layers -- through a non-reentrant
+``torch.utils.checkpoint.checkpoint`` (:func:`_run_layer`): the forward
+keeps each layer's inputs only, and the backward reruns the body (its
+kernels too) before it differentiates it.  Zamba2's shared attention block
+runs outside any checkpoint, as in the reference.  Serving runs under
+``torch.no_grad()`` and calls the bodies directly.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels.rwkv6_scan import ops as rwkv6_ops
@@ -298,6 +309,18 @@ def layer_params(params: dict, i: int, key: str = "layers") -> dict:
     return cut(params[key])
 
 
+def _run_layer(body, *args, cache: dict | None = None):
+    """``body(*args)``; when autograd records the call and it writes no
+    cache (training), through ``checkpoint(body, *args,
+    use_reentrant=False)``, the counterpart of the reference's
+    ``jax.checkpoint(body, prevent_cse=False)``: autograd keeps the body's
+    inputs, and the backward reruns the body (the same operations on the
+    same inputs, so the same values) before it differentiates it."""
+    if cache is None and torch.is_grad_enabled():
+        return checkpoint(body, *args, use_reentrant=False)
+    return body(*args)
+
+
 def _qkv(lp: dict, h, cfg: ModelConfig, positions, positions_3d):
     """The projections of the normed ``h`` [B, S, D] (plus the qkv biases
     where the layer has them) as [B, S, H, Dh] heads, q and k rotated: by
@@ -443,6 +466,18 @@ def _rwkv_channel_mix(lp: dict, x, x_prev):
     return gate * (k @ lp["cm_wv"]), x[:, -1]
 
 
+def _rwkv_layer(lp: dict, x, tm_prev, cm_prev, st0, cfg: ModelConfig):
+    """One RWKV layer's body (the reference's rematerialised scan body):
+    the normed time-mix and channel-mix, each with its residual -> (x, the
+    new time-mix shift, the new channel-mix shift, the new state)."""
+    a = rms_norm(x, lp["tm_norm"], cfg.norm_eps)
+    o, tm_new, st1 = _rwkv_time_mix(lp, a, tm_prev, cfg, st0)
+    x = x + o
+    c = rms_norm(x, lp["cm_norm"], cfg.norm_eps)
+    o2, cm_new = _rwkv_channel_mix(lp, c, cm_prev)
+    return x + o2, tm_new, cm_new, st1
+
+
 def _rwkv_layers(params: dict, x, cfg: ModelConfig, cache: dict | None = None):
     """The RWKV layer stack.  Without a cache every layer starts from zero
     shifts and a zero state; with one (``tm_shift`` / ``cm_shift`` [L, B,
@@ -454,12 +489,8 @@ def _rwkv_layers(params: dict, x, cfg: ModelConfig, cache: dict | None = None):
         tm_prev = cache["tm_shift"][i] if cache is not None else zeros
         cm_prev = cache["cm_shift"][i] if cache is not None else zeros
         st0 = cache["wkv"][i] if cache is not None else None
-        a = rms_norm(x, lp["tm_norm"], cfg.norm_eps)
-        o, tm_new, st1 = _rwkv_time_mix(lp, a, tm_prev, cfg, st0)
-        x = x + o
-        c = rms_norm(x, lp["cm_norm"], cfg.norm_eps)
-        o2, cm_new = _rwkv_channel_mix(lp, c, cm_prev)
-        x = x + o2
+        x, tm_new, cm_new, st1 = _run_layer(_rwkv_layer, lp, x, tm_prev, cm_prev, st0, cfg,
+                                            cache=cache)
         if cache is not None:
             cache["tm_shift"][i] = tm_new
             cache["cm_shift"][i] = cm_new
@@ -513,8 +544,17 @@ def _shared_attn_apply(params: dict, x, cfg: ModelConfig, positions):
     return _ffn_block(sp, x, cfg)[0], kv
 
 
+def _mamba_layer(lp: dict, x, cfg: ModelConfig):
+    """One zamba2 mamba layer's body (the reference's rematerialised scan
+    body): norm, mamba2 mixer from a zero state, residual -> (x, the final
+    state)."""
+    o, st = _mamba2_mixer(lp, rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
+    return x + o, st
+
+
 def _zamba_layers(params: dict, x, cfg: ModelConfig, positions, cache: dict | None = None):
-    """The zamba2 stack: each group of mamba layers, then the shared block.
+    """The zamba2 stack: each group of mamba layers, then the shared block
+    (outside any checkpoint, as in the reference).
     With a cache (``ssm`` [L, B, H, Dst, 64] float32, ``k`` / ``v`` [G, B,
     S_max, Hkv, Dh]) the final states and each site's keys and values are
     written into it in place (the layers start from zero states, as the
@@ -522,9 +562,7 @@ def _zamba_layers(params: dict, x, cfg: ModelConfig, positions, cache: dict | No
     s = x.shape[1]
     for g, (lo, hi) in enumerate(shared_sites(cfg)):
         for i in range(lo, hi):
-            lp = layer_params(params, i)
-            o, st = _mamba2_mixer(lp, rms_norm(x, lp["norm"], cfg.norm_eps), cfg)
-            x = x + o
+            x, st = _run_layer(_mamba_layer, layer_params(params, i), x, cfg, cache=cache)
             if cache is not None:
                 cache["ssm"][i] = st
         x, (k, v) = _shared_attn_apply(params, x, cfg, positions)
@@ -571,18 +609,38 @@ def whisper_encoder(params: dict, frames, cfg: ModelConfig):
     times ``pos_scale`` (float32, cast to the frames' dtype after the
     product), bidirectional attention and the GELU MLP per layer, the final
     norm."""
-    b, s, d = frames.shape
+    s, d = frames.shape[1:]
     enc = params["enc"]
     x = frames + (_sinusoidal(s, d, frames.device) * enc["pos_scale"]).to(frames.dtype)
     for i in range(cfg.enc_layers or cfg.n_layers):
-        lp = whisper_layer(params, i, "enc")
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q = _heads(h @ lp["wq"], cfg.n_heads, cfg)
-        k, v = (_heads(h @ lp[w], cfg.n_kv_heads, cfg) for w in ("wk", "wv"))
-        o = attention_train(q, k, v, causal=False)
-        x = x + o.reshape(b, s, cfg.q_dim) @ lp["wo"]
-        x = _gelu_mlp(lp, x, cfg)
+        x = _run_layer(_whisper_enc_layer, whisper_layer(params, i, "enc"), x, cfg)
     return rms_norm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def _whisper_enc_layer(lp: dict, x, cfg: ModelConfig):
+    """One encoder layer's body (rematerialised in training): bidirectional
+    attention and the GELU MLP, each pre-norm with a residual."""
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = _heads(h @ lp["wq"], cfg.n_heads, cfg)
+    k, v = (_heads(h @ lp[w], cfg.n_kv_heads, cfg) for w in ("wk", "wv"))
+    o = attention_train(q, k, v, causal=False)
+    x = x + o.reshape(b, s, cfg.q_dim) @ lp["wo"]
+    return _gelu_mlp(lp, x, cfg)
+
+
+def _whisper_dec_layer(lp: dict, x, enc_out, positions, cfg: ModelConfig):
+    """One decoder layer's body (rematerialised in training), the cross
+    keys and values projected from ``enc_out`` inside it as in the
+    reference -> (x, self k, self v, cross k, cross v)."""
+    b, s, _ = x.shape
+    x, (k, v) = _attn_block(lp, x, cfg, positions, window=None)
+    h = rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
+    q = _heads(h @ lp["xq"], cfg.n_heads, cfg)
+    xk, xv = (_heads(enc_out @ lp[w], cfg.n_kv_heads, cfg) for w in ("xk", "xv"))
+    o = attention_train(q, xk, xv, causal=False)
+    x = x + o.reshape(b, s, cfg.q_dim) @ lp["xo"]
+    return _gelu_mlp(lp, x, cfg), k, v, xk, xv
 
 
 def whisper_decoder(params: dict, x, enc_out, cfg: ModelConfig, positions,
@@ -593,16 +651,10 @@ def whisper_decoder(params: dict, x, enc_out, cfg: ModelConfig, positions,
     ``v`` [L, B, S_max, Hkv, Dh], ``xk`` / ``xv`` [L, B, S_enc, Hkv, Dh])
     each layer's self keys and values go to its first S positions and its
     cross keys and values fill ``xk`` / ``xv``, in place."""
-    b, s, _ = x.shape
+    s = x.shape[1]
     for i in range(cfg.n_layers):
-        lp = whisper_layer(params, i, "dec")
-        x, (k, v) = _attn_block(lp, x, cfg, positions, window=None)
-        h = rms_norm(x, lp["xattn_norm"], cfg.norm_eps)
-        q = _heads(h @ lp["xq"], cfg.n_heads, cfg)
-        xk, xv = (_heads(enc_out @ lp[w], cfg.n_kv_heads, cfg) for w in ("xk", "xv"))
-        o = attention_train(q, xk, xv, causal=False)
-        x = x + o.reshape(b, s, cfg.q_dim) @ lp["xo"]
-        x = _gelu_mlp(lp, x, cfg)
+        x, k, v, xk, xv = _run_layer(_whisper_dec_layer, whisper_layer(params, i, "dec"), x,
+                                     enc_out, positions, cfg, cache=cache)
         if cache is not None:
             cache["k"][i, :, :s] = k.to(cfg.dtype)
             cache["v"][i, :, :s] = v.to(cfg.dtype)
@@ -623,6 +675,19 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict, tokens):
     return x, torch.arange(s, device=x.device)[None].expand(b, s)
 
 
+def _decoder_layer(lp: dict, x, positions, positions_3d, cfg: ModelConfig, window, ep, rec):
+    """One attention + FFN layer's body (rematerialised in training) -> (x,
+    aux, k, v).  ``rec`` (a dict, or None) receives the MoE layer's routing
+    on the body's first run; a recompute routes into a throwaway list, so
+    the forward's record stands and no layer is recorded twice."""
+    x, (k, v) = _attn_block(lp, x, cfg, positions, window=window, positions_3d=positions_3d)
+    sink = None if rec is None else []
+    x, aux = _ffn_block(lp, x, cfg, ep, sink)
+    if sink and not rec:
+        rec.update(sink[0])
+    return x, aux, k, v
+
+
 def decoder_layers(params: dict, x, cfg: ModelConfig, positions, positions_3d=None, *,
                    ep=None, routing=None, cache: dict | None = None):
     """The attention + FFN stack of the dense, moe and vlm families -> (x,
@@ -632,10 +697,11 @@ def decoder_layers(params: dict, x, cfg: ModelConfig, positions, positions_3d=No
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     s = x.shape[1]
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
-        x, (k, v) = _attn_block(lp, x, cfg, positions, window=window,
-                                positions_3d=positions_3d)
-        x, a = _ffn_block(lp, x, cfg, ep, routing)
+        rec = {} if routing is not None else None
+        x, a, k, v = _run_layer(_decoder_layer, layer_params(params, i), x, positions,
+                                positions_3d, cfg, window, ep, rec, cache=cache)
+        if rec:
+            routing.append(rec)
         aux = aux + a
         if cache is not None:
             cache["k"][i, :, :s] = k.to(cfg.dtype)

@@ -13,9 +13,15 @@ family trains: dense, moe (the routed experts through autograd of
 term), vlm (the batch also carries ``"patch_embeds"`` and
 ``"positions_3d"``), ssm, hybrid and audio (the batch also carries
 ``"frames"``; the encoder's, the decoder's self and its cross attention
-all run through ``FlashAttentionFn``).  The reference's
-``jax.checkpoint`` on the layer bodies changes no value and has no
-counterpart here.
+all run through ``FlashAttentionFn``).  As the reference's
+``jax.checkpoint`` does, the forward rematerialises each layer body --
+the decoder's attention + FFN layer, rwkv6's time-mix + channel-mix,
+zamba2's norm + mamba2 mixer, whisper's encoder and decoder layers, not
+zamba2's shared block -- through a non-reentrant
+``torch.utils.checkpoint.checkpoint`` (``models/transformer.py:_run_layer``):
+autograd keeps each layer's inputs, and the backward reruns the body, its
+kernels included, before it differentiates it.  The gradients are the
+same bits.
 """
 
 from __future__ import annotations

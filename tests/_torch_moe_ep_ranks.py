@@ -110,10 +110,59 @@ def _model_case(z, groups, di: int, n_ep: int, tj: int, n_tp: int) -> dict:
     return {"logits": logits.numpy(), "aux": aux.numpy()}
 
 
+def _model_train_case(z, groups, di: int, n_ep: int, tj: int, n_tp: int) -> dict:
+    """One train step's gradients of the mixtral smoke model (as
+    :func:`_model_case`) on the rank's batch shard with its expert shard:
+    ``loss_fn`` with every layer rematerialised (the collectives of
+    ``moe_layer_ep`` rerun in the backward, on every rank in the same
+    order), then with the checkpoint replaced by a direct call; and how many
+    bodies the first run checkpointed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tr
+    from repro_torch.tree import flatten_with_paths, unflatten
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b", "smoke"), dtype=torch.float32,
+                              moe_impl="shard_map_ep")
+    params = tr.ep_shard_params(tr.init_params(cfg, seed=0, device="cpu"), cfg, di, n_ep, tj,
+                                n_tp)
+    tokens = torch.from_numpy(z["tokens"]).long()
+    b_loc = tokens.shape[0] // n_ep
+    rows = slice(di * b_loc, (di + 1) * b_loc)
+    batch = {"tokens": tokens[rows], "labels": torch.roll(tokens, -1, dims=1)[rows]}
+    paths = flatten_with_paths(params)
+
+    def gradients():
+        leaves = [p.detach().requires_grad_() for _k, p in paths]
+        tree = unflatten(params, {k: t for (k, _p), t in zip(paths, leaves)})
+        total, _ = tr.loss_fn(tree, cfg, batch, ep=groups)
+        return total.detach(), torch.autograd.grad(total, leaves)
+
+    real, bodies = tr.checkpoint, []
+
+    def counting(fn, *args, **kw):
+        bodies.append(fn.__name__)
+        return real(fn, *args, **kw)
+
+    try:
+        tr.checkpoint = counting
+        loss, grads = gradients()
+        tr.checkpoint = lambda fn, *args, **_kw: fn(*args)
+        loss_d, grads_d = gradients()
+    finally:
+        tr.checkpoint = real
+    res = {"loss": loss.numpy(), "loss_direct": loss_d.numpy(),
+           "bodies": np.array(len(bodies))}
+    for (key, _p), g, g_d in zip(paths, grads, grads_d):
+        res[f"remat/{key}"] = g.numpy()
+        res[f"direct/{key}"] = g_d.numpy()
+    return res
+
+
 CASES = {
     "layer-8.0": lambda z, *a: _layer_case(z, 8.0, *a),
     "layer-1.25": lambda z, *a: _layer_case(z, 1.25, *a),
     "model": _model_case,
+    "model-train": _model_train_case,
 }
 
 

@@ -10,15 +10,23 @@ against the JAX package's.
   reference attends to masked and the port's kernel does not read); on the
   prefill cells within 5 % of the reference's less the non-causal half of
   its ``attn_impl="naive"`` score and PV products (the port's flash kernel
-  visits the causal pairs); the train cell's ratio pinned between 0.30 and
-  0.40 -- the reference rematerialises every layer (a fourth forward) and
-  its partitioner lays the attention out with the batch whole on every
-  device (``f32[256,2,4096,4096]`` score dots per device: heads over
-  "model" only), so it does 16 times a 256-way split's attention work --
-  and the port's train FLOPs equal three forwards of its own count.
+  visits the causal pairs); the train cell's ratio pinned between 0.35 and
+  0.45 -- both packages rematerialise every layer (four forwards of the
+  layers, three of the head), but the reference's partitioner lays the
+  attention out with the batch whole on every device
+  (``f32[256,2,4096,4096]`` score dots per device: heads over "model"
+  only), so it does 16 times a 256-way split's attention work -- and the
+  port's train FLOPs equal four forwards of its layers and three of its
+  head (the head runs outside any checkpoint) by its own count.
+* Collective bytes by kind, port / reference, each within a stated band
+  with its reason (``COLLECTIVE_BANDS``), and every serving record's
+  dominant term unchanged when the reference's collective bytes replace
+  the port's at the port's link rate (``HW.link``): the cut serving cells
+  and the twelve full-depth records the serving launcher plans from.
 * Collectives on hand-computed cases: a tensor-parallel block, an FSDP and
   a data-parallel parameter, an expert-parallel MoE layer (prefill and
-  train), a sequence-sharded decode attention.
+  train), a sequence-sharded decode attention, a product whose
+  activation is split along its contracted dim.
 * The kernels' work counts (``kernels/cost.py``) equal what ``chip_smoke.py``
   computed inline before they moved, on its case tables; the meta faces
   give the plain versions' shapes and dtypes and, under autograd, the
@@ -73,6 +81,7 @@ CELLS = [
     ("mixtral-8x22b", "decode_32k", {"n_layers": 1}),
     ("whisper-medium", "prefill_32k", {"n_layers": 2, "enc_layers": 2}),
     ("zamba2-7b", "prefill_32k", {"n_layers": 2}),
+    ("rwkv6-1.6b", "decode_32k", {"n_layers": 2}),
 ]
 IDS = [f"{a}-{s}" for a, s, _o in CELLS]
 
@@ -141,13 +150,12 @@ def _ref_attention_the_port_skips(arch, shape, over):
 
 
 def _dense_forward_flops(cfg, b, s):
-    """Global dot FLOPs of one forward of a dense (tied-embedding) model."""
+    """Global dot FLOPs of one forward of a dense (tied-embedding) model:
+    (its layers', its head's)."""
     d = cfg.d_model
     per_layer = d * cfg.q_dim + 2 * d * cfg.kv_dim + cfg.q_dim * d + 3 * d * cfg.d_ff
-    mm = 2 * (cfg.n_layers * per_layer + d * cfg.vocab) * b * s
-    attn = cfg.n_layers * 4 * cfg.head_dim_ * cost.attention_pairs(s, s, True, None) * b * \
-        cfg.n_heads
-    return mm + attn
+    attn = 4 * cfg.head_dim_ * cost.attention_pairs(s, s, True, None) * b * cfg.n_heads
+    return cfg.n_layers * (2 * per_layer * b * s + attn), 2 * d * cfg.vocab * b * s
 
 
 @pytest.mark.parametrize("cell", CELLS, ids=IDS)
@@ -158,11 +166,12 @@ def test_dot_flops_per_device_agree_with_the_references(cell, ref_records, port_
     ratio = got / want
     print(f"\n{arch} {shape}: port / reference dot FLOPs per device {ratio:.4f}")
     if SHAPES[shape].kind == "train":
-        assert 0.30 <= ratio <= 0.40, ratio
+        assert 0.35 <= ratio <= 0.45, ratio
         cfg = dataclasses.replace(get_config(arch, "full"), **over)
         spec = SHAPES[shape]
-        three = 3 * _dense_forward_flops(cfg, spec.global_batch, spec.seq_len) / 256
-        assert got == pytest.approx(three, rel=1e-3)
+        layers, head = _dense_forward_flops(cfg, spec.global_batch, spec.seq_len)
+        # the layers: forward, recompute, backward's two; the head: forward, backward's two
+        assert got == pytest.approx((4 * layers + 3 * head) / 256, rel=1e-3)
         return
     adjusted = want - _ref_attention_the_port_skips(arch, shape, over)
     assert got / adjusted == pytest.approx(1.0, abs=0.05), (ratio, got / adjusted)
@@ -187,6 +196,148 @@ def test_collective_and_traffic_ratios_to_the_reference(ref_records, port_record
               f"collectives {g['collective_bytes_per_device']:.4g} / "
               f"{w['collective_bytes_per_device']:.4g}; " + ", ".join(parts))
         assert g["bytes_per_device"] > 0 and g["collective_bytes_per_device"] > 0
+
+
+#: Why a port / reference ratio is not 1, the reasons the bands share.
+_F32 = ("the reference's collectives run in float32 (XLA's CPU backend widens bf16), the "
+        "port's carry the model's bf16: 0.5 for the same collective")
+_ROPE = ("XLA splits the 64-wide head dim of the 8 KV heads (which 16 does not divide) "
+         "and rotates its halves across devices; the port applies RoPE to whole heads")
+_KV = ("XLA gathers the rotated keys and values into the cache's layout (8 KV heads over "
+       "a 16-wide model axis); the port writes its shard and its kernel reads it there")
+_EMBED = "the reference also all-reduces the rows gathered from the vocab-sharded embedding"
+
+#: (arch, shape, kind) -> (lo, hi, reason): the band of port / reference
+#: collective bytes of that kind in ``CELLS``; for a kind the reference
+#: lacks, of the port's bytes over the reference's total.
+COLLECTIVE_BANDS = {
+    ("llama3.2-1b", "decode_32k", "all-reduce"): (
+        0.30, 0.38, f"{_F32}; {_EMBED}; the same two tensor-parallel all-reduces and "
+        "flash-decoding combine per layer"),
+    ("llama3.2-1b", "decode_32k", "all-gather"): (0.0, 0.0, _KV),
+    ("llama3.2-1b", "decode_32k", "all-to-all"): (0.0, 0.0, _ROPE),
+    ("llama3.2-1b", "decode_32k", "collective-permute"): (0.0, 0.0, _ROPE),
+    ("llama3.2-1b", "prefill_32k", "all-reduce"): (
+        0.38, 0.42, f"{_F32}; {_EMBED} (a fifth [B, S, D] beside the four of wo and the "
+        "SwiGLU): 0.5 x 4 / 5"),
+    ("llama3.2-1b", "prefill_32k", "all-gather"): (0.0, 0.0, _KV),
+    ("llama3.2-1b", "prefill_32k", "all-to-all"): (0.0, 0.0, _ROPE),
+    ("llama3.2-1b", "prefill_32k", "collective-permute"): (0.0, 0.0, _ROPE),
+    ("llama3.2-1b", "train_4k", "all-reduce"): (
+        0.05, 0.08, f"{_F32}; the reference keeps the batch whole in its layers' "
+        "activations ([256, 4096, .] per device, 16x the port's data-split batch) and "
+        "all-reduces its vocab-sharded logits ([256, 4096, 8016] float32)"),
+    ("llama3.2-1b", "train_4k", "all-gather"): (
+        0.002, 0.004, "the reference gathers its batch-whole logits (3.4e10 bytes) and "
+                      "keys; the port's are the FSDP gathers of the parameters"),
+    ("llama3.2-1b", "train_4k", "all-to-all"): (0.0, 0.0, _ROPE),
+    ("llama3.2-1b", "train_4k", "collective-permute"): (0.0, 0.0, _ROPE),
+    ("llama3.2-1b", "train_4k", "reduce-scatter"): (
+        0.0, 1e-4, "the port reduce-scatters its FSDP gradients (3.0e6 bytes); XLA "
+                   "all-reduces the reference's"),
+    ("mixtral-8x22b", "decode_32k", "all-gather"): (
+        5.0, 6.5, "the port's serve-time FSDP gathers every expert whole (experts on "
+                  "'data': 363 MB a layer); XLA gathers the router, the attention and "
+                  "the head and reduces the experts' activations"),
+    ("mixtral-8x22b", "decode_32k", "all-reduce"): (
+        0.08, 0.13, f"{_F32}; the reference all-reduces its experts' partial products "
+                    "([8, 40, 1024] float32), which the port's gathered experts skip"),
+    ("mixtral-8x22b", "decode_32k", "all-to-all"): (
+        0.0, 0.0, f"the reference dispatches its routed tokens by all-to-all; {_ROPE}"),
+    ("mixtral-8x22b", "decode_32k", "collective-permute"): (
+        0.0, 0.0, f"the reference permutes its routing tables; {_ROPE}"),
+    ("whisper-medium", "prefill_32k", "all-reduce"): (
+        0.49, 0.51, f"{_F32}; otherwise the same all-reduces: wo and the MLP's down "
+                    "projection per layer, on the encoder's and the decoder's sequences"),
+    ("zamba2-7b", "prefill_32k", "all-reduce"): (
+        0.38, 0.42, f"{_F32}; {_EMBED}: 0.5 x 4 / 5"),
+    ("zamba2-7b", "prefill_32k", "collective-permute"): (
+        0.0, 0.0, "the reference cuts in_proj's and bc_proj's model-sharded outputs in "
+                  "halves with jnp.split, which XLA reshards by permutes; the port lays "
+                  "each half out on its own heads"),
+    ("rwkv6-1.6b", "decode_32k", "all-gather"): (
+        0.34, 0.42, f"{_F32}; both gather the four time-mix and two channel-mix shifted "
+                    "inputs per layer (the token shift split along d_model, "
+                    "dryrun.STEP_LAYOUT); the reference also gathers the shift caches "
+                    "back to their declared layout and the last token's residual"),
+    ("rwkv6-1.6b", "decode_32k", "all-reduce"): (
+        0.37, 0.43, f"{_F32}; {_EMBED}; the same wo, channel-mix and decay-LoRA "
+                    "reductions per layer"),
+    ("rwkv6-1.6b", "decode_32k", "all-to-all"): (
+        0.0, 0.0, "the reference reshards its embedding rows by all-to-all"),
+    ("rwkv6-1.6b", "decode_32k", "collective-permute"): (
+        0.0, 0.0, "the reference reshards its embedding rows by a permute"),
+}
+
+
+def _kinds(rec) -> dict:
+    return rec["roofline"]["collectives"]["bytes_by_kind"]
+
+
+def test_every_collective_kind_of_the_cells_has_a_band(ref_records, port_records):
+    for arch, shape, _o in CELLS:
+        kinds = set(_kinds(port_records[(arch, shape)])) | set(
+            _kinds(ref_records[(arch, shape)]))
+        assert kinds == {k for a, s, k in COLLECTIVE_BANDS if (a, s) == (arch, shape)}, \
+            (arch, shape, kinds)
+
+
+@pytest.mark.parametrize("arch,shape,kind", list(COLLECTIVE_BANDS),
+                         ids=[f"{a}-{s}-{k}" for a, s, k in COLLECTIVE_BANDS])
+def test_collective_bytes_per_kind_are_within_the_stated_band(arch, shape, kind, ref_records,
+                                                              port_records):
+    lo, hi, reason = COLLECTIVE_BANDS[(arch, shape, kind)]
+    got = _kinds(port_records[(arch, shape)]).get(kind, 0.0)
+    want = _kinds(ref_records[(arch, shape)])
+    ratio = got / want[kind] if want.get(kind) else got / sum(want.values())
+    assert lo <= ratio <= hi, (ratio, reason)
+
+
+#: The serving records the launcher plans from (``chip_smoke.DRYRUN_ARCHS``
+#: at full depth on pod16x16).
+PLANNED = [(arch, shape) for arch in ("llama3.2-1b", "rwkv6-1.6b", "zamba2-7b", "phi3-medium-14b",
+                                      "qwen2-vl-2b", "whisper-medium")
+           for shape in ("prefill_32k", "decode_32k")]
+
+
+@pytest.fixture(scope="module")
+def planned_records(tmp_path_factory):
+    """(the reference's, the port's) records of ``PLANNED``."""
+    out = tmp_path_factory.mktemp("ref_planned") / "cells.json"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    cells = [(a, s, None) for a, s in PLANNED]
+    res = subprocess.run([sys.executable, "-c", _REF_SCRIPT, json.dumps(cells), str(out)],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
+    ref = {(r["arch"], r["shape"]): r for r in json.loads(out.read_text())}
+    return ref, {(a, s): dryrun.run_cell(a, s) for a, s in PLANNED}
+
+
+SERVING = [(a, s, "cut") for a, s, _o in CELLS if SHAPES[s].kind != "train"] + [
+    (a, s, "full") for a, s in PLANNED]
+
+
+@pytest.mark.parametrize("arch,shape,depth", SERVING,
+                         ids=[f"{a}-{s}-{d}" for a, s, d in SERVING])
+def test_serving_dominant_term_holds_under_the_references_collectives(
+        arch, shape, depth, request):
+    """The port's record's compute and memory terms beside the reference's
+    collective bytes over the port's link (``HW.link`` of pod16x16): the
+    dominant term is the record's own."""
+    if depth == "cut":
+        ref = request.getfixturevalue("ref_records")
+        got = request.getfixturevalue("port_records")[(arch, shape)]
+    else:
+        ref, port = request.getfixturevalue("planned_records")
+        got = port[(arch, shape)]
+    want = ref[(arch, shape)]
+    assert got["status"] == want["status"] == "ok"
+    r = got["roofline"]
+    link = HW.link(LogicalMesh((16, 16), ("data", "model")))[1]
+    assert got["hw"]["link_bw"] == link
+    terms = {"compute": r["compute_s"], "memory": r["memory_s"],
+             "collective": want["roofline"]["collective_bytes_per_device"] / link}
+    assert max(terms, key=terms.get) == r["dominant"], (terms, r["collective_s"])
 
 
 # --------------------------------------------------------------------------- #
@@ -236,10 +387,11 @@ def test_fsdp_and_data_parallel_parameters():
 def test_expert_parallel_layer_costs_two_all_to_alls_each_way(kind):
     """8 experts over "data" (4), B 4 x S 16: the dispatch buffer [E, C, D]
     (C = int(1.25 * 64 * 2 / 8) = 20) is 20,480 bf16 bytes, a device's
-    quarter 5,120; two all-to-alls per MoE layer, two more in the
-    backward."""
+    quarter 5,120; two all-to-alls per MoE layer, in training two more in
+    the backward's recompute of the rematerialised layer and two in the
+    backward proper."""
     c = _cost(TINY_MOE, kind, 4, 16, (4, 2))
-    n = 2 if kind == "prefill" else 4
+    n = 2 if kind == "prefill" else 6
     assert c.count_by_kind["all-to-all"] == n
     assert c.bytes_by_kind["all-to-all"] == n * 8 * 20 * 64 * 2 / 4
 
@@ -255,6 +407,26 @@ def test_sequence_sharded_decode_attention_combines_its_partials():
     assert c.bytes_by_kind == {"all-reduce": combine + 2 * (2 * 64 * 2)}
     assert c.count_by_kind == {"all-reduce": 3}
     assert c.kernel_calls == {"decode_attention": 1, "swiglu": 1}
+
+
+def test_an_activation_split_along_its_contracted_dim_is_gathered_or_reduced():
+    """A [4, 64] bf16 activation on (data 2, model 4), its 64 split over
+    "model": against a [64, 32] weight whose columns take "model" it is
+    gathered whole over "model" first (its [2, 64] per-device shard, 256
+    bytes); against a [64, 8] weight on no axis the weight's rows are sliced
+    to match and the [2, 8] output all-reduced (32 bytes)."""
+    mesh = LogicalMesh((2, 4), ("data", "model"))
+    trace = CostTrace(mesh, shd.prune_rules(shd.rules_for("decode"), mesh))
+    x, w, u = _meta(4, 64), _meta(64, 32), _meta(64, 8)
+    trace.register(x, ("data", "model"), "cache", "x")
+    trace.register(w, (None, "model"), "param", "w", ("d_model", "heads"))
+    trace.register(u, (None, None), "param", "u", ("d_model", None))
+    with trace:
+        x @ w
+        x @ u
+    assert trace.cost.bytes_by_kind == {"all-gather": 2 * 64 * 2, "all-reduce": 2 * 8 * 2}
+    assert trace.cost.count_by_kind == {"all-gather": 1, "all-reduce": 1}
+    assert trace.cost.flops == 2 * 4 * 64 * 32 / 8 + 2 * 4 * 64 * 8 / 8
 
 
 def test_one_device_mesh_has_no_collectives_and_the_cards_bound():

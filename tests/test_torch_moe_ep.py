@@ -17,7 +17,10 @@ reference test's limits), every gradient of ``mean(out^2) + 0.01 aux``
 also against the single-device ``moe_layer`` of both packages; at
 capacity 1.25, where the two-stage EP capacities drop other pairs than
 ``moe_layer``'s, against the JAX EP only.  The mixtral smoke model with
-``moe_impl="shard_map_ep"`` on the ranks equals the unsharded model.
+``moe_impl="shard_map_ep"`` on the ranks equals the unsharded model, and
+its train step with every layer rematerialised (the backward rerunning
+the all-to-alls) has the gradients of the step without the checkpoint,
+bit for bit, on every rank.
 """
 
 from __future__ import annotations
@@ -132,7 +135,7 @@ def port_results(request, shared_dir):
     work = shared_dir / f"port-{n_ep}x{n_tp}"
     work.mkdir()
     (work / "inputs.npz").symlink_to(shared_dir / "inputs.npz")
-    res = run_ranks(n_ep, n_tp, ["layer-8.0", "layer-1.25", "model"], work)
+    res = run_ranks(n_ep, n_tp, ["layer-8.0", "layer-1.25", "model", "model-train"], work)
     return n_ep, n_tp, res
 
 
@@ -191,6 +194,23 @@ def test_model_with_ep_matches_the_unsharded_model(port_results):
                           {"tokens": torch.from_numpy(z["tokens"])})
     np.testing.assert_allclose(got["logits"], logits.detach().numpy(), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got["aux"], float(aux), rtol=1e-6)
+
+
+def test_ep_train_step_with_remat_equals_the_direct_step_on_every_rank(port_results):
+    """One train step of the mixtral smoke model with ``moe_impl="shard_map_ep"``
+    on the ranks: each of its two layers runs under the non-reentrant
+    checkpoint, so the backward reruns ``moe_layer_ep``'s all-to-alls and
+    all-reduces; every rank's loss and every gradient of its shard bitwise
+    those of the same step with the checkpoint replaced by a direct call."""
+    _n_ep, _n_tp, res = port_results
+    for rank, cases in res.items():
+        r = cases["model-train"]
+        assert int(r["bodies"]) == 2, rank
+        assert np.isfinite(r["loss"]) and np.array_equal(r["loss"], r["loss_direct"]), rank
+        keys = [k for k in r if k.startswith("remat/")]
+        assert keys and any(np.abs(r[k]).max() > 0 for k in keys if "moe_wo" in k)
+        for key in keys:
+            assert np.array_equal(r[key], r["direct/" + key[len("remat/"):]]), (rank, key)
 
 
 def test_ep_without_groups_is_moe_layer():
