@@ -180,7 +180,10 @@ Phases, each printing one JSON line:
    kimi's shared expert and qwen2-vl's FFN; whisper-medium's (16 heads of
    64, MHA) bidirectional encoder over 16 x 1,500 frames, cross attention
    of 224 queries over them and the (64, 1) decode over the 1,500 cross
-   rows and a 448-row self cache.  The timed cases (bf16, CUDA
+   rows and a 448-row self cache; ``long_500k``'s decode on a full
+   524,288-row cache at batch 1: zamba2's (112, 1) over every row and
+   mixtral's (128, 6) over its 4,096-row window, and zamba2's SwiGLU at
+   that step's T 1.  The timed cases (bf16, CUDA
    events and ``torch.profiler`` device time) stand beside the plain
    version, SDPA where one call computes the same function (a windowed
    case has none: SDPA takes the window only as a dense mask, off its
@@ -208,6 +211,20 @@ Phases, each printing one JSON line:
 12. ``llm_decode_32k``: llama's decode step at 16 sequences x 32,000
     cached tokens (S_max 32,768, seeded K / V drawn on the card), 8 steps
     timed against the step's bound (KV prefix + weights over 3.35 TB/s);
+12a. ``long_500k``: the reference's ``long_500k`` shape (one token
+    against a 524,288-row cache, batch 1) through ``init_cache`` /
+    ``prefill`` / ``decode_step`` for its three archs at full width in
+    bf16: rwkv6-1.6b whole, its state from one prefill of
+    ``LONG_PREFILL`` seeded tokens; zamba2-7b at 42 of 81 layers (7 of 14
+    sites) and mixtral-8x22b at 8 of 56 layers (``LONG_LAYERS``), their
+    K / V (and zamba2's SSM states) drawn on the card; from length
+    524,256, 32 steps timed with CUDA events to a full cache (launches
+    exactly :func:`serve_launch_rule`), then one step on the full cache
+    that must rewrite only its last row, as the reference's
+    ``dynamic_update_slice`` does; ms per step beside the step's bound, a
+    profiled step, peaks under 75 GB, RoPE at the last 64 positions card
+    against CPU within 4e-7 of (1 + the row's largest |x|); each cell
+    freed before the next;
 13. ``serving_plan``: for each served arch not cut in depth, DRS's prefill
     / decode chip split through the port's launcher (``launch/serve.py``:
     ``stage_rates`` of the measured rates, ``plan(4.0, chips=24)``) from
@@ -223,18 +240,23 @@ Phases, each printing one JSON line:
     initial state, at the clamp floors (w = 0.05, log a = -6) against a
     float64 step recurrence, and in the [BH] layout with a short last
     chunk; bf16 ``rwkv6_scan`` also at w = 1e-8 and at the floor with
-    chunk 64 (its tensor-core kernel's exact per-pair branch), and checked
-    to run ``rwkv6_mma_kernel`` at the serving shape; each timed beside
+    chunk 64 (its tensor-core kernel's exact per-pair branch), checked
+    to run ``rwkv6_mma_kernel`` at the serving shape, and ``rwkv6_scan`` at
+    B 1 over ``long_500k``'s prefill (``LONG_PREFILL`` tokens, both
+    dtypes, the largest error of the first and last 64 tokens printed);
+    each timed beside
     its plain version and its bound (the scans' bf16 rows: bytes over 3.35
     TB/s against the products over 989 TFLOP/s plus the other operations
     over 67 TFLOP/s);
 14a. ``dryrun``: the port's dry-run (``repro_torch.launch.dryrun``, host
     code on meta tensors, H100 constants): the ``prefill_32k`` and
     ``decode_32k`` records of llama3.2-1b, rwkv6-1.6b, zamba2-7b,
-    phi3-medium-14b, qwen2-vl-2b and whisper-medium on pod16x16 written
-    under ``build/dryrun``, each with its dominant term and bound; then
-    llama's 4 x 4096 prefill and B = 4 step and phi3's 4 x 4096 prefill
-    costed on a one-device mesh at the cells ``*_serve`` ran: the roofline
+    phi3-medium-14b, qwen2-vl-2b and whisper-medium and the ``long_500k``
+    records of rwkv6-1.6b, zamba2-7b and mixtral-8x22b (full depth) on
+    pod16x16 written under ``build/dryrun``, each with its dominant term
+    and bound; then llama's 4 x 4096 prefill and B = 4 step, phi3's 4 x
+    4096 prefill and the zamba2-42L and mixtral-8L ``long_500k`` steps
+    costed on a one-device mesh at the cells the card ran: the roofline
     bound must not exceed the device ms the card took (profiled in this
     run), and the predicted peak (arguments + temporaries) must be within a
     factor 1.5 of ``max_memory_allocated`` over that call, both ratios
@@ -2218,6 +2240,20 @@ WHISPER_B, WHISPER_PROMPT, WHISPER_SMAX = 16, 224, 448
 SERVE_B, SERVE_S, SERVE_STEPS = 4, 4096, 32
 # decode_32k cut from batch 128 (137 GB of KV) to 16 (17.2 GB)
 DEC_B, DEC_SMAX, DEC_LEN, DEC_STEPS = 16, 32768, 32000, 8
+# long_500k (src/repro/configs/shapes.py:44): one new token against a cache
+# of 524,288 rows at batch 1, for the archs the reference gates it to;
+# LONG_STEPS timed steps from LONG_LEN end at a full cache.
+LONG_S, LONG_STEPS = 524_288, 32
+LONG_LEN = LONG_S - LONG_STEPS
+# Its cells: rwkv6 whole, its state from one real prefill of LONG_PREFILL
+# tokens; zamba2 and mixtral cut in depth to fit one card's 80 GB beside
+# their K / V (zamba2's 14 sites need 105.2 GB, mixtral's 56 layers 120 GB
+# and ~282 GB of weights): zamba2 at 42 of 81 layers, 7 sites, 52.6 GB of
+# K / V and 7.4 GB of weights; mixtral at 8 of 56 layers, 17.2 GB of K / V
+# and 40.9 GB of weights.
+LONG_ARCHS = (SSM_ARCHS[0], ZAMBA, MIXTRAL)
+LONG_LAYERS = {ZAMBA: 42, MIXTRAL: 8}
+LONG_PREFILL = LONG_LEN
 # llama3.2-1b's attention and FFN widths, and the kernel-only prefill length
 HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
 # Attention: kernel and plain version both compute in float32 and round the
@@ -2289,7 +2325,10 @@ def device_us_per_call(fn, symbols, calls=5):
 # dim 112 (MHA), "dh128" the dense family at head dim 128, "moe_vlm" the
 # moe and vlm archs (mixtral windowed at its 2 x 8192 prefill, so the
 # window cuts every query past 4096), "audio" whisper's encoder, cross and
-# decoder attention and its (64, 1) decode over the cross and self caches.
+# decoder attention and its (64, 1) decode over the cross and self caches,
+# "long_500k" the decode steps of the ``long_500k`` phase on a full
+# 524,288-row cache (zamba2 over every row, mixtral over its window) and
+# zamba2's shared-block SwiGLU at its batch-1 step (T 1).
 STEP = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)  # a B 4 step over 4,097 cached
 EMPTY = (SERVE_B, SERVE_S + SERVE_STEPS, 0)  # length 0: the mean of V, as ref.py
 LONG = (DEC_B, DEC_SMAX, DEC_LEN)
@@ -2331,6 +2370,10 @@ DECODE_CASES = (
     ("audio", WHISPER, WHISPER_B, 1500, 1500, None, True),  # cross: every row
     ("audio", WHISPER, WHISPER_B, WHISPER_SMAX, WHISPER_PROMPT + 1, None, True),  # self, a step
     ("audio", WHISPER, WHISPER_B, WHISPER_SMAX, 0, None, False),
+    # long_500k: zamba2's shared block over every row, mixtral's window at
+    # the cache's end
+    ("long_500k", ZAMBA, 1, LONG_S, LONG_S, None, True),
+    ("long_500k", MIXTRAL, 1, LONG_S, LONG_S, 4096, True),
 )
 SWIGLU_CASES = (  # T 16,384: a 4 x 4096 prefill (the wgmma route); T 4-16: a step (streaming)
     ("main", LLM_ARCH, SERVE_B * SERVE_S, BF16, True),
@@ -2344,6 +2387,7 @@ SWIGLU_CASES = (  # T 16,384: a 4 x 4096 prefill (the wgmma route); T 4-16: a st
                                (SERVE_B * SERVE_S, BF16, True))),
     *(("moe_vlm", arch, t, BOTH, t > SERVE_B) for arch in (KIMI, QWEN_VL)
       for t in (SERVE_B, SERVE_B * SERVE_S)),
+    ("long_500k", ZAMBA, 1, BOTH, True),  # zamba2's shared block at a batch-1 step
 )
 # Above this size of [B, Hq, S, S] float32 logits the plain attention runs
 # one KV head (and its query heads) at a time: the same function (each
@@ -2900,7 +2944,8 @@ def serve_phase(dev, arch):
     del cache, cache_prefill, prompt
     torch.cuda.empty_cache()
     launches = {k: pre_launches[k] + step_launches[k] for k in want_pre}
-    measured = {"b": b, "s": s, "cache_rows": SERVE_SMAX.get(arch, s + SERVE_STEPS),
+    measured = {"arch": arch, "layers": cfg.n_layers, "b": b, "s": s,
+                "cache_rows": SERVE_SMAX.get(arch, s + SERVE_STEPS),
                 "prefill_device_ms": pre["device_ms"], "step_device_ms": step["device_ms"],
                 "prefill_peak_bytes": prefill_peak, "step_peak_bytes": step_peak}
     return launches, b / prefill_s, b * SERVE_STEPS / decode_s, params, cfg, measured
@@ -2963,6 +3008,182 @@ def llm_decode_32k_phase(dev, params, cfg):
     return launches, DEC_B / step_s
 
 
+def long_500k_phase(dev, arch):
+    """The ``long_500k`` shape on the card through the serving entry points
+    (``init_cache`` / ``prefill`` / ``decode_step``) for ``arch`` at full
+    width in bf16, cut in depth as ``LONG_LAYERS`` says, batch 1, a
+    ``LONG_S``-row cache: rwkv6's state from one prefill of
+    ``LONG_PREFILL`` seeded tokens, zamba2's and mixtral's K / V (and
+    zamba2's SSM states) drawn on the card, layer by layer or site by site,
+    from a seeded generator; ``length`` set to ``LONG_LEN``.  One warm-up
+    step on a small cache, then ``LONG_STEPS`` greedy steps timed with CUDA
+    events to a full cache, their launches exactly
+    :func:`serve_launch_rule`; then one step on the full cache, which must
+    write the cache's last row (the reference's ``dynamic_update_slice``
+    clamps its start there), leave the row before it and stay finite.
+    Reported: ms per step beside the step's bound (every weight -- the MoE
+    decode reads every expert -- the valid K / V rows a layer or site reads
+    after its write, and the recurrent state read and written, over 3.35
+    TB/s), a ``torch.profiler`` breakdown of a step, the peaks of the fill,
+    the steps and the full-cache step (each under ``TRAIN_PEAK_GB``), and
+    RoPE at the last 64 positions on the card against the CPU (within 4e-7
+    of (1 + the row's largest |x|): both rotate by the CPU's frequency
+    table).  Returns (launches, the dry-run's measurements)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.models import serve
+    from repro_torch.models.common import apply_rope
+    from repro_torch.models.transformer import init_params, shared_sites
+    from repro_torch.tree import flatten_with_paths
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    full = get_config(arch, "full")
+    cfg = dataclasses.replace(full, n_layers=LONG_LAYERS.get(arch, full.n_layers))
+    params = init_params(cfg, seed=0, device=dev)
+    weights = 2 * sum(t.numel() for _k, t in flatten_with_paths(params))
+    gen = torch.Generator(device=dev).manual_seed(500)
+    tok = torch.randint(0, cfg.vocab, (1,), generator=gen, device=dev)
+    serve.decode_step(params, cfg, tok, serve.init_cache(cfg, 1, 256, device=dev),
+                      device=dev)  # cuBLAS handles, first launches
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    want_pre, want_step = serve_launch_rule(cfg)
+
+    t0 = time.perf_counter()
+    cache = serve.init_cache(cfg, 1, LONG_S, device=dev)
+    prefill = {}
+    if cfg.family == "ssm":
+        prompt = torch.randint(0, cfg.vocab, (1, LONG_PREFILL), generator=gen, device=dev)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        t1 = time.perf_counter()
+        logits, cache = serve.prefill(params, cfg, {"tokens": prompt}, cache, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        prefill = {"tokens": LONG_PREFILL, "seconds": seconds,
+                   "tokens_per_s": LONG_PREFILL / seconds,
+                   "launches": {k: LAUNCHES[k] for k in want_pre},
+                   "launches_expected": want_pre,
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        check(bool(torch.isfinite(logits).all()), f"long_500k {arch}: non-finite prefill logits")
+        check(prefill["launches"] == want_pre,
+              f"long_500k {arch} prefill: launches {prefill['launches']}, expected {want_pre}")
+        tok = logits.argmax(-1)
+        del prompt, logits
+    else:
+        for key in ("k", "v", "ssm"):
+            for i in range(cache[key].shape[0] if key in cache else 0):
+                cache[key][i].normal_(generator=gen)
+    cache["length"] = torch.full((), LONG_LEN, dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    fill_peak = torch.cuda.max_memory_allocated()
+    state_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+
+    torch.cuda.reset_peak_memory_stats()
+    want_steps = {k: n * LONG_STEPS for k, n in want_step.items()}
+    LAUNCHES.clear()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LONG_STEPS):
+        logits, cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+        tok = logits.argmax(-1)
+    end.record()
+    torch.cuda.synchronize()
+    ms_per_step = start.elapsed_time(end) / LONG_STEPS
+    step_launches = {k: LAUNCHES[k] for k in want_steps}
+    step_peak = torch.cuda.max_memory_allocated()
+    length = int(cache["length"])
+    finite = bool(torch.isfinite(logits).all())
+
+    # one step on the full cache: the last row rewritten, the one before kept
+    torch.cuda.reset_peak_memory_stats()
+    kv = "k" in cache
+    if kv:  # the last site's or layer's last two rows
+        tail = cache["k"][-1, 0, LONG_S - 2:].clone()
+    LAUNCHES.clear()
+    full_logits, full_cache = serve.decode_step(params, cfg, tok, cache, device=dev)
+    torch.cuda.synchronize()
+    full_launches = {k: LAUNCHES[k] for k in want_step}
+    full_peak = torch.cuda.max_memory_allocated()
+    full_length = int(full_cache["length"])
+    full_finite = bool(torch.isfinite(full_logits).all())
+    wrote_last = (not kv or (torch.equal(cache["k"][-1, 0, LONG_S - 2], tail[0])
+                             and not torch.equal(cache["k"][-1, 0, LONG_S - 1], tail[1])))
+    prof = breakdown_json(*profile_breakdown(
+        lambda: serve.decode_step(params, cfg, tok, cache, device=dev), calls=3,
+        expect=[LLM_SYMBOLS[k] for k, n in want_step.items() if n]))
+
+    # The step's bound: every weight once, the valid K / V rows a layer or
+    # site reads after its write (mixtral: its window), and the recurrent
+    # state read and written.
+    def kv_rows(i):
+        rows = min(LONG_LEN + 1 + i, LONG_S)
+        return min(rows, cfg.swa_window) if cfg.attention == "swa" else rows
+
+    sites = len(shared_sites(cfg)) if cfg.family == "hybrid" else cfg.n_layers
+    kv_bytes = (0 if not kv else sum(2 * sites * kv_rows(i) * cfg.kv_dim * 2
+                                     for i in range(LONG_STEPS)) / LONG_STEPS)
+    recurrent = 2 * sum(v.numel() * v.element_size() for k, v in cache.items()
+                        if k in ("wkv", "tm_shift", "cm_shift", "ssm"))
+    bound_ms = (weights + kv_bytes + recurrent) / PEAK_BYTES_PER_S * 1e3
+
+    rope = None
+    if cfg.family != "ssm":  # RoPE's float32 angles at ~5e5 rad, card against CPU
+        x = torch.randn((1, 64, 2, cfg.head_dim_), generator=gen, device=dev)
+        pos = torch.arange(LONG_S - 64, LONG_S, device=dev)[None]
+        got = apply_rope(x, pos, cfg.rope_theta)
+        want = apply_rope(x.cpu(), pos.cpu(), cfg.rope_theta)
+        limit = 4e-7 * (1 + x.abs().amax(-1, keepdim=True).cpu())
+        rope = {"positions": [LONG_S - 64, LONG_S - 1], "head_dim": cfg.head_dim_,
+                "theta": cfg.rope_theta, "max_abs_err": float((got.cpu() - want).abs().max()),
+                "x_max": float(x.abs().max()),
+                "ok": bool(((got.cpu() - want).abs() <= limit).all())}
+    peak_gb = max(fill_peak, step_peak, full_peak) / 1e9
+    emit({"phase": "long_500k", "arch": arch, "layers": cfg.n_layers,
+          "layers_full": full.n_layers,
+          "sites": len(shared_sites(cfg)) if cfg.family == "hybrid" else None,
+          "window": cfg.swa_window if cfg.attention == "swa" else None, "dtype": "bfloat16",
+          "batch": 1, "cache_rows": LONG_S, "length_start": LONG_LEN, "steps": LONG_STEPS,
+          "weights_gb": weights / 1e9, "cache_gb": state_bytes / 1e9, "prefill": prefill,
+          "init_seconds": init_s, "fill_seconds": fill_s, "ms_per_step": ms_per_step,
+          "tokens_per_s": 1e3 / ms_per_step, "bound_ms_per_step": bound_ms,
+          "bound_share": bound_ms / ms_per_step, "step_profile": prof,
+          "launches": step_launches, "launches_expected": want_steps,
+          "cache_length": length, "full_cache_step": {
+              "length": full_length, "launches": full_launches, "finite": full_finite,
+              "wrote_last_row": wrote_last, "peak_gb": full_peak / 1e9},
+          "fill_peak_gb": fill_peak / 1e9, "step_peak_gb": step_peak / 1e9,
+          "peak_memory_gb": peak_gb, "rope_card_vs_cpu": rope,
+          "card": smi("name,power.limit,clocks.sm,power.draw,temperature.gpu"),
+          "seconds": time.perf_counter() - t_phase})
+    check(finite and full_finite, f"long_500k {arch}: non-finite logits")
+    check(length == LONG_S and full_length == LONG_S + 1,
+          f"long_500k {arch}: cache length {length}, then {full_length}")
+    check(step_launches == want_steps,
+          f"long_500k {arch}: launches {step_launches}, expected {want_steps}")
+    check(full_launches == want_step,
+          f"long_500k {arch} full-cache step: launches {full_launches}, expected {want_step}")
+    check(wrote_last, f"long_500k {arch}: the full-cache step did not write only the last row")
+    check(rope is None or rope["ok"],
+          f"long_500k {arch}: RoPE at the last positions differs card vs CPU ({rope})")
+    check(peak_gb < TRAIN_PEAK_GB, f"long_500k {arch}: peak memory {peak_gb:.2f} GB")
+    launches = {k: step_launches[k] + full_launches[k] + prefill.get("launches", {}).get(k, 0)
+                for k in want_step}
+    measured = {"arch": arch, "layers": cfg.n_layers, "b": 1, "s": LONG_S,
+                "cache_rows": LONG_S, "step_device_ms": prof["device_ms"],
+                "step_peak_bytes": step_peak}
+    del params, cache, full_cache, logits, full_logits
+    torch.cuda.empty_cache()
+    return launches, measured
+
+
 def serving_plan_phase(prompts_per_s, tokens_per_s, arch=LLM_ARCH):
     """DRS's chip split of the serving pipeline from the card's own rates of
     the arch's serving cell (default B = 4: a 4 x 4096 prefill's prompts /
@@ -3009,10 +3230,13 @@ def serving_sim_phase(model, split, arch):
 
 
 # The dry-run (launch/dryrun.py): the serving records of the six planned
-# archs on pod16x16, and the card's own serving shapes costed on a
-# one-device mesh and held to what the card did in this run.
+# archs and the long_500k records of its three archs on pod16x16, and the
+# card's own serving shapes costed on a one-device mesh and held to what
+# the card did in this run (keys of the measurements: the served arch, or
+# "{arch} long_500k").
 DRYRUN_ARCHS = (LLM_ARCH, *SSM_ARCHS, PHI3_ARCH, QWEN_VL, WHISPER)
-DRYRUN_HELD = ((LLM_ARCH, "prefill"), (LLM_ARCH, "step"), (PHI3_ARCH, "prefill"))
+DRYRUN_HELD = ((LLM_ARCH, "prefill"), (LLM_ARCH, "step"), (PHI3_ARCH, "prefill"),
+               (f"{ZAMBA} long_500k", "step"), (f"{MIXTRAL} long_500k", "step"))
 DRYRUN_PEAK_FACTOR = 1.5  # the predicted peak against max_memory_allocated, either way
 # The roofline plans' pool: a record's prefill serves 32k-token prompts, so
 # zamba2's and phi3's 4 requests / s need ~50 chips (24 serve the card's
@@ -3023,15 +3247,19 @@ DRYRUN_CHIPS = 64
 def dryrun_phase(measured):
     """``python -m repro_torch.launch.dryrun``'s ``run_cell`` (host code on
     meta tensors) for ``prefill_32k`` and ``decode_32k`` of
-    :data:`DRYRUN_ARCHS` on pod16x16, each record saved under
-    ``build/dryrun`` with its dominant term and bound printed; then each
-    shape of :data:`DRYRUN_HELD` -- the serving cell ``serve_phase`` ran
-    (``measured``: batch, prompt, cache rows; a step reads its whole cache)
+    :data:`DRYRUN_ARCHS` and ``long_500k`` of :data:`LONG_ARCHS` on
+    pod16x16, at full depth, each record saved under ``build/dryrun`` with
+    its dominant term and bound printed; then each shape of
+    :data:`DRYRUN_HELD` -- the serving cell ``serve_phase`` or
+    ``long_500k_phase`` ran (``measured``: arch, layers, batch, prompt,
+    cache rows; a step reads its whole cache, or its window)
     -- costed on a one-device mesh: its roofline bound must not exceed the
     device ms the card took for it (a bound above it would mean the model
     overcounts), and its predicted peak (arguments + temporaries) must be
     within :data:`DRYRUN_PEAK_FACTOR` of ``max_memory_allocated`` over that
     call."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import dryrun
@@ -3039,7 +3267,8 @@ def dryrun_phase(measured):
 
     t0 = time.perf_counter()
     records = {}
-    for arch, shape in ((a, s) for a in DRYRUN_ARCHS for s in ("prefill_32k", "decode_32k")):
+    cells = [(a, s) for a in DRYRUN_ARCHS for s in ("prefill_32k", "decode_32k")]
+    for arch, shape in cells + [(a, "long_500k") for a in LONG_ARCHS]:
         rec = dryrun.run_cell(arch, shape)
         check(rec["status"] == "ok", f"dryrun {arch} {shape}: {rec.get('error')}")
         path = str(dryrun.save_record(rec).relative_to(ROOT))
@@ -3053,10 +3282,12 @@ def dryrun_phase(measured):
     records_s = time.perf_counter() - t0
     one = LogicalMesh((1, 1, 1), ("pod", "data", "model"))
     held = {}
-    for arch, what in DRYRUN_HELD:
-        m = measured[arch]
+    for key, what in DRYRUN_HELD:
+        m = measured[key]
+        arch = m["arch"]
         kind = "prefill" if what == "prefill" else "decode"
-        mem, cost = dryrun.step_cost(get_config(arch, "full"), kind, m["b"], m["s"], one,
+        cfg = dataclasses.replace(get_config(arch, "full"), n_layers=m["layers"])
+        mem, cost = dryrun.step_cost(cfg, kind, m["b"], m["s"], one,
                                      shd.rules_for(kind, arch=arch), cache_rows=m["cache_rows"])
         compute_ms = cost.flops / HW.PEAK_FLOPS_BF16 * 1e3
         memory_ms = cost.traffic_bytes / HW.HBM_BW * 1e3
@@ -3064,16 +3295,17 @@ def dryrun_phase(measured):
         device_ms = m[f"{what}_device_ms"]
         peak = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
         card_peak = m[f"{what}_peak_bytes"]
-        held[f"{arch} {what}"] = {
-            "batch": m["b"], "prompt": m["s"], "cache_rows": m["cache_rows"],
+        held[f"{key} {what}"] = {
+            "layers": m["layers"], "batch": m["b"], "prompt": m["s"],
+            "cache_rows": m["cache_rows"],
             "flops": cost.flops, "traffic_bytes": cost.traffic_bytes, "compute_ms": compute_ms,
             "memory_ms": memory_ms, "bound_ms": bound_ms, "device_ms": device_ms,
             "bound_over_device": bound_ms / device_ms, "predicted_peak_gb": peak / 1e9,
             "card_peak_gb": card_peak / 1e9, "peak_over_card": peak / card_peak}
         check(bound_ms <= device_ms,
-              f"dryrun {arch} {what}: bound {bound_ms:.3f} ms above the card's {device_ms:.3f}")
+              f"dryrun {key} {what}: bound {bound_ms:.3f} ms above the card's {device_ms:.3f}")
         check(1 / DRYRUN_PEAK_FACTOR <= peak / card_peak <= DRYRUN_PEAK_FACTOR,
-              f"dryrun {arch} {what}: predicted peak {peak / 1e9:.3f} GB against the card's "
+              f"dryrun {key} {what}: predicted peak {peak / 1e9:.3f} GB against the card's "
               f"{card_peak / 1e9:.3f} GB")
     emit({"phase": "dryrun", "mesh": "pod16x16", "hw": HW.NAME, "records": records,
           "records_seconds": records_s, "held_to_the_card": held,
@@ -3302,6 +3534,36 @@ def ssm_kernels_phase(dev):
     hold("ssm_parity", "rwkv6_scan", "BH=6,S=100 state", st, pst, SCAN_TOL["float32"])
     del args, flat, r, k, v, lw, u, s0
     torch.cuda.empty_cache()
+    # long_500k: one layer's inputs at B 1 over rwkv6's long prefill (its
+    # chunks' state carried in one launch); the largest error of the first
+    # and of the last 64 tokens shows any drift along the stream.
+    long = {}
+    for dtype in (f32, bf16):
+        name = dtype_name(dtype)
+        args = rwkv_inputs(dtype, bb=1, ss=LONG_PREFILL)
+        o, st = rk.rwkv6_scan(*args, chunk=32)
+        po, pst = rr.rwkv6_scan(*args, chunk=32)
+        case = f"long_500k,B=1,S={LONG_PREFILL},H={RWKV_H},D={RWKV_D},{name},chunk=32"
+        row = {"max_abs_err": hold("ssm_parity", "rwkv6_scan", case, o, po, SCAN_TOL[name]),
+               "state_max_abs_err": hold("ssm_parity", "rwkv6_scan", case + ",state", st, pst,
+                                         SCAN_TOL["float32"]),
+               "first_64_err": close_err(o[:, :, :64], po[:, :, :64], *SCAN_TOL[name])[0],
+               "last_64_err": close_err(o[:, :, -64:], po[:, :, -64:], *SCAN_TOL[name])[0]}
+        del o, st, po, pst
+        if dtype == bf16:
+            row.update(
+                ms=median_ms(lambda: rk.rwkv6_scan(*args, chunk=32), runs=5, inner=1),
+                plain_ms=median_ms(lambda: rr.rwkv6_scan(*args, chunk=32), runs=1, inner=1,
+                                   warmup=0),
+                library_ms=None,
+                device_us=device_us_per_call(lambda: rk.rwkv6_scan(*args, chunk=32),
+                                             LLM_SYMBOLS["rwkv6_scan"], calls=1),
+                bound=scan_bound(scan_work("rwkv6", 1, RWKV_H, LONG_PREFILL, RWKV_D, RWKV_D,
+                                           32, 2), True))
+        long[f"B=1,S={LONG_PREFILL},H={RWKV_H},Dk=Dv={RWKV_D},{name},chunk=32"] = row
+        del args
+        torch.cuda.empty_cache()
+    rows["rwkv6_scan"]["shapes"] = {"long_500k": long}
 
     # ssd: zamba2's [B, S, H, 64] input as a [B, H, S, 64] view, B and C
     # [B, S, 64] shared by every head (expanded views), log-decays over
@@ -4042,6 +4304,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         if arch not in SERVE_LAYERS:  # an arch cut in depth is planned under no name
             plans[arch] = serving_plan_phase(prompts_per_s, tokens_per_s, arch)
+    for arch in LONG_ARCHS:
+        served, measured[f"{arch} long_500k"] = long_500k_phase(dev, arch)
+        count(f"{arch} long_500k", served)
     dryrun_phase(measured)
     launch_serve_phase(plans)
     train_rows = train_kernels_phase(dev)

@@ -114,7 +114,11 @@ def step_cost(cfg: ModelConfig, kind: str, global_batch: int, seq_len: int, mesh
     ``seq_len``).  Returns (``memory_analysis``, the trace's
     :class:`~repro_torch.launch.trace_cost.TraceCost`)."""
     rules = shd.prune_rules(rules, mesh)
-    trace = CostTrace(mesh, rules)
+    batch = cell_inputs(cfg, kind, global_batch, seq_len)
+    b_specs = {k: shd.batch_spec(k, tuple(v.shape), rules, mesh) for k, v in batch.items()}
+    # The batch axes are those the batch takes: at batch 1 (long_500k) it
+    # takes none, and a parameter dim on "data" is split as any other.
+    trace = CostTrace(mesh, {"batch": b_specs["tokens"][0]})
     arg_bytes = 0
 
     def register(tree, specs, kind_, logical=None, prefix="", counted=None, layout=None):
@@ -134,8 +138,6 @@ def step_cost(cfg: ModelConfig, kind: str, global_batch: int, seq_len: int, mesh
     params = meta_params(cfg)
     axes = param_axes(cfg)
     p_specs = shd.tree_specs(params, axes, mesh, rules)
-    batch = cell_inputs(cfg, kind, global_batch, seq_len)
-    b_specs = {k: shd.batch_spec(k, tuple(v.shape), rules, mesh) for k, v in batch.items()}
     register(params, p_specs, "param", axes)
     register(batch, b_specs, "input")
     if kind == "train":

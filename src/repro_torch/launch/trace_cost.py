@@ -47,7 +47,12 @@ What it records, per device:
   - FSDP (a parameter's non-expert dim on a batch axis: ``d_model`` on
     "data" in training, mixtral's experts at serve time) is an all-gather
     of the parameter before its forward use and again before its backward
-    use, and a reduce-scatter of its gradient, one of each per layer;
+    use, and a reduce-scatter of its gradient, one of each per layer.  The
+    batch axes are those the step's batch takes (``launch/dryrun.py``
+    passes the tokens' spec): at batch 1 (``long_500k``) it takes none, so
+    mixtral's d_model on "data" is split as a tensor-parallel dim and its
+    products contract over "data" (an all-reduce of the output), as XLA
+    lays the reference's batch-1 step out, and nothing is gathered;
   - a data-parallel parameter (on no batch axis) gets an all-reduce of
     its gradient over the batch axes;
   - experts on a batch axis cost two all-to-alls of the per-device

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -205,10 +206,17 @@ def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None,
     return x.to(dt)
 
 
+@functools.lru_cache(maxsize=None)
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    """Inverse frequencies for rotary embeddings [head_dim // 2], float32."""
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    """Inverse frequencies for rotary embeddings [head_dim // 2], float32,
+    computed on the CPU and copied to ``device`` once (one tensor shared by
+    every caller: read it, do not write it), so every device rotates by the
+    same angles: computed on the card, 30 of head dim 112's 56 entries come
+    out one ulp off the CPU's, which at position 524,287 moves an angle by
+    up to ~0.03 rad (``tools/rope_probe.py``; the CPU's table is the JAX
+    package's but for one entry at head dims 112 and 128)."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+    return (1.0 / (theta ** exps)).to(device or "cpu")
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -145,9 +145,11 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device
 def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=None,
                 routing: list | None = None) -> tuple[torch.Tensor, Cache]:
     """tokens [B] -> (logits [B, V], the cache one token longer).  The new
-    keys and values go to position ``cache["length"]`` of every layer, in
-    place; whisper's cross attention reads the first ``cfg.enc_seq`` rows
-    of ``xk`` / ``xv`` (a length made on the device once per step).
+    keys and values go to position ``cache["length"]`` of every layer (or
+    site), in place -- on a full cache (``length == S_max``) to its last
+    row, where the reference's ``dynamic_update_slice`` clamps them;
+    whisper's cross attention reads the first ``cfg.enc_seq`` rows of ``xk``
+    / ``xv`` (a length made on the device once per step).
     ``routing``: as :func:`prefill`'s."""
     require_ported(cfg)
     dev = resolve_device(device)
@@ -160,7 +162,10 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=
         x = _rwkv_layers(params, x, cfg, cache)
         return lm_head(params, cfg, x)[:, 0], {**cache, "length": new_length}
     positions = length.reshape(1, 1).expand(b, 1)
-    slot = length.reshape(1).to(torch.int64)
+    # the write position: ``length`` clamped to the last row on the device,
+    # as ``dynamic_update_slice`` clamps its start (a full cache overwrites
+    # its last row)
+    slot = torch.clamp(length, max=cache["k"].shape[2] - 1).reshape(1).to(torch.int64)
     if cfg.family in DECODER_FAMILIES:
         window = attention_window(cfg)
         p3 = length.reshape(1, 1, 1).expand(3, b, 1) if cfg.m_rope else None

@@ -341,3 +341,23 @@ def test_cuda_whisper_serve_matches_the_cpu(cuda_device, dtype, tol):
     for a, c in zip(card, host):
         assert torch.isfinite(a).all()
         assert bool(((a - c).abs() <= tol * (1 + c.abs())).all()), float((a - c).abs().max())
+
+
+@pytest.mark.parametrize("dh,theta", [(64, 500000.0), (112, 10000.0), (128, 1e6)])
+def test_cuda_rope_equals_the_cpu_at_500k_positions(cuda_device, dh, theta):
+    """RoPE at positions 524,224-524,287 (``long_500k``'s last), where the
+    float32 angles reach ~5e5 rad: the card rotates with the CPU's
+    frequency table (bitwise; a table computed on the card has entries
+    one ulp apart, ~0.03 rad there) and its rotation is within 4e-7 of
+    (1 + the row's largest |x|) of the CPU's."""
+    from repro_torch.models.common import apply_rope, rope_frequencies
+
+    assert torch.equal(rope_frequencies(dh, theta, device=cuda_device).cpu(),
+                       rope_frequencies(dh, theta))
+    gen = torch.Generator().manual_seed(dh)
+    x = torch.randn((1, 64, 2, dh), generator=gen)
+    pos = torch.arange(524_224, 524_288)[None]
+    got = apply_rope(x.to(cuda_device), pos.to(cuda_device), theta).cpu()
+    want = apply_rope(x, pos, theta)
+    limit = 4e-7 * (1 + x.abs().amax(-1, keepdim=True))
+    assert bool(((got - want).abs() <= limit).all()), float((got - want).abs().max())
