@@ -390,8 +390,8 @@ def profiled(run, expect=()):
     """``(key_averages(), result)`` of one ``run()`` under torch.profiler,
     synchronised.  The card's profiler now and then hands back a trace
     without a single device event, or without the events of a kernel that
-    ran; such a session is run again, up to PROFILE_ATTEMPTS in all (a
-    second longer apart each time), so ``run`` must be repeatable.
+    ran; such a session is run again, up to PROFILE_ATTEMPTS in all (three
+    seconds longer apart each time), so ``run`` must be repeatable.
     ``expect``: groups of kernel names (a name or a tuple of alternatives),
     each of which the trace must show a device event of before it stands.
     Which kernels a trace shows is still for the caller to check."""
@@ -410,8 +410,16 @@ def profiled(run, expect=()):
                    if not any(s in k for k in keys for s in ((g,) if isinstance(g, str) else g))]
         if keys and not missing:
             break
-        emit({"phase": "profiler", "empty_trace": attempt, "missing": missing})
-        time.sleep(attempt)  # let the profiler's previous session wind down
+        free, _total = torch.cuda.mem_get_info()
+        emit({"phase": "profiler", "empty_trace": attempt, "missing": missing,
+              "device_events": len(keys), "free_gb": free / 1e9,
+              "reserved_gb": torch.cuda.memory_reserved() / 1e9})
+        # The card's profiler has recorded no device event at all for over
+        # ten seconds at a time: back off 3, 6, 9, 12 s (30 s in all), and
+        # hand the allocator's cached blocks back first (the profiler keeps
+        # device buffers of its own).
+        torch.cuda.empty_cache()
+        time.sleep(3 * attempt)
     return events, out
 
 
@@ -2265,7 +2273,7 @@ ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
 SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
 # Every device function of each kernel (bf16 flash and scans on the tensor
 # cores, float32 on CUDA cores; decode's split pass and its combine pass).
-LLM_SYMBOLS = {"flash_attention": ("flash_mma_kernel", "flash_fwd_kernel"),
+LLM_SYMBOLS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
                "swiglu": ("swiglu_wgmma_kernel", "swiglu_stream_kernel",
                           "swiglu_stream_f32_kernel", "swiglu_reduce_kernel",

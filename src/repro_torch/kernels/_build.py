@@ -41,7 +41,7 @@ CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu",
            "flash_attention.cu", "decode_attention.cu", "swiglu.cu", "rwkv6_scan.cu",
            "ssd_scan.cu")
-HEADERS = ("common.cuh", "tensor_core.cuh")
+HEADERS = ("common.cuh", "tensor_core.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC",

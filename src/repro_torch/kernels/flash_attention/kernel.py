@@ -23,8 +23,9 @@ def attention(q, k, v, *, causal: bool = True, window: int | None = None,
     """q [B, H, Sq, Dh], k / v [B, Hkv, Skv, Dh] (CUDA, bf16 or float32,
     unit head-dim stride) -> [B, H, Sq, Dh], a ``transpose(1, 2)`` view of a
     contiguous ``[B, Sq, H, Dh]`` buffer.  bf16 runs on the tensor cores
-    and copies whole 16-byte rows, so it also needs each row 16-byte
-    aligned; float32 runs on CUDA cores (TF32 would break its tolerance)."""
+    (``wgmma``) and reads its tiles through TMA tensor maps built over the
+    strided views, so it also needs each row 16-byte aligned; float32 runs
+    on CUDA cores (TF32 would break its tolerance)."""
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("flash_attention: expected 4-D q, k, v [B, H, S, Dh]")
     b, h, sq, dh = q.shape

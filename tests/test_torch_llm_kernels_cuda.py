@@ -11,7 +11,7 @@ Attention: kernel and plain version both compute the softmax and the sums
 in float32 and round the output once, so in bf16 they may differ by one
 ulp, 2^-7 of the largest value in the output row; the limit is two ulps.
 The bf16 flash kernel also rounds each softmax weight to bf16 before the
-P V product on the tensor cores (as FlashAttention-2 and SDPA do): <=
+P V product on the tensor cores (as FlashAttention-3 and SDPA do): <=
 2^-9 relative per weight, random in sign, so its effect on an output is
 far below one ulp of the row's largest value.  In float32 the limit,
 2e-5 * (1 + |plain|), sits above summation-order noise (the decode
@@ -51,24 +51,30 @@ def _assert_attention_close(got, want):
     assert bool((diff <= limit).all()), f"max abs err {float(diff.max())}"
 
 
-# (B, Sq, Skv, window, causal): Sq and Skv off the 64 / 128-row tiles, a
-# single query, windows crossing key tiles, bidirectional with Sq < Skv and
-# Sq > Skv, and enough (batch, head) blocks that the reversed (longest
-# first) query-tile order runs over several waves.
+# (B, Sq, Skv, window, causal): Sq and Skv off the 64 / 128-row tiles and
+# off the bf16 kernel's 128-key stage, a single query, windows crossing key
+# tiles and inside one, bidirectional with Sq < Skv and Sq > Skv, and
+# enough (batch, head) blocks that the reversed (longest first) query-tile
+# order runs over several waves.
 FLASH_CASES = [(2, 200, 200, None, True), (2, 128, 300, None, True), (2, 256, 256, 64, True),
                (2, 129, 300, None, True), (2, 1, 77, None, True), (2, 300, 300, 100, True),
                (2, 200, 330, 64, True), (2, 200, 300, None, False), (2, 77, 1, None, False),
-               (8, 1000, 1000, None, True)]
+               (8, 1000, 1000, None, True), (2, 77, 77, None, True), (2, 77, 333, None, False),
+               (1, 129, 1000, 200, True)]
+# The head dims the kernels serve: 64 (llama, whisper), 112 (zamba2, kimi;
+# the bf16 kernel's second 64-column box half past the row) and 128.
+FLASH_DHS = (64, 112, 128)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", FLASH_DHS)
 @pytest.mark.parametrize("b,sq,skv,window,causal", FLASH_CASES)
-def test_cuda_flash_matches_plain(cuda_device, dtype, b, sq, skv, window, causal):
-    """llama3.2-1b's heads: Dh 64, four query heads per KV head."""
+def test_cuda_flash_matches_plain(cuda_device, dtype, dh, b, sq, skv, window, causal):
+    """Four query heads per KV head at each head dim."""
     gen = torch.Generator().manual_seed(0)
-    q = torch.randn(b, 8, sq, 64, generator=gen).to(cuda_device, dtype)
-    k = torch.randn(b, 2, skv, 64, generator=gen).to(cuda_device, dtype)
-    v = torch.randn(b, 2, skv, 64, generator=gen).to(cuda_device, dtype)
+    q = torch.randn(b, 8, sq, dh, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, 2, skv, dh, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, 2, skv, dh, generator=gen).to(cuda_device, dtype)
     got = tfk.attention(q, k, v, causal=causal, window=window)
     want = tfr.attention(q, k, v, causal=causal, window=window)
     assert got.dtype == want.dtype and got.shape == want.shape
@@ -76,8 +82,9 @@ def test_cuda_flash_matches_plain(cuda_device, dtype, b, sq, skv, window, causal
 
 
 def test_cuda_flash_bf16_refuses_misaligned_rows(cuda_device):
-    """The bf16 kernel copies whole 16-byte rows: a base pointer or a
-    stride off the 16-byte grid raises (no route to another kernel)."""
+    """The bf16 kernel reads its tiles through TMA, which takes 16-byte-
+    aligned rows: a base pointer or a stride off the 16-byte grid raises (no
+    route to another kernel)."""
     flat = torch.randn(2 * 8 * 64 * 64 + 1, device=cuda_device).to(torch.bfloat16)
     shifted = flat[1:].view(2, 64, 8, 64).transpose(1, 2)  # base 2 bytes off
     ok = torch.randn(2, 64, 2, 64, device=cuda_device).to(torch.bfloat16).transpose(1, 2)
@@ -128,6 +135,43 @@ def test_cuda_flash_head_dim_128_matches_plain(cuda_device, dtype, b, sq, skv, w
     v = torch.randn(b, skv, 2, 128, generator=gen).to(cuda_device, dtype).transpose(1, 2)
     got = tfk.attention(q, k, v, causal=causal, window=window)
     _assert_attention_close(got, tfr.attention(q, k, v, causal=causal, window=window))
+
+
+def _flash_inputs(dev, b, hq, hkv, sq, skv, dh, seed):
+    """q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh], bf16, contiguous heads-first."""
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, n, s, dh, generator=gen).to(dev, torch.bfloat16)
+                 for n, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+
+
+@pytest.mark.parametrize("dh", FLASH_DHS)
+@pytest.mark.parametrize("n_rep", [1, 4, 8])
+def test_cuda_flash_bf16_gqa_ratios(cuda_device, dh, n_rep):
+    """Query head h reads KV head h / n_rep through the K / V tensor maps."""
+    q, k, v = _flash_inputs(cuda_device, 2, 8, 8 // n_rep, 300, 300, dh, seed=11)
+    _assert_attention_close(tfk.attention(q, k, v), tfr.attention(q, k, v))
+
+
+@pytest.mark.parametrize("dh", FLASH_DHS)
+def test_cuda_flash_bf16_cross_attention_sq_below_skv(cuda_device, dh):
+    """whisper's cross attention: 224 prompt rows over 1,500 frames, no mask."""
+    q, k, v = _flash_inputs(cuda_device, 2, 4, 4, 224, 1500, dh, seed=12)
+    _assert_attention_close(tfk.attention(q, k, v, causal=False),
+                            tfr.attention(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("dh", FLASH_DHS)
+def test_cuda_flash_bf16_takes_the_model_layout(cuda_device, dh):
+    """[B, S, H, Dh] buffers passed as their transpose(1, 2) views: the
+    tensor maps step over the sequence and head strides as given, so the
+    result is the contiguous heads-first call's, bit for bit."""
+    gen = torch.Generator().manual_seed(13)
+    q, k, v = (torch.randn(2, 333, n, dh, generator=gen).to(cuda_device, torch.bfloat16)
+               .transpose(1, 2) for n in (8, 2, 2))
+    got = tfk.attention(q, k, v, window=100)
+    flat = tfk.attention(*(t.contiguous() for t in (q, k, v)), window=100)
+    assert torch.equal(got, flat)
+    _assert_attention_close(got, tfr.attention(q, k, v, window=100))
 
 
 # Every instantiated (head dim, query heads per KV head) pair: the three

@@ -30,11 +30,14 @@ constants.
   grid routes), at [256, 40, 48] and at the fleet planner's single
   scenario of 256 and 1,024 tenants ([1, 1298, 2048], [1, 5128, 2048]):
   every route each shape admits, beside the plain version and the bound.
-- ``flash_dh128`` at phi3-medium-14b's prefill (4 x 4096, 40 / 10 heads
-  of 128, causal), bf16: the tensor-core kernel's tiles (warps x row
-  tiles x keys per stage) built into a library of their own from
+- ``flash`` at the timed flash shapes of ``chip_smoke.FLASH_CASES`` at
+  each head dim (llama's and whisper's encoder at 64, kimi's at 112,
+  phi3's at 128), bf16: the wgmma kernel's choices (keys per ring stage,
+  stages, O accumulator width) built into a library of their own from
   ``csrc/flash_attention.cu`` with ``ptxas -v`` (registers, spills), each
-  held to ``chip_smoke.ATTN_TOL`` against the plain version and timed.
+  held to ``chip_smoke.ATTN_TOL`` against the plain version and timed
+  beside SDPA; ``flash --against DIR`` also times DIR's flash kernel (a
+  parent checkout unpacked under ``build/``) at the same shapes.
 
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
@@ -71,8 +74,9 @@ def main() -> int:
     timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths,
               "match_count": match_count_plans, "decide_fused": decide_plans,
               "queue_window": window_plans, "gain_topr": topr_plans,
-              "flash_dh128": flash_dh128_tiles}
-    for name in sys.argv[1:] or list(timers):
+              "flash": flash_tiles}
+    names = [a for a in sys.argv[1:] if a in timers]
+    for name in names or list(timers):
         timers[name](torch, cs, _build, dev, gen)
     return 0
 
@@ -269,18 +273,41 @@ def topr_plans(torch, cs, _build, dev, gen):
                               "bound_ms": cs.topr_bound(cand)}), flush=True)
 
 
-# (warps, row tiles per warp, keys per stage) of the head-dim-128 tile; the
-# first is the one csrc/flash_attention.cu dispatches.
-FLASH128_TILES = ((4, 1, 64), (4, 1, 32), (8, 1, 32), (8, 1, 64))
+# The bf16 flash kernel's choices at each head dim it serves: (keys per ring
+# stage, ring stages, width of the O accumulator); the first of each is the
+# one csrc/flash_attention.cu dispatches.  Head dim 112 runs P V at N 112 on
+# a V tile whose second 64-column box is half filled, or at N 128 on the
+# box's zero-filled columns (dropped at the store).
+FLASH_TILES = {64: ((128, 2, 64), (128, 3, 64), (128, 4, 64), (64, 4, 64)),
+               112: ((128, 2, 112), (128, 3, 112), (128, 2, 128), (64, 4, 112)),
+               128: ((128, 2, 128), (128, 3, 128), (64, 4, 128))}
+# (name, head dim, B, Sq, Skv, query heads, KV heads, causal, window): the
+# prefill-sized timed flash shapes of chip_smoke.py's FLASH_CASES.
+FLASH_SHAPES = (("llama", 64, 4, 4096, 4096, 32, 8, True, None),
+                ("whisper_encoder", 64, 16, 1500, 1500, 16, 16, False, None),
+                ("zamba2", 112, 4, 4096, 4096, 32, 32, True, None),
+                ("kimi", 112, 4, 4096, 4096, 64, 8, True, None),
+                ("phi3", 128, 4, 4096, 4096, 40, 10, True, None),
+                ("mixtral", 128, 2, 8192, 8192, 48, 8, True, 4096))
 
 
-def flash_dh128_tiles(torch, cs, _build, dev, gen):
+def flash_tiles(torch, cs, _build, dev, gen):
+    """Every choice of ``FLASH_TILES`` at ``FLASH_SHAPES``, built into a
+    library of its own from ``csrc/flash_attention.cu`` with ``ptxas -v``,
+    held to ``chip_smoke.ATTN_TOL`` and timed beside the wrapper and SDPA.
+    Each ``--against DIR`` also builds DIR's ``src/repro_torch/csrc/
+    flash_attention.cu`` (another checkout, e.g. a parent commit unpacked
+    under ``build/``) and times its entry point at the same shapes, before
+    and after the choices."""
     import ctypes
     import subprocess
 
-    from repro_torch.kernels.flash_attention import kernel as fk, ref as fr
+    import torch.nn.functional as F
 
-    work = ROOT / "build" / "flash_dh128_tiles"
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.flash_attention import kernel as fk
+
+    work = ROOT / "build" / "flash_tiles"
     work.mkdir(parents=True, exist_ok=True)
     # the strides as plain integers: a signature naming the source's
     # internal Strides type would give the entry point internal linkage
@@ -292,49 +319,93 @@ def flash_dh128_tiles(torch, cs, _build, dev, gen):
     call = ("q, k, v, o, Strides{qb, qh, qs}, Strides{kb, kh, ks}, Strides{vb, vh, vs}, "
             "Strides{ob, oh, os}, b, h, hkv, sq, skv, scale, causal, window, device, "
             "static_cast<cudaStream_t>(stream)")
-    src = ['#include "flash_attention.cu"', f"extern \"C\" int flash128_tile(int i, {args}) {{"]
-    for i, (w, mt, bkv) in enumerate(FLASH128_TILES):
-        src.append(f"  if (i == {i}) return launch_mma<128, {w}, {mt}, {bkv}>({call});")
+    src = ['#include "flash_attention.cu"', f"extern \"C\" int flash_tile(int i, {args}) {{"]
+    index = {}
+    for dh, tiles in FLASH_TILES.items():
+        for tile in tiles:
+            index[dh, *tile] = len(index)
+            targs = ", ".join(str(x) for x in (dh, *tile))
+            src.append(f"  if (i == {len(index) - 1}) return launch_wgmma<{targs}>({call});")
     src.append("  return cudaErrorInvalidValue;\n}")
     (work / "tiles.cu").write_text("\n".join(src) + "\n")
-    lib_path = work / "libtiles.so"
-    res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-shared",
-                          "-I", str(_build.CSRC), str(work / "tiles.cu"), "-o", str(lib_path)],
-                         capture_output=True, text=True)
-    ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-             if "entry function" in ln or "registers" in ln or "spill" in ln or "error" in ln]
-    print(json.dumps({"kernel": "flash_attention", "build_rc": res.returncode,
-                      "ptxas": ptxas}), flush=True)
-    if res.returncode:
-        return
-
-    lib = ctypes.CDLL(str(lib_path))
+    builds = [("tiles", work / "tiles.cu", _build.CSRC)]
+    trees = [pathlib.Path(sys.argv[i + 1]).resolve() for i, a in enumerate(sys.argv)
+             if a == "--against"]
+    for n, tree in enumerate(trees):
+        csrc = tree / "src" / "repro_torch" / "csrc"
+        builds.append((f"against{n}", csrc / "flash_attention.cu", csrc))
+    libs = {}
+    for name, path, inc in builds:
+        lib_path = work / f"lib{name}.so"
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-shared",
+                              "-I", str(inc), str(path), "-o", str(lib_path)],
+                             capture_output=True, text=True)
+        ptxas = [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
+                 if "entry function" in ln or "registers" in ln or "spill" in ln
+                 or "error" in ln or "warning" in ln or "Performance" in ln]
+        print(json.dumps({"kernel": "flash_attention", "build": name, "source": str(path),
+                          "build_rc": res.returncode, "ptxas": ptxas}), flush=True)
+        if res.returncode:
+            return
+        libs[name] = ctypes.CDLL(str(lib_path))
     p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.flash128_tile.argtypes = [i] + [p] * 4 + [ll] * 12 + [i] * 5 + [f] + [i] * 3 + [p]
-    lib.flash128_tile.restype = i
-    b, s, hq, hkv, dh = cs.SERVE_B, cs.SERVE_S, 40, 10, 128
-    q, k, v = (torch.randn((b, s, n, dh), generator=gen, device=dev).to(torch.bfloat16)
-               .transpose(1, 2) for n in (hq, hkv, hkv))
-    want = fr.attention(q, k, v)
-    nbytes = 2 * b * s * dh * (2 * hq + 2 * hkv)
-    bound = cs.bound(nbytes, 4 * dh * b * hq * s * (s + 1) // 2, cs.PEAK_BF16_OPS_PER_S)
+    tile_fn = libs["tiles"].flash_tile
+    tile_fn.argtypes = [i] + [p] * 4 + [ll] * 12 + [i] * 5 + [f] + [i] * 3 + [p]
+    tile_fn.restype = i
+    others = []  # (tree, its entry point)
+    for n, tree in enumerate(trees):
+        fn = libs[f"against{n}"].repro_flash_attention
+        fn.argtypes = [p] * 4 + [ll] * 12 + [i] * 6 + [f] + [i] * 4 + [p]
+        fn.restype = i
+        others.append((tree, fn))
+    symbols = ("flash_wgmma_kernel", "flash_mma_kernel")  # this tree's, the parent's
 
-    def run(idx):
-        out = torch.empty((b, s, hq, dh), dtype=q.dtype, device=dev).transpose(1, 2)
-        st = [t.stride(j) for t in (q, k, v, out) for j in (0, 1, 2)]
-        code = lib.flash128_tile(idx, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), *st, b, hq, hkv, s, s, dh ** -0.5, 1, 0,
-                                 *_build.launch_args(q))
-        _build.check_error("flash128_tile", code)
-        return out
+    for name, dh, b, sq, skv, hq, hkv, causal, window in FLASH_SHAPES:
+        q = torch.randn((b, sq, hq, dh), generator=gen, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, skv, hkv, dh), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # the model's [B, S, H, Dh]
+        want = cs._plain_attention(q, k, v, causal=causal, window=window)
+        bound = cs.bound(*kcost.flash_work(b, hq, hkv, sq, skv, dh, causal=causal,
+                                           window=window), cs.PEAK_BF16_OPS_PER_S)[0]
+        shape = f"{name}: B={b},Sq={sq},Skv={skv},H={hq}/{hkv},Dh={dh}" + (
+            f",window={window}" if window else ",causal" if causal else ",bidirectional")
 
-    for idx, tile in enumerate(FLASH128_TILES):
-        ok = cs.close_err(run(idx), want, *cs.ATTN_TOL["bfloat16"])[1]
-        print(json.dumps({"kernel": "flash_attention", "tile": dict(zip(
-            ("warps", "row_tiles", "keys"), tile)), "chosen": idx == 0, "ok": ok,
-            "ms": cs.median_ms(lambda idx=idx: run(idx), runs=5, inner=3),
-            "wrapper_ms": cs.median_ms(lambda: fk.attention(q, k, v), runs=5, inner=3),
-            "bound_ms": bound[0]}), flush=True)
+        def run(fn, *lead):
+            out = torch.empty((b, sq, hq, dh), dtype=q.dtype, device=dev).transpose(1, 2)
+            st = [t.stride(j) for t in (q, k, v, out) for j in (0, 1, 2)]
+            other = fn is not tile_fn  # another tree's entry: head dim and dtype flag too
+            code = fn(*lead, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *st, b,
+                      hq, hkv, sq, skv, *((dh,) if other else ()), dh ** -0.5, int(causal),
+                      window or 0, *((1,) if other else ()), *_build.launch_args(q))
+            _build.check_error("flash_tile", code)
+            return out
+
+        def timed(fn, label, **extra):
+            ok = cs.close_err(fn(), want, *cs.ATTN_TOL["bfloat16"])[1]
+            print(json.dumps({"kernel": "flash_attention", "shape": shape, **extra, "ok": ok,
+                              "ms": cs.median_ms(fn, runs=5, inner=3),
+                              "device_us": cs.device_us_per_call(fn, symbols),
+                              "bound_ms": bound, "run": label}), flush=True)
+
+        for tree, fn in others:
+            timed(lambda fn=fn: run(fn), "against", tree=str(tree))
+        for tile in FLASH_TILES[dh]:
+            idx = index[(dh, *tile)]
+            timed(lambda idx=idx: run(tile_fn, idx), "tile",
+                  tile=dict(zip(("keys", "stages", "acc_cols"), tile)),
+                  chosen=tile == FLASH_TILES[dh][0])
+        for tree, fn in others:
+            timed(lambda fn=fn: run(fn), "against", tree=str(tree))
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                      enable_gqa=True)
+        wrapper = lambda: fk.attention(q, k, v, causal=causal, window=window)
+        print(json.dumps({"kernel": "flash_attention", "shape": shape, "run": "wrapper",
+                          "ms": cs.median_ms(wrapper, runs=5, inner=3),
+                          "sdpa_ms": None if window else cs.median_ms(sdpa, runs=5, inner=3),
+                          "bound_ms": bound}), flush=True)
+        del q, k, v, want
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
