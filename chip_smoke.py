@@ -183,7 +183,10 @@ Phases, each printing one JSON line:
    rows and a 448-row self cache; ``long_500k``'s decode on a full
    524,288-row cache at batch 1: zamba2's (112, 1) over every row and
    mixtral's (128, 6) over its 4,096-row window, and zamba2's SwiGLU at
-   that step's T 1.  The timed cases (bf16, CUDA
+   that step's T 1; decode at B 3 over 4,128 rows, where the blocks'
+   ranges end mid-tile and cross from one sequence or head into the next
+   (llama, kimi, zamba2).  Every decode case runs twice, its bits held
+   equal.  The timed cases (bf16, CUDA
    events and ``torch.profiler`` device time) stand beside the plain
    version, SDPA where one call computes the same function (a windowed
    case has none: SDPA takes the window only as a dense mask, off its
@@ -2272,9 +2275,10 @@ HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
 ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
 SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
 # Every device function of each kernel (bf16 flash and scans on the tensor
-# cores, float32 on CUDA cores; decode's split pass and its combine pass).
+# cores, float32 on CUDA cores; decode's one kernel, its consumers on the
+# tensor cores or the CUDA cores).
 LLM_SYMBOLS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
-               "decode_attention": ("decode_split_kernel", "decode_combine_kernel"),
+               "decode_attention": ("decode_tma_kernel",),
                "swiglu": ("swiglu_wgmma_kernel", "swiglu_stream_kernel",
                           "swiglu_stream_f32_kernel", "swiglu_reduce_kernel",
                           "swiglu_f32_tile_kernel"),
@@ -2336,7 +2340,11 @@ def device_us_per_call(fn, symbols, calls=5):
 # decoder attention and its (64, 1) decode over the cross and self caches,
 # "long_500k" the decode steps of the ``long_500k`` phase on a full
 # 524,288-row cache (zamba2 over every row, mixtral over its window) and
-# zamba2's shared-block SwiGLU at its batch-1 step (T 1).
+# zamba2's shared-block SwiGLU at its batch-1 step (T 1); "bounds" decode
+# at B 3 over 4,128 rows, where the blocks' ranges (~47 rows at llama's 3
+# x 8 groups) end mid-tile and cross from one group into the next, on the
+# tensor cores (llama, kimi) and the CUDA cores (zamba2).  Every decode
+# case is also called twice, bits held equal.
 STEP = (SERVE_B, SERVE_S + SERVE_STEPS, SERVE_S + 1)  # a B 4 step over 4,097 cached
 EMPTY = (SERVE_B, SERVE_S + SERVE_STEPS, 0)  # length 0: the mean of V, as ref.py
 LONG = (DEC_B, DEC_SMAX, DEC_LEN)
@@ -2382,6 +2390,8 @@ DECODE_CASES = (
     # the cache's end
     ("long_500k", ZAMBA, 1, LONG_S, LONG_S, None, True),
     ("long_500k", MIXTRAL, 1, LONG_S, LONG_S, 4096, True),
+    *(("bounds", arch, 3, 4128, length, window, False) for arch in (LLM_ARCH, KIMI, ZAMBA)
+      for length, window in ((1, None), (257, None), (4097, None), (4097, 1000))),
 )
 SWIGLU_CASES = (  # T 16,384: a 4 x 4096 prefill (the wgmma route); T 4-16: a step (streaming)
     ("main", LLM_ARCH, SERVE_B * SERVE_S, BF16, True),
@@ -2459,8 +2469,12 @@ def llm_kernels_phase(dev):
             dtype = getattr(torch, name)
             calls = make(dtype)
             tol = SWIGLU_TOL[name] if kernel == "swiglu" else ATTN_TOL[name]
-            err = hold("llm_parity", kernel, f"{arch},{case},{name}", calls["run"](),
-                       calls["plain"](), tol)
+            got = calls["run"]()
+            err = hold("llm_parity", kernel, f"{arch},{case},{name}", got, calls["plain"](), tol)
+            if kernel == "decode_attention":  # the partials merge in a fixed order
+                check(torch.equal(calls["run"](), got),
+                      f"{kernel} {arch},{case},{name}: two calls differ")
+            del got
             row["max_abs_err" if dtype == bf16 else f"max_abs_err_{name}"] = err
             if timed and dtype == bf16:
                 kw = {} if quick else heavy

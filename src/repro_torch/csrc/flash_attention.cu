@@ -87,18 +87,6 @@ struct Strides {
   long long b, h, s;  // elements; the head-dim stride is 1
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // ----------------------------------------------------------------------- //
 // bf16: wgmma tiles fed by a TMA ring
 // ----------------------------------------------------------------------- //
@@ -211,7 +199,8 @@ __device__ __forceinline__ void pack_p(const float (&sc)[BKV / 2], uint32_t (&pa
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+    for (int i = 0; i < 4; ++i)
+      pa[kk][i] = repro::pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
 }
 
 // The online softmax of one S tile on its fragments, in place: masks (only
@@ -246,14 +235,14 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BKV / 2], float (&m_row
     // A row that has seen no key yet keeps m = -inf; 0 then stands in for
     // its scaled max, so every weight and alpha is exp2(-inf) = 0.
     const float m_scaled = mx == -INFINITY ? 0.0f : mx * scale_log2;
-    alpha[r] = exp2_approx(fmaf(m_row[r], scale_log2, -m_scaled));
+    alpha[r] = repro::exp2_approx(fmaf(m_row[r], scale_log2, -m_scaled));
     m_row[r] = mx;
     float l = l_row[r] * alpha[r];
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float p = exp2_approx(fmaf(sc[4 * j + 2 * r + e], scale_log2, -m_scaled));
+        const float p = repro::exp2_approx(fmaf(sc[4 * j + 2 * r + e], scale_log2, -m_scaled));
         sc[4 * j + 2 * r + e] = p;
         l += p;
       }

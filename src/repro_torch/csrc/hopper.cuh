@@ -6,6 +6,8 @@
 // the attention tiles use, and the tensor-map encoder (the driver's
 // cuTensorMapEncodeTiled, found through the runtime: nothing links against
 // libcuda).
+// decode_attention.cu's cache tiles use its TMA, mbarrier and tensor-map
+// helpers too.
 #pragma once
 
 #include <cuda.h>
@@ -225,18 +227,29 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (dims[0] innermost and unit-stride;
-// strides[i] in bytes for dims[i + 1]) in boxes of `box`, 128-byte swizzle,
-// zero-filled outside the tensor.
-inline bool tensor_map_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box) {
+// A tensor of `type` and `rank` dimensions (dims[0] innermost and
+// unit-stride; strides[i] in bytes for dims[i + 1]) in boxes of `box`,
+// under `swizzle`, zero-filled outside the tensor.  `promotion` widens each
+// L2 request: 256 bytes suits boxes of whole 128-byte rows read once; a
+// box of narrow rows far apart (one head's slice of a cache row) wants
+// none, or each row fetches its neighbours' bytes too.
+inline bool tensor_map_tiled(
+    CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle,
+    CUtensorMapL2promotion promotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B) {
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return enc(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, promotion,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 tensor in boxes of `box`, 128-byte swizzle (as tensor_map_tiled).
+inline bool tensor_map_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box) {
+  return tensor_map_tiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                          CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // A row-major bf16 [rows, cols] matrix in boxes of [box_rows, 64].

@@ -1,7 +1,7 @@
 // Warp-level tensor-core and asynchronous-copy helpers (sm_80+ PTX, used on
 // sm_90a) shared by the bf16 kernels: swiglu.cu's GEMM tiles,
-// flash_attention.cu's attention tiles, the two scans' chunk products and
-// l2_match.cu's operand tiles.
+// flash_attention.cu's and decode_attention.cu's attention tiles, the two
+// scans' chunk products and l2_match.cu's operand tiles.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -60,6 +60,20 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A float32 pair rounded to bf16 and packed (`lo` in the low half): the
+// register form of an mma operand pair.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit (relative error ~2^-22; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // A float32 pair as bf16 hi + lo (hi + lo equals the pair to ~2^-17): a

@@ -163,8 +163,6 @@ def library():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = i
-            lib.repro_decode_attention_blocks_per_sm.argtypes = [i] * 4 + [ctypes.POINTER(i)]
-            lib.repro_decode_attention_blocks_per_sm.restype = i
             lib.repro_gain_topr_work_ints.argtypes = [i, i]
             lib.repro_gain_topr_work_ints.restype = ll
             _lib = lib

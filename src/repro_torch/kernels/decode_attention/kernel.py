@@ -11,54 +11,39 @@ qwen2-vl-2b (head dim 128, 6), kimi-k2-1t-a32b (head dim 112, 8), and the
 smoke configs as ``configs.for_kernels`` widens them (head dim 64; 2, 3,
 7, 8).
 
-Split-KV: the cache of each (sequence, KV head) is cut into ``n_splits``
-slices, one block each, and a combine pass merges their partials.  The
-number of splits comes from host-known numbers only (:func:`split_plan`);
-each block computes its own slice from the device ``length``
-(:func:`split_range`, the formula the kernel carries), so the step stays
-free of host syncs and capturable in a CUDA graph.  The float32 partials
-live in a workspace allocated here.
+One launch per call (``decode_tma_kernel``: cache tiles fed by TMA, a GQA
+group's products on ``mma.sync``, MHA's heads read in pairs where their
+count is even).  The B * Hkv groups' valid rows, flattened group by
+group, are cut into equal contiguous ranges, one per block of a host-known
+grid (:data:`BLOCKS_PER_SM` times the SMs); a range may cross from one
+group into the next.  Each block computes its range from the device
+``length`` (:func:`segments` mirrors the formula, :func:`valid_range` the
+rows), so the step stays free of host syncs and capturable in a CUDA
+graph.  A group split over several blocks is merged by the last of them
+from float32 partials, in block order; its counter and the partials live
+in buffers kept here per (device, stream) across calls (:func:`_scratch`),
+allocated (the counters zeroed) only when a call needs more than the last
+one: calls on one stream are ordered, and the merging block leaves its
+counter at 0 for the next call.
 """
 
 from __future__ import annotations
 
-import functools
+import threading
 
 import torch
 
 from .. import _build
 
-__all__ = ["decode_attention", "SHAPES", "split_plan", "valid_range", "split_range",
-           "rows_per_step"]
+__all__ = ["decode_attention", "SHAPES", "valid_range", "segments"]
 
 #: (head dim, query heads per KV head) pairs the kernel is instantiated for.
 SHAPES = ((64, 1), (64, 2), (64, 3), (64, 4), (64, 7), (64, 8), (112, 1), (112, 8), (128, 4),
           (128, 6), (128, 7), (128, 8))
-
-#: Fewest cache rows worth a split of their own.
-MIN_SPLIT_ROWS = 256
-#: Most splits per (sequence, KV head): bounds the workspace.
-MAX_SPLITS = 64
-# The split kernel's block: warps and rows per lane group per step.
-_WARPS, _UNROLL = 4, 4
-
-
-def split_plan(b: int, hkv: int, s_max: int, slots: int) -> int:
-    """Splits per (sequence, KV head): as many as fill the ``slots`` blocks
-    the card runs at once (one wave: equal slices end together) over the
-    ``b * hkv`` groups, at most one per ``MIN_SPLIT_ROWS`` cache rows and at
-    most ``MAX_SPLITS``; at least 1."""
-    n = slots // max(1, b * hkv)
-    return max(1, min(n, s_max // MIN_SPLIT_ROWS, MAX_SPLITS))
-
-
-def rows_per_step(dh: int, itemsize: int) -> int:
-    """Cache rows one split-kernel block reads per step (``Rows::kStep``):
-    a row is ``dh * itemsize / 16`` lanes of 16-byte loads, spanning the
-    next power of two; a warp reads ``32 / span`` rows at once, four deep."""
-    lanes = dh * itemsize // 16
-    span = 1 << (lanes - 1).bit_length()
-    return _WARPS * (32 // span) * _UNROLL
+#: Blocks per SM of the grid: one wave.  ``tools/kernel_plans.py decode``
+#: timed 1-4; more split a short call's groups into more partials and ran
+#: no faster on the long ones.
+BLOCKS_PER_SM = 1
 
 
 def valid_range(length: int, s_max: int, window: int | None) -> tuple[int, int]:
@@ -70,28 +55,46 @@ def valid_range(length: int, s_max: int, window: int | None) -> tuple[int, int]:
     return (0, s_max) if hi <= lo else (lo, hi)
 
 
-def split_range(lo: int, hi: int, n_splits: int, step: int, split: int) -> tuple[int, int]:
-    """Split ``split``'s rows of ``[lo, hi)``: ``ceil((hi - lo) / n_splits)``
-    rounded up to ``step`` rows each, the last ones short or empty.  The
-    kernel computes the same on the device (``decode_split_kernel``)."""
-    chunk = -(-(hi - lo) // n_splits)
-    chunk = -(-chunk // step) * step
-    s_lo = min(hi, lo + split * chunk)
-    return s_lo, min(hi, s_lo + chunk)
+def segments(groups: int, rows: int, grid: int, block: int) -> list[tuple[int, int, int, int,
+                                                                          bool]]:
+    """Block ``block``'s share of ``groups`` x ``rows`` valid rows over a
+    ``grid`` of blocks, as ``decode_tma_kernel`` computes it (``Share``):
+    the flattened work cut into ranges of ``ceil(groups * rows / grid)``
+    rows.  Returns (group, first row, end row, workspace slot, whole) for
+    each group the range meets, rows counted from the valid range's start;
+    ``whole``: the block holds all of the group's rows and writes its output
+    (else its partial goes to slot 0 for its first group, 1 for its last)."""
+    work = groups * rows
+    chunk = -(-work // grid)
+    w0, w1 = block * chunk, min(work, (block + 1) * chunk)
+    out = []
+    if w0 >= w1:
+        return out
+    for g in range(w0 // rows, (w1 - 1) // rows + 1):
+        base = g * rows
+        whole = base // chunk == (base + rows - 1) // chunk
+        out.append((g, max(w0, base) - base, min(w1, base + rows) - base,
+                    0 if g == w0 // rows else 1, whole))
+    return out
 
 
-@functools.lru_cache(maxsize=None)
-def _slots(index: int, dh: int, n_rep: int, bf16: bool) -> int:
-    """Split-kernel blocks device ``index`` runs at once: the blocks one SM
-    holds (CUDA's occupancy calculator on the built kernel) times the SMs."""
-    import ctypes
+_buffers: dict = {}  # (device index, stream) -> (partials float32, counters int32)
+_buffers_lock = threading.Lock()
 
-    per_sm = ctypes.c_int(0)
-    code = _build.library().repro_decode_attention_blocks_per_sm(
-        dh, n_rep, int(bf16), index, ctypes.byref(per_sm))
-    _build.check_error("decode_attention", code)
-    sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return max(1, per_sm.value) * sms
+
+def _scratch(device, stream: int, floats: int, groups: int):
+    """The workspace of partials (at least ``floats``) and the group
+    counters (at least ``groups``, zero between calls) for calls on
+    ``stream``; reallocated only when a call needs more."""
+    key = (device.index, stream)
+    with _buffers_lock:
+        part, count = _buffers.get(key, (None, None))
+        if part is None or part.numel() < floats:
+            part = torch.empty(floats, dtype=torch.float32, device=device)
+        if count is None or count.numel() < groups:
+            count = torch.zeros(groups, dtype=torch.int32, device=device)
+        _buffers[key] = (part, count)
+    return part, count
 
 
 def decode_attention(q, k_cache, v_cache, length, *, window: int | None = None,
@@ -117,17 +120,21 @@ def decode_attention(q, k_cache, v_cache, length, *, window: int | None = None,
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
     _build.require("decode_attention length", length, torch.int32, (), device=q.device)
+    if s_max == 0:  # no cache row: every softmax is empty and every output 0
+        return torch.zeros_like(q)
+    if b * hkv * s_max >= 2 ** 31:  # the kernel's partition counts rows in 32 bits
+        raise ValueError(f"decode_attention: {b} x {hkv} x {s_max} cache rows exceed 2^31 - 1")
     dev, stream = _build.launch_args(q)
-    n_splits = split_plan(b, hkv, s_max, _slots(dev, dh, h // hkv, bf16))
+    n_rep = h // hkv
+    grid = BLOCKS_PER_SM * _build.sm_count(dev)
     out = torch.empty_like(q)
-    parts = b * h * n_splits
-    work = torch.empty(parts * (dh + 2), dtype=torch.float32, device=q.device)
+    # two slots a block of (query rows a group) x (dh + 2): MHA runs heads in pairs
+    part, count = _scratch(q.device, stream, 2 * grid * max(n_rep, 2) * (dh + 2), b * hkv)
     scale = float(scale) if scale is not None else 1.0 / (dh ** 0.5)
-    lib = _build.library()
-    code = lib.repro_decode_attention(
+    code = _build.library().repro_decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), length.data_ptr(),
-        out.data_ptr(), work.data_ptr(), work.data_ptr() + parts * dh * 4, b, h, hkv, s_max,
-        dh, n_splits, scale, int(window or 0), int(bf16), dev, stream)
+        out.data_ptr(), part.data_ptr(), count.data_ptr(), b, h, hkv, s_max, dh, grid, scale,
+        int(window or 0), int(bf16), dev, stream)
     _build.check_error("decode_attention", code)
     _build.count_launch("decode_attention")
     return out

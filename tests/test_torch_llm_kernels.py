@@ -16,6 +16,8 @@ shapes.
 
 from __future__ import annotations
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -209,50 +211,149 @@ def test_decode_at_length_0_follows_the_jax_ref_not_the_pallas_kernel(window):
     assert np.abs(mean).max() > 1e-3  # the two JAX routes really disagree
 
 
-# The split-KV plan (``decode_attention/kernel.py``): the split count from
-# host numbers, each block's slice from the device length.
-SPLIT_SHAPES = [(64, 2), (64, 4), (112, 2), (112, 4)]  # (head dim, bytes per element)
+# The one-launch partition (``decode_attention/kernel.py:segments``, the
+# formula ``decode_tma_kernel`` carries): the B * Hkv groups' valid rows,
+# flattened group by group, in equal ranges over a host-known grid.  Grids:
+# an H100's 132 SMs at 3, 2 and 1 blocks each, and a grid of 7 blocks.
+GRIDS = [3 * 132, 2 * 132, 132, 7]
+# (B, Hkv, S_max): one sequence, few and many groups, more groups than
+# blocks (128 x 8 = 1,024), a cache shorter than a tile.
+PARTITION_CELLS = [(1, 8, 8192), (3, 2, 1024), (4, 8, 4128), (16, 8, 32768), (4, 32, 4128),
+                   (1, 1, 100), (128, 8, 256)]
 
 
-@pytest.mark.parametrize("dh,itemsize", SPLIT_SHAPES)
-@pytest.mark.parametrize("b,hkv,s_max", [(1, 8, 8192), (3, 2, 1024), (4, 8, 4128),
-                                         (16, 8, 32768), (4, 32, 4128), (1, 1, 100),
-                                         (128, 8, 256)])
-def test_decode_split_ranges_tile_the_valid_range(dh, itemsize, b, hkv, s_max):
-    """For every length 0..S_max (+2) and window, the splits' slices tile
-    the rows the kernel reads exactly once, in order, none longer than the
-    rounded chunk."""
-    step = tdk.rows_per_step(dh, itemsize)
-    n = tdk.split_plan(b, hkv, s_max, 3 * 132)
-    assert 1 <= n <= tdk.MAX_SPLITS and (n == 1 or n <= s_max // tdk.MIN_SPLIT_ROWS)
-    for length in sorted({*range(0, s_max + 3, max(1, s_max // 97)), 0, 1, s_max - 1, s_max,
-                          step - 1, step, step + 1, n * step - 1, n * step, n * step + 1}):
+@functools.lru_cache(maxsize=None)
+def _blocks(groups, rows, grid):
+    """Every block's segments of ``groups`` x ``rows`` over ``grid`` blocks."""
+    return tuple(tuple(tdk.segments(groups, rows, grid, j)) for j in range(grid))
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+@pytest.mark.parametrize("b,hkv,s_max", PARTITION_CELLS)
+def test_decode_partition_covers_every_row_once(grid, b, hkv, s_max):
+    """For every length 0..S_max (+2) and window: every (group, row) of the
+    rows the kernel reads falls in exactly one block's range; a block
+    writes at most two partials, one per workspace slot (the wrapper keeps
+    2 x grid slots); a group is ``whole`` exactly when one block holds it;
+    length 0 reads all S_max rows."""
+    groups = b * hkv
+    counts = set()  # the partition depends on the length and window through hi - lo only
+    for length in sorted({*range(0, s_max + 3, max(1, s_max // 97)), 0, 1, 63, 64, 65,
+                          s_max - 1, s_max}):
         for window in (None, 1, 7, 100, s_max):
             lo, hi = tdk.valid_range(length, s_max, window)
-            assert 0 <= lo < hi <= s_max or lo == hi == s_max == 0
-            chunk = -(-(-(-(hi - lo) // n)) // step) * step
-            pos = lo
-            for split in range(n):
-                a, z = tdk.split_range(lo, hi, n, step, split)
-                assert a == pos and a <= z <= hi and z - a <= chunk
-                pos = z
-            assert pos == hi, (length, window, lo, hi, n)
+            assert 0 <= lo < hi <= s_max
+            assert (lo, hi) == (0, s_max) or length > 0
+            counts.add(hi - lo)
+    for rows in sorted(counts):
+        chunk = -(-(groups * rows) // grid)
+        spans = [[] for _ in range(groups)]  # (first row, end row, whole) in block order
+        for j, segs in enumerate(_blocks(groups, rows, grid)):
+            partial_slots = [slot for _g, _a, _z, slot, whole in segs if not whole]
+            assert len(set(partial_slots)) == len(partial_slots) <= 2
+            assert all(0 <= 2 * j + slot < 2 * grid for slot in partial_slots)
+            assert sum(z - a for _g, a, z, _s, _w in segs) <= chunk
+            for g, a, z, _slot, whole in segs:
+                spans[g].append((a, z, whole))
+            assert all(whole for *_r, whole in segs[1:-1])  # a range's middle groups
+        for g, sp in enumerate(spans):  # contiguous, in order, from 0 to rows
+            bounds = [0] + [x for a, z, _w in sp for x in (a, z)] + [rows]
+            assert all(x < y if i % 2 else x == y
+                       for i, (x, y) in enumerate(zip(bounds, bounds[1:]))), (rows, g, sp)
+            assert [w for *_r, w in sp] == [len(sp) == 1] * len(sp)
 
 
-@pytest.mark.parametrize("per_sm,want", [(3, (3, 12, 3)), (4, (4, 16, 4))])
-def test_decode_split_plan_at_the_serving_shapes(per_sm, want):
-    """One wave of split blocks on a 132-SM H100 holding 3 or 4 per SM: the
-    32k cell's 16 x 8 groups, llama's B = 4 step (4 x 8) and zamba2's B = 4
-    MHA step (4 x 32)."""
-    slots = per_sm * 132
-    got = (tdk.split_plan(16, 8, 32768, slots), tdk.split_plan(4, 8, 4128, slots),
-           tdk.split_plan(4, 32, 4128, slots))
-    assert got == want
-    assert tdk.split_plan(1, 8, 300, slots) == 1  # too few rows for two splits
-    assert tdk.split_plan(128, 8, 32768, slots) == 1  # more groups than slots
-    assert tdk.split_plan(1, 1, 1 << 20, slots) == tdk.MAX_SPLITS
-    assert tdk.rows_per_step(64, 2) == 64 and tdk.rows_per_step(112, 2) == 32
-    assert tdk.rows_per_step(64, 4) == 32 and tdk.rows_per_step(112, 4) == 16
+@pytest.mark.parametrize("grid,want", [(396, (10344, 5)), (264, (15516, 4)), (132, (31031, 3))])
+def test_decode_partition_at_the_32k_cell(grid, want):
+    """llm_decode_32k's 16 x 8 groups of 32,000 rows: the range length and
+    the most ranges a group is cut into; every group is split, and every
+    block boundary inside a group adds one partial (grid + groups - 1 in
+    all).  whisper's cross (16 x 16 groups of 1,500 rows) and zamba2's
+    ``long_500k`` (32 groups of 524,288) give every block of the grid rows."""
+    groups, rows = 16 * 8, 32000
+    blocks = _blocks(groups, rows, grid)
+    chunk = -(-(groups * rows) // grid)
+    per_group = max(sum(1 for segs in blocks for g, *_r in segs if g == x) for x in range(groups))
+    assert (chunk, per_group) == want
+    assert not any(w for segs in blocks for *_r, w in segs)
+    assert sum(len(segs) for segs in blocks) == grid + groups - 1
+    for groups, rows in ((256, 1500), (32, 524288)):
+        assert all(tdk.segments(groups, rows, grid, j) for j in range(grid))
+
+
+def _emulate_decode(q, k, v, length, window, grid, tile):
+    """The kernel's arithmetic in float32 on the CPU: each block's segments
+    read in tiles of ``tile`` rows from the segment's start, each tile's
+    rows in four quarters with an online softmax of their own in log2 units
+    (the warps), merged at the segment's end, whole groups normalised,
+    partials merged by the group's blocks in block order."""
+    b, h, dh = q.shape
+    s_max, hkv = k.shape[1], k.shape[2]
+    n_rep = h // hkv
+    lo, hi = tdk.valid_range(length, s_max, window)
+    uniform = not (min(length, s_max) > (max(0, length - window) if window else 0))
+    rows, groups = hi - lo, b * hkv
+    c = (1.0 / dh ** 0.5) * 1.4426950408889634
+    out = torch.empty(b, h, dh)
+    parts = {}  # (group) -> [(m, l, acc)] in block order
+
+    def merge(states):
+        mm = torch.stack([m for m, _l, _a in states]).amax(0)
+        w = [torch.exp2(m - mm) for m, _l, _a in states]
+        return (mm, sum(l * x for (_m, l, _a), x in zip(states, w)),
+                sum(a * x[:, None] for (_m, _l, a), x in zip(states, w)))
+
+    for j in range(grid):
+        for g, a, z, _slot, whole in tdk.segments(groups, rows, grid, j):
+            bi, hk = divmod(g, hkv)
+            qg = q[bi, hk * n_rep:(hk + 1) * n_rep].float()
+            warps = [(torch.full((n_rep,), -1e30), torch.zeros(n_rep), torch.zeros(n_rep, dh))
+                     for _ in range(4)]
+            for r0 in range(lo + a, lo + z, tile):
+                for w in range(4):
+                    rr = torch.arange(r0 + w * tile // 4, r0 + (w + 1) * tile // 4)
+                    ok = rr < lo + z
+                    rr = rr.clamp(max=s_max - 1)
+                    kk, vv = k[bi, rr, hk].float(), v[bi, rr, hk].float()
+                    x = torch.zeros(n_rep, len(rr)) if uniform else (qg @ kk.T) * c
+                    x = torch.where(ok[None], x, torch.tensor(-float("inf")))
+                    m, l, acc = warps[w]
+                    m_new = torch.maximum(m, x.amax(1))
+                    alpha, p = torch.exp2(m - m_new), torch.exp2(x - m_new[:, None])
+                    warps[w] = (m_new, l * alpha + p.sum(1), acc * alpha[:, None] + p @ vv)
+            state = merge(warps)
+            if whole:
+                out[bi, hk * n_rep:(hk + 1) * n_rep] = state[2] / state[1].clamp(min=1e-30)[:, None]
+            else:
+                parts.setdefault(g, []).append(state)
+    for g, states in parts.items():
+        bi, hk = divmod(g, hkv)
+        _m, l, acc = merge(states)
+        out[bi, hk * n_rep:(hk + 1) * n_rep] = acc / l.clamp(min=1e-30)[:, None]
+    return out
+
+
+# (B, Hkv, query heads per KV head, S_max, length, window, grid, tile):
+# ranges ending mid-tile and crossing groups, length 0, 1 and S_max, a
+# window, a grid larger than the work, MHA and an 8-head group.
+EMULATED = [(3, 2, 4, 200, 157, None, 7, 64), (3, 2, 4, 200, 0, None, 7, 64),
+            (3, 2, 4, 200, 1, None, 7, 64), (3, 2, 4, 200, 200, 30, 11, 64),
+            (2, 3, 1, 130, 129, None, 5, 32), (1, 2, 8, 300, 300, None, 3, 64),
+            (2, 2, 2, 40, 9, None, 64, 64), (2, 2, 4, 96, 96, 50, 4, 32)]
+
+
+@pytest.mark.parametrize("b,hkv,n_rep,s_max,length,window,grid,tile", EMULATED)
+def test_decode_partition_emulation_matches_jax_ref(b, hkv, n_rep, s_max, length, window, grid,
+                                                    tile):
+    """The partition, the per-range online softmax and the ordered merge,
+    emulated in float32, against the JAX ``ref.py`` within
+    ``ATTN_TOL["float32"]`` (2e-5 of 1 + |want|)."""
+    (jq, q), (jk, k), (jv, v) = _decode_inputs(b, hkv * n_rep, hkv, s_max, 64, 30)
+    got = _emulate_decode(q, k, v, length, window, grid, tile).numpy()
+    want = _np(jdr.decode_attention(jq, jnp.repeat(jk, n_rep, axis=2),
+                                    jnp.repeat(jv, n_rep, axis=2), jnp.int32(length),
+                                    window=window))
+    assert (np.abs(got - want) <= 2e-5 * (1 + np.abs(want))).all(), np.abs(got - want).max()
 
 
 # --------------------------------------------------------------------------- #

@@ -15,7 +15,7 @@ P V product on the tensor cores (as FlashAttention-3 and SDPA do): <=
 2^-9 relative per weight, random in sign, so its effect on an output is
 far below one ulp of the row's largest value.  In float32 the limit,
 2e-5 * (1 + |plain|), sits above summation-order noise (the decode
-kernel's split-KV combine merges in another order) and below what one
+kernel merges its blocks' ranges in another order) and below what one
 key too many or too few moves an output.  SwiGLU: the plain version rounds
 the gate and up products to bf16, the kernel rounds their silu product
 once, so bf16 is held to 5e-2 of the output's magnitude.
@@ -98,8 +98,8 @@ def test_cuda_flash_bf16_refuses_misaligned_rows(cuda_device):
 
 
 # (B, S_max, length, window): lengths 0 (the mean of V, as ref.py), 1, one
-# split, around a split boundary, S_max; a window shorter than a split;
-# B = 1 (many splits) and B = 16 (few).
+# 64-row tile, around a tile boundary, S_max; a window shorter than a
+# block's range; B = 1 (a group over many blocks) and B = 16 (few).
 DECODE_CASES = [(3, 1024, 1, None), (3, 1024, 1000, None), (3, 1024, 1000, 100),
                 (3, 1024, 0, None), (3, 1024, 0, 100), (3, 1024, 64, None),
                 (3, 1024, 255, None), (3, 1024, 256, None), (3, 1024, 257, None),
@@ -224,6 +224,61 @@ def test_cuda_decode_at_whisper_shapes_matches_plain(cuda_device, dtype, s_max, 
     n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
     got = tdk.decode_attention(q, k, v, n)
     _assert_attention_close(got, tdr.decode_attention(q, k, v, n))
+
+
+# Ranges that end mid-tile and cross from one group into the next: B 3
+# over the card's whole grid (3 x 2 groups of 4,097 rows are ~47 rows a
+# block), at length 1 (a block per group), 257, 4,097 and a window; the
+# tensor-core pairs and the CUDA-core ones.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,n_rep", [(64, 4), (112, 8), (128, 6), (64, 1), (112, 1)])
+@pytest.mark.parametrize("length,window", [(1, None), (257, None), (4097, None), (4097, 1000)])
+def test_cuda_decode_ranges_cross_groups_mid_tile(cuda_device, dtype, dh, n_rep, length, window):
+    gen = torch.Generator().manual_seed(14)
+    b, hkv, s_max = 3, 2, 4128
+    q = torch.randn(b, hkv * n_rep, dh, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+    n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    got = tdk.decode_attention(q, k, v, n, window=window)
+    _assert_attention_close(got, tdr.decode_attention(q, k, v, n, window=window))
+
+
+# MHA runs its heads in pairs where their count is even (a tile row holds
+# two heads' slices); an odd count takes one head a group.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 112])
+@pytest.mark.parametrize("b,hkv,length", [(3, 3, 300), (2, 1, 4097), (2, 5, 1)])
+def test_cuda_decode_mha_odd_head_counts(cuda_device, dtype, dh, b, hkv, length):
+    gen = torch.Generator().manual_seed(16)
+    s_max = 4128
+    q = torch.randn(b, hkv, dh, generator=gen).to(cuda_device, dtype)
+    k = torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+    v = torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+    n = torch.tensor(length, dtype=torch.int32, device=cuda_device)
+    _assert_attention_close(tdk.decode_attention(q, k, v, n), tdr.decode_attention(q, k, v, n))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,n_rep", [(64, 4), (112, 1)])
+def test_cuda_decode_repeats_bitwise_and_resets_its_counters(cuda_device, dtype, dh, n_rep):
+    """Two calls give equal bits (the partials merge in block order).  Calls
+    back to back on one stream whose group counts differ (B 1, 7 and 3, two
+    KV heads each; their groups split over many blocks) each match the
+    plain version: every merging block left its counter at 0."""
+    gen = torch.Generator().manual_seed(15)
+    hkv, s_max = 2, 5000
+    n = torch.tensor(4321, dtype=torch.int32, device=cuda_device)
+    calls = []
+    for b in (1, 7, 3, 1):
+        q = torch.randn(b, hkv * n_rep, dh, generator=gen).to(cuda_device, dtype)
+        k, v = (torch.randn(b, s_max, hkv, dh, generator=gen).to(cuda_device, dtype)
+                for _ in range(2))
+        calls.append(((q, k, v), tdk.decode_attention(q, k, v, n)))
+    for args, got in calls:
+        _assert_attention_close(got, tdr.decode_attention(*args, n))
+    args, first = calls[0]
+    assert torch.equal(tdk.decode_attention(*args, n), first)
 
 
 def test_cuda_decode_refuses_a_pair_it_is_not_built_for(cuda_device):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the launch plans of the port's SwiGLU, scan, match-count and fused
-decide kernels on one CUDA card, at their paths' shapes, to choose their
+"""Time the launch plans of the port's SwiGLU, scan, match-count, fused
+decide, flash and decode attention kernels on one CUDA card, at their paths' shapes, to choose their
 constants.
 
     python3 tools/kernel_plans.py                # from the repository root: all
@@ -38,6 +38,19 @@ constants.
   held to ``chip_smoke.ATTN_TOL`` against the plain version and timed
   beside SDPA; ``flash --against DIR`` also times DIR's flash kernel (a
   parent checkout unpacked under ``build/``) at the same shapes.
+- ``decode`` at the timed decode shapes of ``chip_smoke.DECODE_CASES``,
+  bf16: the one-launch kernel's choices (the consumer form -- tensor cores
+  or CUDA cores at the GQA pairs --, rows per tile, ring stages) built
+  into a library of its own from ``csrc/decode_attention.cu`` with
+  ``ptxas -v``, and the default choice at every count of blocks per SM
+  its occupancy allows; each held to ``chip_smoke.ATTN_TOL`` against the
+  plain version and timed beside SDPA (on a heads-first copy of the valid
+  rows) and the bound.  ``decode --against DIR`` also times DIR's decode
+  kernel (its own split plan), before and after the choices.  At
+  ``long_500k``'s zamba2 shape both kernels also run on the same cache
+  laid out heads-first (B x Hkv = 32 sequences of one head), the layout
+  question: how much of the gap to SDPA the model's [B, S, Hkv, Dh]
+  layout accounts for.
 
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
@@ -74,7 +87,7 @@ def main() -> int:
     timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths,
               "match_count": match_count_plans, "decide_fused": decide_plans,
               "queue_window": window_plans, "gain_topr": topr_plans,
-              "flash": flash_tiles}
+              "flash": flash_tiles, "decode": decode_plans}
     names = [a for a in sys.argv[1:] if a in timers]
     for name in names or list(timers):
         timers[name](torch, cs, _build, dev, gen)
@@ -404,6 +417,225 @@ def flash_tiles(torch, cs, _build, dev, gen):
                           "ms": cs.median_ms(wrapper, runs=5, inner=3),
                           "sdpa_ms": None if window else cs.median_ms(sdpa, runs=5, inner=3),
                           "bound_ms": bound}), flush=True)
+        del q, k, v, want
+        torch.cuda.empty_cache()
+
+
+# The decode kernel's choices per (head dim, query heads per KV head):
+# (form, rows per tile, ring stages); the first of each is csrc/
+# decode_attention.cu's `Plan`, timed at every count of blocks per SM its
+# occupancy allows (the wrapper runs ``BLOCKS_PER_SM``), the others at
+# their most.  "mma": `MmaTile` (tensor cores, bf16 GQA); "core":
+# `CoreTile` (CUDA cores), "pair" its MHA form over two heads a group;
+# "loads": the first with no arithmetic.
+DECODE_CHOICES = {
+    **{(dh, r): (("mma", 64, 4), ("mma", 64, 2), ("mma", 64, 3), ("mma", 128, 2), ("core", 64, 4),
+                 ("loads", 64, 4))
+       for dh, r in ((64, 4), (112, 8), (128, 4), (128, 6), (128, 7), (128, 8))},
+    **{(dh, 1): (("pair", 32, 4), ("pair", 32, 2), ("pair", 64, 2), ("core", 64, 4),
+                 ("core", 64, 2), ("core", 128, 2), ("loads", 32, 4)) for dh in (64, 112)},
+}
+# (name, head dim, query heads, KV heads, B, S_max, length, window): the
+# timed bf16 decode shapes of chip_smoke.py's DECODE_CASES.
+DECODE_SHAPES = (("llama_32k", 64, 32, 8, 16, 32768, 32000, None),
+                 ("llama_step", 64, 32, 8, 4, 4128, 4097, None),
+                 ("zamba2_step", 112, 32, 32, 4, 4128, 4097, None),
+                 ("phi3_step", 128, 40, 10, 4, 4128, 4097, None),
+                 ("yi_step", 128, 56, 8, 4, 4128, 4097, None),
+                 ("command_r_step", 128, 64, 8, 4, 4128, 4097, None),
+                 ("phi3_32k", 128, 40, 10, 16, 32768, 32000, None),
+                 ("mixtral_step", 128, 48, 8, 4, 4128, 4097, 4096),
+                 ("kimi_step", 112, 64, 8, 4, 4128, 4097, None),
+                 ("whisper_cross", 64, 16, 16, 16, 1500, 1500, None),
+                 ("whisper_self", 64, 16, 16, 16, 448, 225, None),
+                 ("zamba2_long_500k", 112, 32, 32, 1, 524288, 524288, None),
+                 ("mixtral_long_500k", 128, 48, 8, 1, 524288, 524288, 4096))
+
+
+def decode_plans(torch, cs, _build, dev, gen):
+    """Every choice of ``DECODE_CHOICES`` at ``DECODE_SHAPES``, built into a
+    library of its own with ``ptxas -v``, held to ``chip_smoke.ATTN_TOL``
+    and timed beside SDPA, the bound and, with ``--against DIR``, DIR's
+    decode kernel; then the heads-first layout at ``long_500k``."""
+    import ctypes
+    import subprocess
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
+
+    work = ROOT / "build" / "decode_plans"
+    work.mkdir(parents=True, exist_ok=True)
+    args = ("const void* q, const void* k, const void* v, const int* len, void* o, float* part, "
+            "unsigned* count, int b, int hkv, int s_max, int grid, float scale, int window, "
+            "int device, void* stream")
+    # "loads": the default choice with its arithmetic taken out (the TMA
+    # ring, the masks' loop and the merges stay): the time the ring alone
+    # needs, so the consumers' share of the kernel's time (its output is
+    # wrong and is not held to the plain version).
+    src = ['#include "decode_attention.cu"',
+           "template <class C> struct LoadsOnly : C {",
+           "  using C::C;",
+           "  __device__ void tile(const uint8_t*, int, int, bool) {}",
+           "};",
+           f"extern \"C\" int decode_plan(int i, {args}) {{",
+           "  const Args a{q, k, v, len, o, part, count, b, s_max, hkv, grid, scale, window};",
+           "  cudaStream_t s = static_cast<cudaStream_t>(stream);"]
+    per_sm = ["extern \"C\" int decode_plan_per_sm(int i, int device, int* n) {"]
+    index = {}
+    for (dh, r), choices in DECODE_CHOICES.items():
+        for form, tile, stages in choices:
+            index[dh, r, form, tile, stages] = i = len(index)
+            insts = {"mma": f"MmaTile<{dh}, {r}, {tile}, {stages}>",
+                     "core": f"CoreTile<bf16, {dh}, {r}, {tile}, {stages}>",
+                     "pair": f"CoreTile<bf16, {dh}, 2, {tile}, {stages}, 2>"}
+            inst = insts.get(form) or f"LoadsOnly<{insts[choices[0][0]]}>"
+            src.append(f"  if (i == {i}) return launch<{inst}>(a, device, s);")
+            per_sm.append(f"  if (i == {i}) return occupancy<{inst}>(device, n);")
+    src += ["  return cudaErrorInvalidValue;\n}", *per_sm, "  return cudaErrorInvalidValue;\n}"]
+    (work / "plans.cu").write_text("\n".join(src) + "\n")
+    builds = [("plans", work / "plans.cu", _build.CSRC)]
+    trees = [pathlib.Path(sys.argv[i + 1]).resolve() for i, a in enumerate(sys.argv)
+             if a == "--against"]
+    for n, tree in enumerate(trees):
+        csrc = tree / "src" / "repro_torch" / "csrc"
+        builds.append((f"against{n}", csrc / "decode_attention.cu", csrc))
+    libs = {}
+    for name, path, inc in builds:
+        lib_path = work / f"lib{name}.so"
+        res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-shared",
+                              "-I", str(inc), str(path), "-o", str(lib_path)],
+                             capture_output=True, text=True)
+        lines = (res.stdout + res.stderr).splitlines()
+        ptxas, entry, spill = [], None, None  # (entry, spill line, registers line)
+        for ln in lines:
+            if "Compiling entry function" in ln:
+                entry, spill = ln.split("'")[1], None
+            elif "spill stores" in ln:
+                spill = ln.strip()
+            elif "registers" in ln and entry and "decode" in entry:
+                ptxas.append([entry, spill, ln.split(":", 1)[-1].strip()])
+        print(json.dumps({"kernel": "decode_attention", "build": name, "source": str(path),
+                          "build_rc": res.returncode, "ptxas": ptxas,
+                          "errors": [ln for ln in lines if "error" in ln][:20]}), flush=True)
+        if res.returncode:
+            return
+        libs[name] = ctypes.CDLL(str(lib_path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    plan_fn, plan_per_sm = libs["plans"].decode_plan, libs["plans"].decode_plan_per_sm
+    plan_fn.argtypes = [i] + [p] * 7 + [i] * 4 + [f] + [i] * 2 + [p]
+    plan_fn.restype = i
+    plan_per_sm.argtypes = [i, i, ctypes.POINTER(i)]
+    plan_per_sm.restype = i
+    others = []
+    for n, tree in enumerate(trees):
+        lib = libs[f"against{n}"]
+        lib.repro_decode_attention.argtypes = [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p]
+        lib.repro_decode_attention.restype = i
+        lib.repro_decode_attention_blocks_per_sm.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.repro_decode_attention_blocks_per_sm.restype = i
+        others.append((tree, lib))
+    symbols = ("decode_tma_kernel", "decode_split_kernel", "decode_combine_kernel")
+    sms = _build.sm_count(0)
+    bf16 = torch.bfloat16
+
+    def blocks_per_sm(idx):
+        n = ctypes.c_int(0)
+        _build.check_error("decode_plan", plan_per_sm(idx, 0, ctypes.byref(n)))
+        return n.value
+
+    def parent_call(lib, q, k, v, n, window):
+        b, h, dh = q.shape
+        s_max, hkv = k.shape[1], k.shape[2]
+        per = ctypes.c_int(0)
+        _build.check_error("against", lib.repro_decode_attention_blocks_per_sm(
+            dh, h // hkv, 1, 0, ctypes.byref(per)))
+        splits = max(1, min(per.value * sms // (b * hkv), s_max // 256, 64))  # its split_plan
+        ws = torch.empty(b * h * splits * (dh + 2), dtype=torch.float32, device=dev)
+        out = torch.empty_like(q)
+
+        def run():
+            _build.check_error("against", lib.repro_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), n.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), ws.data_ptr() + b * h * splits * dh * 4, b, h, hkv, s_max, dh,
+                splits, dh ** -0.5, window or 0, 1, 0, torch.cuda.current_stream().cuda_stream))
+            return out
+        return run
+
+    def plan_call(idx, grid, q, k, v, n, window):
+        b, h, dh = q.shape
+        s_max, hkv = k.shape[1], k.shape[2]
+        out = torch.empty_like(q)
+        part = torch.empty(2 * grid * max(h // hkv, 2) * (dh + 2), dtype=torch.float32,
+                           device=dev)
+        count = torch.zeros(b * hkv, dtype=torch.int32, device=dev)
+
+        def run():
+            _build.check_error("decode_plan", plan_fn(
+                idx, q.data_ptr(), k.data_ptr(), v.data_ptr(), n.data_ptr(), out.data_ptr(),
+                part.data_ptr(), count.data_ptr(), b, hkv, s_max, grid, dh ** -0.5, window or 0,
+                0, torch.cuda.current_stream().cuda_stream))
+            return out
+        return run
+
+    def timed(fn, want, label, shape, bound, **extra):
+        got = fn().clone()
+        ok = cs.close_err(got, want, *cs.ATTN_TOL["bfloat16"])[1] and torch.equal(fn(), got)
+        print(json.dumps({"kernel": "decode_attention", "shape": shape, "run": label, **extra,
+                          "ok": ok, "ms": cs.median_ms(fn, runs=5, inner=3),
+                          "device_us": cs.device_us_per_call(fn, symbols), "bound_ms": bound}),
+              flush=True)
+
+    def against(q, k, v, n, window, want, shape, bound):
+        for tree, lib in others:
+            timed(parent_call(lib, q, k, v, n, window), want, "against", shape, bound,
+                  tree=str(tree))
+
+    for name, dh, hq, hkv, b, s_max, length, window in DECODE_SHAPES:
+        q = torch.randn((b, hq, dh), generator=gen, device=dev).to(bf16)
+        k, v = (torch.randn((b, s_max, hkv, dh), generator=gen, device=dev).to(bf16)
+                for _ in range(2))
+        n = torch.tensor(length, dtype=torch.int32, device=dev)
+        want = dr.decode_attention(q, k, v, n, window=window)
+        lo = max(0, length - window) if window else 0
+        bound = cs.bound(*kcost.decode_work(b, hq, hkv, dh, length - lo),
+                         cs.PEAK_BF16_OPS_PER_S)[0]
+        shape = f"{name}: B={b},S_max={s_max},length={length},H={hq}/{hkv},Dh={dh}" + (
+            f",window={window}" if window else "")
+        against(q, k, v, n, window, want, shape, bound)
+        choices = DECODE_CHOICES[dh, hq // hkv]
+        for choice in choices:
+            idx = index[(dh, hq // hkv, *choice)]
+            most = blocks_per_sm(idx)
+            for per in range(1, most + 1) if choice == choices[0] else (most,):
+                timed(plan_call(idx, per * sms, q, k, v, n, window), want, "plan", shape, bound,
+                      form=choice[0], tile=choice[1], stages=choice[2], blocks_per_sm=per,
+                      chosen=choice == choices[0] and per == dk.BLOCKS_PER_SM)
+        against(q, k, v, n, window, want, shape, bound)
+        kv = [t[:, lo:length].transpose(1, 2).contiguous() for t in (k, v)]
+        print(json.dumps({"kernel": "decode_attention", "shape": shape, "run": "wrapper",
+                          "ms": cs.median_ms(lambda: dk.decode_attention(q, k, v, n,
+                                                                          window=window),
+                                             runs=5, inner=3),
+                          "sdpa_ms": cs.median_ms(lambda: F.scaled_dot_product_attention(
+                              q[:, :, None], *kv, enable_gqa=True), runs=5, inner=3),
+                          "bound_ms": bound}), flush=True)
+        del kv
+        if name == "zamba2_long_500k":  # the same bytes, heads-first: 32 sequences of one head
+            qh, kh, vh = (t.transpose(1, 2).reshape(b * hkv, 1, -1, dh).transpose(1, 2)
+                          .contiguous() for t in (q[:, None], k, v))
+            qh = qh[:, 0]
+            want_h = want.reshape(b * hkv, 1, dh)
+            single = ("core", 64, 4)  # one head a sequence: the wrapper's single-head route
+            idx = index[(dh, 1, *single)]
+            layout = f"{name} heads-first: B={b * hkv},S_max={s_max},length={length},H=1/1,Dh={dh}"
+            against(qh, kh, vh, n, window, want_h, layout, bound)
+            timed(plan_call(idx, dk.BLOCKS_PER_SM * sms, qh, kh, vh, n, window), want_h, "plan",
+                  layout, bound, form=single[0], tile=single[1], stages=single[2],
+                  blocks_per_sm=dk.BLOCKS_PER_SM, chosen=True)
+            against(qh, kh, vh, n, window, want_h, layout, bound)
+            del qh, kh, vh
         del q, k, v, want
         torch.cuda.empty_cache()
 
