@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels.swiglu import ops as swiglu_ops
 from .common import ModelConfig
 
@@ -154,9 +155,12 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
     keep = rank < cap
     src = _slot_sources(order // k, sk, start, e, cap, t)
     buf = _pad_row(xf)[src].reshape(e, cap, d)
-    out_e = _experts(buf, params["wi_gate"], params["wi_up"], params["wo"])
+    with obs.span("moe.experts"):
+        out_e = _experts(buf, params["wi_gate"], params["wi_up"], params["wo"])
     vals = out_e.reshape(e * cap, d)[flat * cap + rank.clamp(max=cap - 1)]
     out = _combine(vals, keep, weights, t, k)
+    obs.count("moe.pairs_kept", keep)
+    obs.count("moe.pairs_routed", t * k)
     if cfg.n_shared_experts > 0:
         out = out + swiglu(params["shared"], xf)
     if routing is not None:

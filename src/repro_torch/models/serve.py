@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from .attention import attention_decode, init_kv_cache
 from .common import ModelConfig, rms_norm
@@ -112,7 +113,13 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, *, device
     position's logits [B, V] and the cache at that length.  Runs on
     ``device`` (default: the CUDA device), where the parameters and the
     cache must be.  ``routing`` (a list) receives each MoE layer's routing
-    (``models/ffn.py``)."""
+    (``models/ffn.py``).  Recorded as the span ``serve.prefill``
+    (:mod:`repro_torch.obs`)."""
+    with obs.call("serve.prefill", device):
+        return _prefill(params, cfg, batch, cache, device, routing)
+
+
+def _prefill(params: dict, cfg: ModelConfig, batch: dict, cache: Cache, device, routing):
     require_ported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(batch["tokens"], device=dev)
@@ -150,7 +157,13 @@ def decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, *, device=
     row, where the reference's ``dynamic_update_slice`` clamps them;
     whisper's cross attention reads the first ``cfg.enc_seq`` rows of ``xk``
     / ``xv`` (a length made on the device once per step).
-    ``routing``: as :func:`prefill`'s."""
+    ``routing``: as :func:`prefill`'s.  Recorded as the span
+    ``serve.decode_step`` (:mod:`repro_torch.obs`)."""
+    with obs.call("serve.decode_step", device):
+        return _decode_step(params, cfg, tokens, cache, device, routing)
+
+
+def _decode_step(params: dict, cfg: ModelConfig, tokens, cache: Cache, device, routing):
     require_ported(cfg)
     dev = resolve_device(device)
     tokens = torch.as_tensor(tokens, device=dev)
@@ -205,9 +218,10 @@ def _attn_decode(lp: dict, x, cfg: ModelConfig, positions, slot, new_length, k_r
     to position ``slot`` of the layer's (or site's) cache rows, in place,
     then it attends over the first ``new_length`` positions."""
     b = x.shape[0]
-    h2 = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(lp, h2, cfg, positions, positions_3d)
-    k_row.index_copy_(1, slot, k.to(cfg.dtype))
-    v_row.index_copy_(1, slot, v.to(cfg.dtype))
-    o = attention_decode(q, k_row, v_row, new_length, window=window)
-    return x + o.reshape(b, 1, cfg.q_dim) @ lp["wo"]
+    with obs.span("layer.attn"):
+        h2 = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h2, cfg, positions, positions_3d)
+        k_row.index_copy_(1, slot, k.to(cfg.dtype))
+        v_row.index_copy_(1, slot, v.to(cfg.dtype))
+        o = attention_decode(q, k_row, v_row, new_length, window=window)
+        return x + o.reshape(b, 1, cfg.q_dim) @ lp["wo"]

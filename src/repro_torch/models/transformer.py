@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import obs
 from ..device import resolve_device
 from ..kernels.rwkv6_scan import ops as rwkv6_ops
 from ..kernels.ssd_scan import ops as ssd_ops
@@ -372,10 +373,11 @@ def _attn_block(lp: dict, x, cfg: ModelConfig, positions, *, window: int | None,
     """Pre-norm attention with a residual; returns (x, (k, v)) with k after
     RoPE, as the cache stores it."""
     b, s, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _qkv(lp, h, cfg, positions, positions_3d)
-    o = attention_train(q, k, v, causal=True, window=window)
-    return x + o.reshape(b, s, cfg.q_dim) @ lp["wo"], (k, v)
+    with obs.span("layer.attn"):
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _qkv(lp, h, cfg, positions, positions_3d)
+        o = attention_train(q, k, v, causal=True, window=window)
+        return x + o.reshape(b, s, cfg.q_dim) @ lp["wo"], (k, v)
 
 
 def _ffn_block(lp: dict, x, cfg: ModelConfig, ep=None, routing=None):
@@ -385,19 +387,20 @@ def _ffn_block(lp: dict, x, cfg: ModelConfig, ep=None, routing=None):
     for it (``moe_impl == "shard_map_ep"``) and groups are given, the layer's
     MoE parameters then being the rank's :func:`~repro_torch.models.ffn
     .ep_shard`.  ``routing`` (a list) receives each MoE call's routing."""
-    h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    if cfg.n_experts == 0:
-        o = swiglu({"wi_gate": lp["wi_gate"], "wi_up": lp["wi_up"], "wo": lp["wo_ffn"]}, h)
-        return x + o, torch.zeros((), dtype=torch.float32, device=x.device)
-    moe = _moe_params(lp)
-    if cfg.moe_impl == "shard_map_ep" and ep is not None:
-        o, aux = moe_layer_ep(moe, h, cfg, ep)
-    else:
-        rec = {} if routing is not None else None
-        o, aux = moe_layer(moe, h, cfg, rec)
-        if routing is not None:
-            routing.append(rec)
-    return x + o, aux
+    with obs.span("layer.ffn"):
+        h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+        if cfg.n_experts == 0:
+            o = swiglu({"wi_gate": lp["wi_gate"], "wi_up": lp["wi_up"], "wo": lp["wo_ffn"]}, h)
+            return x + o, torch.zeros((), dtype=torch.float32, device=x.device)
+        moe = _moe_params(lp)
+        if cfg.moe_impl == "shard_map_ep" and ep is not None:
+            o, aux = moe_layer_ep(moe, h, cfg, ep)
+        else:
+            rec = {} if routing is not None else None
+            o, aux = moe_layer(moe, h, cfg, rec)
+            if routing is not None:
+                routing.append(rec)
+        return x + o, aux
 
 
 def attention_window(cfg: ModelConfig) -> int | None:
