@@ -157,13 +157,15 @@ Phases, each printing one JSON line:
    unsquared distance: the nearest single PyTorch call), null for the
    others; for the three LLM kernels it is ``scaled_dot_product_attention``
    (``enable_gqa=True``) on the same inputs for the two attention kernels
-   (decode: on the valid prefix) and null for ``swiglu`` and the two scans
-   (no single PyTorch call computes a chunked linear recurrence).
-   Launches of the attention, SwiGLU and scan kernels sum the serving
+   (decode: on the valid prefix), the padded ``torch.bmm`` products
+   (``models/ffn.py:_experts``) for ``moe_experts``, and null for
+   ``swiglu`` and the two scans (no single PyTorch call computes a chunked
+   linear recurrence).
+   Launches of the attention, SwiGLU, experts and scan kernels sum the serving
    paths and the ``train`` runs, each counted from zero, and are split by
    path in ``launches_by_path``; the four training kernels also carry
    ``train_fwd_bwd_ms`` / ``train_plain_fwd_bwd_ms`` from
-   ``train_kernels`` (bf16); the three LLM kernels carry ``shapes``, the
+   ``train_kernels`` (bf16); the four LLM kernels carry ``shapes``, the
    timed cases of phase 9 by group;
 9. ``llm_kernels`` (with the parity phase, before the main path):
    ``flash_attention``, ``decode_attention`` and ``swiglu`` against their
@@ -186,12 +188,18 @@ Phases, each printing one JSON line:
    that step's T 1; decode at B 3 over 4,128 rows, where the blocks'
    ranges end mid-tile and cross from one sequence or head into the next
    (llama, kimi, zamba2).  Every decode case runs twice, its bits held
-   equal.  The timed cases (bf16, CUDA
+   equal.  ``moe_experts`` (``MOE_CASES``, bf16 within ``MOE_TOL`` on the
+   filled slots): mixtral's layer in the mixtral prefill cell (E 8 x C
+   5,120 at the cell's kept counts; the kernel table's row), kimi's 384
+   full-width routed experts at a 4 x 4,096 prefill (C 426), and both at a
+   B 4 step (C 1).  The timed cases (bf16, CUDA
    events and ``torch.profiler`` device time) stand beside the plain
    version, SDPA where one call computes the same function (a windowed
    case has none: SDPA takes the window only as a dense mask, off its
-   flash backend; that time is kept as ``masked_sdpa_ms``), and the bound
-   (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16);
+   flash backend; that time is kept as ``masked_sdpa_ms``; the experts'
+   yardstick is the padded ``torch.bmm`` path), and the bound
+   (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16; the experts'
+   from their filled slots);
 10. ``card_vs_cpu``: each ``CARD_VS_CPU`` arch at full width, cut to 1-2
     layers (kimi also to 32 of its 384 experts), in bf16 and float32: a
     prefill and greedy steps on the card and, with the same parameters and
@@ -2274,6 +2282,12 @@ HQ, HKV, DH, D_MODEL, D_FF, FLASH_S = 32, 8, 64, 2048, 8192, 2048
 # moves an output at 32k keys (~1e-4).
 ATTN_TOL = {"bfloat16": (2 ** -6, "row"), "float32": (2e-5, "element")}
 SWIGLU_TOL = {"bfloat16": (5e-2, "tensor"), "float32": (2e-3, "tensor")}
+# The routed experts round as ``models/ffn.py:_experts`` does, step for
+# step; only the order of accumulation inside a product differs, which
+# moves a bf16 output by a few ulps (2^-8 of its value each): 2e-2 of the
+# largest value, as tests/test_torch_moe.py holds the bf16 layer.  A
+# wrong expert, column tile or gate is off by the values themselves.
+MOE_TOL = {"bfloat16": (2e-2, "tensor")}
 # Every device function of each kernel (bf16 flash and scans on the tensor
 # cores, float32 on CUDA cores; decode's one kernel, its consumers on the
 # tensor cores or the CUDA cores).
@@ -2282,6 +2296,7 @@ LLM_SYMBOLS = {"flash_attention": ("flash_wgmma_kernel", "flash_fwd_kernel"),
                "swiglu": ("swiglu_wgmma_kernel", "swiglu_stream_kernel",
                           "swiglu_stream_f32_kernel", "swiglu_reduce_kernel",
                           "swiglu_f32_tile_kernel"),
+               "moe_experts": ("experts_wgmma_kernel",),
                "rwkv6_scan": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
                "ssd_scan": ("ssd_mma_kernel", "ssd_scan_kernel")}
 
@@ -2407,6 +2422,21 @@ SWIGLU_CASES = (  # T 16,384: a 4 x 4096 prefill (the wgmma route); T 4-16: a st
       for t in (SERVE_B, SERVE_B * SERVE_S)),
     ("long_500k", ZAMBA, 1, BOTH, True),  # zamba2's shared block at a batch-1 step
 )
+# The routed experts' grouped kernels (group, arch, tokens, timed), bf16
+# (the kernels take nothing else), full width: mixtral's layer in the
+# ``mixtral-prefill-4x4096`` cell (E 8 x capacity 5,120, D 6,144, F 16,384,
+# filled as the cell's traced calls kept, ``MOE_COUNTS``: 30,837 slots, two
+# experts overflowing, from 400,878 kept pairs over 13 layers) is the kernel
+# table's row; kimi's 384 routed experts (D 7,168, F 2,048) at the same 4 x
+# 4,096 prefill (capacity 426) and mixtral's and kimi's B 4 step (capacity
+# 1) fill from a uniform top-k routing.
+MOE_COUNTS = (5120, 5120, 4600, 4100, 3800, 3300, 2700, 2097)
+MOE_CASES = (
+    ("main", MIXTRAL, SERVE_B * SERVE_S, True),
+    ("moe_vlm", KIMI, SERVE_B * SERVE_S, True),
+    ("moe_vlm", MIXTRAL, SERVE_B, True),
+    ("moe_vlm", KIMI, SERVE_B, True),
+)
 # Above this size of [B, Hq, S, S] float32 logits the plain attention runs
 # one KV head (and its query heads) at a time: the same function (each
 # group's softmax is its own), whose whole logits at mixtral's 2 x 8192 x
@@ -2429,13 +2459,16 @@ def _plain_attention(q, k, v, **kw):
 
 
 def llm_kernels_phase(dev):
-    """``flash_attention``, ``decode_attention`` and ``swiglu`` against
-    their plain versions on the card at every case of ``FLASH_CASES``,
-    ``DECODE_CASES`` and ``SWIGLU_CASES``, each within ``ATTN_TOL`` /
-    ``SWIGLU_TOL``; the timed cases in bf16 (CUDA events, and the device
+    """``flash_attention``, ``decode_attention``, ``swiglu`` and
+    ``moe_experts`` against their plain versions on the card at every case
+    of ``FLASH_CASES``, ``DECODE_CASES``, ``SWIGLU_CASES`` and
+    ``MOE_CASES``, each within ``ATTN_TOL`` / ``SWIGLU_TOL`` / ``MOE_TOL``
+    (the experts on their filled slots: the kernels leave the tiles past
+    them unwritten); the timed cases in bf16 (CUDA events, and the device
     time by ``torch.profiler``) beside the plain version, the PyTorch call
     that computes the same function (SDPA with ``enable_gqa=True``, decode
-    on the valid prefix; none for SwiGLU, two GEMMs and a gate), that
+    on the valid prefix; none for SwiGLU, two GEMMs and a gate; the
+    experts' padded ``torch.bmm`` products, ``models/ffn.py:_experts``), that
     call's (or, without one, the plain version's) device time, and the
     bound.  SDPA takes a window only as a dense mask, which moves it off
     its flash backend: a windowed case has no library time, and its masked
@@ -2449,7 +2482,9 @@ def llm_kernels_phase(dev):
     from repro_torch.kernels import _build, cost as kcost
     from repro_torch.kernels.decode_attention import kernel as dk, ref as dr
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.moe_experts import kernel as mk, ref as mr
     from repro_torch.kernels.swiglu import kernel as sk, ref as sr
+    from repro_torch.models import ffn
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(77)
@@ -2463,14 +2498,18 @@ def llm_kernels_phase(dev):
     def run_case(kernel, group, arch, case, dtypes, make, timed, work, quick=False):
         """Hold ``make(dtype)``'s kernel call to its plain call in each of
         ``dtypes``; when ``timed``, time the bf16 calls (``make`` returns
-        {"run", "plain", "library" (or None), "other" ({key: call})})."""
+        {"run", "plain", "library" (or None), "other" ({key: call})}, and
+        may return "keep", a mask of the output elements held)."""
         row = {}
         for name in dtypes:
             dtype = getattr(torch, name)
             calls = make(dtype)
-            tol = SWIGLU_TOL[name] if kernel == "swiglu" else ATTN_TOL[name]
-            got = calls["run"]()
-            err = hold("llm_parity", kernel, f"{arch},{case},{name}", got, calls["plain"](), tol)
+            tol = {"swiglu": SWIGLU_TOL, "moe_experts": MOE_TOL}.get(kernel, ATTN_TOL)[name]
+            got, want = calls["run"](), calls["plain"]()
+            if "keep" in calls:
+                got, want = (torch.where(calls["keep"], t, 0) for t in (got, want))
+            err = hold("llm_parity", kernel, f"{arch},{case},{name}", got, want, tol)
+            del want
             if kernel == "decode_attention":  # the partials merge in a fixed order
                 check(torch.equal(calls["run"](), got),
                       f"{kernel} {arch},{case},{name}: two calls differ")
@@ -2556,21 +2595,46 @@ def llm_kernels_phase(dev):
 
         run_case("swiglu", group, arch, f"T={t},D={d},F={f}", dtypes, make, timed,
                  kcost.swiglu_work(t, d, f))
+
+    for group, arch, t, timed in MOE_CASES:
+        cfg = get_config(arch, "full")
+        e, d, f, cap = cfg.n_experts, cfg.d_model, cfg.expert_ff, ffn.moe_capacity(cfg, t)
+        if arch == MIXTRAL and t == SERVE_B * SERVE_S:
+            counts = torch.tensor(MOE_COUNTS, dtype=torch.int32, device=dev)
+        else:  # each token's top-k of uniform scores
+            pick = torch.rand(t, e, generator=gen, device=dev).topk(cfg.top_k).indices
+            counts = pick.flatten().bincount(minlength=e).clamp(max=cap).to(torch.int32)
+        keep = (torch.arange(cap, device=dev)[None, :] < counts[:, None])[..., None]
+
+        def make(dtype):  # weights drawn in bf16: kimi's three are 33.8 GB
+            buf = torch.where(keep, randn((e, cap, d), dtype), 0)
+            args = (buf, *(torch.randn(shape, generator=gen, device=dev, dtype=dtype).mul_(sc)
+                           for shape, sc in (((e, d, f), d ** -0.5), ((e, d, f), d ** -0.5),
+                                             ((e, f, d), f ** -0.5))))
+            return {"run": lambda: mk.experts(*args, counts),
+                    "plain": lambda: mr.experts(*args, counts),
+                    "library": lambda: ffn._experts(*args), "other": {}, "keep": keep}
+
+        n = counts.tolist()
+        with torch.no_grad():
+            run_case("moe_experts", group, arch,
+                     f"E={e},C={cap},D={d},F={f},filled={sum(n)},experts={sum(map(bool, n))}",
+                     BF16, make, timed, kcost.moe_experts_work(n, d, f))
+        del keep
     _build.LAUNCHES.clear()  # parity and timing launches are not the path's
     emit({"phase": "llm_kernels", "seconds": time.perf_counter() - t_phase, "cases": cases})
 
     rows = {}
-    for kernel, source, line in (("flash_attention", "flash_attention.cu", "flash_attention:106"),
-                                 ("decode_attention", "decode_attention.cu",
-                                  "decode_attention:94"),
-                                 ("swiglu", "swiglu.cu", "swiglu:60")):
+    for kernel, source, replaces in (
+            ("flash_attention", "flash_attention.cu", "kernels/flash_attention/kernel.py:106"),
+            ("decode_attention", "decode_attention.cu", "kernels/decode_attention/kernel.py:94"),
+            ("swiglu", "swiglu.cu", "kernels/swiglu/kernel.py:60"),
+            ("moe_experts", "moe_experts.cu", "models/ffn.py:101")):  # its einsums, no kernel
         groups = dict(cases[kernel])
         err = max(r["max_abs_err"] for g in groups.values() for r in g.values())
         (shape, main), = groups.pop("main").items()
-        path, at = line.split(":")
         rows[kernel] = dict(
-            source=f"src/repro_torch/csrc/{source}",
-            replaces=f"src/repro/kernels/{path}/kernel.py:{at}", shape=shape,
+            source=f"src/repro_torch/csrc/{source}", replaces=f"src/repro/{replaces}", shape=shape,
             **{k: v for k, v in main.items() if k not in ("max_abs_err", "timed")},
             max_abs_err=err,
             shapes={g: {c: {k: v for k, v in r.items() if k != "timed"}
@@ -2797,19 +2861,24 @@ SERVE_LAYERS = {MIXTRAL: 13, KIMI: 1}
 SERVED_ARCHS = (LLM_ARCH, PHI3_ARCH, *SSM_ARCHS, MIXTRAL, KIMI, QWEN_VL, WHISPER)
 
 
-def serve_launch_rule(cfg):
+def serve_launch_rule(cfg, tokens: int = 0):
     """(prefill, one step) kernel launches of ``cfg``'s serving path: per
     prefill one ``flash_attention`` per decoder layer (dense, moe, vlm) or
     zamba2 shared-block site, one ``rwkv6_scan`` per rwkv6 layer, one
     ``ssd_scan`` per mamba layer; per step one ``decode_attention`` per
     decoder layer or site (the scans' steps run the plain recurrence); and
     per call two ``swiglu`` per layer or site that runs a SwiGLU on every
-    token (all but the moe layers without a shared expert: the routed
-    experts run no kernel).  whisper: per prefill one ``flash_attention``
-    per encoder layer and two (self, cross) per decoder layer, per step
-    two ``decode_attention`` per decoder layer; its GELU MLP runs no
-    kernel."""
+    token (all but the moe layers without a shared expert).  The routed
+    experts run two ``moe_experts`` per moe layer in a prefill of
+    ``tokens`` tokens whose capacity is at least ``MIN_SLOTS`` slots an
+    expert; a step's few slots, and a forward under autograd (``tokens`` 0,
+    as training's), run them on ``torch.bmm``.  whisper: per prefill one
+    ``flash_attention`` per encoder layer and two (self, cross) per decoder
+    layer, per step two ``decode_attention`` per decoder layer; its GELU
+    MLP runs no kernel."""
     from repro_torch.kernels import LLM_KERNELS, SSM_KERNELS
+    from repro_torch.kernels.moe_experts import MIN_SLOTS
+    from repro_torch.models.ffn import moe_capacity
     from repro_torch.models.transformer import shared_sites
 
     zero = dict.fromkeys(LLM_KERNELS + SSM_KERNELS, 0)
@@ -2823,7 +2892,9 @@ def serve_launch_rule(cfg):
         return ({**zero, "ssd_scan": cfg.n_layers, "flash_attention": g, "swiglu": 2 * g},
                 {**zero, "decode_attention": g, "swiglu": 2 * g})
     ffn = 2 * cfg.n_layers if (cfg.n_experts == 0 or cfg.n_shared_experts > 0) else 0
-    return ({**zero, "flash_attention": cfg.n_layers, "swiglu": ffn},
+    grouped = cfg.n_experts > 0 and tokens > 0 and moe_capacity(cfg, tokens) >= MIN_SLOTS
+    return ({**zero, "flash_attention": cfg.n_layers, "swiglu": ffn,
+             "moe_experts": 2 * cfg.n_layers if grouped else 0},
             {**zero, "decode_attention": cfg.n_layers, "swiglu": ffn})
 
 
@@ -2880,7 +2951,7 @@ def serve_phase(dev, arch):
     serve.decode_step(params, cfg, lg.argmax(-1), warm, device=dev)
     del warm
     cache = serve.init_cache(cfg, b, SERVE_SMAX.get(arch, s + SERVE_STEPS), device=dev)
-    want_pre, want_step = serve_launch_rule(cfg)
+    want_pre, want_step = serve_launch_rule(cfg, b * s)
     want_steps = {k: n * SERVE_STEPS for k, n in want_step.items()}
     torch.cuda.synchronize()
 

@@ -1,11 +1,12 @@
 // Hopper (sm_90a) helpers shared by the kernels that feed warpgroup matrix
-// multiplies from a TMA ring: swiglu.cu's GEMM tiles and flash_attention.cu's
-// attention tiles.  `mbarrier`s for the ring's full and empty slots, TMA
-// tile loads (2-D and 4-D), the `wgmma` shared-memory descriptor for
-// 128-byte-swizzled tiles, the wgmma fence / commit / wait, the wgmma shapes
-// the attention tiles use, and the tensor-map encoder (the driver's
-// cuTensorMapEncodeTiled, found through the runtime: nothing links against
-// libcuda).
+// multiplies from a TMA ring: swiglu.cu's and moe_experts.cu's GEMM tiles
+// and flash_attention.cu's attention tiles.  `mbarrier`s for the ring's
+// full and empty slots, TMA tile loads (2-D, 3-D and 4-D), the `wgmma`
+// shared-memory descriptor for 128-byte-swizzled tiles, the wgmma fence /
+// commit / wait, the wgmma shapes the GEMM and attention tiles use, the
+// GEMM tiles' ring main loop (`wgmma_ring_128x256`), and the tensor-map
+// encoder (the driver's cuTensorMapEncodeTiled, found through the
+// runtime: nothing links against libcuda).
 // decode_attention.cu's cache tiles use its TMA, mbarrier and tensor-map
 // helpers too.
 #pragma once
@@ -54,6 +55,16 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// 3-D TMA load of one box at (c0 innermost, c1, c2) into `dst`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // 4-D TMA load of one box at (c0 innermost, ..., c3) into `dst`.
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
@@ -91,6 +102,113 @@ __device__ __forceinline__ void wg_wait() {
 // m64k16 takes a[0..3] = rows (lane / 4, + 8) x columns (2 (lane % 4),
 // + 8), two bf16 each: columns 16 k .. 16 k + 15 of an accumulator, rounded
 // and packed pairwise, are that operand for k step k.
+
+// d[128] += A (64 x 16, K-major) * B (16 x 256, N-major), float32 accumulate.
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The main loop of a GEMM block of 128 rows x 256 B columns, 384 threads:
+// `k_tiles` 64-deep steps through an S-stage TMA ring in `smem_raw` (each
+// stage a 128 x 64 K-major A tile of `ABytes`, then four 64-column N-major B
+// slabs of `Slab` bytes, all 128-byte swizzled; the full / empty mbarriers
+// after the stages).  Thread 256, the producer warpgroup's first, waits
+// for a free stage, arms its full barrier for the stage's bytes and calls
+// `load(stage, bar, kt)`, which issues the stage's TMA loads.  Warpgroups
+// 0 and 1, the consumers, each run one wgmma m64n256k16 a 16-deep step on
+// rows [64 wg, 64 wg + 64) into `acc`, releasing a stage once the next
+// one's products are issued; `setmaxnreg` moves registers from the producer
+// to them.  Returns true in the consumers, whose `acc` then holds their
+// 64 x 256 tile, false in the producer warpgroup.
+template <int S, int ABytes, int Slab, typename Load>
+__device__ __forceinline__ bool wgmma_ring_128x256(uint8_t* smem_raw, int k_tiles, Load load,
+                                                   float (&acc)[128]) {
+  constexpr int kStageBytes = ABytes + 4 * Slab;
+  uint8_t* tiles = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + S * kStageBytes);
+  uint64_t* empty = full + S;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // k step kt uses stage kt % S in phase (kt / S) & 1.
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {  // producer: one thread issues every TMA load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % S;
+        mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
+        uint8_t* st = tiles + s * kStageBytes;
+        mbar_expect_tx(&full[s], kStageBytes);
+        load(st, &full[s], kt);
+      }
+    }
+    return false;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  const int lane = threadIdx.x & 31;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    const uint8_t* st = tiles + s * kStageBytes;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = wg_desc(st + wg * 64 * 128 + kk * 32, 16);
+      const uint64_t db = wg_desc(st + ABytes + kk * 16 * 128, Slab);
+      wgmma_m64n256k16(acc, da, db);
+    }
+    wg_commit();
+    wg_wait<1>();  // the previous stage's products are done: release it
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S]);
+  }
+  wg_wait<0>();
+  return true;
+}
 
 // d[32] (+)= A (64 x 16, K-major, shared) * B (16 x 64, K-major, shared).
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
@@ -258,6 +376,19 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int rows, int cols, in
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   return tensor_map_bf16(map, ptr, 2, dims, strides, box);
+}
+
+// `batch` row-major bf16 [rows, cols] matrices stored back to back, in
+// boxes of [1, box_rows, 64]: a box never reads into the next matrix, and
+// its rows past `rows` are zero-filled.
+inline bool tensor_map_batched(CUtensorMap* map, const void* ptr, int batch, int rows, int cols,
+                               int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
+                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return tensor_map_bf16(map, ptr, 3, dims, strides, box);
 }
 
 }  // namespace repro

@@ -65,18 +65,9 @@ using repro::cp_async_commit;
 using repro::cp_async_wait;
 using repro::ldmatrix_x4;
 using repro::ldmatrix_x4_trans;
-using repro::mbar_arrive;
-using repro::mbar_expect_tx;
-using repro::mbar_init;
-using repro::mbar_wait;
 using repro::mma_bf16;
-using repro::smem_u32;
 using repro::tensor_map;
 using repro::tma_load;
-using repro::wg_commit;
-using repro::wg_desc;
-using repro::wg_fence;
-using repro::wg_wait;
 
 using bf16 = __nv_bfloat16;
 
@@ -104,45 +95,6 @@ struct WgPlan {
   static constexpr int kSmem = kStages * kStageBytes + 1024 + 2 * kStages * 8;
 };
 
-// d[128] += A (64 x 16, K-major) * B (16 x 256, N-major), float32 accumulate.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 // C [M, N] = A [M, K] @ B0 [K, N]                       (NMAT == 1)
 // C [M, N] = silu(A @ B0) * (A @ B1), rounded once      (NMAT == 2)
 template <int NMAT>
@@ -151,12 +103,7 @@ swiglu_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
                     const __grid_constant__ CUtensorMap tb1, bf16* __restrict__ c, int M, int N,
                     int K) {
   using P = WgPlan<NMAT>;
-  constexpr int S = P::kStages;
   extern __shared__ __align__(128) uint8_t smem_raw[];
-  uint8_t* tiles = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(tiles + S * P::kStageBytes);
-  uint64_t* empty = full + S;
 
   // Grouped raster: kWgGroupM row tiles walk the column tiles together.
   const int num_m = (M + kWgBM - 1) / kWgBM;
@@ -169,58 +116,22 @@ swiglu_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constan
   const int n0 = (in_group / gm) * P::kCols;
   const int k_tiles = (K + kWgBK - 1) / kWgBK;
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  // k step kt uses stage kt % S in phase (kt / S) & 1.
-  const int wg = threadIdx.x / 128;
-  if (wg == 2) {  // producer: one thread issues every TMA load
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 256) {
-      for (int kt = 0; kt < k_tiles; ++kt) {
-        const int s = kt % S;
-        mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
-        uint8_t* st = tiles + s * P::kStageBytes;
-        mbar_expect_tx(&full[s], P::kStageBytes);
-        tma_load(st, &ta, &full[s], kt * kWgBK, m0);
+  float acc[128];  // up: columns 0-127 the gate, 128-255 the up product
+  const bool consumer = repro::wgmma_ring_128x256<P::kStages, P::kABytes, P::kSlab>(
+      smem_raw, k_tiles,
+      [&](uint8_t* st, uint64_t* bar, int kt) {
+        tma_load(st, &ta, bar, kt * kWgBK, m0);
 #pragma unroll
         for (int sl = 0; sl < 4; ++sl) {  // up: Wg, Wg, Wu, Wu; down: Wo x 4
           const CUtensorMap* tb = NMAT == 2 && sl >= 2 ? &tb1 : &tb0;
           const int col = n0 + (NMAT == 2 ? (sl & 1) : sl) * 64;
-          tma_load(st + P::kABytes + sl * P::kSlab, tb, &full[s], col, kt * kWgBK);
+          tma_load(st + P::kABytes + sl * P::kSlab, tb, bar, col, kt * kWgBK);
         }
-      }
-    }
-  } else {  // consumers: warpgroup wg owns rows [64 wg, 64 wg + 64) of the tile
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    float acc[128];  // up: columns 0-127 the gate, 128-255 the up product
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+      },
+      acc);
+  if (consumer) {  // warpgroup wg holds rows [64 wg, 64 wg + 64) of the tile
+    const int wg = threadIdx.x / 128;
     const int lane = threadIdx.x & 31;
-    for (int kt = 0; kt < k_tiles; ++kt) {
-      const int s = kt % S;
-      mbar_wait(&full[s], (kt / S) & 1);
-      const uint8_t* st = tiles + s * P::kStageBytes;
-      wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgBK / 16; ++kk) {
-        const uint64_t da = wg_desc(st + wg * (kWgBM / 2) * 128 + kk * 32, 16);
-        const uint64_t db = wg_desc(st + P::kABytes + kk * 16 * 128, P::kSlab);
-        wgmma_m64n256k16(acc, da, db);
-      }
-      wg_commit();
-      wg_wait<1>();  // the previous stage's products are done: release it
-      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S]);
-    }
-    wg_wait<0>();
-
     // Accumulator layout: d[4 j + 2 h + e] is row 16 w + lane / 4 + 8 h,
     // column 8 j + 2 (lane % 4) + e of the warpgroup's 64 x 256 tile.
     const int warp = (threadIdx.x & 127) >> 5;

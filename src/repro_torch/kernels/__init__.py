@@ -27,9 +27,10 @@ KERNELS = ("queue_step", "queue_window", "erlang_c", "gain_topr", "decide_fused"
 #: distance tile with ``match_count``; no path of the port calls it).
 VLD_KERNELS = ("pairwise_sq_l2", "match_count")
 
-#: The kernels of the dense LLM serving path (``swiglu`` counts both of its
-#: launches); zamba2's shared attention block runs them too.
-LLM_KERNELS = ("flash_attention", "decode_attention", "swiglu")
+#: The kernels of the LLM serving path (``swiglu`` and ``moe_experts``, the
+#: routed experts' grouped SwiGLU, count both of their launches); zamba2's
+#: shared attention block runs the first three too.
+LLM_KERNELS = ("flash_attention", "decode_attention", "swiglu", "moe_experts")
 
 #: The chunked scans of the ssm (rwkv6) and hybrid (zamba2) families; their
 #: serving paths also run ``LLM_KERNELS`` (zamba2's shared block).

@@ -39,8 +39,8 @@ __all__ = ["LAUNCHES", "SOURCES", "NVCC_FLAGS", "build", "library", "check_error
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("queue_step.cu", "erlang_c.cu", "gain_topr.cu", "decide_fused.cu", "l2_match.cu",
-           "flash_attention.cu", "decode_attention.cu", "swiglu.cu", "rwkv6_scan.cu",
-           "ssd_scan.cu")
+           "flash_attention.cu", "decode_attention.cu", "swiglu.cu", "moe_experts.cu",
+           "rwkv6_scan.cu", "ssd_scan.cu")
 HEADERS = ("common.cuh", "tensor_core.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -156,6 +156,8 @@ def library():
                 "repro_decode_attention": [p] * 7 + [i] * 6 + [f] + [i] * 3 + [p],
                 "repro_swiglu_up": [p] * 5 + [i] * 7 + [p],
                 "repro_swiglu_down": [p] * 4 + [i] * 7 + [p],
+                "repro_moe_experts_up": [p] * 5 + [i] * 5 + [p],
+                "repro_moe_experts_down": [p] * 4 + [i] * 5 + [p],
                 "repro_rwkv6_scan": [p] * 8 + [ll] * 17 + [i] * 10 + [p],
                 "repro_ssd_scan": [p] * 7 + [ll] * 15 + [i] * 10 + [p],
             }

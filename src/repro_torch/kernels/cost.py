@@ -12,6 +12,9 @@ the two count the same work:
 * :func:`decode_work`: one query per head against ``keys`` cached keys;
 * :func:`swiglu_work`: x and the three weights read, the output written;
   the three products;
+* :func:`moe_experts_work`: the routed experts' SwiGLU over the filled
+  slots of a capacity buffer: the filled rows read and written, the
+  weights of each expert holding one read once; the filled rows' products;
 * :func:`scan_work`: the chunked scans of rwkv6 and Mamba2 (zamba2).
 
 :func:`meta_kernel` is each kernel dispatch's branch for meta inputs: it
@@ -34,7 +37,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["attention_pairs", "flash_work", "decode_keys", "decode_work", "swiglu_work",
-           "scan_work", "meta_kernel", "set_tracer"]
+           "moe_experts_work", "scan_work", "meta_kernel", "set_tracer"]
 
 
 def attention_pairs(sq: int, skv: int, causal: bool, window: int | None) -> int:
@@ -74,6 +77,16 @@ def swiglu_work(t: int, d: int, f: int, size: int = 2) -> tuple[int, int]:
     """(bytes, operations) of one SwiGLU call: x and the output [T, D], the
     gate and up weights [D, F] and the down weight [F, D]."""
     return size * (2 * t * d + 3 * d * f), 6 * t * d * f
+
+
+def moe_experts_work(counts, d: int, f: int, size: int = 2) -> tuple[int, int]:
+    """(bytes, operations) of the routed experts' products over ``counts``
+    filled slots an expert: each filled row read and its output written,
+    the three weights [D, F] of every expert with a filled slot; the three
+    products of each filled row.  Empty slots are no work."""
+    filled = sum(counts)
+    active = sum(1 for n in counts if n)
+    return size * (2 * filled * d + 3 * d * f * active), 6 * filled * d * f
 
 
 def scan_work(kind: str, b: int, h: int, s: int, dk: int, dv: int, chunk: int, size: int,

@@ -13,8 +13,20 @@ The MoE dispatch is the reference's: sort the (token, slot) pairs by
 expert (a stable sort), keep the first ``capacity`` pairs of each
 expert's run, run the experts as batched products over a ``[E, C, D]``
 buffer, and sum each token's ``k`` weighted results.  The routed experts'
-products are ``torch.bmm`` (the reference's ``einsum``s, outside any
-Pallas kernel).  The buffer is built by a gather (each slot names the
+products are the reference's ``einsum``s (outside any Pallas kernel).  On
+the card, outside autograd, in bf16 and at a capacity of more than two
+row tiles (``kernels/moe_experts.MIN_SLOTS`` slots an expert or more),
+:func:`moe_layer` runs them as the grouped kernels of
+``kernels/moe_experts``: two launches that read each expert's filled-slot
+count on the card and run only the row tiles holding a filled slot, the
+gate's SiLU in the first one's epilogue, rounded as :func:`_experts`
+rounds.  Every other caller -- a decode step's few slots and any call of
+two tiles an expert or fewer (where the kernels' whole tiles cost what the
+skip saves: up to 9 % slower, ``MIN_SLOTS``), training under autograd,
+the meta dry-run (which counts the padded products, as the reference's
+``einsum`` does), CPU tensors and :func:`moe_layer_ep` -- runs
+:func:`_experts`' ``torch.bmm`` products over every slot.  The buffer is
+built by a gather (each slot names the
 token that fills it, or a zero row) and the results are gathered back per
 (token, slot) pair and summed over the ``k`` slots in slot order, so no
 step accumulates with atomics: the dispatch is deterministic on the card,
@@ -35,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import obs
+from ..kernels import moe_experts
 from ..kernels.swiglu import ops as swiglu_ops
 from .common import ModelConfig
 
@@ -100,6 +113,24 @@ def _slot_sources(order, sk, start, n: int, cap: int, empty: int):
     return torch.where(filled, order[idx], empty).reshape(-1)
 
 
+def _filled(start, pairs: int, cap: int) -> torch.Tensor:
+    """[E] int32 on ``start``'s device: each expert's filled slots, its run
+    of sorted pairs (``start`` from :func:`_runs` over ``pairs`` pairs) cut
+    at the capacity ``cap``.  No host sync."""
+    ends = torch.cat([start[1:], start.new_full((1,), pairs)])
+    return (ends - start).clamp_(max=cap).to(torch.int32)
+
+
+def _grouped(buf, *weights) -> bool:
+    """Whether the experts' products take the grouped kernels: bf16 CUDA
+    tensors outside autograd, at least ``moe_experts.MIN_SLOTS`` slots an
+    expert."""
+    return (buf.is_cuda and buf.dtype == torch.bfloat16
+            and buf.shape[1] >= moe_experts.MIN_SLOTS
+            and not (torch.is_grad_enabled()
+                     and any(t.requires_grad for t in (buf, *weights))))
+
+
 def _experts(buf, wg, wu, wo):
     """[E, C, D] through each expert's SwiGLU -> [E, C, D]: the reference's
     rounding (silu of the float32 gate, rounded to the activation dtype,
@@ -155,12 +186,19 @@ def moe_layer(params: dict, x: torch.Tensor, cfg: ModelConfig,
     keep = rank < cap
     src = _slot_sources(order // k, sk, start, e, cap, t)
     buf = _pad_row(xf)[src].reshape(e, cap, d)
+    w = params["wi_gate"], params["wi_up"], params["wo"]
+    counts = _filled(start, t * k, cap) if _grouped(buf, *w) else None
     with obs.span("moe.experts"):
-        out_e = _experts(buf, params["wi_gate"], params["wi_up"], params["wo"])
+        out_e = _experts(buf, *w) if counts is None else moe_experts.experts(buf, *w, counts)
+    # Only filled slots are read: a dropped pair's clamped rank is its
+    # expert's last slot, which is filled when the expert overflows.
     vals = out_e.reshape(e * cap, d)[flat * cap + rank.clamp(max=cap - 1)]
     out = _combine(vals, keep, weights, t, k)
     obs.count("moe.pairs_kept", keep)
     obs.count("moe.pairs_routed", t * k)
+    if buf.is_cuda and obs.enabled():  # the card's products (a CPU record: the pairs' alone)
+        obs.count("moe.slots", e * cap)
+        obs.count("moe.slots_run", e * cap if counts is None else moe_experts.run_rows(counts, cap))
     if cfg.n_shared_experts > 0:
         out = out + swiglu(params["shared"], xf)
     if routing is not None:

@@ -29,8 +29,10 @@ reference pytree carries over one to one
 in a Python loop (no ``lax.scan``); attention, the FFN and the two scans
 go through the Hopper kernels, and in training through their autograd
 Functions (kernel forward, plain backward); the routed experts' products
-are ``torch.bmm`` and whisper's projections and MLP ``@``, as the
-reference leaves them to XLA.  Every family serves and trains.
+are ``torch.bmm`` (a prefill's on the card: the grouped kernels of
+``kernels/moe_experts``, ``models/ffn.py``) and whisper's projections and
+MLP ``@``, as the reference leaves them to XLA.  Every family serves and
+trains.
 
 Training rematerialises the layer bodies the reference wraps in
 ``jax.checkpoint(body, prevent_cse=False)`` -- the decoder's attention + FFN

@@ -31,7 +31,13 @@ it on the clock of the kernels it launched.  Spans run outside a call
 Counters, summed over a call's MoE layers: ``moe.pairs_kept`` (pairs
 within their expert's capacity: each layer's keep mask is held and summed
 when the record is read, so the call does no extra work and no host sync)
-and ``moe.pairs_routed`` (T x k a layer).  Kernel launches are counted by
+and ``moe.pairs_routed`` (T x k a layer); on the card also ``moe.slots``
+(E x capacity a layer: the rows of the experts' buffer) and
+``moe.slots_run`` (the rows inside the row tiles the experts' products
+ran: each expert's filled slots rounded up to the grouped kernels' 128-row
+tile on their path, a device tensor summed when the record is read like
+the keep mask; every slot on the ``torch.bmm`` path), whose ratio shows how
+much of the padded capacity the skip left out.  Kernel launches are counted by
 :data:`repro_torch.kernels.LAUNCHES`.
 
 The last :data:`KEEP` calls' records stay in memory; :func:`calls` returns

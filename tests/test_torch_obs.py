@@ -189,3 +189,49 @@ def test_spans_outside_a_call_and_nested_calls(records):
     (rec,) = obs.calls()
     assert [(s["name"], s["parent"]) for s in rec["spans"]] == [("outer", None), ("inner", 0),
                                                                 ("leaf", 1)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the slot counters record the card's products")
+    return torch.device("cuda")
+
+
+def test_slot_counters_on_the_card(cuda_device, records):
+    """mixtral's smoke model at the kernels' head dim in bf16 on the card,
+    2 x 64 prompt tokens: the prefill's experts (512 slots an expert, ~64
+    filled) take the grouped kernels, so ``moe.slots_run`` is each
+    expert's filled slots from the routing record rounded up to the 128-row
+    tile and cut at the capacity; the decode step's 8 slots take
+    ``torch.bmm``, every slot run.  On the CPU the record keeps the pair
+    counters alone (the test above)."""
+    from repro_torch.configs import for_kernels
+    from repro_torch.kernels.moe_experts import MIN_SLOTS, run_rows
+    from repro_torch.models.ffn import moe_capacity
+
+    cfg = dataclasses.replace(for_kernels(get_config("mixtral-8x22b", "smoke")),
+                              dtype=torch.bfloat16)
+    params = transformer.init_params(cfg, 3, device=cuda_device)
+    s = 64
+    cache = serve.init_cache(cfg, B, s + 2, device=cuda_device)
+    tokens = _tokens(cfg, (B, s)).to(cuda_device)
+    pre, step = [], []
+    with obs.recording():
+        logits, cache = serve.prefill(params, cfg, {"tokens": tokens}, cache,
+                                      device=cuda_device, routing=pre)
+        serve.decode_step(params, cfg, logits.argmax(-1), cache, device=cuda_device,
+                          routing=step)
+        torch.cuda.synchronize()
+    got = [r["counters"] for r in obs.calls()]
+    for counters, routing, t in ((got[0], pre, B * s), (got[1], step, B)):
+        cap = moe_capacity(cfg, t)
+        slots = cfg.n_experts * cap * cfg.n_layers
+        run = 0
+        for layer in routing:
+            n = torch.bincount(layer["experts"].reshape(-1).cpu(), minlength=cfg.n_experts)
+            run += (int(run_rows(n.clamp(max=cap), cap).sum()) if cap >= MIN_SLOTS
+                    else cfg.n_experts * cap)
+        assert counters["moe.slots"] == slots and counters["moe.slots_run"] == run
+    assert got[0]["moe.slots_run"] < got[0]["moe.slots"]
+    assert got[1]["moe.slots_run"] == got[1]["moe.slots"]

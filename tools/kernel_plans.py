@@ -52,6 +52,18 @@ constants.
   question: how much of the gap to SDPA the model's [B, S, Hkv, Dh]
   layout accounts for.
 
+- ``moe_experts`` at mixtral-8x22b's and kimi-k2's routed experts at full
+  width, bf16, for the tokens of a call in ``MOE_SHAPES``: mixtral's
+  prefill cell (8 experts of D 6,144 / F 16,384, capacity 5,120 slots,
+  30,837 filled -- the kept pairs a layer of that cell's traced calls) and
+  its steps of 4 to 1,024 tokens, kimi's 4 x 4,096 prefill (384 experts of
+  D 7,168 / F 2,048, capacity 426) and its steps, each step's counts from a
+  uniform top-k routing: the grouped kernels (one call, both launches) held
+  to 2e-2 of each expert's largest value against the padded ``torch.bmm``
+  path on the filled slots and timed beside it (the library yardstick, and
+  the path a caller would otherwise take), the bound of the filled slots'
+  work, and at prefill the plain version on the card.
+
 Each line is one JSON object: device time per call (``torch.profiler``,
 summed over the kernel's device functions) and, for the scan, the
 CUDA-event time; match-count, decide, window and top-R plans are held
@@ -87,7 +99,7 @@ def main() -> int:
     timers = {"rwkv6_scan": rwkv6_plans, "ssd_scan": ssd_plans, "swiglu": swiglu_depths,
               "match_count": match_count_plans, "decide_fused": decide_plans,
               "queue_window": window_plans, "gain_topr": topr_plans,
-              "flash": flash_tiles, "decode": decode_plans}
+              "flash": flash_tiles, "decode": decode_plans, "moe_experts": moe_experts_times}
     names = [a for a in sys.argv[1:] if a in timers]
     for name in names or list(timers):
         timers[name](torch, cs, _build, dev, gen)
@@ -637,6 +649,67 @@ def decode_plans(torch, cs, _build, dev, gen):
             against(qh, kh, vh, n, window, want_h, layout, bound)
             del qh, kh, vh
         del q, k, v, want
+        torch.cuda.empty_cache()
+
+
+# (arch, tokens a call) of the routed experts: mixtral's prefill cell (its
+# measured counts, ``chip_smoke.MOE_COUNTS``) and calls of 4 to 1,024
+# tokens (capacity 1 to 320 slots, across one and two row tiles: the data
+# behind ``MIN_SLOTS``), kimi's 4 x 4,096 prefill (capacity 426) and calls
+# of 4 to 5,120 tokens (capacity 1 to 133).
+MOE_SHAPES = (("mixtral-8x22b", (16384, 4, 16, 64, 256, 384, 416, 512, 1024)),
+              ("kimi-k2-1t-a32b", (16384, 4, 256, 1024, 4096, 5120)))
+
+
+def moe_experts_times(torch, cs, _build, dev, gen):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cost as kcost
+    from repro_torch.kernels.moe_experts import kernel as mk, ref as mr
+    from repro_torch.models import ffn
+
+    for arch, tokens in MOE_SHAPES:
+        cfg = get_config(arch, "full")
+        e, d, f, k = cfg.n_experts, cfg.d_model, cfg.expert_ff, cfg.top_k
+        wg, wu = ((torch.randn(e, d, f, generator=gen, device=dev) * d ** -0.5)
+                  .to(torch.bfloat16) for _ in range(2))
+        wo = (torch.randn(e, f, d, generator=gen, device=dev) * f ** -0.5).to(torch.bfloat16)
+        for t in tokens:
+            cap = ffn.moe_capacity(cfg, t)
+            if arch == "mixtral-8x22b" and t == 16384:
+                counts = torch.tensor(cs.MOE_COUNTS, dtype=torch.int32, device=dev)
+            else:  # each token's top-k of uniform scores: uniform routing
+                pick = torch.rand(t, e, generator=gen, device=dev).topk(k).indices
+                counts = pick.flatten().bincount(minlength=e).clamp(max=cap).to(torch.int32)
+            buf = torch.randn(e, cap, d, generator=gen, device=dev).to(torch.bfloat16)
+            buf[torch.arange(cap, device=dev)[None, :] >= counts[:, None]] = 0
+            args = (buf, wg, wu, wo)
+            big = t >= 4096
+            kw = dict(runs=5, inner=3) if big else dict(runs=15, inner=10)
+            with torch.no_grad():
+                got, want = mk.experts(*args, counts), ffn._experts(*args)
+                n = counts.tolist()
+                err = max((float((got[i, :c].float() - want[i, :c].float()).abs().max())
+                           / float(want[i, :c].float().abs().max()) for i, c in enumerate(n)
+                           if c), default=0.0)
+                del got, want
+                row = {"kernel": "moe_experts", "arch": arch, "tokens": t, "E": e, "C": cap,
+                       "D": d, "F": f, "filled": sum(n), "experts_filled": sum(map(bool, n)),
+                       "rows_run": int(mk.run_rows(counts, cap).sum()), "max_rel_err": err,
+                       "ok": err <= 2e-2,
+                       "ms": cs.median_ms(lambda: mk.experts(*args, counts), **kw),
+                       "bmm_ms": cs.median_ms(lambda: ffn._experts(*args), **kw),
+                       "bound_ms": cs.bound(*kcost.moe_experts_work(n, d, f),
+                                            cs.PEAK_BF16_OPS_PER_S)}
+                row["kernel_over_bmm"] = row["ms"] / row["bmm_ms"]
+                if big:
+                    row["device_us"] = cs.device_us_per_call(
+                        lambda: mk.experts(*args, counts), ("experts_wgmma_kernel",), calls=3)
+                    row["plain_ms"] = cs.median_ms(lambda: mr.experts(*args, counts),
+                                                   runs=3, inner=1)
+            print(json.dumps(row), flush=True)
+            del buf, args
+            torch.cuda.empty_cache()
+        del wg, wu, wo
         torch.cuda.empty_cache()
 
 
